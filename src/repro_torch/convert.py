@@ -1,0 +1,55 @@
+"""Weights from the JAX package into the port's parameter tree.
+
+:func:`params_from_jax` takes the reference's parameter pytree with
+every leaf already converted to numpy (``jax.tree.map(np.asarray,
+params)`` on the caller's side — this module imports no JAX) and
+returns the port's tree: the scanned layer groups
+(``repro/models/transformer.py:59-98``) unstacked into one dict per
+layer, in the order the reference's scan runs them, so both packages
+compute the same function on the same weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_supported
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":        # ml_dtypes: no torch.from_numpy
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))     # a writable copy
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device=None) -> Dict[str, Any]:
+    """The reference's (numpy-leaved) params as the port's tree."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layers = []
+    for group, (pattern, n_reps) in zip(tree["groups"], cfg.layer_groups()):
+        for r in range(n_reps):
+            for i in range(len(pattern)):
+                layers.append(_map(group[f"b{i}"],
+                                   lambda x, r=r: _tensor(np.asarray(x)[r],
+                                                          dev)))
+    out = {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
+           "final_norm": _map(tree["final_norm"], lambda x: _tensor(x, dev)),
+           "layers": layers}
+    if "lm_head" in tree:
+        out["lm_head"] = _map(tree["lm_head"], lambda x: _tensor(x, dev))
+    return out

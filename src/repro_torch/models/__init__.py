@@ -1,0 +1,7 @@
+"""Model substrate of the port: dense global-attention decoders."""
+from repro_torch.models.transformer import (check_supported, forward_decode,
+                                            forward_prefill, init_cache,
+                                            init_params)
+
+__all__ = ["check_supported", "forward_prefill", "forward_decode",
+           "init_cache", "init_params"]

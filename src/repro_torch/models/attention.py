@@ -1,0 +1,127 @@
+"""GQA global causal attention with paged-KV decode (the port of the
+global ``ATTN`` part of ``repro/models/attention.py``).
+
+Prefill attention is plain PyTorch (the reference's is plain XLA, not
+Pallas): einsum logits with f32 accumulation, softmax in f32, the
+probabilities cast to ``q.dtype`` before the PV product.  Decode reads
+the shared page pool through K2 (:func:`repro_torch.kernels.
+paged_attention`).  Sliding-window, bidirectional and cross attention
+are later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.models.common import apply_rope, linear_apply, linear_init
+
+Tensor = torch.Tensor
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def attn_init(gen, cfg, dtype):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "q": linear_init(gen, d, cfg.n_heads * hd, dtype, cfg.use_bias),
+        "k": linear_init(gen, d, cfg.n_kv_heads * hd, dtype, cfg.use_bias),
+        "v": linear_init(gen, d, cfg.n_kv_heads * hd, dtype, cfg.use_bias),
+        "o": linear_init(gen, cfg.n_heads * hd, d, dtype, cfg.use_bias),
+    }
+
+
+def _split_heads(x: Tensor, n_heads: int) -> Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1)
+
+
+def _repeat_kv(kv: Tensor, n_rep: int) -> Tensor:
+    if n_rep == 1:
+        return kv
+    return kv.repeat_interleave(n_rep, dim=2)
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """q: (B,Sq,H,hd), k/v: (B,Skv,H,hd), mask: (1|B, 1, Sq, Skv) bool."""
+    hd = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits / torch.sqrt(torch.tensor(float(hd), device=q.device))
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _causal_mask(sq: int, skv: int, device) -> Tensor:
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    return (kj <= qi)[None, None]                   # (1, 1, Sq, Skv)
+
+
+def attn_apply(p, x: Tensor, cfg, *, positions: Optional[Tensor] = None
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Full-sequence causal attention (prefill).  Returns the output and
+    the post-RoPE K/V, which :func:`prefill_into_cache` lays into a
+    cache (the reference projects K/V a second time for that; the values
+    are the same)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                _causal_mask(s, s, x.device))
+    out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
+    return linear_apply(p["o"], out), k, v
+
+
+def prefill_into_cache(k: Tensor, v: Tensor, cap: int) -> Dict[str, Tensor]:
+    """Lay a prompt's post-RoPE K/V ``(B, S, Hkv, hd)`` into a cache of
+    capacity ``cap >= S`` (zero tail).  Global layers only: the rolled
+    ring layout for ``S > cap`` belongs to sliding-window layers."""
+    s = k.shape[1]
+    if s > cap:
+        raise NotImplementedError(
+            "ring-buffer caches (sliding-window layers) are a later slice")
+    pad = cap - s
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return {"k": k, "v": v}
+
+
+def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
+                           page_table: Tensor, pos: Tensor, cfg
+                           ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token step against this layer's slice of the page pool.
+
+    ``cache`` is ``{"pk": (n_pages + sink, page_size, Hkv, hd), "pv":
+    ...}``, ``page_table`` the per-row ``(B, max_pages)`` int32
+    indirection and ``pos`` the per-row ``(B,)`` write position.  Row
+    ``i`` writes its new K/V at physical cell ``(table[i, pos_i // P],
+    pos_i % P)`` and then attends its pages through K2.
+    """
+    b = x.shape[0]
+    psz = cache["pk"].shape[1]
+    positions = pos[:, None]
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    pos_l = pos.long()
+    phys = page_table[torch.arange(b, device=x.device), pos_l // psz].long()
+    off = pos_l % psz
+    # The pool is written in place (the reference's .at[].set is
+    # functional): the new K/V lands before K2 launches on the same
+    # stream, so the kernel sees it, as the reference's does.
+    cache["pk"][phys, off] = k[:, 0]
+    cache["pv"][phys, off] = v[:, 0]
+    out = paged_attention(q[:, 0], cache["pk"], cache["pv"], page_table, pos)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
+    return linear_apply(p["o"], out), cache

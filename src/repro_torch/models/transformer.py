@@ -1,0 +1,172 @@
+"""Model assembly for dense global-attention decoders (the port of the
+main path of ``repro/models/transformer.py``).
+
+The parameter tree keeps the reference's names with the scanned layer
+groups unstacked into one dict per layer::
+
+    {"embed": {"table"}, "final_norm": {"scale"},
+     "layers": [{"norm1", "norm2", "mixer": {"q","k","v","o"},
+                 "mlp": {"up","down"[,"gate"]}}, ...],
+     ["lm_head": {"table"}]}
+
+Layers run in a Python loop (the reference scans them).  Prefill emits
+the filled KV cache stacked over layers, ``{"k","v": (L, B, cap, Hkv,
+hd)}``; decode reads and writes page pools ``{"pk","pv": (L, pages +
+sink, page_size, Hkv, hd)}`` through a ``(B, max_pages)`` page table.
+Sliding-window, recurrent, MoE, enc-dec and frontend models raise
+``NotImplementedError`` (later slices, ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (embed_scale, embedding_init,
+                                       embedding_lookup, lm_head_logits,
+                                       mlp_apply, mlp_init, rmsnorm_apply,
+                                       rmsnorm_init)
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for any architecture outside this slice of the port."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {ATTN} or cfg.moe is not None or cfg.enc_dec \
+            or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense global-attention decoders "
+            f"only so far (layer kinds {sorted(kinds)}, moe={cfg.moe is not None}, "
+            f"enc_dec={cfg.enc_dec}, frontend={cfg.frontend}); see ROADMAP.md")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                dtype_override: Optional[str] = None,
+                device=None) -> Params:
+    """Random weights at ``cfg``'s widths from a seeded
+    :class:`torch.Generator` (same tree as :func:`repro_torch.convert.
+    params_from_jax`; not the reference's random draws)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(dtype_override or cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Params = {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
+        "layers": [{
+            "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+            "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
+            "mixer": attn.attn_init(gen, cfg, dtype),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                            cfg.gated_mlp, cfg.use_bias),
+        } for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                           dtype)
+    return params
+
+
+def param_dtype(params: Params) -> torch.dtype:
+    return params["embed"]["table"].dtype
+
+
+def param_device(params: Params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    x = embedding_lookup(params["embed"], tokens)
+    return x * embed_scale(cfg.d_model, x.dtype)
+
+
+def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    table = (params["embed"]["table"] if cfg.tie_embeddings
+             else params["lm_head"]["table"])
+    return lm_head_logits(table, x, cfg.vocab_size)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+               device=None) -> Dict[str, Tensor]:
+    """Zero KV cache ``{"k","v": (L, batch, seq_len, Hkv, hd)}``."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def forward_prefill(params: Params, cfg: ModelConfig,
+                    batch: Dict[str, Tensor], *,
+                    cache_len: Optional[int] = None,
+                    logits_index=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Process prompts ``batch["tokens"]`` (B, S); return the f32 logits
+    ``(B, 1, vocab_padded)`` of one position and the filled cache.
+
+    ``logits_index`` (an int or 0-dim tensor, or a ``(B,)`` vector)
+    selects the position whose logits are returned instead of the last
+    — the bucketed prefill pads prompts and reads each row's last real
+    token (causal masking hides the pads from it).
+    """
+    check_supported(cfg)
+    x = _embed(params, cfg, batch["tokens"])
+    cap = cache_len or x.shape[1]
+    ks: List[Tensor] = []
+    vs: List[Tensor] = []
+    for p in params["layers"]:
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        mix, k, v = attn.attn_apply(p["mixer"], h, cfg)
+        cache = attn.prefill_into_cache(k, v, cap)
+        ks.append(cache["k"])
+        vs.append(cache["v"])
+        x = x + mix
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(p["mlp"], h, cfg.act)
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if logits_index is None:
+        x_last = x[:, -1:]
+    else:
+        idx = torch.as_tensor(logits_index, device=x.device)
+        if idx.dim() >= 1:
+            gather = idx.long()[:, None, None].expand(-1, 1, x.shape[-1])
+            x_last = torch.gather(x, 1, gather)
+        else:
+            i = int(idx)
+            x_last = x[:, i:i + 1]
+    return _logits(params, cfg, x_last), {"k": torch.stack(ks),
+                                          "v": torch.stack(vs)}
+
+
+def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
+                   pools: Dict[str, Tensor], pos: Tensor, *,
+                   page_table) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One decode step.  tokens: (B, 1); pos: (B,) per-row positions;
+    ``pools`` ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}`` are
+    updated in place; ``page_table`` is a ``(B, max_pages)`` int32
+    tensor or ``{"global": ...}``.  Returns the f32 logits
+    ``(B, 1, vocab_padded)`` and the pools."""
+    check_supported(cfg)
+    if isinstance(page_table, dict):
+        page_table = page_table["global"]
+    x = _embed(params, cfg, tokens)
+    for layer, p in enumerate(params["layers"]):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        cache = {"pk": pools["pk"][layer], "pv": pools["pv"][layer]}
+        mix, _ = attn.paged_attn_decode_step(p["mixer"], h, cache,
+                                             page_table, pos, cfg)
+        x = x + mix
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(p["mlp"], h, cfg.act)
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), pools

@@ -1,0 +1,17 @@
+"""Serving for the port: the paged engine behind ``make_engine``."""
+from repro_torch.serve.api import (Completion, completion_of, EngineOptions,
+                                   make_engine, STATS_KEYS, validate_stats)
+from repro_torch.serve.engine import (choose_decode_batch, effective_tokens,
+                                      Request)
+from repro_torch.serve.paged_engine import PagedKVCache, PagedServeEngine
+from repro_torch.serve.policy import (KLASS_BATCH, KLASS_INTERACTIVE, KLASSES,
+                                      RejectedError, SchedulingPolicy)
+from repro_torch.serve.serve_step import (make_bucketed_prefill_step,
+                                          make_paged_decode_step)
+
+__all__ = ["Completion", "completion_of", "effective_tokens",
+           "EngineOptions", "KLASS_BATCH", "KLASS_INTERACTIVE", "KLASSES",
+           "make_bucketed_prefill_step", "make_engine",
+           "make_paged_decode_step", "PagedKVCache", "PagedServeEngine",
+           "RejectedError", "Request", "SchedulingPolicy", "STATS_KEYS",
+           "choose_decode_batch", "validate_stats"]

@@ -1,0 +1,39 @@
+"""Serving steps: bucketed prefill (prompt -> cache) and paged decode
+(one token), the port of ``repro/serve/serve_step.py``'s single-device
+paths.  PyTorch runs eagerly, so a step is a plain closure over the
+config; nothing is compiled per shape."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import forward_decode, forward_prefill
+
+
+def make_bucketed_prefill_step(cfg: ModelConfig, *,
+                               cache_len: Optional[int] = None):
+    """Prefill over pad-to-bucket prompts.  The step takes ``batch =
+    {"tokens": (B, S_bucket), "last_index": int or (B,)}`` — the prompt
+    padded with any token id, and the position of its last real token —
+    and returns that position's logits plus the filled cache."""
+
+    def prefill_step(params, batch: Dict[str, torch.Tensor]):
+        return forward_prefill(params, cfg, batch, cache_len=cache_len,
+                               logits_index=batch["last_index"])
+
+    return prefill_step
+
+
+def make_paged_decode_step(cfg: ModelConfig):
+    """Decode step over paged KV storage: ``(params, pools, page_table,
+    tokens (B, 1), pos (B,))`` -> ``(logits, pools)``, the pools updated
+    in place."""
+
+    def decode_step(params, pools, page_table, tokens: torch.Tensor,
+                    pos: torch.Tensor):
+        return forward_decode(params, cfg, tokens, pools, pos,
+                              page_table=page_table)
+
+    return decode_step

@@ -1,0 +1,450 @@
+"""Ladder-locked continuous batching: the machinery the paged engine
+inherits (the port of ``repro/serve/slot_engine.py:172-894``).
+
+* **Fixed-shape ladder decode**: a decode window always runs at a
+  ``SLAB_LADDER`` rung (the smallest rung covering the highest live
+  slot), with per-slot budgets masking holes and finished rows.
+* **Multi-token window**: ``window`` decode steps with the greedy argmax
+  on the device, per-slot positions and done flags, and one host sync
+  per window.  The reference scans the window inside one jit; here it
+  is a Python loop of eager steps (a CUDA graph per rung is the natural
+  next step).  ``stats["decode_compiles"]`` counts the first window run
+  at each rung — where the reference traces — and reads 0 after
+  :meth:`warmup`.
+* **Bucketed prefill**: prompts pad to a storage-defined bucket with
+  the last real token's logits read back (causal masking hides pads).
+* **Admission classes and preemption** via
+  :class:`~repro_torch.serve.policy.SchedulingPolicy`, with a
+  token-identical resume of preempted requests.
+
+Storage lives in subclasses (:class:`~repro_torch.serve.paged_engine.
+PagedServeEngine`); the dense slot storage of the reference's
+``SlotServeEngine`` is a later slice.  Rows are independent, so a
+request's tokens do not depend on what it is batched with.
+"""
+from __future__ import annotations
+
+from collections import deque
+import time
+from typing import Any, Deque, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.serve.api import completion_of, Completion, FINISH_CANCELLED
+from repro_torch.serve.engine import (effective_tokens, init_serve_stats,
+                                      note_first_token, record_step_packing,
+                                      Request, SLAB_LADDER)
+from repro_torch.serve.policy import KLASS_BATCH, SchedulingPolicy
+from repro_torch.serve.serve_step import make_bucketed_prefill_step
+
+_MIN_BUCKET = 8
+
+
+class SlotServeEngine:
+    """Ladder-locked continuous batching over storage that a subclass
+    provides (``_make_cache``, ``_store_cache``, ``_window_call``)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, device: torch.device,
+                 max_batch: int = 8, max_seq: int = 256, window: int = 8,
+                 ladder: Optional[Sequence[int]] = None,
+                 multi_tenant: bool = True,
+                 prefill_bucketing: bool = True,
+                 policy: Optional[SchedulingPolicy] = None,
+                 default_klass: str = KLASS_BATCH):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.params = params
+        self.policy = policy or SchedulingPolicy()
+        self.default_klass = default_klass
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.window = window
+        self.multi_tenant = multi_tenant
+        self.stats = init_serve_stats()
+        self.stats["engine"].update(self._stats_extras())
+
+        # Ladder rungs available at this engine's max_batch; decode only
+        # ever runs at these batch shapes.
+        source = SLAB_LADDER if ladder is None else tuple(ladder)
+        self.rungs: Tuple[int, ...] = tuple(
+            sorted({b for b in source if b <= max_batch} | {max_batch}))
+
+        self._bucket_enabled = prefill_bucketing
+        self.prefill_fn = make_bucketed_prefill_step(
+            cfg, cache_len=self._prefill_cache_len())
+        self._bucket_cap = max_seq
+        self._seen_buckets: set = set()
+
+        self.decode_fn = self._default_decode_fn()
+        self._window_rungs: set = set()   # rungs whose first window ran
+        self._compile_base = 0
+
+        self.cache = self._make_cache()
+        # Per-slot host state (mirrors the device-side window carries).
+        self._req: List[Optional[Request]] = [None] * max_batch
+        self._tok = np.zeros(max_batch, np.int32)
+        self._pos = np.zeros(max_batch, np.int32)
+        self._budget = np.zeros(max_batch, np.int32)
+
+        self.queue: Deque[Request] = deque()
+        self._backfilled: Deque[Tuple[Request, Any, int]] = deque()
+        self._cancelled: List[Request] = []
+
+    # Subclass hooks ------------------------------------------------------
+    def _stats_extras(self) -> dict:
+        """Engine-specific keys, namespaced under ``stats["engine"]``."""
+        return {
+            "windows": 0, "rungs": [],
+            "prefill_bucket_hits": 0, "prefill_bucket_misses": 0,
+            "prefill_bucket_fallbacks": 0,
+            "slot_admits": 0, "slot_releases": 0,
+            "preemptions": 0, "cancelled": 0,
+        }
+
+    def _prefill_cache_len(self) -> Optional[int]:
+        return self.max_seq
+
+    def _default_decode_fn(self):
+        raise NotImplementedError(
+            "dense slot storage is not ported yet (ROADMAP.md); use "
+            "make_engine(kind='paged')")
+
+    def _make_cache(self):
+        raise NotImplementedError(
+            "dense slot storage is not ported yet (ROADMAP.md); use "
+            "make_engine(kind='paged')")
+
+    def _store_cache(self, req: Request, cache, slot: int) -> None:
+        raise NotImplementedError
+
+    def _window_call(self, rung: int, toks, pos, budget):
+        raise NotImplementedError
+
+    def _admit_cap(self) -> Optional[int]:
+        """Upper bound on resident requests (None = slots only)."""
+        return None
+
+    def _can_admit(self, req: Request) -> bool:
+        return True
+
+    def _release_slot(self, slot: int) -> None:
+        self.cache.release(slot)
+
+    def reset(self) -> None:
+        """Clear all serving state for a fresh serve on the same engine
+        (device storage is kept)."""
+        self.queue.clear()
+        self._backfilled.clear()
+        self._cancelled.clear()
+        self._req = [None] * self.max_batch
+        self._tok[:] = 0
+        self._pos[:] = 0
+        self._budget[:] = 0
+        self.cache.reset()
+        self.stats = init_serve_stats()
+        self.stats["engine"].update(self._stats_extras())
+
+    # Multi-token decode window -------------------------------------------
+    def _decode_window(self, params, pools, tables, toks, pos, budget, *,
+                       rung: int):
+        """``window`` greedy tokens at batch shape ``rung``; one host
+        sync.  toks/pos/budget: (rung,) int32 device tensors — last
+        emitted token, next write position, remaining budget per slot.
+        Rows with budget <= 0 (holes, finished requests) stay frozen and
+        emit -1; their writes land in storage that is released or
+        overwritten at the next admission."""
+        self._window_rungs.add(rung)
+        vocab = self.cfg.vocab_size
+        emits = []
+        for _ in range(self.window):
+            logits, pools = self.decode_fn(params, pools, tables,
+                                           toks[:, None], pos)
+            nxt = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
+            live = budget > 0
+            emits.append(torch.where(live, nxt, -1))
+            toks = torch.where(live, nxt, toks)
+            pos = torch.where(live, pos + 1, pos)
+            budget = torch.where(live, budget - 1, budget)
+            budget = torch.where(pos >= self.max_seq - 1, 0, budget)
+        return pools, toks, pos, budget, torch.stack(emits)
+
+    # Prefill (bucketed) + admission --------------------------------------
+    def submit(self, req: Request) -> None:
+        """Enqueue in admission-class order (interactive ahead of the
+        first batch entry; FIFO within each class)."""
+        req.arrived = time.time()
+        if req.klass is None:
+            req.klass = self.default_klass
+        self.policy.enqueue(self.queue, req)
+
+    def _bucket_len(self, s: int) -> Optional[int]:
+        """Prefill bucket for an ``s``-token prompt, or None past the
+        engine capacity (exact-length fallback)."""
+        if s > self._bucket_cap:
+            return None
+        b = _MIN_BUCKET
+        while b < s:
+            b *= 2
+        return min(b, self._bucket_cap)
+
+    def _prefill_one(self, req: Request):
+        # A preempted request resumes by re-prefilling every token it
+        # wrote (prompt + generated[:-1]); its first token was already
+        # sampled and stamped, so resume skips both.
+        toks = effective_tokens(req)
+        resume = bool(req.generated)
+        s = len(toks)
+        b = self._bucket_len(s) if self._bucket_enabled else None
+        if b is not None:
+            if b in self._seen_buckets:
+                self.stats["engine"]["prefill_bucket_hits"] += 1
+            else:
+                self._seen_buckets.add(b)
+                self.stats["engine"]["prefill_bucket_misses"] += 1
+            padded = np.zeros(b, np.int32)
+            padded[:s] = toks
+        else:
+            if self._bucket_enabled:
+                self.stats["engine"]["prefill_bucket_fallbacks"] += 1
+            padded = np.asarray(toks, np.int32)
+        tokens = torch.as_tensor(padded[None], device=self.device)
+        logits, cache = self.prefill_fn(self.params, {"tokens": tokens,
+                                                      "last_index": s - 1})
+        if not resume:
+            note_first_token(req, logits, self.cfg.vocab_size, self.stats)
+        return cache, s
+
+    def _n_active(self) -> int:
+        return sum(r is not None for r in self._req)
+
+    def _admit(self) -> None:
+        """Fill free slots up to the SISA ladder target (backfilled
+        first, then the queue in policy order).  With ``class_priority``
+        an interactive head is admitted past the target, and with
+        ``preemption`` a storage-blocked interactive admission evicts a
+        batch-class resident instead of stalling."""
+        waiting = [r for r, _, _ in self._backfilled] + list(self.queue)
+        n_live = self._n_active() + len(waiting)
+        if n_live == 0:
+            return
+        n_inter = sum(1 for r in waiting if self.policy.is_interactive(r))
+        target = self.policy.ladder_target(
+            n_live, n_inter, self.cfg, self.max_batch,
+            admit_cap=self._admit_cap())
+        self.stats["batches"].append(min(target, n_live))
+        # Every pass admits or preempts, both finite; the guard is a
+        # belt against invariant bugs only.
+        guard = 2 * (self.max_batch + n_live) + 4
+        while (self._backfilled or self.queue) and guard > 0:
+            guard -= 1
+            src, idx, head = self._next_candidate()
+            boost = (self.policy.class_priority
+                     and self.policy.is_interactive(head))
+            if self._n_active() >= (self.max_batch if boost else target):
+                break
+            if not self.cache.n_free or not self._can_admit(head):
+                if not (boost and self._preempt_for(head)):
+                    break
+                continue
+            if src == "backfilled":
+                req, cache, pos = self._backfilled[idx]
+                del self._backfilled[idx]
+            else:
+                req = self.queue[idx]
+                del self.queue[idx]
+                cache, pos = self._prefill_one(req)
+            slot = self.cache.acquire()
+            self._store_cache(req, cache, slot)
+            self._req[slot] = req
+            self._tok[slot] = req.generated[-1]
+            self._pos[slot] = pos
+            # generated already holds the prefill token.
+            self._budget[slot] = max(1, req.max_new_tokens
+                                     - len(req.generated))
+            self.stats["engine"]["slot_admits"] += 1
+
+    def _next_candidate(self):
+        """Admission candidate in policy order: the first interactive
+        entry anywhere (backfilled ahead of queued), else the backfilled
+        head, else the queue head."""
+        if self.policy.class_priority:
+            for i, (r, _c, _p) in enumerate(self._backfilled):
+                if self.policy.is_interactive(r):
+                    return "backfilled", i, r
+            for i, r in enumerate(self.queue):
+                if self.policy.is_interactive(r):
+                    return "queue", i, r
+        if self._backfilled:
+            return "backfilled", 0, self._backfilled[0][0]
+        return "queue", 0, self.queue[0]
+
+    # Preemption + cancellation -------------------------------------------
+    def _preempt_for(self, head: Request) -> bool:
+        """Evict one batch-class resident to unblock ``head``."""
+        if not self.policy.preemption:
+            return False
+        resident = [(s, r) for s, r in enumerate(self._req) if r is not None]
+        victim = self.policy.choose_victim(resident)
+        if victim is None:
+            return False
+        self._preempt_slot(*victim)
+        return True
+
+    def _preempt_slot(self, slot: int, req: Request) -> None:
+        """Release ``slot``'s storage and requeue its request for a
+        deterministic resume."""
+        self._req[slot] = None
+        self._budget[slot] = 0
+        self._release_slot(slot)
+        self.stats["engine"]["slot_releases"] += 1
+        self.stats["engine"]["preemptions"] += 1
+        req.preemptions += 1
+        self.policy.requeue(self.queue, req)
+
+    def preempt(self, n: int = 1) -> int:
+        """Forcibly evict up to ``n`` residents (policy victims first,
+        then any resident by lowest progress); returns how many."""
+        count = 0
+        for _ in range(n):
+            resident = [(s, r) for s, r in enumerate(self._req)
+                        if r is not None]
+            victim = self.policy.choose_victim(resident)
+            if victim is None and resident:
+                victim = min(resident,
+                             key=lambda sr: (len(sr[1].generated), -sr[0]))
+            if victim is None:
+                break
+            self._preempt_slot(*victim)
+            count += 1
+        return count
+
+    def cancel(self, rid: int) -> bool:
+        """Release a request mid-flight (resident, backfilled or
+        queued); marks it done with ``finish_reason="cancelled"``.
+        Returns True iff found."""
+        for slot, req in enumerate(self._req):
+            if req is not None and req.rid == rid:
+                self._req[slot] = None
+                self._budget[slot] = 0
+                self._release_slot(slot)
+                self.stats["engine"]["slot_releases"] += 1
+                break
+        else:
+            for item in list(self._backfilled):
+                if item[0].rid == rid:
+                    self._backfilled.remove(item)
+                    req = item[0]
+                    break
+            else:
+                for req in list(self.queue):
+                    if req.rid == rid:
+                        self.queue.remove(req)
+                        break
+                else:
+                    return False
+        req.done = True
+        req.finish_reason = FINISH_CANCELLED
+        req.finished_at = time.time()
+        self._cancelled.append(req)
+        self.stats["engine"]["cancelled"] += 1
+        return True
+
+    def _current_rung(self) -> int:
+        highest = max((i + 1 for i, r in enumerate(self._req)
+                       if r is not None), default=0)
+        if highest == 0:
+            return 0
+        return next(r for r in self.rungs if r >= highest)
+
+    # Serve loop ------------------------------------------------------------
+    def _run_window(self, rung: int, finished: List[Request]) -> None:
+        dev = self.device
+        toks = torch.as_tensor(self._tok[:rung], device=dev)
+        pos = torch.as_tensor(self._pos[:rung], device=dev)
+        budget = torch.as_tensor(self._budget[:rung], device=dev)
+        toks, pos, budget, out = self._window_call(rung, toks, pos, budget)
+        self.stats["decode_compiles"] = max(
+            0, len(self._window_rungs) - self._compile_base)
+        self.stats["engine"]["windows"] += 1
+        self.stats["engine"]["rungs"].append(rung)
+        self.stats["decode_steps"] += self.window
+        # The single host sync of the window: emits and carries, all
+        # (·, rung) int32, come back in one copy.
+        host = torch.cat([out, torch.stack([toks, pos, budget])]).cpu().numpy()
+        out_np = host[:-3]                               # (T, rung)
+        self._tok[:rung], self._pos[:rung], self._budget[:rung] = host[-3:]
+        for slot in range(rung):
+            req = self._req[slot]
+            if req is None:
+                continue
+            col = out_np[:, slot]
+            req.generated.extend(int(t) for t in col[col >= 0])
+            if self._budget[slot] <= 0:
+                req.done = True
+                req.finished_at = time.time()
+                finished.append(req)
+                self._req[slot] = None
+                self._release_slot(slot)
+                self.stats["engine"]["slot_releases"] += 1
+
+    def _plan_step(self) -> int:
+        """Multi-tenant co-schedule stats of this window."""
+        if not self.multi_tenant or not self.queue:
+            return 0
+        waiting = [len(r.prompt) for r in self.queue]
+        return record_step_packing(self.stats, self._n_active(), waiting,
+                                   self.cfg)
+
+    @torch.no_grad()
+    def step(self, finished: List[Request], max_steps: int = 512) -> int:
+        """One scheduler iteration at a window boundary: admit up to the
+        ladder target and run one decode window.  Appends newly finished
+        requests to ``finished``; returns the decode steps consumed (0
+        when idle)."""
+        if self._cancelled:
+            finished.extend(self._cancelled)
+            self._cancelled.clear()
+        if not (self.queue or self._backfilled or self._n_active()) \
+                or max_steps <= 0:
+            return 0
+        self._admit()
+        self._plan_step()
+        rung = self._current_rung()
+        if not rung:
+            return 1
+        self._run_window(rung, finished)
+        return self.window
+
+    def run(self, max_steps: int = 512) -> List[Completion]:
+        """Serve everything in the queue (greedy decoding); one
+        :class:`~repro_torch.serve.api.Completion` per finished request.
+        ``max_steps`` counts decode iterations, ``window`` at a time."""
+        finished: List[Request] = []
+        while ((self.queue or self._backfilled or self._n_active())
+               and max_steps > 0):
+            max_steps -= self.step(finished, max_steps)
+        finished.extend(self._cancelled)
+        self._cancelled.clear()
+        return [completion_of(r) for r in finished]
+
+    @torch.no_grad()
+    def warmup(self, rungs: Optional[Sequence[int]] = None) -> None:
+        """Run one window at every rung against allocated storage, then
+        reset all serving state, so ``stats["decode_compiles"]`` counts
+        from 0.  (Eager prefill has nothing to compile per bucket; the
+        reference's warmup also compiles the prefill buckets.)"""
+        warm = tuple(r for r in self.rungs
+                     if rungs is None or r in set(rungs))
+        self.submit(Request(rid=-1, prompt=np.zeros(1, np.int32),
+                            max_new_tokens=1))
+        self._admit()
+        for rung in warm:
+            # Budget-0 rows are frozen: the window computes and discards
+            # their logits; they write only their own slot or the sink.
+            zeros = torch.zeros(rung, dtype=torch.int32, device=self.device)
+            self._window_call(rung, zeros, zeros, zeros)
+        self.reset()
+        self._compile_base = len(self._window_rungs)
+        self.stats["decode_compiles"] = 0

@@ -1,0 +1,145 @@
+"""The port's paged engine against the JAX paged engine on the CPU.
+
+One mixed-length workload (prompt lengths on page boundaries +-1, two
+requests sharing a page-aligned prefix, heterogeneous budgets, more
+requests than slots) goes through ``repro.serve.make_engine(kind=
+"paged")`` and ``repro_torch.serve.make_engine(kind="paged",
+device="cpu")`` on the same float32 smoke weights.  The completions
+must be identical token for token, both stats dicts must hold the
+shared schema, and the port's page pool must drain back to full.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config
+from repro.models import init_params as jax_init
+from repro.serve import make_engine as jax_make_engine
+from repro.serve import Request as JaxRequest
+from repro.serve import validate_stats as jax_validate_stats
+from repro_torch.configs import smoke_config as torch_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.serve import (completion_of, make_engine, Request,
+                               validate_stats)
+
+OPTS = dict(max_slots=4, max_seq=64, page_size=8, window=4)
+# (prompt length, max_new_tokens); rid 1 extends rid 0's first 16 tokens.
+WORKLOAD = [(17, 6), (20, 5), (7, 3), (9, 6), (1, 4), (15, 7)]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = smoke_config("qwen2.5-0.5b")
+    jparams = jax_init(cfg, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              torch_smoke_config("qwen2.5-0.5b"),
+                              device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n, _ in WORKLOAD]
+    prompts[1][:16] = prompts[0][:16]
+    return cfg, jparams, tparams, prompts
+
+
+def _serve(make, request_cls, cfg, params, prompts, **kw):
+    eng = make(cfg, params, kind="paged", **OPTS, **kw)
+    for rid, (prompt, (_, budget)) in enumerate(zip(prompts, WORKLOAD)):
+        eng.submit(request_cls(rid=rid, prompt=prompt.copy(),
+                               max_new_tokens=budget))
+    return eng, sorted(eng.run(), key=lambda c: c.rid)
+
+
+def test_paged_engine_matches_jax(setup):
+    cfg, jparams, tparams, prompts = setup
+    jeng, jout = _serve(jax_make_engine, JaxRequest, cfg, jparams, prompts)
+    teng, tout = _serve(make_engine, Request,
+                        torch_smoke_config("qwen2.5-0.5b"), tparams,
+                        prompts, device="cpu")
+    assert [c.rid for c in tout] == list(range(len(WORKLOAD)))
+    assert [(c.tokens, c.finish_reason) for c in tout] == \
+        [(c.tokens, c.finish_reason) for c in jout]
+    assert all(c.n_tokens == budget for c, (_, budget) in zip(tout, WORKLOAD))
+    jax_validate_stats(jeng.stats)
+    validate_stats(teng.stats)
+    ext = teng.stats["engine"]
+    assert ext["pages_shared"] == jeng.stats["engine"]["pages_shared"] >= 1
+    assert ext["slot_admits"] == ext["slot_releases"] == len(WORKLOAD)
+    assert teng.stats["batches"] == jeng.stats["batches"]
+    assert teng.cache.n_free_pages == teng.cache.num_pages
+    assert teng.cache.reserved_total == 0
+    assert (teng.cache.table == teng.cache.sink).all()
+    assert teng.cache.resident_bytes() == jeng.cache.resident_bytes()
+
+
+def test_preempted_and_cancelled_requests(setup):
+    """A preemption storm resumes token-identically (re-prefill of
+    prompt + generated[:-1]); a cancel releases its pages at once."""
+    _, _, tparams, prompts = setup
+    tcfg = torch_smoke_config("qwen2.5-0.5b")
+    _, ref = _serve(make_engine, Request, tcfg, tparams, prompts,
+                    device="cpu")
+    eng = make_engine(tcfg, tparams, kind="paged", device="cpu", **OPTS)
+    for rid, (prompt, (_, budget)) in enumerate(zip(prompts, WORKLOAD)):
+        eng.submit(Request(rid=rid, prompt=prompt.copy(),
+                           max_new_tokens=budget))
+    finished = []
+    eng.step(finished)
+    assert eng.preempt(2) == 2
+    out = sorted(eng.run() + [c for c in map(completion_of, finished)],
+                 key=lambda c: c.rid)
+    assert [c.tokens for c in out] == [c.tokens for c in ref]
+    assert eng.stats["engine"]["preemptions"] == 2
+    assert eng.cache.n_free_pages == eng.cache.num_pages
+
+    eng.reset()
+    for rid, prompt in enumerate(prompts[:2]):
+        eng.submit(Request(rid=rid, prompt=prompt.copy(), max_new_tokens=30))
+    eng.step([])
+    assert eng.cancel(0) and not eng.cancel(99)
+    out = {c.rid: c for c in eng.run()}
+    assert out[0].finish_reason == "cancelled"
+    assert out[1].finish_reason == "length" and out[1].n_tokens == 30
+    assert eng.cache.n_free_pages == eng.cache.num_pages
+
+
+def test_warmup_leaves_no_decode_compiles(setup):
+    cfg, _, tparams, prompts = setup
+    eng = make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams,
+                      kind="paged", device="cpu", **OPTS)
+    eng.warmup()
+    assert eng.stats["decode_compiles"] == 0
+    assert eng.cache.n_free_pages == eng.cache.num_pages
+    eng.submit(Request(rid=0, prompt=prompts[0].copy(), max_new_tokens=6))
+    (out,) = eng.run()
+    assert out.n_tokens == 6 and eng.stats["decode_compiles"] == 0
+
+
+@pytest.mark.parametrize("kind,kw,exc", [
+    ("slot", {}, NotImplementedError),
+    ("sequential", {}, NotImplementedError),
+    ("dense", {}, ValueError),
+    ("paged", {"kv_quant": "int8"}, NotImplementedError),
+    ("paged", {"coexec_backend": "xla"}, NotImplementedError),
+])
+def test_unported_engine_options_raise(setup, kind, kw, exc):
+    _, _, tparams, _ = setup
+    with pytest.raises(exc):
+        make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams, kind=kind,
+                    device="cpu", **kw)
+
+
+def test_unported_architectures_raise(setup):
+    _, _, tparams, _ = setup
+    for name in ("gemma3-1b", "dbrx-132b", "whisper-base", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError):
+            make_engine(torch_smoke_config(name), tparams, kind="paged",
+                        device="cpu")
+
+
+def test_default_device_raises_without_cuda(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    _, _, tparams, _ = setup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams, kind="paged")
