@@ -7,38 +7,53 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for sm_90a (one process per source, in parallel);
+2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for sm_90a (one process per source, in parallel);
 3. K1 (SISA GEMM) against its plain version at the main path's shapes,
    every tile height at full height and the ragged residual split, in
    float32 and bfloat16 (elementwise, one bf16 ulp in bfloat16);
-4. K2 (paged attention) against its plain version: GQA 14/2, head_dim
-   64, 16-token pages, tables with sink entries, positions on page
-   edges;
-5. a small float32 model (qwen2.5-0.5b's widths, 2 layers) served on
+4. K2 (paged attention) against its plain version: GQA 14/2 with
+   head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe), 16-token
+   pages, tables with sink entries, positions on page edges;
+5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
+   expert shapes (4096 -> 6400 and 6400 -> 4096, 16 experts): decode-
+   and prefill-like expert sizes, sizes off the row block, tail tiles,
+   and a capacity-strided layout, in float32 and bfloat16; rows past
+   each tile's ``hi`` must be exactly 0;
+6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
+   structure at narrow widths with 8 experts, each 2 layers) served on
    the card (kernels) and on the CPU (plain versions): identical greedy
    tokens;
-6. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
+7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
-   both kernels' launch counters are zeroed just before and must be
+   the launch counters are zeroed just before and K1's and K2's must be
    > 0 just after;
-7. where one decode window's time goes (``torch.profiler``): device time
+8. where one decode window's time goes (``torch.profiler``): device time
    per kernel family against the window's wall time, and the top host
    ops;
-8. kernel times at the main path's shapes, beside the plain versions',
+9. kernel times at the main path's shapes, beside the plain versions',
    one PyTorch library call's where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, H100 SXM data sheet).  A time is the
    device time ``torch.profiler`` records for the call's kernels; the
    CUDA-event span, which also holds the host's launch gaps, is printed
-   beside it as ``*_span``.
+   beside it as ``*_span``;
+10. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
+    fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
+    model is freed: the same workload through ``make_engine(kind=
+    "paged")``, with K1's, K2's and K4's counters zeroed before and > 0
+    after, finite logits, ``decode_compiles`` 0, a drained pool, peak
+    memory, one profiled decode window, and K4's times at the decode
+    (rung 8) and 208-row prefill shapes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -52,6 +67,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PROMPT_LENS = (16, 40, 64, 97, 128, 150, 176, 200)
 NEW_TOKENS = 32
 SHARED_PREFIX = 32
+# phi3.5-moe-42b: 8 of its 32 layers at full width fit one 80 GB card
+# (about 21 GB of bf16 weights; all 32 layers are about 84 GB).
+MOE_LAYERS = 8
 
 
 def _say(msg: str) -> None:
@@ -108,6 +126,8 @@ def _times(torch, fns: dict) -> dict:
     return out
 
 
+# Each kernel's launch counter name, also a substring of its CUDA symbol.
+KERNEL_NAMES = ("sisa_gemm", "paged_attn", "grouped_gemm")
 K1_ROWS = (1, 8, 16, 32, 64, 128, 200, 256)
 BF16_REL = 2.0 ** -7        # one bf16 ulp, relative to the value
 
@@ -178,12 +198,14 @@ def check_k1(torch, kernels, gen) -> float:
     return worst
 
 
-def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16):
+def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
+                 heads=(14, 2, 64)):
     b = len(pos)
-    q = torch.randn(b, 14, 64, device="cuda", generator=gen).to(dtype)
-    pk = torch.randn(n_pages + 1, 16, 2, 64, device="cuda",
+    h, hkv, hd = heads
+    q = torch.randn(b, h, hd, device="cuda", generator=gen).to(dtype)
+    pk = torch.randn(n_pages + 1, 16, hkv, hd, device="cuda",
                      generator=gen).to(dtype)
-    pv = torch.randn(n_pages + 1, 16, 2, 64, device="cuda",
+    pv = torch.randn(n_pages + 1, 16, hkv, hd, device="cuda",
                      generator=gen).to(dtype)
     perm = torch.randperm(n_pages, device="cuda", generator=gen)
     table = perm[:b * pmax].reshape(b, pmax).to(torch.int32)
@@ -193,20 +215,92 @@ def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16):
     return q, pk, pv, table, pos_t
 
 
+K2_HEADS = ((14, 2, 64), (32, 8, 128))     # qwen2.5-0.5b, phi3.5-moe-42b
+
+
 def check_k2(torch, kernels, gen) -> float:
     worst = 0.0
     pos = [0, 15, 16, 31, 32, 127, 128, 255]
+    for heads in K2_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos,
+                                                   heads=heads)
+            rel = 0.0 if dtype == torch.float32 else BF16_REL
+            err = _max_err(
+                f"K2 {heads} {dtype}",
+                kernels.paged_attention(q, pk, pv, table, pos_t),
+                kernels.paged_attention_plain(q, pk, pv, table, pos_t),
+                rel, 1e-5)
+            worst = max(worst, err)
+    _say(f"k2: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, agree with the "
+         f"plain version (max abs err {worst}; elementwise tol f32 1e-5, "
+         f"bf16 2^-7*|ref| + 1e-5)")
+    return worst
+
+
+# phi3.5-moe-42b's expert FFN: 16 experts, top-2, d 4096, d_ff 6400.
+MOE_D, MOE_FF, MOE_E = 4096, 6400, 16
+
+
+def _k4_layouts(torch, kernels):
+    """(name, m, starts, sizes, gids, bm) at the path's row blocks: the
+    rung-8 decode (16 pairs over 16 experts, capacity 8, bm 16), 208-token
+    prefills (416 pairs; capacity 32 with bm 32 and the serve's capacity
+    40 with bm 64, sizes off the row block, some experts full and some
+    empty), each with tail tiles past every segment, and a capacity-
+    strided layout whose stride 40 forces ``aligned_block_rows`` to 8."""
+    def prefix(sizes, cap, bm):
+        sizes = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        starts = kernels.flat_group_offsets(sizes, bm)[:-1]
+        m = MOE_E * (-(-cap // bm)) * bm
+        return m, starts, sizes, torch.arange(MOE_E, dtype=torch.int32,
+                                              device="cuda"), bm
+
+    decode = [2, 0, 1, 1, 0, 2, 3, 0, 1, 1, 2, 0, 1, 1, 1, 0]
+    pre32 = [32, 0, 32, 17, 32, 32, 5, 0, 32, 31, 32, 32, 9, 32, 32, 32]
+    pre40 = [40, 0, 40, 40, 37, 0, 21, 40, 40, 40, 3, 40, 40, 1, 40, 34]
+    bm8 = kernels.aligned_block_rows(40, MOE_FF, MOE_D, torch.bfloat16,
+                                     align_to=40)
+    ar = torch.arange(MOE_E, dtype=torch.int32, device="cuda")
+    yield ("decode rung 8",) + prefix(decode, 8, 16)
+    yield ("prefill cap 32",) + prefix(pre32, 32, 32)
+    yield ("prefill cap 40",) + prefix(pre40, 40, 64)
+    yield ("capacity stride 40",  MOE_E * 40, ar * 40,
+           torch.tensor(pre40, dtype=torch.int32, device="cuda"), ar, bm8)
+
+
+def check_k4(torch, kernels, gen) -> float:
+    """K4 against its plain version at every layout of ``_k4_layouts``,
+    up/gate (4096 -> 6400) and down (6400 -> 4096), f32 and bf16; rows
+    outside every segment must come out exactly 0."""
+    worst, n_cases = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
-        q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos)
         rel = 0.0 if dtype == torch.float32 else BF16_REL
-        err = _max_err(f"K2 {dtype}",
-                       kernels.paged_attention(q, pk, pv, table, pos_t),
-                       kernels.paged_attention_plain(q, pk, pv, table, pos_t),
-                       rel, 1e-5)
-        worst = max(worst, err)
-    _say(f"k2: GQA 14/2 hd 64 psz 16 agrees with the plain version "
-         f"(max abs err {worst}; elementwise tol f32 1e-5, bf16 "
-         f"2^-7*|ref| + 1e-5)")
+        ws = {(k, n): (torch.randn(MOE_E, k, n, device="cuda", generator=gen)
+                       / k ** 0.5).to(dtype)
+              for k, n in ((MOE_D, MOE_FF), (MOE_FF, MOE_D))}
+        for name, m, starts, sizes, gids, bm in _k4_layouts(torch, kernels):
+            covered = torch.zeros(m, dtype=torch.bool, device="cuda")
+            for s, n in zip(starts.tolist(), sizes.tolist()):
+                covered[s:s + n] = True
+            for (k, n), w in ws.items():
+                x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+                got = kernels.segment_grouped_gemm(x, w, starts, sizes, gids,
+                                                   block_rows=bm)
+                ref = kernels.segment_grouped_gemm_plain(
+                    x, w, starts, sizes, gids, block_rows=bm)
+                what = f"K4 {dtype} {name} bm {bm} {k}x{n}"
+                worst = max(worst, _max_err(what, got, ref, rel,
+                                            _f32_atol(ref)))
+                if (got[~covered] != 0).any():
+                    raise AssertionError(f"{what}: a row outside every "
+                                         "segment is not 0")
+                n_cases += 1
+    _say(f"k4: {n_cases} cases (decode- and prefill-like expert sizes, "
+         f"tail tiles, capacity stride; 4096x6400 and 6400x4096; f32 and "
+         f"bf16) agree with the plain version (max abs err {worst}; "
+         f"elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
+         f"2e-5*max|ref|; uncovered rows exactly 0)")
     return worst
 
 
@@ -217,18 +311,28 @@ def _requests(Request, rng, vocab, lens):
             for i, p in enumerate(prompts)]
 
 
-def check_small_model(torch, np) -> None:
-    """qwen2.5-0.5b's widths cut to 2 layers and a 4096-token vocabulary,
-    in float32, served on the card (kernels) and on the CPU (plain
-    versions): same weights, same requests, same greedy tokens."""
-    import dataclasses
-
+def _small_configs():
+    """qwen2.5-0.5b's widths, and phi3.5-moe-42b's layer structure (GQA
+    32/8 at head_dim 128, top-2 MoE) at narrow widths with 8 experts,
+    each cut to 2 layers and a 4096-token vocabulary, in float32."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+
+    qwen = dataclasses.replace(get_config("qwen2.5-0.5b"), n_layers=2,
+                               vocab_size=4096, param_dtype="float32")
+    phi = dataclasses.replace(get_config("phi3.5-moe-42b"), n_layers=2,
+                              d_model=512, d_ff=1024, vocab_size=4096,
+                              moe=MoEConfig(n_experts=8, top_k=2),
+                              param_dtype="float32")
+    return {"qwen2.5-0.5b widths": qwen, "phi3.5-moe structure": phi}
+
+
+def check_small_model(torch, np, label, cfg) -> None:
+    """``cfg`` served on the card (kernels) and on the CPU (plain
+    versions): same weights, same requests, same greedy tokens."""
     from repro_torch.models import init_params
     from repro_torch.serve import make_engine, Request
 
-    cfg = dataclasses.replace(get_config("qwen2.5-0.5b"), n_layers=2,
-                              vocab_size=4096, param_dtype="float32")
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
     outs = []
@@ -244,30 +348,34 @@ def check_small_model(torch, np) -> None:
     if outs[0] != outs[1]:
         raise AssertionError(f"small model: card tokens {outs[1]} differ "
                              f"from the CPU's {outs[0]}")
-    _say(f"small model (qwen2.5-0.5b widths, 2 layers, f32): "
-         f"{len(outs[0])} requests, tokens on the card identical to the "
-         "CPU plain path")
+    _say(f"small model ({label}, 2 layers, f32): {len(outs[0])} requests, "
+         "tokens on the card identical to the CPU plain path")
 
 
-def serve_full_width(torch, np):
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-    from repro_torch.serve import make_engine, Request, validate_stats
+def serve_full_width(torch, np, cfg, need):
+    """Serve the 8-request workload through ``make_engine(kind="paged")``
+    at ``cfg``'s widths with seeded random bf16 weights.  Every launch
+    counter is zeroed just before the serve; those of ``need`` must be
+    > 0 just after."""
     from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import init_params
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.serve import make_engine, Request, validate_stats
 
-    cfg = get_config("qwen2.5-0.5b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     torch.cuda.synchronize()
-    _say(f"params: {cfg.name} full width, "
-         f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M bf16 "
-         f"weights, init {time.perf_counter() - t0:.2f} s")
+    _say(f"params: {cfg.name} full width, {cfg.n_layers} layers, "
+         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G weights "
+         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
     eng = make_engine(cfg, params, kind="paged", max_slots=8, max_seq=256,
                       page_size=16, window=8)
     eng.warmup()
     reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
                      PROMPT_LENS)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for counter in LAUNCH_COUNTERS.values():
         counter.reset()
     t0 = time.perf_counter()
@@ -277,6 +385,7 @@ def serve_full_width(torch, np):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
     validate_stats(eng.stats)
     if len(outs) != len(PROMPT_LENS) or any(
             c.n_tokens != NEW_TOKENS or c.finish_reason != "length"
@@ -285,8 +394,11 @@ def serve_full_width(torch, np):
             [(c.rid, c.n_tokens, c.finish_reason) for c in outs]))
     if not all(0 <= t < cfg.vocab_size for c in outs for t in c.tokens):
         raise AssertionError("token outside the vocabulary")
-    if min(launches.values()) <= 0:
+    if any(launches[name] <= 0 for name in need):
         raise AssertionError(f"main path skipped a kernel: {launches}")
+    if eng.stats["decode_compiles"] != 0:
+        raise AssertionError(f"decode_compiles "
+                             f"{eng.stats['decode_compiles']} after warmup")
     ext = eng.stats["engine"]
     if ext["pages_shared"] < SHARED_PREFIX // 16:
         raise AssertionError(f"prefix not shared: {ext['pages_shared']}")
@@ -296,17 +408,23 @@ def serve_full_width(torch, np):
     logits, _ = eng.prefill_fn(params, {
         "tokens": torch.as_tensor(reqs[0].prompt[None], device="cuda"),
         "last_index": len(reqs[0].prompt) - 1})
-    if logits.shape != (1, 1, 153600) or logits.dtype != torch.float32 \
+    if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
+            or logits.dtype != torch.float32 \
             or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
         raise AssertionError(f"bad logits {logits.shape} {logits.dtype}")
     n_tok = sum(c.n_tokens for c in outs)
-    ttft = statistics.median(eng.stats["ttft"])
-    _say(f"serve: {len(outs)} requests, {n_tok} tokens in {wall:.3f} s = "
-         f"{n_tok / wall:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, "
-         f"decode_compiles {eng.stats['decode_compiles']}, decode steps "
-         f"{eng.stats['decode_steps']}, rungs {ext['rungs']}, pages shared "
-         f"{ext['pages_shared']}, launches {launches}")
-    return eng, params, cfg, launches
+    summary = {"model": cfg.name, "layers": cfg.n_layers, "requests":
+               len(outs), "tokens": n_tok, "wall_s": wall,
+               "tok_per_s": n_tok / wall,
+               "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
+               "peak_memory_gb": peak / 1e9,
+               "decode_compiles": eng.stats["decode_compiles"],
+               "decode_steps": eng.stats["decode_steps"],
+               "rungs": ext["rungs"], "pages_shared": ext["pages_shared"],
+               "expert_backend": eng.stats["expert_backend"],
+               "launches": launches}
+    _say(f"serve: {json.dumps(summary)}")
+    return eng, params, launches
 
 
 def profile_window(torch, np, eng, cfg) -> dict:
@@ -331,15 +449,15 @@ def profile_window(torch, np, eng, cfg) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
-    fam = {"sisa_gemm": 0.0, "paged_attn": 0.0, "other": 0.0}
+    fam = {"sisa_gemm": 0.0, "paged_attn": 0.0, "grouped_gemm": 0.0,
+           "other": 0.0}
     host = []
     for evt in prof.key_averages():
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             host.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
             continue                    # host ops; their kernels count below
         dev_us = _self_device_us(evt)
-        name = ("sisa_gemm" if "sisa_gemm" in evt.key else
-                "paged_attn" if "paged_attn_kernel" in evt.key else "other")
+        name = next((k for k in KERNEL_NAMES if k in evt.key), "other")
         fam[name] += dev_us / 1e3
     busy = sum(fam.values())
     out = {"window_wall_ms": wall_ms, "steps": eng.window,
@@ -439,6 +557,89 @@ def time_k2(torch, kernels, cfg):
             "launches_timed": layers}
 
 
+def time_k4(torch, kernels, params, cfg, n_tokens: int):
+    """All K4 work of one forward over ``n_tokens`` tokens: up, gate and
+    down of every layer (3 launches a layer), each layer's expert sizes
+    routed by its own router from random hidden states, at the row
+    block and flat size the MoE layer picks for that count.  The bound
+    counts the weights of the experts that hold rows, the live input
+    rows and the whole output; FLOPs count live rows only."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    d, ff = cfg.d_model, cfg.d_ff
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    cap = moe._capacity(n_tokens, e, k, cfg.moe.capacity_factor)
+    bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
+    m_flat = e * (-(-cap // bm)) * bm
+    gids = torch.arange(e, dtype=torch.int32, device="cuda")
+    calls, nbytes, flops, live = [], 0, 0, []
+    for layer in params["layers"]:
+        p = layer["moe"]
+        h = torch.randn(n_tokens, d, device="cuda", generator=gen)
+        topi = torch.topk(torch.softmax(h @ p["router"], -1), k, -1).indices
+        sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
+            max=cap).to(torch.int32)
+        offs = kernels.flat_group_offsets(sizes, bm)
+        x_d = torch.randn(m_flat, d, device="cuda",
+                          generator=gen).bfloat16()
+        x_ff = torch.randn(m_flat, ff, device="cuda",
+                           generator=gen).bfloat16()
+        rows, active = int(sizes.sum()), int((sizes > 0).sum())
+        live.append([rows, active])
+        for x, w in ((x_d, p["up"]), (x_d, p["gate"]), (x_ff, p["down"])):
+            calls.append((x, w, offs, sizes))
+            kk, nn = w.shape[1:]
+            nbytes += 2 * (active * kk * nn + rows * kk + m_flat * nn)
+            flops += 2 * rows * kk * nn
+
+    def run(fn):
+        return lambda: [fn(x, w, offs[:-1], sizes, gids, block_rows=bm)
+                        for x, w, offs, sizes in calls]
+
+    library, lib_name = _k4_library(torch, kernels, calls, gids, bm)
+    out = _times(torch, {"ms": run(kernels.segment_grouped_gemm),
+                         "plain_ms": run(kernels.segment_grouped_gemm_plain),
+                         "library_ms": library})
+    bound, by = _bound_ms(nbytes, flops)
+    return {**out, "bound_ms": bound, "bound_by": by, "library": lib_name,
+            "launches_timed": len(calls), "tokens": n_tokens,
+            "capacity": cap, "bm": bm, "m_flat": m_flat,
+            "rows_and_active_experts_per_layer": live, "bytes": nbytes,
+            "flops": flops}
+
+
+def _k4_library(torch, kernels, calls, gids, bm):
+    """One PyTorch call per K4 launch that computes the same products:
+    ``torch._grouped_mm`` over each expert's aligned region where this
+    PyTorch runs it on these shapes and agrees with the plain version on
+    the live rows, else a per-expert ``torch.matmul`` loop.  A
+    yardstick only; the port never calls either."""
+    x, w, offs, sizes = calls[0]
+    live = torch.zeros(x.shape[0], dtype=torch.bool, device="cuda")
+    for s, n in zip(offs[:-1].tolist(), sizes.tolist()):
+        live[s:s + n] = True
+    ref = kernels.segment_grouped_gemm_plain(x, w, offs[:-1], sizes, gids,
+                                             block_rows=bm)
+    try:
+        got = torch._grouped_mm(x, w, offs=offs[1:].contiguous())
+        _max_err("torch._grouped_mm", got[live], ref[live], BF16_REL,
+                 _f32_atol(ref))
+        return (lambda: [torch._grouped_mm(x_, w_, offs=o[1:].contiguous())
+                         for x_, w_, o, _ in calls]), "torch._grouped_mm"
+    except (AttributeError, RuntimeError, AssertionError) as exc:
+        _say(f"k4 library: torch._grouped_mm unusable here ({exc}); "
+             "timing a per-expert torch.matmul loop instead")
+    segs = [[(s, n, g) for s, n, g in zip(o[:-1].tolist(), sz.tolist(),
+                                          range(w_.shape[0])) if n]
+            for _, w_, o, sz in calls]
+
+    def loop():
+        return [[x_[s:s + n] @ w_[g] for s, n, g in seg]
+                for (x_, w_, _, _), seg in zip(calls, segs)]
+    return loop, "per-expert torch.matmul loop"
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -456,6 +657,7 @@ def main() -> int:
               "from the root of a checkout", file=sys.stderr)
         return 1
     from repro_torch import kernels
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -471,10 +673,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_err = check_k1(torch, kernels, gen)
     k2_err = check_k2(torch, kernels, gen)
-    check_small_model(torch, np)
-    eng, params, cfg, launches = serve_full_width(torch, np)
-    profile_window(torch, np, eng, cfg)
+    k4_err = check_k4(torch, kernels, gen)
+    for label, small in _small_configs().items():
+        check_small_model(torch, np, label, small)
 
+    cfg = get_config("qwen2.5-0.5b")
+    eng, params, launches = serve_full_width(torch, np, cfg,
+                                             ("sisa_gemm", "paged_attn"))
+    profile_window(torch, np, eng, cfg)
     k1 = time_k1(torch, kernels, params, cfg, rows=8)
     k1_prefill = time_k1(torch, kernels, params, cfg, rows=208)
     k2 = time_k2(torch, kernels, cfg)
@@ -482,6 +688,22 @@ def main() -> int:
     _say(f"k1 prefill (208 rows, LM head on 1 row): {json.dumps(k1_prefill)}")
     _say(f"k2 decode step (8 rows, {k2['launches_timed']} layers): "
          f"{json.dumps(k2)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
+                                  n_layers=MOE_LAYERS)
+    eng, params, moe_launches = serve_full_width(torch, np, moe_cfg,
+                                                 KERNEL_NAMES)
+    profile_window(torch, np, eng, moe_cfg)
+    k4 = time_k4(torch, kernels, params, moe_cfg, n_tokens=8)
+    k4_prefill = time_k4(torch, kernels, params, moe_cfg, n_tokens=208)
+    _say(f"k4 decode step (rung 8, {k4['launches_timed']} launches): "
+         f"{json.dumps(k4)}")
+    _say(f"k4 prefill (208 tokens, {k4_prefill['launches_timed']} "
+         f"launches): {json.dumps(k4_prefill)}")
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [
@@ -495,6 +717,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "launches": launches["paged_attn"], "max_abs_err": k2_err,
          **{k: k2[k] for k in keys}},
+        {"name": "grouped_gemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+         "replaces": "src/repro/kernels/grouped_gemm.py:160",
+         "launches": moe_launches["grouped_gemm"], "max_abs_err": k4_err,
+         **{k: k4[k] for k in keys}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,11 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`
 (no PyTorch headers, so a build takes seconds, not minutes).  Libraries
 land in ``kernels/build/`` (git-ignored) under a name that carries a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built when a module is imported: a
-kernel's first launch builds it, or :func:`build` builds every source at
-once, one ``nvcc`` per source, all started together.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  Nothing is
+built when a module is imported: a kernel's first launch builds it, or
+:func:`build` builds every source at once, one ``nvcc`` per source, all
+started together.
 
 Every C entry point returns the ``cudaError_t`` of its launch
 (``cudaGetLastError()``); :func:`check` raises on anything but success,
@@ -27,7 +28,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("sisa_gemm", "paged_attn")
+SOURCES = ("sisa_gemm", "paged_attn", "grouped_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -56,8 +57,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    # Every header under csrc/ counts: a source may include any of them.
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in parts)
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

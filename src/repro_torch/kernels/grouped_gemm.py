@@ -1,0 +1,256 @@
+"""K4: the flat ragged grouped GEMM as a hand-written Hopper kernel (the
+port of ``repro/kernels/grouped_gemm.py``, forward only).
+
+Replaces the JAX package's TPU kernel ``repro/kernels/grouped_gemm.py::
+_flat_fwd_kernel`` (``_flat_forward``, ``pallas_call`` at line 234).  The
+CUDA source is ``csrc/grouped_gemm.cu``; its header says what bounds the
+kernel on an H100 and what the design does about it.
+
+Layout (as in the reference): activations live in one flat ``(M, d)``
+buffer cut into row tiles of ``bm`` rows.  Segment ``s`` covers rows
+``[starts[s], starts[s] + sizes[s])`` and contracts against
+``w[gids[s]]``; starts are multiples of ``bm``, ascending, with gids
+non-decreasing.  A per-tile table ``[gid, hi]`` (:func:`_tile_metadata`,
+built on the device with ``searchsorted``) tells each tile its weight
+block and where its valid rows end; rows past ``hi`` come out 0, and a
+tile that starts at or past ``hi`` reads no weights and does no MACs.
+
+Entry points: :func:`segment_grouped_gemm` (arbitrary segments),
+:func:`flat_ragged_gemm` (prefix groups at :func:`flat_group_offsets`)
+and the capacity-layout shim :func:`ragged_grouped_gemm`.  They are
+forward only: the backward (dX through K4 with Wᵀ, dW through the
+segment-sum kernel K5) comes with the training slice, and a call that
+needs a gradient raises until then.
+
+The operands' device decides, as for K1 and K2: CUDA tensors launch K4
+(or raise); CPU tensors take :func:`segment_grouped_gemm_plain`.  The
+row block comes from the port's Hopper :func:`~repro_torch.kernels.
+sisa_gemm.choose_block_config`, so rows sit elsewhere than in the JAX
+layout; the values of every segment's rows are the same.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sisa_gemm import choose_block_config
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BLOCK_ROWS = 128       # the tallest of K1's tile heights
+_MAX_ROW_TILES = 65535      # CUDA grid y limit
+
+LAUNCHES = _build.LaunchCounter("grouped_gemm")
+
+Tensor = torch.Tensor
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def flat_block_rows(m_hint: int, n: int, k: int,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """Row block (slab height) K4 uses for this problem; segment starts
+    must be aligned to it."""
+    return choose_block_config(m_hint, n, k, dtype).bm
+
+
+def aligned_block_rows(m_hint: int, n: int, k: int,
+                       dtype: torch.dtype = torch.float32,
+                       align_to: Optional[int] = None) -> int:
+    """Row block that also divides ``align_to``, the fixed stride between
+    segment starts of a capacity layout."""
+    bm = flat_block_rows(m_hint, n, k, dtype)
+    if align_to is not None:
+        while align_to % bm:
+            bm //= 2
+    return bm
+
+
+def flat_group_offsets(group_sizes, block_rows: int) -> Tensor:
+    """``(G,) -> (G+1,)`` cumulative block-aligned offsets of a flat prefix
+    layout: group ``g`` owns rows ``[offsets[g], offsets[g] + sizes[g])``.
+    Computed where ``group_sizes`` lives (no host copy)."""
+    sizes = torch.as_tensor(group_sizes, dtype=torch.int32)
+    aligned = (sizes + block_rows - 1) // block_rows * block_rows
+    return torch.cat([sizes.new_zeros(1),
+                      torch.cumsum(aligned, 0).to(torch.int32)])
+
+
+def _tile_metadata(seg_starts: Tensor, seg_sizes: Tensor, seg_gids: Tensor,
+                   n_mt: int, bm: int) -> Tensor:
+    """``(2, n_mt)`` int32 ownership table of the row tiles, on the
+    segments' device: row 0 the owning group, row 1 ``hi``, the absolute
+    end of the tile's valid rows (``hi <= i * bm`` marks a tile with none:
+    an alignment gap or the buffer's tail)."""
+    row0 = torch.arange(n_mt, dtype=torch.int32,
+                        device=seg_starts.device) * bm
+    s = torch.searchsorted(seg_starts, row0, right=True) - 1
+    s = s.clamp(0, seg_starts.shape[0] - 1)
+    start = seg_starts[s]
+    hi = torch.where(row0 >= start, start + seg_sizes[s],
+                     torch.zeros_like(start))
+    return torch.stack([seg_gids[s], hi]).to(torch.int32).contiguous()
+
+
+def _check_layout(starts: Tensor, gids: Tensor, bm: int, n_groups: int):
+    """The kernel's layout contract, checked on CPU tensors (on the card
+    the tile table built on the device is trusted)."""
+    if (starts % bm).any():
+        raise ValueError(f"segment starts {starts.tolist()} are not "
+                         f"multiples of the row block {bm}")
+    if (starts[1:] < starts[:-1]).any() or (gids[1:] < gids[:-1]).any():
+        raise ValueError("segment starts must ascend and gids must not "
+                         "decrease")
+    if ((gids < 0) | (gids >= n_groups)).any():
+        raise ValueError(f"segment gids {gids.tolist()} outside "
+                         f"[0, {n_groups})")
+
+
+def segment_grouped_gemm_plain(x: Tensor, w: Tensor, seg_starts: Tensor,
+                               seg_sizes: Tensor, seg_gids: Tensor, *,
+                               block_rows: int) -> Tensor:
+    """Plain version of K4: one f32 product per run of row tiles that
+    share an owner, result in x's dtype, rows outside every tile's valid
+    extent 0.  Reads the tile table on the host, so it serves CPU tensors
+    and the card-side check, never the path on the card."""
+    m, f = x.shape[0], w.shape[2]
+    bm = block_rows
+    n_mt = -(-m // bm)
+    gid, hi = _tile_metadata(seg_starts, seg_sizes, seg_gids, n_mt,
+                             bm).tolist()
+    out = torch.zeros((m, f), dtype=x.dtype, device=x.device)
+    i = 0
+    while i < n_mt:
+        if i * bm >= hi[i]:
+            i += 1
+            continue
+        j = i
+        while (j + 1 < n_mt and (gid[j + 1], hi[j + 1]) == (gid[i], hi[i])
+               and (j + 1) * bm < hi[i]):
+            j += 1
+        lo, top = i * bm, min(hi[i], m, (j + 1) * bm)
+        out[lo:top] = (x[lo:top].float() @ w[gid[i]].float()).to(x.dtype)
+        i = j + 1
+    return out
+
+
+def _lib():
+    fn = _build.load("grouped_gemm").grouped_gemm
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ll, ll, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: Tensor, w: Tensor, meta: Tensor, bm: int) -> Tensor:
+    m, d = x.shape
+    g, _, f = w.shape
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"K4 takes float32 or bfloat16, not {x.dtype}")
+    n_mt = meta.shape[1]
+    if n_mt > _MAX_ROW_TILES:
+        raise ValueError(f"{n_mt} row tiles exceed the grid's "
+                         f"{_MAX_ROW_TILES}")
+    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    if m == 0 or f == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    w = w.contiguous()
+    # The tensor-core body copies 16-byte chunks of x's and w's rows.
+    tensor_cores = (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+                    and w.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+                    and f % 8 == 0)
+    err = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(),
+                 n_mt, g, m, f, d, bm, x.stride(0), f, _DTYPES[x.dtype],
+                 int(tensor_cores),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    LAUNCHES.n += 1
+    _build.check("grouped_gemm", err)
+    return out
+
+
+def segment_grouped_gemm(x: Tensor, w: Tensor, seg_starts, seg_sizes,
+                         seg_gids, *, block_rows: Optional[int] = None,
+                         m_hint: Optional[int] = None) -> Tensor:
+    """x: (M, d), w: (G, d, f) -> (M, f) in x's dtype over arbitrary row
+    segments (module doc).  One launch of K4 on CUDA tensors; the
+    segment tables may be tensors on x's device or sequences."""
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"segment_grouped_gemm needs (M,d) and (G,d,f), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != w.dtype:
+        raise ValueError(f"dtype mismatch: {x.dtype} vs {w.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "K4's backward (dX with W^T, dW through K5) comes with the "
+            "training slice of the port (ROADMAP.md)")
+    m, d = x.shape
+    g, _, f = w.shape
+    mh = m_hint or 128
+    bm = block_rows or flat_block_rows(mh, f, d, x.dtype)
+    if not 1 <= bm <= _MAX_BLOCK_ROWS:
+        raise ValueError(f"block_rows {bm} not in [1, {_MAX_BLOCK_ROWS}]")
+    starts, sizes, gids = (torch.as_tensor(t, dtype=torch.int32,
+                                           device=x.device)
+                           for t in (seg_starts, seg_sizes, seg_gids))
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        _check_layout(starts, gids, bm, g)
+        return segment_grouped_gemm_plain(x, w, starts, sizes, gids,
+                                          block_rows=bm)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"segment_grouped_gemm: operands on {x.device} "
+                         f"and {w.device}")
+    meta = _tile_metadata(starts, sizes, gids, -(-m // bm), bm)
+    return _launch(x, w, meta, bm)
+
+
+def flat_ragged_gemm(x: Tensor, w: Tensor, group_sizes,
+                     group_offsets=None, *, block_rows: Optional[int] = None,
+                     m_hint: Optional[int] = None) -> Tensor:
+    """x: (M, d) flat tokens, w: (G, d, f), sizes: (G,) -> (M, f).  Group
+    ``g``'s rows live at ``[offsets[g], offsets[g] + sizes[g])``;
+    ``group_offsets`` (``(G,)`` starts or ``(G+1,)`` cumulative) defaults
+    to :func:`flat_group_offsets`."""
+    g, d, f = w.shape
+    mh = m_hint or 128
+    bm = block_rows or flat_block_rows(mh, f, d, x.dtype)
+    sizes = torch.as_tensor(group_sizes, dtype=torch.int32, device=x.device)
+    if group_offsets is None:
+        starts = flat_group_offsets(sizes, bm)[:g]
+    else:
+        starts = torch.as_tensor(group_offsets, dtype=torch.int32,
+                                 device=x.device)[:g]
+    return segment_grouped_gemm(
+        x, w, starts, sizes,
+        torch.arange(g, dtype=torch.int32, device=x.device),
+        block_rows=bm, m_hint=mh)
+
+
+def ragged_grouped_gemm(x: Tensor, w: Tensor, group_sizes, *,
+                        m_hint: Optional[int] = None) -> Tensor:
+    """Capacity-layout shim: x: (G, C, d), w: (G, d, f) -> (G, C, f).
+    Group ``g`` sits at offset ``g * C'`` (C rounded up to 8) of the flat
+    buffer; rows ``>= group_sizes[g]`` come out 0."""
+    g, c, d = x.shape
+    g2, d2, f = w.shape
+    if (g, d) != (g2, d2):
+        raise ValueError(f"ragged_grouped_gemm: {tuple(x.shape)} against "
+                         f"{tuple(w.shape)}")
+    mh = min(m_hint or c, c)
+    cp = _round_up(c, 8)
+    bm = aligned_block_rows(mh, f, d, x.dtype, align_to=cp)
+    if cp != c:
+        x = F.pad(x, (0, 0, 0, cp - c))
+    ar = torch.arange(g, dtype=torch.int32, device=x.device)
+    out = segment_grouped_gemm(x.reshape(g * cp, d), w, ar * cp, group_sizes,
+                               ar, block_rows=bm, m_hint=mh)
+    return out.reshape(g, cp, f)[:, :c]

@@ -1,4 +1,4 @@
-"""Model substrate of the port: dense global-attention decoders."""
+"""Model substrate of the port: global-attention decoders, dense or MoE."""
 from repro_torch.models.transformer import (check_supported, forward_decode,
                                             forward_prefill, init_cache,
                                             init_params)

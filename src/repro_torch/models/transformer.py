@@ -1,20 +1,23 @@
-"""Model assembly for dense global-attention decoders (the port of the
-main path of ``repro/models/transformer.py``).
+"""Model assembly for global-attention decoders, dense or MoE (the port
+of the main path of ``repro/models/transformer.py``).
 
 The parameter tree keeps the reference's names with the scanned layer
 groups unstacked into one dict per layer::
 
     {"embed": {"table"}, "final_norm": {"scale"},
      "layers": [{"norm1", "norm2", "mixer": {"q","k","v","o"},
-                 "mlp": {"up","down"[,"gate"]}}, ...],
+                 "mlp": {"up","down"[,"gate"]}
+                 | "moe": {"router","up","down"[,"gate"]}}, ...],
      ["lm_head": {"table"}]}
 
 Layers run in a Python loop (the reference scans them).  Prefill emits
 the filled KV cache stacked over layers, ``{"k","v": (L, B, cap, Hkv,
 hd)}``; decode reads and writes page pools ``{"pk","pv": (L, pages +
 sink, page_size, Hkv, hd)}`` through a ``(B, max_pages)`` page table.
-Sliding-window, recurrent, MoE, enc-dec and frontend models raise
-``NotImplementedError`` (later slices, ROADMAP.md).
+MoE layers (``cfg.moe``) replace the MLP with
+:func:`repro_torch.models.moe.moe_apply`.  Sliding-window, recurrent,
+enc-dec and frontend models raise ``NotImplementedError`` (later
+slices, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
                                        embedding_lookup, lm_head_logits,
                                        mlp_apply, mlp_init, rmsnorm_apply,
@@ -37,11 +41,10 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any architecture outside this slice of the port."""
     kinds = set(cfg.layer_kinds())
-    if kinds != {ATTN} or cfg.moe is not None or cfg.enc_dec \
-            or cfg.frontend is not None:
+    if kinds != {ATTN} or cfg.enc_dec or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense global-attention decoders "
-            f"only so far (layer kinds {sorted(kinds)}, moe={cfg.moe is not None}, "
+            f"{cfg.name}: the port serves global-attention decoders (dense "
+            f"or MoE) only so far (layer kinds {sorted(kinds)}, "
             f"enc_dec={cfg.enc_dec}, frontend={cfg.frontend}); see ROADMAP.md")
 
 
@@ -67,14 +70,28 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
             "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
             "mixer": attn.attn_init(gen, cfg, dtype),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
-                            cfg.gated_mlp, cfg.use_bias),
+            **_ffn_init(gen, cfg, dtype),
         } for _ in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                            dtype)
     return params
+
+
+def _ffn_init(gen, cfg: ModelConfig, dtype) -> Params:
+    if cfg.moe is not None:
+        return {"moe": moe_mod.moe_init(gen, cfg, dtype)}
+    return {"mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                            cfg.gated_mlp, cfg.use_bias)}
+
+
+def _ffn(p: Params, cfg: ModelConfig, h: Tensor,
+         valid: Optional[Tensor] = None) -> Tensor:
+    """The layer's MLP, or its MoE with ``valid`` marking real tokens."""
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(p["moe"], h, cfg, valid=valid)[0]
+    return mlp_apply(p["mlp"], h, cfg.act)
 
 
 def param_dtype(params: Params) -> torch.dtype:
@@ -117,11 +134,18 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     ``logits_index`` (an int or 0-dim tensor, or a ``(B,)`` vector)
     selects the position whose logits are returned instead of the last
     — the bucketed prefill pads prompts and reads each row's last real
-    token (causal masking hides the pads from it).
+    token (causal masking hides the pads from it).  MoE layers also take
+    the tokens up to it as the real ones (``valid``), as the reference
+    does (``repro/models/transformer.py:326-333``).
     """
     check_supported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     cap = cache_len or x.shape[1]
+    valid = None
+    if logits_index is not None and cfg.moe is not None:
+        last = torch.as_tensor(logits_index, device=x.device).reshape(-1)
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 <= last.expand(x.shape[0])[:, None])
     ks: List[Tensor] = []
     vs: List[Tensor] = []
     for p in params["layers"]:
@@ -132,7 +156,7 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         vs.append(cache["v"])
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
+        x = x + _ffn(p, cfg, h, valid)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     if logits_index is None:
         x_last = x[:, -1:]
@@ -167,6 +191,6 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
                                              page_table, pos, cfg)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
+        x = x + _ffn(p, cfg, h)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), pools

@@ -24,6 +24,7 @@ Stats schema (all engines)::
     coexec_interleave list[int]  tenant switches in each task order
     coexec_backend    str|None   requested co-execution backend
     expert_backend    str|None   MoE expert GEMM lowering in effect
+                                 ("kernel": K4; None for dense models)
     engine            dict       engine-specific extras
 """
 from __future__ import annotations
@@ -86,8 +87,9 @@ def completion_of(req) -> Completion:
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """Every serving-engine knob, in one frozen record (the reference's
-    fields).  ``coexec_backend`` and ``expert_backend`` must stay None
-    and ``kv_quant`` None until their kernels are ported."""
+    fields).  ``expert_backend`` is None or ``"kernel"`` (MoE experts
+    always run on K4); ``coexec_backend`` and ``kv_quant`` must stay
+    None until their kernels are ported."""
     max_slots: int = 8
     max_seq: int = 256
     window: int = 8
@@ -107,6 +109,10 @@ class EngineOptions:
         if self.buckets not in ("auto", "off"):
             raise ValueError(f"buckets={self.buckets!r} not in "
                              "('auto', 'off')")
+        if self.expert_backend not in (None, "kernel"):
+            raise ValueError(f"expert_backend={self.expert_backend!r}: the "
+                             "port has only 'kernel' (K4 on the card, its "
+                             "plain version on the CPU)")
         from repro_torch.serve.policy import KLASSES, SchedulingPolicy
         if self.default_klass not in KLASSES:
             raise ValueError(f"default_klass={self.default_klass!r} "
@@ -144,10 +150,9 @@ def make_engine(cfg, params, kind: str = "paged",
             f"kind={kind!r} is not ported yet (ROADMAP.md, queue A); "
             "use kind='paged'")
     opts = dataclasses.replace(options or EngineOptions(), **overrides)
-    if opts.coexec_backend is not None or opts.expert_backend is not None:
+    if opts.coexec_backend is not None:
         raise NotImplementedError(
-            "co-execution (K6) and MoE expert kernels (K4/K5) are not "
-            "ported yet (ROADMAP.md)")
+            "co-execution (K6) is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     if param_device(params) != dev and not (
             dev.type == "cuda" and param_device(params).type == "cuda"

@@ -132,16 +132,18 @@ def note_first_token(req: Request, logits: torch.Tensor, vocab: int,
     stats["ttft"].append(req.first_token_at - req.arrived)
 
 
-def init_serve_stats() -> Dict[str, Any]:
+def init_serve_stats(expert_backend: Optional[str] = None
+                     ) -> Dict[str, Any]:
     """The stats dict every engine starts from: exactly the shared
     schema of ``repro_torch.serve.api.STATS_KEYS`` (engine extras go
-    under ``"engine"``).  Co-execution and MoE experts are not ported,
-    so their backend keys read None."""
+    under ``"engine"``).  ``expert_backend`` is the MoE expert lowering
+    in effect (``"kernel"`` for MoE models, None otherwise); co-execution
+    is not ported, so its key reads None."""
     return {"batches": [], "ttft": [], "decode_steps": 0,
             "decode_compiles": None,
             "packed_speedup": [], "packed_prefills": 0,
             "backfilled": 0, "coexec_tiles": [], "coexec_interleave": [],
-            "coexec_backend": None, "expert_backend": None,
+            "coexec_backend": None, "expert_backend": expert_backend,
             "engine": {}}
 
 

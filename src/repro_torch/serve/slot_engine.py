@@ -62,7 +62,9 @@ class SlotServeEngine:
         self.max_seq = max_seq
         self.window = window
         self.multi_tenant = multi_tenant
-        self.stats = init_serve_stats()
+        # MoE experts always run on K4 (or its plain version on the CPU).
+        self._expert_backend = "kernel" if cfg.moe is not None else None
+        self.stats = init_serve_stats(self._expert_backend)
         self.stats["engine"].update(self._stats_extras())
 
         # Ladder rungs available at this engine's max_batch; decode only
@@ -143,7 +145,7 @@ class SlotServeEngine:
         self._pos[:] = 0
         self._budget[:] = 0
         self.cache.reset()
-        self.stats = init_serve_stats()
+        self.stats = init_serve_stats(self._expert_backend)
         self.stats["engine"].update(self._stats_extras())
 
     # Multi-token decode window -------------------------------------------

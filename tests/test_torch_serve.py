@@ -6,8 +6,12 @@ requests than slots) goes through ``repro.serve.make_engine(kind=
 "paged")`` and ``repro_torch.serve.make_engine(kind="paged",
 device="cpu")`` on the same float32 smoke weights.  The completions
 must be identical token for token, both stats dicts must hold the
-shared schema, and the port's page pool must drain back to full.
+shared schema, and the port's page pool must drain back to full.  The
+same holds for the MoE smoke config (the reference's default dense
+experts against the port's flat dispatch, in float32).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import validate_stats as jax_validate_stats
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.convert import params_from_jax
+from repro_torch.models import moe as torch_moe
 from repro_torch.serve import (completion_of, make_engine, Request,
                                validate_stats)
 
@@ -28,18 +33,21 @@ OPTS = dict(max_slots=4, max_seq=64, page_size=8, window=4)
 WORKLOAD = [(17, 6), (20, 5), (7, 3), (9, 6), (1, 4), (15, 7)]
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = smoke_config("qwen2.5-0.5b")
+def _setup(name):
+    cfg = smoke_config(name)
     jparams = jax_init(cfg, jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
-                              torch_smoke_config("qwen2.5-0.5b"),
-                              device="cpu")
+                              torch_smoke_config(name), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n, _ in WORKLOAD]
     prompts[1][:16] = prompts[0][:16]
     return cfg, jparams, tparams, prompts
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("qwen2.5-0.5b")
 
 
 def _serve(make, request_cls, cfg, params, prompts, **kw):
@@ -51,11 +59,74 @@ def _serve(make, request_cls, cfg, params, prompts, **kw):
 
 
 def test_paged_engine_matches_jax(setup):
-    cfg, jparams, tparams, prompts = setup
+    _check_matches_jax("qwen2.5-0.5b", *setup)
+
+
+def test_moe_paged_engine_matches_jax():
+    """phi3.5-moe smoke: the decode window routes all rung rows together
+    (frozen and released rows included) and bucketed prefills mask their
+    pads, exactly as the JAX window does, so the tokens match."""
+    teng = _check_matches_jax("phi3.5-moe-42b", *_setup("phi3.5-moe-42b"))
+    assert teng.stats["expert_backend"] == "kernel"
+
+
+def test_moe_engine_matches_jax_when_experts_overflow_in_decode(
+        monkeypatch):
+    """Capacity is shared by every row of a decode window: at rung 16 with
+    capacity factor 0.25 experts overflow, and which pairs drop depends
+    on every row fed, frozen and released rows included.  The port feeds
+    the rows the JAX window feeds, so the tokens still match."""
+    name = "phi3.5-moe-42b"
+
+    def tight(c):
+        return dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=0.25))
+
+    cfg, tcfg = tight(smoke_config(name)), tight(torch_smoke_config(name))
+    jparams = jax_init(cfg, jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    rng = np.random.default_rng(3)
+    work = [(int(rng.integers(1, 30)), int(rng.integers(3, 9)))
+            for _ in range(12)]
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n, _ in work]
+    overflows = []
+    local = torch_moe._moe_local
+
+    def spy(x, p, c, act, valid=None):
+        if x.shape[1] == 1:                                  # decode
+            xt = x.reshape(-1, x.shape[-1]).float()
+            topi = torch.topk(torch.softmax(xt @ p["router"], -1),
+                              c.moe.top_k, -1).indices
+            cap = torch_moe._capacity(xt.shape[0], c.moe.n_experts,
+                                      c.moe.top_k, c.moe.capacity_factor)
+            overflows.append(int(torch.bincount(topi.reshape(-1)).max())
+                             > cap)
+        return local(x, p, c, act, valid)
+
+    monkeypatch.setattr(torch_moe, "_moe_local", spy)
+    opts = dict(OPTS, max_slots=16)
+    outs = []
+    for make, req_cls, c, params, kw in (
+            (jax_make_engine, JaxRequest, cfg, jparams, {}),
+            (make_engine, Request, tcfg, tparams, {"device": "cpu"})):
+        eng = make(c, params, kind="paged", **opts, **kw)
+        for rid, (prompt, (_, budget)) in enumerate(zip(prompts, work)):
+            eng.submit(req_cls(rid=rid, prompt=prompt.copy(),
+                               max_new_tokens=budget))
+        outs.append([c_.tokens for c_ in sorted(eng.run(),
+                                                key=lambda c_: c_.rid)])
+        assert 16 in eng.stats["engine"]["rungs"]
+    assert any(overflows)
+    assert outs[0] == outs[1]
+    assert eng.cache.n_free_pages == eng.cache.num_pages
+
+
+def _check_matches_jax(name, cfg, jparams, tparams, prompts):
     jeng, jout = _serve(jax_make_engine, JaxRequest, cfg, jparams, prompts)
-    teng, tout = _serve(make_engine, Request,
-                        torch_smoke_config("qwen2.5-0.5b"), tparams,
-                        prompts, device="cpu")
+    teng, tout = _serve(make_engine, Request, torch_smoke_config(name),
+                        tparams, prompts, device="cpu")
     assert [c.rid for c in tout] == list(range(len(WORKLOAD)))
     assert [(c.tokens, c.finish_reason) for c in tout] == \
         [(c.tokens, c.finish_reason) for c in jout]
@@ -70,6 +141,7 @@ def test_paged_engine_matches_jax(setup):
     assert teng.cache.reserved_total == 0
     assert (teng.cache.table == teng.cache.sink).all()
     assert teng.cache.resident_bytes() == jeng.cache.resident_bytes()
+    return teng
 
 
 def test_preempted_and_cancelled_requests(setup):
@@ -121,6 +193,8 @@ def test_warmup_leaves_no_decode_compiles(setup):
     ("dense", {}, ValueError),
     ("paged", {"kv_quant": "int8"}, NotImplementedError),
     ("paged", {"coexec_backend": "xla"}, NotImplementedError),
+    ("paged", {"expert_backend": "xla"}, ValueError),
+    ("paged", {"expert_backend": "pallas"}, ValueError),
 ])
 def test_unported_engine_options_raise(setup, kind, kw, exc):
     _, _, tparams, _ = setup
@@ -131,10 +205,21 @@ def test_unported_engine_options_raise(setup, kind, kw, exc):
 
 def test_unported_architectures_raise(setup):
     _, _, tparams, _ = setup
-    for name in ("gemma3-1b", "dbrx-132b", "whisper-base", "rwkv6-3b"):
+    for name in ("gemma3-1b", "recurrentgemma-2b", "whisper-base",
+                 "rwkv6-3b"):
         with pytest.raises(NotImplementedError):
             make_engine(torch_smoke_config(name), tparams, kind="paged",
                         device="cpu")
+
+
+def test_expert_backend_is_kernel_for_moe_and_none_for_dense(setup):
+    _, _, tparams, _ = setup
+    eng = make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams,
+                      kind="paged", device="cpu", expert_backend="kernel",
+                      **OPTS)
+    assert eng.stats["expert_backend"] is None
+    eng.reset()
+    assert eng.stats["expert_backend"] is None
 
 
 def test_default_device_raises_without_cuda(setup):
