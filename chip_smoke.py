@@ -7,11 +7,13 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the four CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
 3. K1 (SISA GEMM) against its plain version at the main path's shapes,
    every tile height at full height and the ragged residual split, in
-   float32 and bfloat16 (elementwise, one bf16 ulp in bfloat16);
+   float32 and bfloat16 (elementwise, one bf16 ulp in bfloat16); and
+   K1's backward at 2048 rows (dA with B transposed, dB = Aᵀ dC, the LM
+   head's ``table.T``);
 4. K2 (paged attention) against its plain version: GQA 14/2 with
    head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe), 16-token
    pages, tables with sink entries, positions on page edges;
@@ -19,11 +21,15 @@ Phases (any failure exits non-zero before the last line is printed):
    expert shapes (4096 -> 6400 and 6400 -> 4096, 16 experts): decode-
    and prefill-like expert sizes, sizes off the row block, tail tiles,
    and a capacity-strided layout, in float32 and bfloat16; rows past
-   each tile's ``hi`` must be exactly 0;
+   each tile's ``hi`` must be exactly 0.  Then the backward at the same
+   shapes and also a 2048-token training layout and shared-gid a2a
+   segments: K4's dX (``w`` read transposed) and K5's dW against their
+   plain versions, with empty experts' dW blocks exactly 0;
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
    structure at narrow widths with 8 experts, each 2 layers) served on
    the card (kernels) and on the CPU (plain versions): identical greedy
-   tokens;
+   tokens; and one train step of each on both: the loss, every gradient
+   and the parameters after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -45,7 +51,17 @@ Phases (any failure exits non-zero before the last line is printed):
     "paged")``, with K1's, K2's and K4's counters zeroed before and > 0
     after, finite logits, ``decode_compiles`` 0, a drained pool, peak
     memory, one profiled decode window, and K4's times at the decode
-    (rung 8) and 208-row prefill shapes.
+    (rung 8) and 208-row prefill shapes;
+11. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
+    most that fit with AdamW's state), once the serve's model is freed:
+    ``Trainer(cfg, TrainerConfig(...)).run()`` for 6 steps of 8 x 256
+    synthetic tokens, ``remat="none"``, with K1's, K4's (forward and dX)
+    and K5's counters zeroed before and > 0 after and finite losses; the
+    median step time, tokens/s and peak memory; one profiled step
+    (device time per family: K1, K4 forward, K4 dX, K5, optimizer,
+    other, and the idle share); and the times of one step's K1 (forward
+    and backward), K4 dX and K5 work beside their plain versions,
+    bounds and library calls (``torch._grouped_mm`` for K4 dX and K5).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -304,6 +320,130 @@ def check_k4(torch, kernels, gen) -> float:
     return worst
 
 
+def _k5_layouts(torch, kernels):
+    """K4's layouts, a training step's (2048 tokens top-2 over 16 experts,
+    capacity 320 at bm 64: sizes off the row block, one expert empty,
+    some full), and an ``a2a_segments``-style layout in which each
+    expert owns two segments (two source ranks, capacity 40 each, bm 8):
+    segments that share a gid are summed by K5."""
+    yield from _k4_layouts(torch, kernels)
+    train = [256, 0, 320, 301, 257, 63, 320, 190, 255, 320, 1, 320, 288,
+             320, 129, 300]
+    sizes = torch.tensor(train, dtype=torch.int32, device="cuda")
+    yield ("train 2048 tokens cap 320", MOE_E * 320,
+           kernels.flat_group_offsets(sizes, 64)[:-1], sizes,
+           torch.arange(MOE_E, dtype=torch.int32, device="cuda"), 64)
+    recv = [[5, 40, 0, 17, 40, 33, 1, 0, 40, 12, 9, 40, 28, 0, 40, 39],
+            [40, 3, 0, 40, 21, 40, 0, 8, 40, 40, 31, 2, 0, 40, 19, 40]]
+    ms, cap = 2, 40
+    sizes = torch.tensor(recv, dtype=torch.int32, device="cuda").T.reshape(-1)
+    gids = torch.arange(MOE_E, dtype=torch.int32,
+                        device="cuda").repeat_interleave(ms)
+    starts = torch.arange(MOE_E * ms, dtype=torch.int32, device="cuda") * cap
+    yield "a2a 2 ranks cap 40", MOE_E * ms * cap, starts, sizes, gids, 8
+
+
+def check_k4_dx_and_k5(torch, kernels, gen):
+    """The backward of ``segment_grouped_gemm`` on the card, at every
+    layout of ``_k5_layouts``, up/gate (4096 -> 6400) and down (6400 ->
+    4096), f32 and bf16: dX (K4 reading ``w`` transposed) against the
+    plain K4 with ``w.transpose(1, 2)``, dW (K5) against
+    ``segment_grouped_dw_plain``.  Rows of dX outside every segment and
+    dW blocks of groups with no rows must be exactly 0."""
+    worst = {"dx": 0.0, "dw": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = 0.0 if dtype == torch.float32 else BF16_REL
+        for k, n in ((MOE_D, MOE_FF), (MOE_FF, MOE_D)):
+            w = ((torch.randn(MOE_E, k, n, device="cuda", generator=gen)
+                  / k ** 0.5).to(dtype).requires_grad_())
+            for name, m, starts, sizes, gids, bm in _k5_layouts(torch,
+                                                                 kernels):
+                covered = torch.zeros(m, dtype=torch.bool, device="cuda")
+                rows = torch.zeros(MOE_E, dtype=torch.long, device="cuda")
+                for s, z, g in zip(starts.tolist(), sizes.tolist(),
+                                   gids.tolist()):
+                    covered[s:s + z] = True
+                    rows[g] += z
+                x = torch.randn(m, k, device="cuda",
+                                generator=gen).to(dtype).requires_grad_()
+                dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+                w.grad = None
+                kernels.segment_grouped_gemm(x, w, starts, sizes, gids,
+                                             block_rows=bm).backward(dy)
+                with torch.no_grad():
+                    dx_ref = kernels.segment_grouped_gemm_plain(
+                        dy, w.transpose(1, 2), starts, sizes, gids,
+                        block_rows=bm)
+                    dw_ref = kernels.segment_grouped_dw_plain(
+                        x, dy, starts, sizes, gids, MOE_E)
+                what = f"{dtype} {name} bm {bm} {k}x{n}"
+                worst["dx"] = max(worst["dx"], _max_err(
+                    f"K4 dX {what}", x.grad, dx_ref, rel, _f32_atol(dx_ref)))
+                worst["dw"] = max(worst["dw"], _max_err(
+                    f"K5 {what}", w.grad, dw_ref, rel, _f32_atol(dw_ref)))
+                if (x.grad[~covered] != 0).any():
+                    raise AssertionError(f"K4 dX {what}: a row outside "
+                                         "every segment is not 0")
+                if (w.grad[rows == 0] != 0).any():
+                    raise AssertionError(f"K5 {what}: a group with no rows "
+                                         "has a nonzero block")
+                n_cases += 1
+            del w
+    _say(f"k4 dX and k5: {n_cases} backward cases (decode, prefill, "
+         f"capacity-stride, 2048-token training and shared-gid a2a "
+         f"layouts; 4096x6400 and 6400x4096; f32 and bf16) agree with the "
+         f"plain versions (max abs err dX {worst['dx']}, dW {worst['dw']}; "
+         f"elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
+         f"2e-5*max|ref|; uncovered dX rows and empty-group dW blocks "
+         f"exactly 0)")
+    return worst
+
+
+# K1's backward at the training shapes of phi3.5-moe-42b (2048 tokens):
+# (K, N) of the attention projections and the untied LM head.
+K1_TRAIN = ((MOE_D, MOE_D), (MOE_D, 1024), (MOE_D, 32768))
+
+
+def check_k1_backward(torch, kernels, gen) -> float:
+    """``sisa_matmul``'s backward on the card at 2048 rows: dA = dC @ Bᵀ
+    (K1 reading B transposed) and dB = Aᵀ @ dC (M = d_model, contracting
+    over the 2048 tokens), for row-major weights and for the LM head read
+    as ``table.T`` (its gradient lands on the (vocab, d) table), f32 and
+    bf16, against the plain K1."""
+    worst, n_cases = 0.0, 0
+    rows = 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = 0.0 if dtype == torch.float32 else BF16_REL
+        for k, n in K1_TRAIN:
+            a = torch.randn(rows, k, device="cuda",
+                            generator=gen).to(dtype).requires_grad_()
+            dc = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+            if n == 32768:          # the LM head: B = table.T, in place
+                table = ((torch.randn(n, k, device="cuda", generator=gen)
+                          / k ** 0.5).to(dtype).requires_grad_())
+                b, leaf, name = table.T, table, "lm_head table.T"
+            else:
+                b = ((torch.randn(k, n, device="cuda", generator=gen)
+                      / k ** 0.5).to(dtype).requires_grad_())
+                leaf, name = b, f"{k}x{n}"
+            kernels.sisa_matmul(a, b).backward(dc)
+            with torch.no_grad():
+                da = kernels.sisa_gemm_plain(dc, b.detach().t())
+                db = kernels.sisa_gemm_plain(a.detach().t(), dc)
+                db = db.t() if leaf is not b else db
+            worst = max(worst, _max_err(f"K1 dA {dtype} {name}", a.grad, da,
+                                        rel, _f32_atol(da)))
+            worst = max(worst, _max_err(f"K1 dB {dtype} {name}", leaf.grad,
+                                        db, rel, _f32_atol(db)))
+            n_cases += 2
+    _say(f"k1 backward: {n_cases} cases (2048 rows; dA via B transposed, "
+         f"dB = A^T dC contracting over the tokens; 4096x4096, 4096x1024 "
+         f"and the LM head's table.T; f32 and bf16) agree with the plain "
+         f"version (max abs err {worst})")
+    return worst
+
+
 def _requests(Request, rng, vocab, lens):
     prompts = [rng.integers(0, vocab, n).astype("int32") for n in lens]
     prompts[2][:SHARED_PREFIX] = prompts[1][:SHARED_PREFIX]
@@ -350,6 +490,104 @@ def check_small_model(torch, np, label, cfg) -> None:
                              f"from the CPU's {outs[0]}")
     _say(f"small model ({label}, 2 layers, f32): {len(outs[0])} requests, "
          "tokens on the card identical to the CPU plain path")
+
+
+def check_small_train(torch, np, label, cfg) -> None:
+    """One train step of ``cfg`` (float32) on the card (kernels) and on
+    the CPU (plain versions), from the same weights and batch: the
+    loss, every gradient, AdamW's moments and the parameters after the
+    update.  The step is ``loss_and_grads`` then ``apply_updates``, what
+    ``make_train_step`` runs with ``accum_steps=1``, split so the
+    gradients can be read.  lr 1e-3 with one warmup step makes the
+    update about 1e-3 per element, far above the tolerances."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import loss_and_grads
+
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = _tree_map(lambda t: t.cuda(), cpu)
+    batch = SyntheticLM(cfg, 4, 64, DataConfig(seed=1)).batch(0)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    res = {}
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, _, grads = loss_and_grads(params, cfg, b, remat="none")
+        grads = _tree_map(lambda g: g.detach().clone(), grads)
+        before = [p.detach().clone() for p in _leaves(params)]
+        params, state, _ = adamw.apply_updates(params, grads,
+                                               adamw.init_state(params), opt)
+        res[dev] = (float(loss), list(_leaves(grads)), before,
+                    list(_leaves(params)), list(_leaves(state.mu)),
+                    list(_leaves(state.nu)),
+                    float(adamw.global_norm(grads)))
+    launches = {k: c.n for k, c in LAUNCH_COUNTERS.items() if c.n}
+    l_cpu, g_cpu, p0, p_cpu, mu_cpu, nu_cpu, norm = res["cpu"]
+    l_gpu, g_gpu, _, p_gpu, mu_gpu, nu_gpu, norm_gpu = res["cuda"]
+    if not abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu)):
+        raise AssertionError(f"small train ({label}): loss {l_gpu} on the "
+                             f"card, {l_cpu} on the CPU")
+    lr1 = float(adamw.cosine_lr(opt, 1))
+    clip = min(1.0, opt.grad_clip_norm / (norm + 1e-9))
+    # The moments carry the clip factor 1/||g||, a sum of squares over
+    # every element taken in another order on each side: their tolerance
+    # adds the measured relative difference of the two factors.
+    if not abs(norm_gpu - norm) <= 1e-3 * norm:
+        raise AssertionError(f"small train ({label}): gradient norm "
+                             f"{norm_gpu} on the card, {norm} on the CPU")
+    dclip = abs(min(1.0, opt.grad_clip_norm / (norm_gpu + 1e-9)) - clip) \
+        / clip
+    err = {"grad": 0.0, "mu": 0.0, "nu": 0.0, "param": 0.0}
+    firm = total = 0
+    for i, (gg, gc) in enumerate(zip(g_gpu, g_cpu)):
+        gg = gg.cpu()
+        # f32 sums in other orders: 1e-4 of the leaf's largest value.
+        scale = max(gc.abs().max().item(), 1e-30)
+        err["grad"] = max(err["grad"], _max_err(
+            f"small train ({label}) grad", gg, gc, 0.0, 1e-4 * scale) / scale)
+        for key, got, want, rel in (
+                ("mu", mu_gpu, mu_cpu, 1e-4 + 2 * dclip),
+                ("nu", nu_gpu, nu_cpu, 2e-4 + 4 * dclip)):
+            sc = max(want[i].abs().max().item(), 1e-30)
+            err[key] = max(err[key], _max_err(
+                f"small train ({label}) {key}", got[i].cpu(), want[i], 0.0,
+                rel * sc) / sc)
+        # Adam's first step moves an element by lr * g / (|g| + eps)
+        # (plus weight decay): about lr * sign(g).  Where the clipped
+        # gradient is at least 1000 eps and four times the leaf's
+        # card-vs-CPU difference, both sides take the same step within
+        # lr / 1000; elsewhere (rounding-noise gradients) the sign may
+        # differ, and the step may be any value up to lr either way.
+        dev = (gg - gc).abs().max().item()
+        sure = ((gc.abs() >= 4 * dev)
+                & (gc.abs() * clip >= 1000 * opt.eps))
+        diff = (p_gpu[i].cpu() - p_cpu[i]).abs()
+        tol = torch.where(sure, torch.full_like(diff, lr1 / 100 + 1e-6),
+                          torch.full_like(diff, 2 * lr1 + 1e-6))
+        moved = (p_cpu[i] - p0[i]).abs()
+        if (diff > tol).any() or (moved[sure] < lr1 / 2).any():
+            raise AssertionError(
+                f"small train ({label}) params, leaf {i}: max abs err "
+                f"{diff.max().item()} (tol lr/100 + 1e-6 where the gradient "
+                f"is firm, 2 lr + 1e-6 elsewhere); smallest firm CPU step "
+                f"{moved[sure].min().item() if sure.any() else None}")
+        err["param"] = max(err["param"], diff[sure].max().item()
+                           if sure.any() else 0.0)
+        firm += int(sure.sum())
+        total += sure.numel()
+    _say(f"small train step ({label}, f32, 4x64 tokens, lr {lr1}): loss "
+         f"card {l_gpu} CPU {l_cpu}; {len(g_cpu)} leaves agree: gradients "
+         f"(max err {err['grad']} of each leaf's max; tol 1e-4), global "
+         f"norm card {norm_gpu} CPU {norm} (clip factors differ by "
+         f"{dclip}), AdamW mu ({err['mu']}; tol 1e-4 + 2x that) and nu "
+         f"({err['nu']}; tol 2e-4 + 4x that), params "
+         f"after the step at the {firm} of {total} elements with a firm "
+         f"gradient (max abs err {err['param']}; tol lr/100 + 1e-6 = "
+         f"{lr1 / 100 + 1e-6}; each moved by >= lr/2 on the CPU), the rest "
+         f"within 2 lr + 1e-6; card launches {json.dumps(launches)}")
 
 
 def serve_full_width(torch, np, cfg, need):
@@ -640,6 +878,269 @@ def _k4_library(torch, kernels, calls, gids, bm):
     return loop, "per-expert torch.matmul loop"
 
 
+# phi3.5-moe-42b training: 2 of its 32 layers at full width fit one 80 GB
+# card with AdamW (about 12 bytes per parameter of weights, gradients and
+# f32 moments: 2.87 G parameters, 34 GB, plus one leaf's f32
+# temporaries and the activations; PERF.md section 4).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 256, 6
+TRAIN_NEED = ("sisa_gemm", "grouped_gemm", "grouped_gemm_dx", "grouped_dw")
+
+
+def train_full_width(torch, cfg):
+    """``Trainer(cfg, TrainerConfig(...)).run()`` for ``TRAIN_STEPS`` steps
+    of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` synthetic tokens, ``remat="none"``,
+    from seeded random bf16 weights.  Every launch counter is zeroed just
+    before the run; K1's, K4's (forward and dX) and K5's must be > 0 just
+    after, and every loss finite."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    _say(f"train params: {cfg.name} full width, {cfg.n_layers} layers, "
+         f"{n_params / 1e9:.3f} G weights "
+         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, remat="none", log_every=1)
+    trainer = Trainer(cfg, tcfg, params=params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != TRAIN_STEPS or not all(
+            l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"train losses {losses}")
+    if any(launches[name] <= 0 for name in TRAIN_NEED):
+        raise AssertionError(f"training skipped a kernel: {launches}")
+    step_s = statistics.median(h["dt"] for h in out["history"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {"model": cfg.name, "layers": cfg.n_layers,
+               "params_g": n_params / 1e9, "steps": TRAIN_STEPS,
+               "tokens_per_step": tokens, "remat": "none", "losses": losses,
+               "first_step_s": out["history"][0]["dt"],
+               "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+               "peak_memory_gb": peak / 1e9,
+               "launches": launches,
+               "launches_per_step": {k: v / TRAIN_STEPS
+                                     for k, v in launches.items() if v}}
+    _say(f"train: {json.dumps(summary)}")
+    return trainer, out, launches, summary
+
+
+def _train_family(key: str) -> str:
+    if "grouped_dw" in key:
+        return "K5"
+    if "grouped_gemm" in key:        # TRANS_B = true: the backward's dX
+        return "K4 dX" if "true>" in key else "K4 forward"
+    return "K1" if "sisa_gemm" in key else "other"
+
+
+def profile_train_step(torch, trainer, params, opt_state) -> dict:
+    """Where one train step's time goes: device time per family (K1, K4
+    forward, K4 dX, K5, optimizer, other) from ``torch.profiler`` against
+    the step's wall time.  The optimizer's device time is that of one
+    ``apply_updates`` on the step's gradients, profiled alone."""
+    from torch.profiler import profile, ProfilerActivity
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import loss_and_grads
+
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in trainer.data.batch(TRAIN_STEPS).items()}
+    trainer.step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = trainer.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"K1": 0.0, "K4 forward": 0.0, "K4 dX": 0.0, "K5": 0.0,
+           "other": 0.0}
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")):
+            fam[_train_family(evt.key)] += _self_device_us(evt) / 1e3
+    busy = sum(fam.values())
+    _, _, grads = loss_and_grads(params, trainer.cfg, batch, remat="none")
+    fam["optimizer"] = _device_ms(
+        torch, lambda: adamw.apply_updates(params, grads, opt_state,
+                                           trainer.opt_cfg), iters=1)
+    fam["other"] -= fam["optimizer"]
+    del grads
+    out = {"step_wall_ms": wall_ms, "device_ms": fam,
+           "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms}
+    _say(f"train step profile ({TRAIN_BATCH}x{TRAIN_SEQ} tokens): "
+         f"{json.dumps(out)}")
+    return out
+
+
+def time_train_k1(torch, kernels, params, cfg, rows: int):
+    """K1's work in one train step at ``rows`` tokens: the forward GEMMs
+    (q, k, v, o of every layer and the untied LM head) and their
+    backward (dA = dC Bᵀ with B read transposed, dB = Aᵀ dC over a
+    transposed copy of A), as ``sisa_matmul``'s backward runs them."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(rows, cfg.d_model, device="cuda",
+                    generator=gen).bfloat16()
+    gemms = [(x, layer["mixer"][n]["w"]) for layer in params["layers"]
+             for n in ("q", "k", "v", "o")]
+    gemms.append((x, params["lm_head"]["table"].T))
+    dcs = [torch.randn(rows, b.shape[1], device="cuda",
+                       generator=gen).bfloat16() for _, b in gemms]
+
+    def fwd(fn):
+        return lambda: [fn(a, b) for a, b in gemms]
+
+    def bwd(fn):
+        return lambda: [(fn(dc, b.t()), fn(a.t().contiguous(), dc))
+                        for (a, b), dc in zip(gemms, dcs)]
+
+    out = {}
+    for label, run in (("fwd", fwd), ("bwd", bwd)):
+        t = _times(torch, {"ms": run(kernels.sisa_matmul),
+                           "plain_ms": run(kernels.sisa_gemm_plain),
+                           "library_ms": run(torch.matmul)})
+        mult = 1 if label == "fwd" else 2
+        nbytes = mult * sum(2 * (a.numel() + b.numel() + a.shape[0]
+                                 * b.shape[1]) for a, b in gemms)
+        flops = mult * sum(2 * a.shape[0] * a.shape[1] * b.shape[1]
+                           for a, b in gemms)
+        bound, by = _bound_ms(nbytes, flops)
+        out[label] = {**t, "bound_ms": bound, "bound_by": by,
+                      "gemms": mult * len(gemms)}
+    _say(f"k1 train step ({rows} tokens, {len(gemms)} forward GEMMs): "
+         f"{json.dumps(out)}")
+    return out
+
+
+def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
+    """One train step's K4 dX and K5 work at ``n_tokens`` tokens: up,
+    gate and down of every layer, each layer's expert sizes routed by
+    its own router from random hidden states, at the row block and flat
+    size the MoE layer picks; rows outside every segment are 0 in x and
+    dy, as in the layer.  Bounds: K4 dX reads the live experts' weights
+    and live dy rows and writes the whole dX; K5 reads the live rows of
+    x and dy and writes every expert's dW block; FLOPs count live rows."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    d, ff = cfg.d_model, cfg.d_ff
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    cap = moe._capacity(n_tokens, e, k, cfg.moe.capacity_factor)
+    bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
+    m_flat = e * (-(-cap // bm)) * bm
+    gids = torch.arange(e, dtype=torch.int32, device="cuda")
+    dx_calls, dw_calls, live = [], [], []
+    cost = {"dx": [0, 0], "dw": [0, 0]}
+    for layer in params["layers"]:
+        p = layer["moe"]
+        h = torch.randn(n_tokens, d, device="cuda", generator=gen)
+        topi = torch.topk(torch.softmax(h @ p["router"], -1), k, -1).indices
+        sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
+            max=cap).to(torch.int32)
+        offs = kernels.flat_group_offsets(sizes, bm)
+        mask = torch.zeros(m_flat, 1, device="cuda")
+        for s0, n in zip(offs[:-1].tolist(), sizes.tolist()):
+            mask[s0:s0 + n] = 1
+
+        def rand(cols):
+            return (torch.randn(m_flat, cols, device="cuda", generator=gen)
+                    * mask).bfloat16()
+        x_d, x_ff, dy_d, dy_ff = rand(d), rand(ff), rand(d), rand(ff)
+        rows, active = int(sizes.sum()), int((sizes > 0).sum())
+        live.append([rows, active])
+        for x, dy, w in ((x_d, dy_ff, p["up"]), (x_d, dy_ff, p["gate"]),
+                         (x_ff, dy_d, p["down"])):
+            kk, nn = w.shape[1:]
+            dx_calls.append((dy, w.transpose(1, 2), offs, sizes))
+            dw_calls.append((x, dy, offs, sizes))
+            cost["dx"][0] += 2 * (active * kk * nn + rows * nn + m_flat * kk)
+            cost["dw"][0] += 2 * (rows * kk + rows * nn + e * kk * nn)
+            for key in cost:
+                cost[key][1] += 2 * rows * kk * nn
+
+    def run_dx(fn):
+        return lambda: [fn(dy, wt, offs[:-1], sizes, gids, block_rows=bm)
+                        for dy, wt, offs, sizes in dx_calls]
+
+    def run_dw(fn):
+        return lambda: [fn(x, dy, offs[:-1], sizes, gids, e)
+                        for x, dy, offs, sizes in dw_calls]
+
+    # K5 as the backward runs it: on the tile table the forward built
+    # (here built once, outside the timed calls).
+    from repro_torch.kernels.grouped_gemm import _launch_dw, _tile_metadata
+    metas = [_tile_metadata(offs[:-1], sizes, gids, m_flat // bm, bm)
+             for _, _, offs, sizes in dw_calls]
+
+    def run_k5():
+        return [_launch_dw(x, dy, meta, bm, e)
+                for (x, dy, _, _), meta in zip(dw_calls, metas)]
+
+    library, lib_name = _k4_library(torch, kernels, dx_calls, gids, bm)
+    dx = _times(torch, {"ms": run_dx(kernels.segment_grouped_gemm),
+                        "plain_ms": run_dx(kernels.segment_grouped_gemm_plain),
+                        "library_ms": library})
+    dx.update(zip(("bound_ms", "bound_by"), _bound_ms(*cost["dx"])))
+    dx["library"] = lib_name
+    library, lib_name = _k5_library(torch, kernels, dw_calls, gids, e)
+    dw = _times(torch, {"ms": run_k5,
+                        "plain_ms": run_dw(kernels.segment_grouped_dw_plain),
+                        "library_ms": library})
+    dw.update(zip(("bound_ms", "bound_by"), _bound_ms(*cost["dw"])))
+    dw["library"] = lib_name
+    common = {"launches_timed": len(dw_calls), "tokens": n_tokens,
+              "capacity": cap, "bm": bm, "m_flat": m_flat,
+              "rows_and_active_experts_per_layer": live}
+    out = {"k4_dx": {**dx, **common, "bytes": cost["dx"][0],
+                     "flops": cost["dx"][1]},
+           "k5": {**dw, **common, "bytes": cost["dw"][0],
+                  "flops": cost["dw"][1]}}
+    _say(f"k4 dX, train step ({n_tokens} tokens, {len(dx_calls)} launches): "
+         f"{json.dumps(out['k4_dx'])}")
+    _say(f"k5, train step ({n_tokens} tokens, {len(dw_calls)} launches): "
+         f"{json.dumps(out['k5'])}")
+    return out
+
+
+def _k5_library(torch, kernels, calls, gids, e):
+    """One PyTorch call per K5 launch that computes the same dW:
+    ``torch._grouped_mm`` of xᵀ and dy grouped along the contraction
+    (2-D x 2-D, each expert's aligned region one group; rows outside
+    every segment are 0), where this PyTorch runs it and agrees with the
+    plain version, else a per-expert ``torch.matmul`` loop.  A yardstick
+    only; the port never calls either."""
+    x, dy, offs, sizes = calls[0]
+    ref = kernels.segment_grouped_dw_plain(x, dy, offs[:-1], sizes, gids, e)
+    try:
+        got = torch._grouped_mm(x.t(), dy, offs=offs[1:].contiguous())
+        _max_err("torch._grouped_mm (dW)", got, ref, BF16_REL,
+                 _f32_atol(ref))
+        return (lambda: [torch._grouped_mm(x_.t(), dy_,
+                                           offs=o[1:].contiguous())
+                         for x_, dy_, o, _ in calls]), "torch._grouped_mm"
+    except (AttributeError, RuntimeError, AssertionError) as exc:
+        _say(f"k5 library: torch._grouped_mm unusable here ({exc}); timing "
+             "a per-expert torch.matmul loop instead")
+    segs = [[(s, n, g) for s, n, g in zip(o[:-1].tolist(), sz.tolist(),
+                                          range(e))]
+            for _, _, o, sz in calls]
+
+    def loop():
+        return [[x_[s:s + n].t() @ dy_[s:s + n] for s, n, g in seg]
+                for (x_, dy_, _, _), seg in zip(calls, segs)]
+    return loop, "per-expert torch.matmul loop"
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -672,10 +1173,13 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_err = check_k1(torch, kernels, gen)
+    k1_bwd_err = check_k1_backward(torch, kernels, gen)
     k2_err = check_k2(torch, kernels, gen)
     k4_err = check_k4(torch, kernels, gen)
+    k45_err = check_k4_dx_and_k5(torch, kernels, gen)
     for label, small in _small_configs().items():
         check_small_model(torch, np, label, small)
+        check_small_train(torch, np, label, small)
 
     cfg = get_config("qwen2.5-0.5b")
     eng, params, launches = serve_full_width(torch, np, cfg,
@@ -703,6 +1207,23 @@ def main() -> int:
          f"{json.dumps(k4)}")
     _say(f"k4 prefill (208 tokens, {k4_prefill['launches_timed']} "
          f"launches): {json.dumps(k4_prefill)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
+                                    n_layers=TRAIN_LAYERS)
+    trainer, out, train_launches, _ = train_full_width(torch, train_cfg)
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    profile_train_step(torch, trainer, params, opt_state)
+    del opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_train_k1(torch, kernels, params, train_cfg,
+                  rows=TRAIN_BATCH * TRAIN_SEQ)
+    train_t = time_train_experts(torch, kernels, params, train_cfg,
+                                 n_tokens=TRAIN_BATCH * TRAIN_SEQ)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
@@ -710,7 +1231,8 @@ def main() -> int:
         {"name": "sisa_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sisa_gemm.cu",
          "replaces": "src/repro/kernels/sisa_gemm.py:95",
-         "launches": launches["sisa_gemm"], "max_abs_err": k1_err,
+         "launches": launches["sisa_gemm"],
+         "max_abs_err": max(k1_err, k1_bwd_err),
          **{k: k1[k] for k in keys}},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -722,6 +1244,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
          "launches": moe_launches["grouped_gemm"], "max_abs_err": k4_err,
          **{k: k4[k] for k in keys}},
+        {"name": "grouped_gemm_dx", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+         "replaces": "src/repro/kernels/grouped_gemm.py:160",
+         "note": "K4's backward: dX = dY W^T through the same kernel's "
+                 "TRANS_B bodies (the VJP at grouped_gemm.py:301-310); "
+                 "launches and times from the training run",
+         "launches": train_launches["grouped_gemm_dx"],
+         "max_abs_err": k45_err["dx"],
+         **{k: train_t["k4_dx"][k] for k in keys}},
+        {"name": "grouped_dw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/grouped_dw.cu",
+         "replaces": "src/repro/kernels/grouped_gemm.py:186",
+         "launches": train_launches["grouped_dw"],
+         "max_abs_err": k45_err["dw"],
+         **{k: train_t["k5"][k] for k in keys}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,12 @@
 // f32.  Tile heights follow K1's: the block's height BM is the smallest of
 // 16 / 32 / 64 / 128 that holds `bm` (a capacity stride may force bm = 8).
 //
+// The backward's dX = dY @ W[gid]^T (the TPU kernel's custom VJP,
+// grouped_gemm.py:301-310) runs through the same kernel: TRANS_B
+// instantiations read w[gid] (d, f) in place as the (f, d) operand, walking
+// its contiguous axis, as K1 reads the tied LM head's table.T -- no
+// transposed copy of the (G, d, f) expert stack.
+//
 // One block per (column tile, row tile); the table is built on the device
 // (repro_torch/kernels/grouped_gemm.py::_tile_metadata), so the caller
 // never copies anything to the host.  gids are clamped into [0, G).
@@ -67,7 +73,8 @@ __device__ __forceinline__ void zero_rows(T* __restrict__ c, int r0, int r1,
 }
 
 // CUDA-core body (f32, and bf16 rows that are not 16-byte aligned).
-template <typename T, int BM, int BN, int BK, int TM, int TN>
+// B[k][n] is w[gid][k][n], or w[gid][n][k] under TRANS_B.
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     grouped_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         T* __restrict__ c, const int* __restrict__ meta,
@@ -103,11 +110,14 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       as[kk][r] = (gr < t.live && gk < k)
                       ? to_f32(x[(long long)gr * ldx + gk]) : 0.f;
     }
+    // Neighbouring threads follow w's contiguous axis.
     for (int e = tid; e < BK * BN; e += NT) {
-      const int kk = e / BN, cc = e % BN;
+      const int kk = TRANS_B ? e % BK : e / BN;
+      const int cc = TRANS_B ? e / BK : e % BN;
       const int gk = k0 + kk, gc = n0 + cc;
-      bs[kk][cc] = (gk < k && gc < n)
-                       ? to_f32(b[(long long)gk * n + gc]) : 0.f;
+      const long long at = TRANS_B ? (long long)gc * k + gk
+                                   : (long long)gk * n + gc;
+      bs[kk][cc] = (gk < k && gc < n) ? to_f32(b[at]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -141,18 +151,29 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 cudaError_t launch(const void* x, const void* w, void* c, const int* meta,
                    int n_mt, int n_groups, int m, int n, int k, int bm,
-                   long long ldx, long long ldc, cudaStream_t stream) {
+                   long long ldx, long long ldc, int trans_b,
+                   cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, n_mt);
-  grouped_gemm_kernel<T, BM, BN, BK, TM, TN>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(w),
-          static_cast<T*>(c), meta, n_mt, n_groups, m, n, k, bm, ldx, ldc);
+  const dim3 block((BM / TM) * (BN / TN));
+  const T* px = static_cast<const T*>(x);
+  const T* pw = static_cast<const T*>(w);
+  T* pc = static_cast<T*>(c);
+  if (trans_b)
+    grouped_gemm_kernel<T, BM, BN, BK, TM, TN, true>
+        <<<grid, block, 0, stream>>>(px, pw, pc, meta, n_mt, n_groups, m, n,
+                                     k, bm, ldx, ldc);
+  else
+    grouped_gemm_kernel<T, BM, BN, BK, TM, TN, false>
+        <<<grid, block, 0, stream>>>(px, pw, pc, meta, n_mt, n_groups, m, n,
+                                     k, bm, ldx, ldc);
   return cudaGetLastError();
 }
 
-// bf16 tensor-core body: K1's sisa_gemm_tc_kernel with row-major B at
-// w[gid] and the tile's rows bounded by `hi`.
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
+// bf16 tensor-core body: K1's sisa_gemm_tc_kernel with B at w[gid]
+// (row-major, or transposed under TRANS_B) and the tile's rows bounded by
+// `hi`.
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
+          bool TRANS_B>
 __global__ void __launch_bounds__(WM* WN* WK * 32)
     grouped_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ w,
@@ -160,7 +181,7 @@ __global__ void __launch_bounds__(WM* WN* WK * 32)
                            const int* __restrict__ meta, int n_mt,
                            int n_groups, int m, int n, int k, int bm,
                            long long ldx, long long ldc) {
-  using Stage = TcStage<BM, BN, BK, false>;
+  using Stage = TcStage<BM, BN, BK, TRANS_B>;
   constexpr int NT = WM * WN * WK * 32;
   constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
   constexpr int FM = WTM / 16, FN = WTN / 8;   // mma fragments per warp
@@ -198,12 +219,22 @@ __global__ void __launch_bounds__(WM* WN* WK * 32)
       cp_async16(as + r * (BK + kPad) + kc,
                  nb ? x + (long long)gr * ldx + gk : x, nb);
     }
-    for (int e = tid; e < BK * (BN / 8); e += NT) {
-      const int r = e / (BN / 8), nc = (e % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      const int nb = (gk < k) ? 2 * max(0, min(8, n - gn)) : 0;
-      cp_async16(bs + r * (BN + kPad) + nc,
-                 nb ? b + (long long)gk * n + gn : b, nb);
+    if (TRANS_B) {  // B tile [BN][BK]: rows of w[gid], k contiguous
+      for (int e = tid; e < BN * (BK / 8); e += NT) {
+        const int r = e / (BK / 8), kc = (e % (BK / 8)) * 8;
+        const int gn = n0 + r, gk = k0 + kc;
+        const int nb = (gn < n) ? 2 * max(0, min(8, k - gk)) : 0;
+        cp_async16(bs + r * (BK + kPad) + kc,
+                   nb ? b + (long long)gn * k + gk : b, nb);
+      }
+    } else {
+      for (int e = tid; e < BK * (BN / 8); e += NT) {
+        const int r = e / (BN / 8), nc = (e % (BN / 8)) * 8;
+        const int gk = k0 + r, gn = n0 + nc;
+        const int nb = (gk < k) ? 2 * max(0, min(8, n - gn)) : 0;
+        cp_async16(bs + r * (BN + kPad) + nc,
+                   nb ? b + (long long)gk * n + gn : b, nb);
+      }
     }
   };
 
@@ -238,9 +269,14 @@ __global__ void __launch_bounds__(WM* WN* WK * 32)
         ldmatrix_x4(af[i], as + (wm * WTM + i * 16 + lane % 16) * (BK + kPad) +
                                kk + (lane / 16) * 8);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        ldmatrix_x2_trans(bf[j], bs + (kk + lane % 16) * (BN + kPad) +
-                                     wn * WTN + j * 8);
+      for (int j = 0; j < FN; ++j) {
+        if (TRANS_B)
+          ldmatrix_x2(bf[j], bs + (wn * WTN + j * 8 + lane % 8) * (BK + kPad) +
+                                 kk + ((lane / 8) % 2) * 8);
+        else
+          ldmatrix_x2_trans(bf[j], bs + (kk + lane % 16) * (BN + kPad) +
+                                       wn * WTN + j * 8);
+      }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -291,12 +327,14 @@ __global__ void __launch_bounds__(WM* WN* WK * 32)
       }
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
-cudaError_t launch_tc(const void* x, const void* w, void* c, const int* meta,
-                      int n_mt, int n_groups, int m, int n, int k, int bm,
-                      long long ldx, long long ldc, cudaStream_t stream) {
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
+          bool TRANS_B>
+cudaError_t launch_tc_one(const void* x, const void* w, void* c,
+                          const int* meta, int n_mt, int n_groups, int m,
+                          int n, int k, int bm, long long ldx, long long ldc,
+                          cudaStream_t stream) {
   constexpr int kStageBytes =
-      TcStage<BM, BN, BK, false>::kElems * (int)sizeof(__nv_bfloat16);
+      TcStage<BM, BN, BK, TRANS_B>::kElems * (int)sizeof(__nv_bfloat16);
   constexpr int kRedBytes = WK > 1 ? WK * BM * BN * (int)sizeof(float) : 0;
   constexpr int kSmem =
       STAGES * kStageBytes > kRedBytes ? STAGES * kStageBytes : kRedBytes;
@@ -304,20 +342,32 @@ cudaError_t launch_tc(const void* x, const void* w, void* c, const int* meta,
     static bool raised = false;  // once per instantiation
     if (!raised) {
       cudaError_t err = cudaFuncSetAttribute(
-          grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES>,
+          grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
       if (err != cudaSuccess) return err;
       raised = true;
     }
   }
   const dim3 grid((n + BN - 1) / BN, n_mt);
-  grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES>
+  grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>
       <<<grid, WM * WN * WK * 32, kSmem, stream>>>(
           static_cast<const __nv_bfloat16*>(x),
           static_cast<const __nv_bfloat16*>(w),
           static_cast<__nv_bfloat16*>(c), meta, n_mt, n_groups, m, n, k, bm,
           ldx, ldc);
   return cudaGetLastError();
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
+cudaError_t launch_tc(const void* x, const void* w, void* c, const int* meta,
+                      int n_mt, int n_groups, int m, int n, int k, int bm,
+                      long long ldx, long long ldc, int trans_b,
+                      cudaStream_t s) {
+  if (trans_b)
+    return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, true>(
+        x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, s);
+  return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, false>(
+      x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, s);
 }
 
 // Block height: the smallest of K1's tile heights that holds `bm` rows.
@@ -329,21 +379,20 @@ int block_height(int bm) {
 cudaError_t dispatch_tc(const void* x, const void* w, void* c,
                         const int* meta, int n_mt, int n_groups, int m, int n,
                         int k, int bm, long long ldx, long long ldc,
-                        cudaStream_t s) {
+                        int trans_b, cudaStream_t s) {
   switch (block_height(bm)) {
     case 16:  // slab: K split over 4 warps, 3 stages of 128-deep K tiles
-      return launch_tc<16, 32, 128, 1, 1, 4, 3>(x, w, c, meta, n_mt, n_groups,
-                                                m, n, k, bm, ldx, ldc, s);
+      return launch_tc<16, 32, 128, 1, 1, 4, 3>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 32:  // fused pair
-      return launch_tc<32, 64, 32, 2, 2, 1, 4>(x, w, c, meta, n_mt, n_groups,
-                                               m, n, k, bm, ldx, ldc, s);
+      return launch_tc<32, 64, 32, 2, 2, 1, 4>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 64:  // fused quad
-      return launch_tc<64, 64, 32, 2, 2, 1, 4>(x, w, c, meta, n_mt, n_groups,
-                                               m, n, k, bm, ldx, ldc, s);
+      return launch_tc<64, 64, 32, 2, 2, 1, 4>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 128:  // monolithic
-      return launch_tc<128, 128, 32, 4, 2, 1, 3>(x, w, c, meta, n_mt,
-                                                 n_groups, m, n, k, bm, ldx,
-                                                 ldc, s);
+      return launch_tc<128, 128, 32, 4, 2, 1, 3>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -352,20 +401,21 @@ cudaError_t dispatch_tc(const void* x, const void* w, void* c,
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, void* c, const int* meta,
                      int n_mt, int n_groups, int m, int n, int k, int bm,
-                     long long ldx, long long ldc, cudaStream_t s) {
+                     long long ldx, long long ldc, int trans_b,
+                     cudaStream_t s) {
   switch (block_height(bm)) {
     case 16:  // slab
-      return launch<T, 16, 32, 64, 2, 1>(x, w, c, meta, n_mt, n_groups, m, n,
-                                         k, bm, ldx, ldc, s);
+      return launch<T, 16, 32, 64, 2, 1>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 32:  // fused pair
-      return launch<T, 32, 64, 32, 4, 2>(x, w, c, meta, n_mt, n_groups, m, n,
-                                         k, bm, ldx, ldc, s);
+      return launch<T, 32, 64, 32, 4, 2>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 64:  // fused quad
-      return launch<T, 64, 64, 32, 4, 4>(x, w, c, meta, n_mt, n_groups, m, n,
-                                         k, bm, ldx, ldc, s);
+      return launch<T, 64, 64, 32, 4, 4>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     case 128:  // monolithic
-      return launch<T, 128, 128, 16, 8, 8>(x, w, c, meta, n_mt, n_groups, m,
-                                           n, k, bm, ldx, ldc, s);
+      return launch<T, 128, 128, 16, 8, 8>(
+          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -373,24 +423,27 @@ cudaError_t dispatch(const void* x, const void* w, void* c, const int* meta,
 
 }  // namespace
 
-// x (m, k) with row stride ldx; w (n_groups, k, n) contiguous; c (m, n) with
-// row stride ldc; meta (2, n_mt) int32 [gid; hi], n_mt = ceil(m / bm).
+// x (m, k) with row stride ldx; w contiguous, (n_groups, k, n), or
+// (n_groups, n, k) read as its transpose when trans_b; c (m, n) with row
+// stride ldc; meta (2, n_mt) int32 [gid; hi], n_mt = ceil(m / bm).
 // dtype: 0 = float32, 1 = bfloat16; tensor_cores: bf16 with 16-byte aligned
 // rows (checked by the caller).  Returns the launch's cudaError_t.
 extern "C" int grouped_gemm(const void* x, const void* w, void* c,
                             const void* meta, int n_mt, int n_groups, int m,
                             int n, int k, int bm, long long ldx, long long ldc,
-                            int dtype, int tensor_cores, void* stream) {
+                            int trans_b, int dtype, int tensor_cores,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mt = static_cast<const int*>(meta);
   if (dtype == 0)
     return dispatch<float>(x, w, c, mt, n_mt, n_groups, m, n, k, bm, ldx, ldc,
-                           s);
+                           trans_b, s);
   if (dtype == 1 && tensor_cores)
-    return dispatch_tc(x, w, c, mt, n_mt, n_groups, m, n, k, bm, ldx, ldc, s);
+    return dispatch_tc(x, w, c, mt, n_mt, n_groups, m, n, k, bm, ldx, ldc,
+                       trans_b, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(x, w, c, mt, n_mt, n_groups, m, n, k, bm,
-                                   ldx, ldc, s);
+                                   ldx, ldc, trans_b, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,12 @@
-"""K4: the flat ragged grouped GEMM as a hand-written Hopper kernel (the
-port of ``repro/kernels/grouped_gemm.py``, forward only).
+"""K4 and K5: the flat ragged grouped GEMM and its weight gradient as
+hand-written Hopper kernels (the port of ``repro/kernels/grouped_gemm.py``).
 
-Replaces the JAX package's TPU kernel ``repro/kernels/grouped_gemm.py::
-_flat_fwd_kernel`` (``_flat_forward``, ``pallas_call`` at line 234).  The
-CUDA source is ``csrc/grouped_gemm.cu``; its header says what bounds the
-kernel on an H100 and what the design does about it.
+K4 replaces the JAX package's TPU kernel ``repro/kernels/grouped_gemm.py::
+_flat_fwd_kernel`` (``_flat_forward``, ``pallas_call`` at line 234), and
+K5 replaces ``_flat_dw_kernel`` (``_flat_dw``, ``pallas_call`` at line
+272).  The CUDA sources are ``csrc/grouped_gemm.cu`` and
+``csrc/grouped_dw.cu``; their headers say what bounds each kernel on an
+H100 and what the design does about it.
 
 Layout (as in the reference): activations live in one flat ``(M, d)``
 buffer cut into row tiles of ``bm`` rows.  Segment ``s`` covers rows
@@ -18,15 +20,18 @@ tile that starts at or past ``hi`` reads no weights and does no MACs.
 Entry points: :func:`segment_grouped_gemm` (arbitrary segments),
 :func:`flat_ragged_gemm` (prefix groups at :func:`flat_group_offsets`)
 and the capacity-layout shim :func:`ragged_grouped_gemm`.  They are
-forward only: the backward (dX through K4 with Wᵀ, dW through the
-segment-sum kernel K5) comes with the training slice, and a call that
-needs a gradient raises until then.
+differentiable, as the reference's custom VJP makes them
+(``grouped_gemm.py:288-313``): dX = dY @ W[gid]ᵀ runs through K4 itself,
+reading ``w`` transposed in place, and dW runs through K5, both on the
+tile table the forward built and saved.  The integer layout arguments get
+no gradient.
 
 The operands' device decides, as for K1 and K2: CUDA tensors launch K4
-(or raise); CPU tensors take :func:`segment_grouped_gemm_plain`.  The
-row block comes from the port's Hopper :func:`~repro_torch.kernels.
-sisa_gemm.choose_block_config`, so rows sit elsewhere than in the JAX
-layout; the values of every segment's rows are the same.
+and K5 (or raise); CPU tensors take :func:`segment_grouped_gemm_plain`
+and :func:`segment_grouped_dw_plain`.  The row block comes from the
+port's Hopper :func:`~repro_torch.kernels.sisa_gemm.choose_block_config`,
+so rows sit elsewhere than in the JAX layout; the values of every
+segment's rows are the same.
 """
 from __future__ import annotations
 
@@ -44,6 +49,9 @@ _MAX_BLOCK_ROWS = 128       # the tallest of K1's tile heights
 _MAX_ROW_TILES = 65535      # CUDA grid y limit
 
 LAUNCHES = _build.LaunchCounter("grouped_gemm")
+# K4 launches that read ``w`` transposed: the backward's dX.
+DX_LAUNCHES = _build.LaunchCounter("grouped_gemm_dx")
+DW_LAUNCHES = _build.LaunchCounter("grouped_dw")
 
 Tensor = torch.Tensor
 
@@ -139,16 +147,49 @@ def segment_grouped_gemm_plain(x: Tensor, w: Tensor, seg_starts: Tensor,
     return out
 
 
-def _lib():
-    fn = _build.load("grouped_gemm").grouped_gemm
+def segment_grouped_dw_plain(x: Tensor, dy: Tensor, seg_starts: Tensor,
+                             seg_sizes: Tensor, seg_gids: Tensor,
+                             n_groups: int) -> Tensor:
+    """Plain version of K5: ``dw[g] = sum over segments s with gid g of
+    x[rows of s]ᵀ @ dy[rows of s]``, one f32 product per segment, result
+    ``(n_groups, d, f)`` in x's dtype; a group with no rows is 0.  Reads
+    the segment table on the host (CPU tensors and the card-side check)."""
+    d, f = x.shape[1], dy.shape[1]
+    m = x.shape[0]
+    dw = torch.zeros((n_groups, d, f), dtype=torch.float32, device=x.device)
+    for s, n, g in zip(seg_starts.tolist(), seg_sizes.tolist(),
+                       seg_gids.tolist()):
+        top = min(s + n, m)
+        if top > s:
+            dw[g] += x[s:top].float().T @ dy[s:top].float()
+    return dw.to(x.dtype)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C signatures of ``grouped_gemm`` (K4) and ``grouped_dw`` (K5).
+_K4_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P]
+_K5_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]
+
+
+def _lib(name: str, argtypes: list):
+    fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ll, ll, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+def _is_transposed(w: Tensor) -> bool:
+    """``w`` (G, d, f) is ``stack.transpose(1, 2)`` of a contiguous
+    (G, f, d) ``stack``."""
+    g, d, f = w.shape
+    return (not w.is_contiguous() and w.stride(1) == 1
+            and w.stride(2) == d and w.stride(0) == d * f)
+
+
 def _launch(x: Tensor, w: Tensor, meta: Tensor, bm: int) -> Tensor:
+    """One launch of K4: ``x @ w[gid]``.  A transposed ``w`` view
+    (:func:`_is_transposed`) is read in place by the TRANS_B bodies."""
     m, d = x.shape
     g, _, f = w.shape
     if x.dtype not in _DTYPES:
@@ -164,35 +205,102 @@ def _launch(x: Tensor, w: Tensor, meta: Tensor, bm: int) -> Tensor:
         return out.zero_()
     if x.stride(1) != 1:
         x = x.contiguous()
-    w = w.contiguous()
+    trans_b = _is_transposed(w)
+    if not trans_b:
+        w = w.contiguous()
+    row = d if trans_b else f           # elements per row of w's storage
     # The tensor-core body copies 16-byte chunks of x's and w's rows.
     tensor_cores = (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
                     and w.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
-                    and f % 8 == 0)
-    err = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(),
-                 n_mt, g, m, f, d, bm, x.stride(0), f, _DTYPES[x.dtype],
-                 int(tensor_cores),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    LAUNCHES.n += 1
+                    and row % 8 == 0)
+    err = _lib("grouped_gemm", _K4_ARGS)(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(), n_mt, g,
+        m, f, d, bm, x.stride(0), f, int(trans_b), _DTYPES[x.dtype],
+        int(tensor_cores), torch.cuda.current_stream(x.device).cuda_stream)
+    (DX_LAUNCHES if trans_b else LAUNCHES).n += 1
     _build.check("grouped_gemm", err)
     return out
+
+
+def _launch_dw(x: Tensor, dy: Tensor, meta: Tensor, bm: int,
+               n_groups: int) -> Tensor:
+    """One launch of K5 over the forward's tile table ``meta``."""
+    m, d = x.shape
+    f = dy.shape[1]
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise ValueError(f"K5 takes float32 or bfloat16 x and dy of one "
+                         f"dtype, not {x.dtype} and {dy.dtype}")
+    out = torch.empty((n_groups, d, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if m == 0:
+        return out.zero_()
+    x = x if x.stride(1) == 1 else x.contiguous()
+    dy = dy if dy.stride(1) == 1 else dy.contiguous()
+    # Group g's row tiles: gids do not decrease over the tiles.
+    bounds = torch.searchsorted(
+        meta[0].contiguous(),
+        torch.arange(n_groups + 1, dtype=torch.int32, device=x.device),
+    ).to(torch.int32)
+    tensor_cores = (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+                    and dy.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+                    and dy.stride(0) % 8 == 0 and d % 8 == 0 and f % 8 == 0)
+    err = _lib("grouped_dw", _K5_ARGS)(
+        x.data_ptr(), dy.data_ptr(), out.data_ptr(), meta.data_ptr(),
+        bounds.data_ptr(), meta.shape[1], n_groups, m, d, f, bm, x.stride(0),
+        dy.stride(0), _DTYPES[x.dtype], int(tensor_cores),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    DW_LAUNCHES.n += 1
+    _build.check("grouped_dw", err)
+    return out
+
+
+class _SegmentGemm(torch.autograd.Function):
+    """K4 forward; backward dX through K4 with ``w`` transposed and dW
+    through K5, over the tile table the forward built (``meta`` is None
+    on the CPU, where the plain versions run)."""
+
+    @staticmethod
+    def forward(ctx, x, w, starts, sizes, gids, meta, bm):
+        ctx.bm = bm
+        ctx.save_for_backward(x, w, starts, sizes, gids, meta)
+        if meta is None:
+            return segment_grouped_gemm_plain(x, w, starts, sizes, gids,
+                                              block_rows=bm)
+        return _launch(x, w, meta, bm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, starts, sizes, gids, meta = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(1, 2)      # read in place, never copied
+            dx = (segment_grouped_gemm_plain(dy, wt, starts, sizes, gids,
+                                             block_rows=ctx.bm)
+                  if meta is None else _launch(dy, wt, meta, ctx.bm))
+        if ctx.needs_input_grad[1]:
+            dw = (segment_grouped_dw_plain(x, dy, starts, sizes, gids,
+                                           w.shape[0])
+                  if meta is None else
+                  _launch_dw(x, dy, meta, ctx.bm, w.shape[0]))
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 def segment_grouped_gemm(x: Tensor, w: Tensor, seg_starts, seg_sizes,
                          seg_gids, *, block_rows: Optional[int] = None,
                          m_hint: Optional[int] = None) -> Tensor:
     """x: (M, d), w: (G, d, f) -> (M, f) in x's dtype over arbitrary row
-    segments (module doc).  One launch of K4 on CUDA tensors; the
-    segment tables may be tensors on x's device or sequences."""
+    segments (module doc).  One launch of K4 on CUDA tensors; ``w`` may
+    be contiguous or ``stack.transpose(1, 2)`` of a contiguous (G, f, d)
+    stack, read in place either way.  The segment tables may be tensors
+    on x's device or sequences.  Differentiable in x and w."""
     if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
         raise ValueError(f"segment_grouped_gemm needs (M,d) and (G,d,f), "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype != w.dtype:
         raise ValueError(f"dtype mismatch: {x.dtype} vs {w.dtype}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "K4's backward (dX with W^T, dW through K5) comes with the "
-            "training slice of the port (ROADMAP.md)")
     m, d = x.shape
     g, _, f = w.shape
     mh = m_hint or 128
@@ -204,12 +312,17 @@ def segment_grouped_gemm(x: Tensor, w: Tensor, seg_starts, seg_sizes,
                            for t in (seg_starts, seg_sizes, seg_gids))
     if x.device.type == "cpu" and w.device.type == "cpu":
         _check_layout(starts, gids, bm, g)
-        return segment_grouped_gemm_plain(x, w, starts, sizes, gids,
-                                          block_rows=bm)
-    if x.device.type != "cuda" or w.device != x.device:
+        meta = None
+    elif x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"segment_grouped_gemm: operands on {x.device} "
                          f"and {w.device}")
-    meta = _tile_metadata(starts, sizes, gids, -(-m // bm), bm)
+    else:
+        meta = _tile_metadata(starts, sizes, gids, -(-m // bm), bm)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _SegmentGemm.apply(x, w, starts, sizes, gids, meta, bm)
+    if meta is None:
+        return segment_grouped_gemm_plain(x, w, starts, sizes, gids,
+                                          block_rows=bm)
     return _launch(x, w, meta, bm)
 
 

@@ -15,15 +15,17 @@ the filled KV cache stacked over layers, ``{"k","v": (L, B, cap, Hkv,
 hd)}``; decode reads and writes page pools ``{"pk","pv": (L, pages +
 sink, page_size, Hkv, hd)}`` through a ``(B, max_pages)`` page table.
 MoE layers (``cfg.moe``) replace the MLP with
-:func:`repro_torch.models.moe.moe_apply`.  Sliding-window, recurrent,
-enc-dec and frontend models raise ``NotImplementedError`` (later
-slices, ROADMAP.md).
+:func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train` returns
+the next-token loss and its metrics for training (``repro/models/
+transformer.py:188-246``).  Sliding-window, recurrent, enc-dec and
+frontend models raise ``NotImplementedError`` (later slices, ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
@@ -111,6 +113,85 @@ def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"])
     return lm_head_logits(table, x, cfg.vocab_size)
+
+
+def _block_train(p: Params, x: Tensor, cfg: ModelConfig
+                 ) -> Tuple[Tensor, Tensor]:
+    """One full-sequence block for training: ``(x, moe_aux)``."""
+    h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+    mix, _, _ = attn.attn_apply(p["mixer"], h, cfg)
+    x = x + mix
+    h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        ffn, aux = moe_mod.moe_apply(p["moe"], h, cfg)
+    else:
+        ffn = mlp_apply(p["mlp"], h, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn, aux
+
+
+REMAT_MODES = ("none", "full", "dots")
+
+
+def forward_train(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, Tensor], *, mesh=None,
+                  remat: str = "full") -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Returns ``(loss, {"loss", "accuracy", "moe_aux"})`` for ``batch``
+    ``{"tokens": (B, S)[, "labels"]}``: the mean next-token cross entropy,
+    plus ``0.01 * aux / n_layers`` for MoE, as the reference's
+    ``forward_train``.
+
+    ``remat="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations.  ``"dots"`` (the reference keeps matmul outputs and
+    recomputes the rest) maps to ``"full"`` here: the values are the
+    same and only memory and time differ.  A mesh is the distributed
+    slice and raises."""
+    check_supported(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training is the distributed slice of the port "
+            "(ROADMAP.md)")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
+    x = _embed(params, cfg, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params["layers"]:
+        if remat == "none":
+            x, a = _block_train(p, x, cfg)
+        else:
+            x, a = checkpoint(_block_train, p, x, cfg, use_reentrant=False)
+        aux = aux + a
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    logits = _logits(params, cfg, x)
+    labels = batch["labels"] if "labels" in batch else batch["tokens"]
+    loss, acc = _next_token_loss(logits, labels)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"loss": loss, "accuracy": acc, "moe_aux": aux}
+
+
+def set_loss_dtype(mode: str) -> None:
+    """Accepts the reference's loss modes and nothing else.  There,
+    ``"bf16"`` keeps bf16 logits and upcasts only inside the loss's
+    reductions; here the LM head always returns float32 logits
+    (``lm_head_logits``), so both modes are the one float32 loss below
+    and nothing is stored."""
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"loss dtype {mode!r} not in ('f32', 'bf16')")
+
+
+def _next_token_loss(logits: Tensor, labels: Tensor
+                     ) -> Tuple[Tensor, Tensor]:
+    """Mean cross entropy of ``logits[:, t]`` against ``labels[:, t+1]``,
+    in float32, and the argmax accuracy."""
+    tg = labels[:, 1:].long()
+    lg = logits[:, :-1].float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, tg[..., None])[..., 0]
+    loss = (lse - picked).mean()
+    acc = (lg.argmax(dim=-1) == tg).float().mean()
+    return loss, acc
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,

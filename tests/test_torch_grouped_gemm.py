@@ -11,7 +11,15 @@ row block, tail tiles past every segment, and an ``a2a_segments``
 capacity-strided layout.  float32 agrees within 1e-5; bfloat16 within
 one bf16 ulp of the reference (both round one f32 sum, summed in
 different orders).
+
+The backward (dX through K4 with ``w`` transposed, dW through K5) is
+held the same way: autograd over the plain versions against ``jax.vjp``
+of the reference's kernel in interpret mode and of its
+``segment_gemm_ref`` oracle, in float32 within 1e-5, on the same
+layouts (an empty group, sizes off the row block, shared-gid a2a
+segments).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,8 +37,9 @@ from repro.kernels.ref import (flat_ragged_gemm_ref, ragged_grouped_gemm_ref,
 from repro_torch.kernels import (_build, aligned_block_rows, flat_block_rows,
                                  flat_group_offsets, flat_ragged_gemm,
                                  LAUNCH_COUNTERS, ragged_grouped_gemm,
+                                 segment_grouped_dw_plain,
                                  segment_grouped_gemm)
-from repro_torch.kernels.grouped_gemm import _tile_metadata
+from repro_torch.kernels.grouped_gemm import _is_transposed, _tile_metadata
 
 TOL = 1e-5
 D, F = 40, 48
@@ -181,9 +190,13 @@ def test_k4_rejects_bad_layouts_and_gradients():
         segment_grouped_gemm(x, w, [0, 16], [4, 4], [0, 2], block_rows=8)
     with pytest.raises(ValueError):
         segment_grouped_gemm(x, w.double(), [0], [4], [0], block_rows=8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        segment_grouped_gemm(x.requires_grad_(), w, [0], [4], [0],
+    # A call that needs a gradient checks the layout too, and now records
+    # the backward (it raised before the training slice).
+    with pytest.raises(ValueError, match="multiples"):
+        segment_grouped_gemm(x.requires_grad_(), w, [0, 12], [4, 4], [0, 1],
                              block_rows=8)
+    out = segment_grouped_gemm(x, w, [0], [4], [0], block_rows=8)
+    assert out.requires_grad and out.grad_fn is not None
 
 
 def test_k4_cpu_tensors_build_nothing_and_meta_tensors_raise():
@@ -201,3 +214,108 @@ def test_k4_cpu_tensors_build_nothing_and_meta_tensors_raise():
                              [0], block_rows=8)
     assert "grouped_gemm" not in _build._LIBS
 
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_k4_dx_and_k5_plain_match_jax_grad(layout):
+    """dX and dW of ``segment_grouped_gemm`` (autograd over the plain
+    K4 with ``w`` transposed and the plain K5) against ``jax.vjp`` of the
+    reference's custom-VJP kernel in interpret mode and of the
+    ``segment_gemm_ref`` oracle.  Rows outside every segment get dX 0;
+    groups with no rows get a dW block of exact zeros."""
+    bm, make = LAYOUTS[layout]
+    m, starts, sizes, gids = make()
+    g = int(gids.max()) + 1
+    jx, jw, tx, tw = _operands(11 + len(layout), m, g, jnp.float32)
+    dy = np.random.default_rng(3).standard_normal((m, F)).astype(np.float32)
+    tx.requires_grad_()
+    tw.requires_grad_()
+    segment_grouped_gemm(tx, tw, torch.from_numpy(starts),
+                         torch.from_numpy(sizes), torch.from_numpy(gids),
+                         block_rows=bm).backward(torch.from_numpy(dy))
+    refs = [
+        lambda x, w: ref_segment(x, w, starts, sizes, gids, block_rows=bm,
+                                 interpret=True),
+        lambda x, w: segment_gemm_ref(x, w, jnp.asarray(starts),
+                                      jnp.asarray(sizes), jnp.asarray(gids)),
+    ]
+    for fn in refs:
+        _, vjp = jax.vjp(fn, jx, jw)
+        rx, rw = vjp(jnp.asarray(dy))
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(rx),
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(tw.grad.numpy(), np.asarray(rw),
+                                   rtol=TOL, atol=TOL)
+    covered = np.zeros(m, bool)
+    rows = np.zeros(g, np.int64)
+    for s, n, gid in zip(starts, sizes, gids):
+        covered[s:s + n] = True
+        rows[gid] += n
+    assert (tx.grad.numpy()[~covered] == 0).all()
+    assert (tw.grad.numpy()[rows == 0] == 0).all()
+
+
+def test_k5_plain_sums_shared_gids_and_zeros_empty_groups():
+    """``segment_grouped_dw_plain`` directly: two segments of one gid are
+    summed, an empty group is exactly 0, and the result has x's dtype."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((32, D)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((32, F)).astype(np.float32))
+    starts, sizes, gids = (torch.tensor(v, dtype=torch.int32) for v in
+                           ([0, 8, 16], [5, 7, 3], [0, 0, 2]))
+    dw = segment_grouped_dw_plain(x, dy, starts, sizes, gids, 3)
+    want0 = x[0:5].T @ dy[0:5] + x[8:15].T @ dy[8:15]
+    np.testing.assert_allclose(dw[0].numpy(), want0.numpy(), rtol=TOL,
+                               atol=TOL)
+    assert (dw[1] == 0).all()
+    np.testing.assert_allclose(dw[2].numpy(), (x[16:19].T @ dy[16:19]
+                                               ).numpy(), rtol=TOL, atol=TOL)
+    assert segment_grouped_dw_plain(x.bfloat16(), dy.bfloat16(), starts,
+                                    sizes, gids, 3).dtype == torch.bfloat16
+
+
+def test_k4_backward_on_cpu_builds_nothing():
+    """The backward on CPU tensors runs the plain versions: no launch of
+    K4 or K5, no library built."""
+    before = {k: c.n for k, c in LAUNCH_COUNTERS.items()}
+    x = torch.ones(16, D, requires_grad=True)
+    w = torch.ones(2, D, F, requires_grad=True)
+    segment_grouped_gemm(x, w, [0, 8], [3, 0], [0, 1],
+                         block_rows=8).sum().backward()
+    assert {k: c.n for k, c in LAUNCH_COUNTERS.items()} == before
+    assert (x.grad[:3] == F).all() and (x.grad[3:] == 0).all()
+    assert (w.grad[0] == 3).all() and (w.grad[1] == 0).all()
+    assert "grouped_dw" not in _build._LIBS
+
+
+def test_k5_entry_point_and_transposed_weights_on_cpu():
+    """K5's entry point, the backward of ``segment_grouped_gemm``, gives
+    ``segment_grouped_dw_plain``'s dW, checks the layout and raises off
+    the CPU without a card; a transposed weight view through
+    ``segment_grouped_gemm`` equals the contiguous transpose (on the
+    card K4 reads it in place)."""
+    bm, make = LAYOUTS["a2a_bm8"]
+    m, starts, sizes, gids = make()
+    g = int(gids.max()) + 1
+    _, _, x, w = _operands(21, m, g, jnp.float32)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (m, F)).astype(np.float32))
+    tables = [torch.from_numpy(t) for t in (starts, sizes, gids)]
+    w = w.detach().clone().requires_grad_()
+    segment_grouped_gemm(x, w, *tables, block_rows=bm).backward(dy)
+    want = segment_grouped_dw_plain(x, dy, *tables, g)
+    assert torch.equal(w.grad, want)
+    with pytest.raises(ValueError, match="multiples"):
+        segment_grouped_gemm(x, w, [0, 12], [4, 4], [0, 1], block_rows=8)
+    with pytest.raises(ValueError):
+        segment_grouped_gemm(x.to("meta"), w.detach().to("meta")
+                             .requires_grad_(), *tables, block_rows=bm)
+    wt = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (g, D, F)).astype(np.float32))
+    view = segment_grouped_gemm(dy, wt.transpose(1, 2), *tables,
+                                block_rows=bm)
+    copy = segment_grouped_gemm(dy, wt.transpose(1, 2).contiguous(),
+                                *tables, block_rows=bm)
+    np.testing.assert_allclose(view.numpy(), copy.numpy(), rtol=TOL,
+                               atol=TOL)
+    assert _is_transposed(wt.transpose(1, 2)) and not _is_transposed(wt)
