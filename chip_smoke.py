@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the four CUDA sources from ``src/repro_torch/kernels/csrc``
+2. build the six CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
 3. K1 (SISA GEMM) against its plain version at the main path's shapes,
    every tile height at full height and the ragged residual split, in
@@ -24,7 +24,15 @@ Phases (any failure exits non-zero before the last line is printed):
    each tile's ``hi`` must be exactly 0.  Then the backward at the same
    shapes and also a 2048-token training layout and shared-gid a2a
    segments: K4's dX (``w`` read transposed) and K5's dW against their
-   plain versions, with empty experts' dW blocks exactly 0;
+   plain versions, with empty experts' dW blocks exactly 0.  Then K2 on
+   int8 pools (``quantize_page_pool``) at both head layouts; K3 (split-K)
+   at qwen's decode GEMV shapes, two slab depths each, and ragged
+   edges; K7 (the capacity MoE GEMM) at phi3.5-moe's expert shapes with
+   capacities 2, 37 and 320; and K6 (co-execution) on the four
+   scenarios of ``benchmarks/multi_tenant_bench.py`` at Qwen2.5-0.5B's
+   Table 2 widths, tasks in the packer's order: each against its plain
+   version in f32 and bf16, padding rows exactly 0, and fused equal to
+   ``sequential_matmul`` bit for bit;
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
    structure at narrow widths with 8 experts, each 2 layers) served on
    the card (kernels) and on the CPU (plain versions): identical greedy
@@ -34,7 +42,12 @@ Phases (any failure exits non-zero before the last line is printed):
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
    the launch counters are zeroed just before and K1's and K2's must be
-   > 0 just after;
+   > 0 just after, every request prefilled once; then the same serve on
+   int8 page pools (``kv_quant="int8"``: K2's int8 variant > 0 and its
+   float one 0, pool bytes (hd + 2) / (2 hd) of the bf16 pools', one K2
+   launch on the serve's own pools against the plain version), and 16
+   requests on the 8 slots with and without ``coexec_backend="kernel"``
+   (identical tokens, backfilled prefills > 0);
 8. where one decode window's time goes (``torch.profiler``): device time
    per kernel family against the window's wall time, and the top host
    ops;
@@ -42,9 +55,16 @@ Phases (any failure exits non-zero before the last line is printed):
    one PyTorch library call's where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, H100 SXM data sheet).  A time is the
-   device time ``torch.profiler`` records for the call's kernels; the
-   CUDA-event span, which also holds the host's launch gaps, is printed
-   beside it as ``*_span``;
+   CUDA-event time of calls queued back to back behind a spin kernel, so
+   the host's launch gaps do not count; the span of calls issued one
+   after another (gaps included) is printed beside it as ``*_span``, and
+   the kernel time ``torch.profiler`` recorded as ``*_profiler`` (it can
+   drop kernels on this card).  K2 on int8 pools and K3 are timed at the
+   qwen decode step; K6 on each scenario (one fused launch on pre-packed
+   operands against ``sequential_matmul``'s launches, with
+   ``torch._grouped_mm`` as the yardstick), each path first run once
+   with the counters zeroed; K7 at phi3.5-moe's expert shapes at
+   capacities 2 and 320 (``torch.bmm`` as the yardstick);
 10. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
@@ -107,24 +127,34 @@ def _cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters: int = 3) -> float:
+def _device_ms(torch, fn, iters: int = 3, label: str = ""):
     """Device time of one call of ``fn``: the self device time of every
     kernel, copy and fill it ran, from ``torch.profiler``, so the host's
-    launch gaps between small kernels do not count."""
+    launch gaps between small kernels do not count.  Where two profiles
+    in a row record no device time, None, and the events seen are
+    printed.  On the H100 machines this profiler has dropped kernels
+    (a sum below the work's bound, or nothing at all), so kernel times
+    come from :func:`_queued_ms`; this is kept beside them."""
     from torch.profiler import profile, ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages()
-             if "CUDA" in str(getattr(e, "device_type", "")))
-    if not us > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = prof.key_averages()
+        us = sum(_self_device_us(e) for e in evts
+                 if "CUDA" in str(getattr(e, "device_type", "")))
+        if us > 0:
+            return us / 1e3 / iters
+    seen = sorted(((e.count, str(getattr(e, "device_type", "")), e.key[:60])
+                   for e in evts), reverse=True)[:8]
+    _say(f"torch.profiler recorded no device time for {label!r}: "
+         f"{len(evts)} event kinds, top {seen}")
+    return None
 
 
 def _self_device_us(evt) -> float:
@@ -132,13 +162,49 @@ def _self_device_us(evt) -> float:
             or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def _queued_ms(torch, fn, iters: int = 5):
+    """Device time of one call of ``fn``: CUDA events around ``iters``
+    calls that the host queued behind a spin kernel
+    (``torch.cuda._sleep``), so they run back to back without the host's
+    launch gaps.  Returns ``(ms, clean)``; ``clean`` is False where the
+    device reached the timed calls before the host had queued them all
+    (a call that waits for the device, or more launches than the queue
+    holds): the time then includes launch gaps."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = min(2.0, 0.005 + 2 * iters * (time.perf_counter() - t0))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * 2e9))     # cycles, about 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    clean = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, clean
+
+
 def _times(torch, fns: dict) -> dict:
-    """Device time of each callable under its key, and its CUDA-event span
-    (host launch gaps included) under ``<key>_span``."""
+    """For each callable: its device time under its key (CUDA events
+    around calls queued back to back, :func:`_queued_ms`; ``<key>_gaps``
+    is true where launch gaps could not be kept out), the CUDA-event span
+    of calls issued one after another (host launch gaps included) under
+    ``<key>_span``, and the sum of kernel times ``torch.profiler``
+    recorded under ``<key>_profiler`` (None where it recorded none; on
+    this card it can drop kernels, so it is a lower bound)."""
     out = {}
     for key, fn in fns.items():
-        out[key] = _device_ms(torch, fn)
+        out[key], clean = _queued_ms(torch, fn)
+        if not clean:                   # fewer launches behind the spin
+            out[key], clean = _queued_ms(torch, fn, iters=1)
         out[key + "_span"] = _cuda_ms(torch, fn, iters=3)
+        out[key + "_profiler"] = _device_ms(torch, fn, label=key)
+        if not clean:
+            out[key + "_gaps"] = True
     return out
 
 
@@ -590,28 +656,39 @@ def check_small_train(torch, np, label, cfg) -> None:
          f"within 2 lr + 1e-6; card launches {json.dumps(launches)}")
 
 
-def serve_full_width(torch, np, cfg, need):
-    """Serve the 8-request workload through ``make_engine(kind="paged")``
-    at ``cfg``'s widths with seeded random bf16 weights.  Every launch
+def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
+                     **engine_kw):
+    """Serve the workload of ``lens`` prompts (8 by default) through
+    ``make_engine(kind="paged", **engine_kw)`` at ``cfg``'s widths with
+    seeded random bf16 weights (``params``, or made here).  Every launch
     counter is zeroed just before the serve; those of ``need`` must be
-    > 0 just after."""
+    > 0 just after, and every request must be prefilled once.  Returns
+    the engine, the weights, the launch counts and the completions."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.models import init_params
     from repro_torch.models.common import padded_vocab
     from repro_torch.serve import make_engine, Request, validate_stats
 
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    _say(f"params: {cfg.name} full width, {cfg.n_layers} layers, "
-         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G weights "
-         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
-         f"{time.perf_counter() - t0:.2f} s")
+    if params is None:
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        _say(f"params: {cfg.name} full width, {cfg.n_layers} layers, "
+             f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
+             f"weights ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+             f"allocated), init {time.perf_counter() - t0:.2f} s")
     eng = make_engine(cfg, params, kind="paged", max_slots=8, max_seq=256,
-                      page_size=16, window=8)
+                      page_size=16, window=8, **engine_kw)
     eng.warmup()
+    prefill, prefills = eng.prefill_fn, []
+
+    def counted_prefill(p, batch):
+        prefills.append(1)
+        return prefill(p, batch)
+
+    eng.prefill_fn = counted_prefill
     reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
-                     PROMPT_LENS)
+                     lens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for counter in LAUNCH_COUNTERS.values():
@@ -623,9 +700,13 @@ def serve_full_width(torch, np, cfg, need):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    n_prefills = len(prefills)
     peak = torch.cuda.max_memory_allocated()
     validate_stats(eng.stats)
-    if len(outs) != len(PROMPT_LENS) or any(
+    if n_prefills != len(lens):
+        raise AssertionError(f"{n_prefills} prefills for {len(lens)} "
+                             "requests")
+    if len(outs) != len(lens) or any(
             c.n_tokens != NEW_TOKENS or c.finish_reason != "length"
             for c in outs):
         raise AssertionError("incomplete serve: " + str(
@@ -660,9 +741,13 @@ def serve_full_width(torch, np, cfg, need):
                "decode_steps": eng.stats["decode_steps"],
                "rungs": ext["rungs"], "pages_shared": ext["pages_shared"],
                "expert_backend": eng.stats["expert_backend"],
-               "launches": launches}
+               "kv_pool": ext["kv_pool"],
+               "coexec_backend": eng.stats["coexec_backend"],
+               "backfilled": eng.stats["backfilled"],
+               "coexec_steps": len(eng.stats["coexec_tiles"]),
+               "prefills": n_prefills, "launches": launches}
     _say(f"serve: {json.dumps(summary)}")
-    return eng, params, launches
+    return eng, params, launches, sorted(outs, key=lambda c: c.rid)
 
 
 def profile_window(torch, np, eng, cfg) -> dict:
@@ -698,7 +783,8 @@ def profile_window(torch, np, eng, cfg) -> dict:
         name = next((k for k in KERNEL_NAMES if k in evt.key), "other")
         fam[name] += dev_us / 1e3
     busy = sum(fam.values())
-    out = {"window_wall_ms": wall_ms, "steps": eng.window,
+    out = {"model": cfg.name, "kv_pool": eng.stats["engine"]["kv_pool"],
+           "window_wall_ms": wall_ms, "steps": eng.window,
            "device_ms": fam, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
            "host_ops": sum(n for _, n, _ in host),
@@ -973,7 +1059,10 @@ def profile_train_step(torch, trainer, params, opt_state) -> dict:
     _, _, grads = loss_and_grads(params, trainer.cfg, batch, remat="none")
     fam["optimizer"] = _device_ms(
         torch, lambda: adamw.apply_updates(params, grads, opt_state,
-                                           trainer.opt_cfg), iters=1)
+                                           trainer.opt_cfg), iters=1,
+        label="optimizer")
+    if fam["optimizer"] is None:
+        raise AssertionError("torch.profiler recorded no optimizer time")
     fam["other"] -= fam["optimizer"]
     del grads
     out = {"step_wall_ms": wall_ms, "device_ms": fam,
@@ -1141,6 +1230,437 @@ def _k5_library(torch, kernels, calls, gids, e):
     return loop, "per-expert torch.matmul loop"
 
 
+# ---------------------------------------------------------------------------
+# The fourth slice: K2 on int8 pools, K3 (split-K), K6 (co-execution) and
+# K7 (the capacity MoE GEMM).
+# ---------------------------------------------------------------------------
+def _drive(torch, name, fn) -> int:
+    """Run ``fn`` (a path through kernel ``name``'s entry point) once
+    with every launch counter zeroed just before; the kernel's count
+    just after, which must be > 0."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    fn()
+    torch.cuda.synchronize()
+    n = LAUNCH_COUNTERS[name].n
+    if n <= 0:
+        raise AssertionError(f"{name}: its path launched it no time")
+    return n
+
+
+def _int8_pools(kernels, pk, pv):
+    (pk8, pks), (pv8, pvs) = (kernels.quantize_page_pool(pk),
+                              kernels.quantize_page_pool(pv))
+    return pk8, pv8, pks, pvs
+
+
+def check_k2_int8(torch, kernels, gen) -> float:
+    """K2 on int8 pools made by ``quantize_page_pool``, against its plain
+    version: GQA 14/2 at head_dim 64 and 32/8 at 128, 16-token pages,
+    sink entries, positions on page edges, q in f32 and bf16."""
+    worst = 0.0
+    pos = [0, 15, 16, 31, 32, 127, 128, 255]
+    for heads in K2_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos,
+                                                   heads=heads)
+            pools = _int8_pools(kernels, pk, pv)
+            rel = 0.0 if dtype == torch.float32 else BF16_REL
+            err = _max_err(
+                f"K2 int8 {heads} {dtype}",
+                kernels.paged_attention(q, pools[0], pools[1], table, pos_t,
+                                        *pools[2:]),
+                kernels.paged_attention_plain(q, pools[0], pools[1], table,
+                                              pos_t, *pools[2:]),
+                rel, 1e-5)
+            worst = max(worst, err)
+    _say(f"k2 int8: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, int8 pools "
+         f"with bf16 scale planes, agree with the plain version (max abs "
+         f"err {worst}; elementwise tol f32 1e-5, bf16 2^-7*|ref| + 1e-5)")
+    return worst
+
+
+# K3 at qwen2.5-0.5b's decode GEMV shapes, (K, N), each at two slab
+# depths; then ragged edges on both bodies.
+K3_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+K3_SLABS = {896: (128, 448), 4864: (256, 1216)}
+K3_BK = 256                     # slab depth of the timed decode step
+
+
+def check_k3(torch, kernels, gen) -> float:
+    worst, n_cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = 0.0 if dtype == torch.float32 else BF16_REL
+        cases = [(m, k, n, bk) for m in (8, 16) for k, n in K3_SHAPES
+                 for bk in K3_SLABS[k]]
+        cases += [(13, 904, 1000, 200), (13, 900, 1000, 256)]
+        for m, k, n, bk in cases:
+            a = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+            b = (torch.randn(k, n, device="cuda", generator=gen)
+                 / k ** 0.5).to(dtype)
+            cfg = kernels.BlockConfig(
+                kernels.choose_block_config(m, n, k).bm, bk=bk)
+            ref = kernels.sisa_gemm_splitk_plain(a, b, bk).sum(0).to(dtype)
+            worst = max(worst, _max_err(
+                f"K3 {dtype} M={m} K={k} N={n} bk={bk}",
+                kernels.sisa_gemm_splitk(a, b, cfg), ref, rel,
+                _f32_atol(ref)))
+            n_cases += 1
+    _say(f"k3: {n_cases} cases (M 8 and 16 at qwen's decode GEMV shapes, "
+         f"two slab depths each; ragged M/N/K and slab tails; f32 and bf16) "
+         f"agree with the plain version (max abs err {worst}; elementwise "
+         f"tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + 2e-5*max|ref|)")
+    return worst
+
+
+# K7 at phi3.5-moe-42b's expert shapes, with the decode capacity (2 rows
+# an expert at rung 8), a ragged one and the 2,048-token training
+# capacity (320).
+K7_CAPS = (2, 37, 320)
+
+
+def check_k7(torch, kernels, gen) -> float:
+    worst, n_cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        rel = 0.0 if dtype == torch.float32 else BF16_REL
+        shapes = [(MOE_E, c, d, f) for d, f in ((MOE_D, MOE_FF),
+                                                (MOE_FF, MOE_D))
+                  for c in K7_CAPS] + [(3, 5, 36, 70)]
+        for e, c, d, f in shapes:
+            x = torch.randn(e, c, d, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(e, d, f, device="cuda", generator=gen)
+                 / d ** 0.5).to(dtype)
+            ref = kernels.moe_grouped_gemm_plain(x, w)
+            worst = max(worst, _max_err(
+                f"K7 {dtype} E={e} C={c} d={d} f={f}",
+                kernels.moe_grouped_gemm(x, w), ref, rel, _f32_atol(ref)))
+            n_cases += 1
+            del x, w, ref
+    _say(f"k7: {n_cases} cases (E 16, d 4096 -> 6400 and back, C in "
+         f"{K7_CAPS}; a ragged C/d/f; f32 and bf16) agree with the plain "
+         f"version (max abs err {worst}; elementwise tol f32 2e-5*max|ref|, "
+         f"bf16 2^-7*|ref| + 2e-5*max|ref|)")
+    return worst
+
+
+def _k6_scenarios():
+    """The four tenant sets of ``benchmarks/multi_tenant_bench.py::
+    _scenarios`` at their full sizes, on Qwen2.5-0.5B's Table 2 widths:
+    (m, n, k) per tenant (the LM head is shared and batchable, so
+    left out)."""
+    from repro_torch.core import TABLE2
+
+    layers = [ly for ly in TABLE2["Qwen2.5-0.5B"].layers
+              if ly.name != "lm_head"]
+    return {
+        "decode_batch": [(4, ly.n, ly.k) for _ in range(16) for ly in layers],
+        "narrow_proj": [(8, 128, 896)] * 32,
+        "moe_dispatch": [(m, 4864, 896) for m in
+                         (3, 16, 1, 9, 12, 2, 16, 5, 7, 1, 14, 4, 10, 6, 2,
+                          8)],
+        "mixed_serving": [(16, ly.n, ly.k) for ly in layers]
+        + [(s, ly.n, ly.k) for s in (12, 40, 100, 150) for ly in layers],
+    }
+
+
+def _k6_case(torch, kernels, gen, shapes, dtype):
+    """Operands and the plan of one scenario, its tasks in the packer's
+    placement order (``coexec_tile_sequence(pack_requests(...))``)."""
+    from repro_torch.core import coexec_tile_sequence, pack_requests
+    from repro_torch.core.multi import GemmRequest
+
+    reqs = [GemmRequest(rid=i, m=m, n=n, k=k)
+            for i, (m, n, k) in enumerate(shapes)]
+    order = coexec_tile_sequence(pack_requests(reqs),
+                                 rids=[r.rid for r in reqs])
+    xs = [torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+          for m, n, k in shapes]
+    ws = [(torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5)
+          .to(dtype) for m, n, k in shapes]
+    tenants = [kernels.CoexecTenant(rid=i, m=m, n=n, k=k)
+               for i, (m, n, k) in enumerate(shapes)]
+    plan = kernels.build_coexec_plan(tenants, dtype, order=order,
+                                     device="cuda")
+    return xs, ws, plan, order
+
+
+def check_k6(torch, kernels, gen) -> float:
+    """K6 on each scenario in f32 and bf16: the fused launch against its
+    plain version, the rows past each tenant's m (inside its blocks)
+    exactly 0, and fused equal to ``sequential_matmul`` bit for bit."""
+    worst = 0.0
+    for name, shapes in _k6_scenarios().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, ws, plan, _ = _k6_case(torch, kernels, gen, shapes, dtype)
+            a, b = kernels.pack_operands(plan, xs, ws)
+            out = kernels.run_plan(plan, a, b)
+            ref = kernels.run_plan_plain(plan, a, b)
+            rel = 0.0 if dtype == torch.float32 else BF16_REL
+            worst = max(worst, _max_err(f"K6 {name} {dtype}", out, ref, rel,
+                                        _f32_atol(ref)))
+            for off, t in zip(plan.row_offsets, plan.tenants):
+                end = off + -(-t.m // plan.bm) * plan.bm
+                cols = -(-t.n // plan.bn) * plan.bn
+                if torch.count_nonzero(out[off + t.m:end, :cols]):
+                    raise AssertionError(f"K6 {name} {dtype}: padding rows "
+                                         f"of tenant {t.rid} not 0")
+            del a, b, ref
+            fused = kernels.unpack_outputs(plan, out)
+            serial = kernels.sequential_matmul(xs, ws, plan=plan)
+            bad = [i for i, (f, s_) in enumerate(zip(fused, serial))
+                   if not torch.equal(f, s_)]
+            if bad:
+                raise AssertionError(f"K6 {name} {dtype}: fused differs from "
+                                     f"sequential for tenants {bad}")
+            _say(f"k6 {name} {dtype}: {len(shapes)} tenants, "
+                 f"{plan.n_tasks} tasks (bm {plan.bm}); fused == "
+                 f"sequential bit for bit")
+            del xs, ws, out, fused, serial
+    _say(f"k6: 4 scenarios x f32/bf16 agree with the plain version (max abs "
+         f"err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
+         f"2e-5*max|ref|); padding rows exactly 0")
+    return worst
+
+
+def serve_int8(torch, np, kernels, cfg, params, flt_eng, flt_outs):
+    """The 8-request serve on int8 page pools: K2's int8 variant (and
+    not its float one) on every decode step, the pools' resident bytes
+    (hd + 2) / (2 hd) of the bf16 serve's, and one K2 launch on the
+    serve's own pools after its last window against the plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    eng, _, launches, outs = serve_full_width(
+        torch, np, cfg, ("sisa_gemm", "paged_attn_int8"), params=params,
+        kv_quant="int8")
+    if launches["paged_attn"]:
+        raise AssertionError(f"int8 serve launched float K2: {launches}")
+    table = eng.cache.table.numel() * eng.cache.table.element_size()
+    q8, flt = (e.cache.resident_bytes() - table for e in (eng, flt_eng))
+    hd = cfg.resolved_head_dim
+    if q8 * 2 * hd != flt * (hd + 2):
+        raise AssertionError(f"int8 pools {q8} B vs bf16 pools {flt} B: not "
+                             f"(hd + 2) / (2 hd)")
+    differ = sum(a.tokens != b.tokens for a, b in zip(outs, flt_outs))
+    profile_window(torch, np, eng, cfg)
+    pools = {k: v[0] for k, v in eng.cache.pools.items()}
+    n_pages = pools["pk"].shape[0] - 1
+    pos = [0, 15, 16, 31, 32, 127, 128, 255]
+    pmax = eng.cache.max_pages_per_slot
+    pages = torch.randperm(n_pages, device="cuda", generator=gen)
+    tbl = pages[:len(pos) * pmax].reshape(len(pos), pmax).to(torch.int32)
+    q = torch.randn(len(pos), cfg.n_heads, hd, device="cuda",
+                    generator=gen).bfloat16()
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    args = (q, pools["pk"], pools["pv"], tbl, pos_t, pools["pk_s"],
+            pools["pv_s"])
+    err = _max_err("K2 int8 on the serve's pools",
+                   kernels.paged_attention(*args),
+                   kernels.paged_attention_plain(*args), BF16_REL, 1e-5)
+    out = {"resident_bytes_int8_pools": q8, "resident_bytes_bf16_pools": flt,
+           "ratio": q8 / flt, "expected": (hd + 2) / (2 * hd),
+           "completions_differing_from_bf16_pools": differ,
+           "of": len(outs), "serve_pool_check_max_abs_err": err}
+    _say(f"int8 serve: {json.dumps(out)}")
+    return eng, launches, err
+
+
+def serve_coexec(torch, np, cfg, params):
+    """16 requests on 8 slots, so the queue is non-empty at window
+    boundaries, with and without ``coexec_backend="kernel"``: the
+    co-scheduled prefills run as backfill, the tokens do not change."""
+    lens = PROMPT_LENS + PROMPT_LENS[::-1]
+    need = ("sisa_gemm", "paged_attn")
+    eng0, _, _, plain = serve_full_width(torch, np, cfg, need, params=params,
+                                         lens=lens)
+    del eng0
+    eng, _, launches, outs = serve_full_width(
+        torch, np, cfg, need, params=params, lens=lens,
+        coexec_backend="kernel")
+    if [c.tokens for c in outs] != [c.tokens for c in plain]:
+        raise AssertionError("coexec serve tokens differ from the serve "
+                             "without co-execution")
+    st = eng.stats
+    if st["backfilled"] <= 0 or not st["coexec_tiles"]:
+        raise AssertionError(f"no backfill: backfilled {st['backfilled']}, "
+                             f"coexec_tiles {st['coexec_tiles']}")
+    _say(f"coexec serve: {len(outs)} requests token-identical to the serve "
+         f"without co-execution; backfilled {st['backfilled']}, packed "
+         f"prefills {st['packed_prefills']}, coexec_tiles "
+         f"{st['coexec_tiles']}, coexec_interleave "
+         f"{st['coexec_interleave']}")
+    return launches
+
+
+def time_k2_int8(torch, kernels, cfg):
+    """One decode step of K2 on int8 pools (24 launches) at 8 rows, each
+    at the position it reaches at the end of the serve phase."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
+    q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos)
+    pk8, pv8, pks, pvs = _int8_pools(kernels, pk, pv)
+    del pk, pv
+    layers = cfg.n_layers
+
+    def run(fn):
+        return lambda: [fn(q, pk8, pv8, table, pos_t, pks, pvs)
+                        for _ in range(layers)]
+
+    out = _times(torch, {"ms": run(kernels.paged_attention),
+                         "plain_ms": run(kernels.paged_attention_plain)})
+    hd, h, hkv = 64, 14, 2
+    cells = sum(p + 1 for p in pos)
+    per_layer = (2 * cells * hkv * (hd + 2)      # int8 K and V, bf16 scales
+                 + 2 * 2 * len(pos) * h * hd     # q in, out
+                 + 4 * (table.numel() + len(pos)))
+    flops = layers * 4 * cells * h * hd
+    bound, by = _bound_ms(layers * per_layer, flops)
+    return {**out, "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "launches_timed": layers}
+
+
+def time_k3(torch, kernels, params, cfg, rows: int = 8):
+    """K3 on one qwen2.5-0.5b decode step's projections (7 a layer x 24,
+    rung 8), slabs of ``K3_BK``; its path run is one such step."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    xs = {}                                     # one activation per K
+
+    def act(w):
+        if w.shape[0] not in xs:
+            xs[w.shape[0]] = torch.randn(rows, w.shape[0], device="cuda",
+                                         generator=gen).bfloat16()
+        return xs[w.shape[0]], w
+
+    gemms = [act(layer[part][n]["w"]) for layer in params["layers"]
+             for part, n in (("mixer", "q"), ("mixer", "k"), ("mixer", "v"),
+                             ("mixer", "o"), ("mlp", "gate"), ("mlp", "up"),
+                             ("mlp", "down"))]
+    cfg = kernels.BlockConfig(kernels.choose_block_config(rows, 0, 0).bm,
+                              bk=K3_BK)
+
+    def run(fn):
+        return lambda: [fn(a, b) for a, b in gemms]
+
+    def plain(a, b):
+        return kernels.sisa_gemm_splitk_plain(a, b, K3_BK).sum(0).to(a.dtype)
+
+    launches = _drive(torch, "sisa_gemm_splitk",
+                      run(lambda a, b: kernels.sisa_gemm_splitk(a, b, cfg)))
+    out = _times(torch, {
+        "ms": run(lambda a, b: kernels.sisa_gemm_splitk(a, b, cfg)),
+        "plain_ms": run(plain), "library_ms": run(torch.matmul)})
+    nbytes = sum(2 * (a.numel() + b.numel() + a.shape[0] * b.shape[1])
+                 for a, b in gemms)
+    flops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in gemms)
+    bound, by = _bound_ms(nbytes, flops)
+    return {**out, "bound_ms": bound, "bound_by": by, "gemms": len(gemms),
+            "bk": K3_BK, "launches": launches}
+
+
+def time_k7(torch, kernels, cap: int):
+    """K7 at phi3.5-moe-42b's expert shapes (E 16, up and gate 4096 ->
+    6400, down 6400 -> 4096; random bf16 weights) at capacity ``cap``;
+    its path run is those 3 launches."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w_in = [(torch.randn(MOE_E, MOE_D, MOE_FF, device="cuda", generator=gen)
+             / MOE_D ** 0.5).bfloat16() for _ in range(2)]
+    w_dn = (torch.randn(MOE_E, MOE_FF, MOE_D, device="cuda", generator=gen)
+            / MOE_FF ** 0.5).bfloat16()
+    x_d = torch.randn(MOE_E, cap, MOE_D, device="cuda",
+                      generator=gen).bfloat16()
+    x_ff = torch.randn(MOE_E, cap, MOE_FF, device="cuda",
+                       generator=gen).bfloat16()
+    calls = [(x_d, w_in[0]), (x_d, w_in[1]), (x_ff, w_dn)]
+
+    def run(fn):
+        return lambda: [fn(x, w) for x, w in calls]
+
+    launches = _drive(torch, "moe_gemm", run(kernels.moe_grouped_gemm))
+    out = _times(torch, {"ms": run(kernels.moe_grouped_gemm),
+                         "plain_ms": run(kernels.moe_grouped_gemm_plain),
+                         "library_ms": run(torch.bmm)})
+    nbytes = sum(2 * (x.numel() + w.numel() + x.shape[0] * x.shape[1]
+                      * w.shape[2]) for x, w in calls)
+    flops = sum(2 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[2]
+                for x, w in calls)
+    bound, by = _bound_ms(nbytes, flops)
+    return {**out, "bound_ms": bound, "bound_by": by, "capacity": cap,
+            "launches": launches}
+
+
+def _k6_library(torch, kernels, plan, a, b, ref):
+    """``torch._grouped_mm`` on the flat A with the tenants' row
+    offsets, where this PyTorch runs it and agrees with the plain
+    version, else a per-tenant ``torch.matmul`` loop.  A yardstick only;
+    the port never calls either."""
+    ends = torch.tensor(list(plan.row_offsets[1:]) + [plan.m_flat],
+                        dtype=torch.int32, device="cuda")
+    try:
+        got = torch._grouped_mm(a, b, offs=ends)
+        for g, r in zip(kernels.unpack_outputs(plan, got),
+                        kernels.unpack_outputs(plan, ref)):
+            _max_err("torch._grouped_mm (K6)", g, r, BF16_REL,
+                     _f32_atol(ref))
+        return (lambda: torch._grouped_mm(a, b, offs=ends)), \
+            "torch._grouped_mm"
+    except (AttributeError, RuntimeError, AssertionError) as exc:
+        _say(f"k6 library: torch._grouped_mm unusable here ({exc}); timing "
+             "a per-tenant torch.matmul loop instead")
+    spans = [(off, t.m, t.k, t.n, i) for i, (off, t) in
+             enumerate(zip(plan.row_offsets, plan.tenants))]
+    return (lambda: [a[o:o + m, :k] @ b[i, :k, :n]
+                     for o, m, k, n, i in spans]), "per-tenant torch.matmul"
+
+
+def time_k6(torch, kernels, name: str, dtype, plain: bool):
+    """One scenario's placement: K6's one launch on pre-packed operands
+    (``run_plan``) against ``sequential_matmul``'s T launches (each on
+    its own pre-packed single-tenant operands), the plain version
+    (``plain``) and the library yardstick.  The bound counts the live
+    bytes (each tenant's A, weight and C once, not the padded stack)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes = _k6_scenarios()[name]
+    xs, ws, plan, _ = _k6_case(torch, kernels, gen, shapes, dtype)
+    a, b = kernels.pack_operands(plan, xs, ws)
+    singles = kernels.single_tenant_plans(plan, dtype)
+    packed = [kernels.pack_operands(sp, [x], [w])
+              for sp, x, w in zip(singles, xs, ws)]
+    del xs, ws
+    fns = {"ms": lambda: kernels.run_plan(plan, a, b),
+           "sequential_ms": lambda: [kernels.run_plan(sp, a_, b_) for sp,
+                                     (a_, b_) in zip(singles, packed)]}
+    if plain:
+        fns["plain_ms"] = lambda: kernels.run_plan_plain(plan, a, b)
+    lib, lib_name = (None, None)
+    if dtype == torch.bfloat16:
+        lib, lib_name = _k6_library(torch, kernels, plan, a, b,
+                                    kernels.run_plan_plain(plan, a, b))
+        fns["library_ms"] = lib
+    out = _times(torch, fns)
+    size = a.element_size()
+    nbytes = sum(size * (m * k + k * n + m * n) for m, n, k in shapes)
+    flops = sum(2 * m * n * k for m, n, k in shapes)
+    bound, by = _bound_ms(nbytes, flops)
+    return {**out, "library_ms": out.get("library_ms"), "library": lib_name,
+            "plain_ms": out.get("plain_ms"), "bound_ms": bound,
+            "bound_by": by, "scenario": name,
+            "dtype": str(dtype).replace("torch.", ""),
+            "tenants": len(shapes), "tasks": plan.n_tasks, "bm": plan.bm,
+            "live_bytes": nbytes, "flops": flops}
+
+
+def drive_k6(torch, kernels):
+    """K6's path: ``coexec_matmul`` on the packer's placement of each
+    scenario (bf16, tasks in ``coexec_tile_sequence`` order), with the
+    launch counters zeroed just before; one launch a scenario."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = [_k6_case(torch, kernels, gen, shapes, torch.bfloat16)
+             for shapes in _k6_scenarios().values()]
+    return _drive(torch, "coexec", lambda: [
+        kernels.coexec_matmul(xs, ws, order=order)
+        for xs, ws, _, order in cases])
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1177,29 +1697,64 @@ def main() -> int:
     k2_err = check_k2(torch, kernels, gen)
     k4_err = check_k4(torch, kernels, gen)
     k45_err = check_k4_dx_and_k5(torch, kernels, gen)
+    k2_int8_err = check_k2_int8(torch, kernels, gen)
+    k3_err = check_k3(torch, kernels, gen)
+    k7_err = check_k7(torch, kernels, gen)
+    k6_err = check_k6(torch, kernels, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     for label, small in _small_configs().items():
         check_small_model(torch, np, label, small)
         check_small_train(torch, np, label, small)
 
     cfg = get_config("qwen2.5-0.5b")
-    eng, params, launches = serve_full_width(torch, np, cfg,
-                                             ("sisa_gemm", "paged_attn"))
+    eng, params, launches, flt_outs = serve_full_width(
+        torch, np, cfg, ("sisa_gemm", "paged_attn"))
     profile_window(torch, np, eng, cfg)
+    eng8, int8_launches, k2_pool_err = serve_int8(torch, np, kernels, cfg,
+                                                  params, eng, flt_outs)
+    del eng8
+    serve_coexec(torch, np, cfg, params)
     k1 = time_k1(torch, kernels, params, cfg, rows=8)
     k1_prefill = time_k1(torch, kernels, params, cfg, rows=208)
     k2 = time_k2(torch, kernels, cfg)
+    k2_int8 = time_k2_int8(torch, kernels, cfg)
+    k3 = time_k3(torch, kernels, params, cfg)
     _say(f"k1 decode step (rung 8, {k1['gemms']} GEMMs): {json.dumps(k1)}")
     _say(f"k1 prefill (208 rows, LM head on 1 row): {json.dumps(k1_prefill)}")
     _say(f"k2 decode step (8 rows, {k2['launches_timed']} layers): "
          f"{json.dumps(k2)}")
+    _say(f"k2 int8 decode step (8 rows, {k2_int8['launches_timed']} "
+         f"layers): {json.dumps(k2_int8)}")
+    _say(f"k3 decode step (rung 8, {k3['gemms']} GEMMs, slabs of "
+         f"{K3_BK}): {json.dumps(k3)}")
     del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k6_launches = drive_k6(torch, kernels)
+    k6 = {}
+    for name in _k6_scenarios():
+        for dtype in (torch.bfloat16, torch.float32):
+            t = time_k6(torch, kernels, name, dtype,
+                        plain=name == "mixed_serving")
+            k6[(name, t["dtype"])] = t
+            _say(f"k6 {name} {t['dtype']} (fused vs {t['tenants']} "
+                 f"sequential launches): {json.dumps(t)}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    k7 = time_k7(torch, kernels, cap=2)
+    k7_train = time_k7(torch, kernels, cap=320)
+    _say(f"k7 decode capacity (E 16, C 2, up/gate/down): {json.dumps(k7)}")
+    _say(f"k7 training capacity (E 16, C 320, up/gate/down): "
+         f"{json.dumps(k7_train)}")
     gc.collect()
     torch.cuda.empty_cache()
 
     moe_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
                                   n_layers=MOE_LAYERS)
-    eng, params, moe_launches = serve_full_width(torch, np, moe_cfg,
-                                                 KERNEL_NAMES)
+    eng, params, moe_launches, _ = serve_full_width(torch, np, moe_cfg,
+                                                    KERNEL_NAMES)
     profile_window(torch, np, eng, moe_cfg)
     k4 = time_k4(torch, kernels, params, moe_cfg, n_tokens=8)
     k4_prefill = time_k4(torch, kernels, params, moe_cfg, n_tokens=208)
@@ -1259,6 +1814,36 @@ def main() -> int:
          "launches": train_launches["grouped_dw"],
          "max_abs_err": k45_err["dw"],
          **{k: train_t["k5"][k] for k in keys}},
+        {"name": "paged_attn_int8", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+         "replaces": "src/repro/kernels/paged_attn.py:88",
+         "note": "K2's quant=True branch: int8 pools with bf16 scale "
+                 "planes; launches from the kv_quant='int8' serve",
+         "launches": int8_launches["paged_attn_int8"],
+         "max_abs_err": max(k2_int8_err, k2_pool_err),
+         **{k: k2_int8[k] for k in keys}},
+        {"name": "coexec", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/coexec.cu",
+         "replaces": "src/repro/kernels/coexec.py:209",
+         "note": "launches: coexec_matmul on the packer's placement of the "
+                 "four scenarios (bf16); times: mixed_serving, bf16",
+         "launches": k6_launches, "max_abs_err": k6_err,
+         **{k: k6[("mixed_serving", "bfloat16")][k] for k in keys}},
+        {"name": "sisa_gemm_splitk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sisa_gemm.cu",
+         "replaces": "src/repro/kernels/sisa_gemm.py:111",
+         "note": "launches and times: one qwen2.5-0.5b decode step's "
+                 "projections through sisa_gemm_splitk",
+         "launches": k3["launches"], "max_abs_err": k3_err,
+         **{k: k3[k] for k in keys}},
+        {"name": "moe_gemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+         "replaces": "src/repro/kernels/moe_gemm.py:22",
+         "note": "launches and times: phi3.5-moe-42b's up, gate and down "
+                 "expert GEMMs at decode capacity 2 through "
+                 "moe_grouped_gemm",
+         "launches": k7["launches"], "max_abs_err": k7_err,
+         **{k: k7[k] for k in keys}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -342,8 +342,8 @@ def coexec_tile_sequence(schedule: PackedSchedule,
     event-driven placement order — co-resident tenants alternate), and
     each run is mapped to the index of its request in ``rids`` (defaults
     to first-appearance order).  Feed the result to
-    the JAX package's ``repro.kernels.coexec.coexec_matmul(order=...)``
-    / ``build_coexec_plan(order=...)`` (not ported yet) so the fused grid axis walks tile
+    ``repro_torch.kernels.coexec.coexec_matmul(order=...)``
+    / ``build_coexec_plan(order=...)`` so the fused grid axis walks tile
     tasks exactly as the simulator placed them on slab runs, instead of
     tenant-by-tenant.
     """

@@ -8,15 +8,30 @@
   expert FFN and its input gradient (CUDA C++, ``csrc/grouped_gemm.cu``),
   and K5, the segment-sum weight gradient of the experts (CUDA C++,
   ``csrc/grouped_dw.cu``).
+* ``coexec`` — K6, fused multi-tenant co-execution: the packer's
+  placement of many GEMMs run in one launch (CUDA C++,
+  ``csrc/coexec.cu``).
+* ``moe_gemm`` — K7, the capacity-padded batched expert GEMM (CUDA C++,
+  ``csrc/moe_gemm.cu``).
+* K3, the split-K GEMM, is ``sisa_gemm.sisa_gemm_splitk`` (CUDA C++, in
+  ``csrc/sisa_gemm.cu``); K3, K6 and K7 share the tile bodies of
+  ``csrc/tile_gemm.cuh``.
 * ``ops`` — the differentiable, ragged-M entry points for K1.
 * ``_build`` — ``nvcc`` build and ``ctypes`` loading of ``csrc/``.
 
 Each kernel module keeps a plain PyTorch version beside the kernel
 (used for CPU tensors and as the reference on the card) and a launch
 counter (``LAUNCHES``; K4 counts its forward and its transposed-weight
-dX launches apart), gathered here in ``LAUNCH_COUNTERS`` by kernel
-name.  Importing builds nothing.
+dX launches apart, K2 its int8-pool launches), gathered here in
+``LAUNCH_COUNTERS`` by kernel name.  Importing builds nothing.
 """
+from repro_torch.kernels.coexec import LAUNCHES as _K6_LAUNCHES
+from repro_torch.kernels.coexec import (build_coexec_plan, coexec_matmul,
+                                        CoexecPlan, CoexecTenant,
+                                        interleave_order, pack_operands,
+                                        run_plan, run_plan_plain,
+                                        sequential_matmul,
+                                        single_tenant_plans, unpack_outputs)
 from repro_torch.kernels.grouped_gemm import DW_LAUNCHES as _K5_LAUNCHES
 from repro_torch.kernels.grouped_gemm import DX_LAUNCHES as _K4_DX_LAUNCHES
 from repro_torch.kernels.grouped_gemm import LAUNCHES as _K4_LAUNCHES
@@ -28,26 +43,45 @@ from repro_torch.kernels.grouped_gemm import (aligned_block_rows,
                                               segment_grouped_dw_plain,
                                               segment_grouped_gemm,
                                               segment_grouped_gemm_plain)
+from repro_torch.kernels.moe_gemm import LAUNCHES as _K7_LAUNCHES
+from repro_torch.kernels.moe_gemm import (moe_grouped_gemm,
+                                          moe_grouped_gemm_plain)
 from repro_torch.kernels.ops import (row_passes, set_default_backend,
                                      sisa_einsum_2d, sisa_matmul)
 from repro_torch.kernels.paged_attn import LAUNCHES as _K2_LAUNCHES
+from repro_torch.kernels.paged_attn import LAUNCHES_INT8 as _K2_INT8_LAUNCHES
 from repro_torch.kernels.paged_attn import (paged_attention,
                                             paged_attention_plain,
+                                            quantize_page_pool,
                                             set_paged_attn_backend)
 from repro_torch.kernels.sisa_gemm import LAUNCHES as _K1_LAUNCHES
+from repro_torch.kernels.sisa_gemm import SPLITK_LAUNCHES as _K3_LAUNCHES
 from repro_torch.kernels.sisa_gemm import (BlockConfig, choose_block_config,
-                                           sisa_gemm, sisa_gemm_plain)
+                                           sisa_gemm, sisa_gemm_plain,
+                                           sisa_gemm_splitk,
+                                           sisa_gemm_splitk_plain)
 
 LAUNCH_COUNTERS = {"sisa_gemm": _K1_LAUNCHES, "paged_attn": _K2_LAUNCHES,
+                   "paged_attn_int8": _K2_INT8_LAUNCHES,
                    "grouped_gemm": _K4_LAUNCHES,
                    "grouped_gemm_dx": _K4_DX_LAUNCHES,
-                   "grouped_dw": _K5_LAUNCHES}
+                   "grouped_dw": _K5_LAUNCHES,
+                   "coexec": _K6_LAUNCHES,
+                   "sisa_gemm_splitk": _K3_LAUNCHES,
+                   "moe_gemm": _K7_LAUNCHES}
 
 __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
            "sisa_gemm_plain", "sisa_matmul", "sisa_einsum_2d",
            "set_default_backend", "row_passes", "paged_attention",
            "paged_attention_plain", "set_paged_attn_backend",
+           "quantize_page_pool",
            "segment_grouped_gemm", "segment_grouped_gemm_plain",
            "segment_grouped_dw_plain",
            "flat_ragged_gemm", "ragged_grouped_gemm", "flat_block_rows",
-           "aligned_block_rows", "flat_group_offsets"]
+           "aligned_block_rows", "flat_group_offsets",
+           "sisa_gemm_splitk", "sisa_gemm_splitk_plain",
+           "moe_grouped_gemm", "moe_grouped_gemm_plain",
+           "CoexecTenant", "CoexecPlan", "interleave_order",
+           "build_coexec_plan", "pack_operands", "run_plan",
+           "run_plan_plain", "unpack_outputs", "coexec_matmul",
+           "single_tenant_plans", "sequential_matmul"]

@@ -28,7 +28,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("sisa_gemm", "paged_attn", "grouped_gemm", "grouped_dw")
+SOURCES = ("sisa_gemm", "paged_attn", "grouped_gemm", "grouped_dw",
+           "coexec", "moe_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -16,13 +16,22 @@
 // `o` (psz <= 32), and each lane owns hd / 32 dimensions of q and of the
 // accumulator.
 //
+// int8 pools (the TPU kernel's quant=True branch): pk/pv are int8 and each
+// cell (page, offset, KV head) has one bf16 scale in the planes pks/pvs
+// (pages, psz, Hkv, 1).  A cell is dequantized while its page is staged,
+// x_f32 * scale_f32, exactly as _dequant_block does it (the product of an
+// int8 and a bf16 is exact in f32), so the softmax and both contractions are
+// the float body's; q stays in its own dtype, read as f32.
+//
 // What bounds it on an H100: device-memory bytes, the K/V cells the rows
-// actually attend.  The TPU kernel DMAs every table entry, dead pages too
+// actually attend (one byte a value plus two bytes a cell and head for the
+// scale with int8 pools).  The TPU kernel DMAs every table entry, dead pages too
 // (paged_attn.py:107-110); this kernel bounds its page loop by
 // pos // psz + 1, so it reads only live pages.  Table entries are clamped
 // into the pool, so a sink (or stale) entry can never fault.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -36,6 +45,11 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -60,10 +74,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, int HD>
+// T: q's and the output's dtype; P: the pools' (T, or int8_t with QUANT).
+template <typename T, typename P, int HD, bool QUANT>
 __global__ void paged_attn_kernel(const T* __restrict__ q,
-                                  const T* __restrict__ pk,
-                                  const T* __restrict__ pv,
+                                  const P* __restrict__ pk,
+                                  const P* __restrict__ pv,
+                                  const __nv_bfloat16* __restrict__ k_scale,
+                                  const __nv_bfloat16* __restrict__ v_scale,
                                   const int* __restrict__ table,
                                   const int* __restrict__ pos,
                                   T* __restrict__ out, int n_heads, int n_kv,
@@ -99,9 +116,15 @@ __global__ void paged_attn_kernel(const T* __restrict__ q,
     phys = min(max(phys, 0), n_pool_pages - 1);
     for (int e = threadIdx.x; e < psz * HD; e += blockDim.x) {
       const int o = e / HD, d = e % HD;
-      const long long src = (((long long)phys * psz + o) * n_kv + h) * HD + d;
-      ks[e] = to_f32(pk[src]);
-      vs[e] = to_f32(pv[src]);
+      const long long cell = ((long long)phys * psz + o) * n_kv + h;
+      const long long src = cell * HD + d;
+      float kx = to_f32(pk[src]), vx = to_f32(pv[src]);
+      if (QUANT) {
+        kx *= __bfloat162float(k_scale[cell]);
+        vx *= __bfloat162float(v_scale[cell]);
+      }
+      ks[e] = kx;
+      vs[e] = vx;
     }
     __syncthreads();
 
@@ -139,42 +162,46 @@ __global__ void paged_attn_kernel(const T* __restrict__ q,
   for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = from_f32<T>(acc[i] / l_run);
 }
 
-template <typename T, int HD>
+template <typename T, typename P, int HD, bool QUANT>
 cudaError_t launch(const void* q, const void* pk, const void* pv,
-                   const int* table, const int* pos, void* out, int b,
-                   int n_heads, int n_kv, int psz, int pmax, int n_pool_pages,
-                   cudaStream_t stream) {
+                   const void* pks, const void* pvs, const int* table,
+                   const int* pos, void* out, int b, int n_heads, int n_kv,
+                   int psz, int pmax, int n_pool_pages, cudaStream_t stream) {
   const int smem = 2 * psz * HD * (int)sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        paged_attn_kernel<T, P, HD, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(n_kv, b);
   const dim3 block(32 * (n_heads / n_kv));
-  paged_attn_kernel<T, HD><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), table, pos, static_cast<T*>(out), n_heads,
-      n_kv, psz, pmax, n_pool_pages);
+  paged_attn_kernel<T, P, HD, QUANT><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(pk),
+      static_cast<const P*>(pv), static_cast<const __nv_bfloat16*>(pks),
+      static_cast<const __nv_bfloat16*>(pvs), table, pos,
+      static_cast<T*>(out), n_heads, n_kv, psz, pmax, n_pool_pages);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P, bool QUANT>
 cudaError_t dispatch(int hd, const void* q, const void* pk, const void* pv,
-                     const int* table, const int* pos, void* out, int b,
-                     int n_heads, int n_kv, int psz, int pmax,
-                     int n_pool_pages, cudaStream_t s) {
+                     const void* pks, const void* pvs, const int* table,
+                     const int* pos, void* out, int b, int n_heads, int n_kv,
+                     int psz, int pmax, int n_pool_pages, cudaStream_t s) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, pk, pv, table, pos, out, b, n_heads, n_kv, psz,
-                           pmax, n_pool_pages, s);
+      return launch<T, P, 64, QUANT>(q, pk, pv, pks, pvs, table, pos, out, b,
+                                     n_heads, n_kv, psz, pmax, n_pool_pages,
+                                     s);
     case 128:
-      return launch<T, 128>(q, pk, pv, table, pos, out, b, n_heads, n_kv, psz,
-                            pmax, n_pool_pages, s);
+      return launch<T, P, 128, QUANT>(q, pk, pv, pks, pvs, table, pos, out,
+                                      b, n_heads, n_kv, psz, pmax,
+                                      n_pool_pages, s);
     case 256:
-      return launch<T, 256>(q, pk, pv, table, pos, out, b, n_heads, n_kv, psz,
-                            pmax, n_pool_pages, s);
+      return launch<T, P, 256, QUANT>(q, pk, pv, pks, pvs, table, pos, out,
+                                      b, n_heads, n_kv, psz, pmax,
+                                      n_pool_pages, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -182,20 +209,34 @@ cudaError_t dispatch(int hd, const void* q, const void* pk, const void* pv,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// dtype (q and the output): 0 = float32, 1 = bfloat16.  quant: 0 = pools of
+// q's dtype (pks / pvs unused), 1 = int8 pools with bf16 scale planes.
+// Returns the launch's cudaError_t.
 extern "C" int paged_attn(const void* q, const void* pk, const void* pv,
-                          const void* table, const void* pos, void* out, int b,
-                          int n_heads, int n_kv, int hd, int psz, int pmax,
-                          int n_pool_pages, int dtype, void* stream) {
+                          const void* pks, const void* pvs, const void* table,
+                          const void* pos, void* out, int b, int n_heads,
+                          int n_kv, int hd, int psz, int pmax,
+                          int n_pool_pages, int dtype, int quant,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* ps = static_cast<const int*>(pos);
-  if (dtype == 0)
-    return dispatch<float>(hd, q, pk, pv, t, ps, out, b, n_heads, n_kv, psz,
-                           pmax, n_pool_pages, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, q, pk, pv, t, ps, out, b, n_heads, n_kv,
-                                   psz, pmax, n_pool_pages, s);
+  if (dtype == 0 && !quant)
+    return dispatch<float, float, false>(hd, q, pk, pv, pks, pvs, t, ps, out,
+                                         b, n_heads, n_kv, psz, pmax,
+                                         n_pool_pages, s);
+  if (dtype == 1 && !quant)
+    return dispatch<__nv_bfloat16, __nv_bfloat16, false>(
+        hd, q, pk, pv, pks, pvs, t, ps, out, b, n_heads, n_kv, psz, pmax,
+        n_pool_pages, s);
+  if (dtype == 0 && quant)
+    return dispatch<float, int8_t, true>(hd, q, pk, pv, pks, pvs, t, ps, out,
+                                         b, n_heads, n_kv, psz, pmax,
+                                         n_pool_pages, s);
+  if (dtype == 1 && quant)
+    return dispatch<__nv_bfloat16, int8_t, true>(
+        hd, q, pk, pv, pks, pvs, t, ps, out, b, n_heads, n_kv, psz, pmax,
+        n_pool_pages, s);
   return cudaErrorInvalidValue;
 }
 

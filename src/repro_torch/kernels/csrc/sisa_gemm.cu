@@ -31,6 +31,15 @@
 // B may arrive transposed (the tied LM head reads the (vocab, d) embedding
 // table as B = table.T without a copy): TRANS_B instantiations walk the
 // contiguous K axis of B.  wgmma and TMA are later work.
+//
+// K3, the split-K variant (repro/kernels/sisa_gemm.py::_splitk_kernel,
+// launched by sisa_gemm_splitk), is the last kernel of this file: K is cut
+// into slabs of bk columns, and each slab's block writes its own f32
+// partial C into (n_k, M, N); the wrapper sums the partials.  For a decode
+// GEMV (M and N both small) this puts n_k times as many blocks, each
+// reading a slab of the weights, in flight.  Its tile bodies are
+// tile_gemm.cuh's, shared with K6 and K7; K1's own bodies above are not
+// touched by it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +47,7 @@
 namespace {
 
 #include "gemm_tiles.cuh"
+#include "tile_gemm.cuh"
 
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
@@ -368,6 +378,66 @@ cudaError_t dispatch(int bm, const void* a, const void* b, void* c, int m,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: split-K partials.  Block (column tile, row tile, slab kk) computes
+// A[rows, kk*bk : kk*bk + bk] @ B[kk*bk : kk*bk + bk, cols] into
+// part[kk] (f32, M x N); the slab's K tail, ragged rows and ragged columns
+// are zero-filled.
+// ---------------------------------------------------------------------------
+template <int BM>
+__global__ void __launch_bounds__(TcTile<BM>::kThreads)
+    splitk_tc_kernel(const __nv_bfloat16* __restrict__ a,
+                     const __nv_bfloat16* __restrict__ b,
+                     float* __restrict__ part, int m, int n, int k, int bk,
+                     long long lda, long long ldb) {
+  extern __shared__ uint4 smem_raw[];
+  const int kk = blockIdx.z, row0 = blockIdx.y * BM, n0 = blockIdx.x * kTileN;
+  const int k0 = kk * bk;
+  const int rows = min(BM, m - row0), cols = min(kTileN, n - n0);
+  const StoreTile<float> epi{part + ((long long)kk * m + row0) * n + n0, n,
+                             rows, cols};
+  tc_tile<BM>(a + (long long)row0 * lda + k0, lda, rows,
+              b + (long long)k0 * ldb + n0, ldb, cols, min(bk, k - k0),
+              smem_raw, epi);
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(kFpThreads)
+    splitk_fp_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                     float* __restrict__ part, int m, int n, int k, int bk,
+                     long long lda, long long ldb) {
+  const int kk = blockIdx.z, row0 = blockIdx.y * BM, n0 = blockIdx.x * kTileN;
+  const int k0 = kk * bk;
+  const int rows = min(BM, m - row0), cols = min(kTileN, n - n0);
+  const StoreTile<float> epi{part + ((long long)kk * m + row0) * n + n0, n,
+                             rows, cols};
+  fp_tile<T, BM>(a + (long long)row0 * lda + k0, lda, rows,
+                 b + (long long)k0 * ldb + n0, ldb, cols, min(bk, k - k0),
+                 epi);
+}
+
+template <int BM>
+cudaError_t splitk_launch(const void* a, const void* b, float* part, int m,
+                          int n, int k, int bk, long long lda, long long ldb,
+                          int dtype, int tensor_cores, cudaStream_t s) {
+  const dim3 grid((n + kTileN - 1) / kTileN, (m + BM - 1) / BM,
+                  (k + bk - 1) / bk);
+  if (dtype == 1 && tensor_cores)
+    splitk_tc_kernel<BM><<<grid, TcTile<BM>::kThreads,
+                           TcTile<BM>::kSmemBytes, s>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(b), part, m, n, k, bk, lda, ldb);
+  else if (dtype == 1)
+    splitk_fp_kernel<__nv_bfloat16, BM><<<grid, kFpThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(b), part, m, n, k, bk, lda, ldb);
+  else
+    splitk_fp_kernel<float, BM><<<grid, kFpThreads, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), part, m, n,
+        k, bk, lda, ldb);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; tensor_cores: bf16 with 16-byte aligned
@@ -385,6 +455,35 @@ extern "C" int sisa_gemm(const void* a, const void* b, void* c, int m, int n,
     return dispatch<__nv_bfloat16>(bm, a, b, c, m, n, k, lda, sbk, sbn, ldc,
                                    trans_b, s);
   return cudaErrorInvalidValue;
+}
+
+// K3: part (n_k, m, n) f32 partials of a (m, k) @ b (k, n), slabs of bk
+// columns of K, n_k = ceil(k / bk); a and b row-major with row strides lda
+// and ldb.  bm: 16, 32, 64 or 128; tensor_cores: bf16 with 16-byte aligned
+// rows and bk a multiple of 8 (checked by the caller).
+extern "C" int sisa_gemm_splitk(const void* a, const void* b, void* part,
+                                int m, int n, int k, int bk, long long lda,
+                                long long ldb, int dtype, int bm,
+                                int tensor_cores, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if ((dtype != 0 && dtype != 1) || bk <= 0) return cudaErrorInvalidValue;
+  switch (bm) {
+    case 16:
+      return splitk_launch<16>(a, b, p, m, n, k, bk, lda, ldb, dtype,
+                               tensor_cores, s);
+    case 32:
+      return splitk_launch<32>(a, b, p, m, n, k, bk, lda, ldb, dtype,
+                               tensor_cores, s);
+    case 64:
+      return splitk_launch<64>(a, b, p, m, n, k, bk, lda, ldb, dtype,
+                               tensor_cores, s);
+    case 128:
+      return splitk_launch<128>(a, b, p, m, n, k, bk, lda, ldb, dtype,
+                                tensor_cores, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* sisa_gemm_error_string(int err) {

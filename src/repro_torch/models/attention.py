@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.kernels.paged_attn import paged_attention, quantize_page_pool
 from repro_torch.models.common import apply_rope, linear_apply, linear_init
 
 Tensor = torch.Tensor
@@ -101,10 +101,13 @@ def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     """One-token step against this layer's slice of the page pool.
 
     ``cache`` is ``{"pk": (n_pages + sink, page_size, Hkv, hd), "pv":
-    ...}``, ``page_table`` the per-row ``(B, max_pages)`` int32
-    indirection and ``pos`` the per-row ``(B,)`` write position.  Row
-    ``i`` writes its new K/V at physical cell ``(table[i, pos_i // P],
-    pos_i % P)`` and then attends its pages through K2.
+    ...}``, plus the bf16 scale planes ``"pk_s"``/``"pv_s"`` ``(n_pages
+    + sink, page_size, Hkv, 1)`` when the pools are int8;
+    ``page_table`` is the per-row ``(B, max_pages)`` int32 indirection
+    and ``pos`` the per-row ``(B,)`` write position.  Row ``i`` writes
+    its new K/V (quantized, with its scales, into int8 pools) at
+    physical cell ``(table[i, pos_i // P], pos_i % P)`` and then attends
+    its pages through K2.
     """
     b = x.shape[0]
     psz = cache["pk"].shape[1]
@@ -120,8 +123,16 @@ def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     # The pool is written in place (the reference's .at[].set is
     # functional): the new K/V lands before K2 launches on the same
     # stream, so the kernel sees it, as the reference's does.
+    scales = ()
+    if "pk_s" in cache:
+        # The reference's _quant_kv, the numerics of quantize_page_pool.
+        (k, ks), (v, vs) = quantize_page_pool(k), quantize_page_pool(v)
+        cache["pk_s"][phys, off] = ks[:, 0]
+        cache["pv_s"][phys, off] = vs[:, 0]
+        scales = (cache["pk_s"], cache["pv_s"])
     cache["pk"][phys, off] = k[:, 0]
     cache["pv"][phys, off] = v[:, 0]
-    out = paged_attention(q[:, 0], cache["pk"], cache["pv"], page_table, pos)
+    out = paged_attention(q[:, 0], cache["pk"], cache["pv"], page_table, pos,
+                          *scales)
     out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
     return linear_apply(p["o"], out), cache

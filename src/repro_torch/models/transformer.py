@@ -257,8 +257,9 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
                    pools: Dict[str, Tensor], pos: Tensor, *,
                    page_table) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step.  tokens: (B, 1); pos: (B,) per-row positions;
-    ``pools`` ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}`` are
-    updated in place; ``page_table`` is a ``(B, max_pages)`` int32
+    ``pools`` ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}``
+    (int8 pools add their ``"pk_s","pv_s"`` scale planes) are updated in
+    place; ``page_table`` is a ``(B, max_pages)`` int32
     tensor or ``{"global": ...}``.  Returns the f32 logits
     ``(B, 1, vocab_padded)`` and the pools."""
     check_supported(cfg)
@@ -267,7 +268,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     x = _embed(params, cfg, tokens)
     for layer, p in enumerate(params["layers"]):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        cache = {"pk": pools["pk"][layer], "pv": pools["pv"][layer]}
+        cache = {name: pool[layer] for name, pool in pools.items()}
         mix, _ = attn.paged_attn_decode_step(p["mixer"], h, cache,
                                              page_table, pos, cfg)
         x = x + mix

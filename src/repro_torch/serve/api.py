@@ -88,8 +88,9 @@ def completion_of(req) -> Completion:
 class EngineOptions:
     """Every serving-engine knob, in one frozen record (the reference's
     fields).  ``expert_backend`` is None or ``"kernel"`` (MoE experts
-    always run on K4); ``coexec_backend`` and ``kv_quant`` must stay
-    None until their kernels are ported."""
+    always run on K4); ``coexec_backend`` is None or ``"kernel"`` (the
+    packer's co-scheduled prefills run as backfill at window
+    boundaries); ``kv_quant`` is None or ``"int8"``."""
     max_slots: int = 8
     max_seq: int = 256
     window: int = 8
@@ -150,9 +151,6 @@ def make_engine(cfg, params, kind: str = "paged",
             f"kind={kind!r} is not ported yet (ROADMAP.md, queue A); "
             "use kind='paged'")
     opts = dataclasses.replace(options or EngineOptions(), **overrides)
-    if opts.coexec_backend is not None:
-        raise NotImplementedError(
-            "co-execution (K6) is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     if param_device(params) != dev and not (
             dev.type == "cuda" and param_device(params).type == "cuda"
@@ -165,6 +163,7 @@ def make_engine(cfg, params, kind: str = "paged",
         kv_quant=opts.kv_quant, prefix_sharing=opts.prefix_sharing,
         max_batch=opts.max_slots, max_seq=opts.max_seq, window=opts.window,
         ladder=opts.ladder, multi_tenant=opts.multi_tenant,
+        coexec_backend=opts.coexec_backend,
         prefill_bucketing=opts.buckets != "off", policy=opts.policy,
         default_klass=opts.default_klass)
 

@@ -11,6 +11,17 @@ predicted cycles per served request.  With ``multi_tenant`` on, every
 step also plans how the decode batch's GEMMs and the waiting prompts'
 prefill GEMMs would pack onto the slab array, and records the predicted
 speedup in the stats.
+
+Co-execution (``coexec_backend="kernel"``) executes that placement at
+the serving level, as the reference's engines do: the co-scheduled
+prefills run at the window boundary and park decode-ready in the
+backfill queue, and each step's placement is lowered to the fused
+kernel's grid-task order (:func:`~repro_torch.core.coexec_tile_sequence`),
+whose size and tenant switches are recorded in ``stats["coexec_tiles"]``
+/ ``stats["coexec_interleave"]``.  As in the reference, the flag does
+not route the engine's own GEMMs through K6
+(:mod:`repro_torch.kernels.coexec`); that kernel runs the packer's
+placements with real operands (``coexec_matmul``).
 """
 from __future__ import annotations
 
@@ -23,11 +34,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import (GemmRequest, packed_speedup, requests_from_workload,
+from repro_torch.core import (coexec_tile_sequence, GemmRequest,
+                              packed_speedup, requests_from_workload,
                               simulate_workload, SISA_128)
 from repro_torch.core.workloads import GemmLayer, LLMWorkload
 
 SLAB_LADDER = (1, 2, 4, 8, 16, 32, 64, 128)
+COEXEC_BACKENDS = (None, "kernel")
 
 
 @dataclasses.dataclass
@@ -132,29 +145,42 @@ def note_first_token(req: Request, logits: torch.Tensor, vocab: int,
     stats["ttft"].append(req.first_token_at - req.arrived)
 
 
-def init_serve_stats(expert_backend: Optional[str] = None
+def init_serve_stats(expert_backend: Optional[str] = None,
+                     coexec_backend: Optional[str] = None
                      ) -> Dict[str, Any]:
     """The stats dict every engine starts from: exactly the shared
     schema of ``repro_torch.serve.api.STATS_KEYS`` (engine extras go
     under ``"engine"``).  ``expert_backend`` is the MoE expert lowering
-    in effect (``"kernel"`` for MoE models, None otherwise); co-execution
-    is not ported, so its key reads None."""
+    in effect (``"kernel"`` for MoE models, None otherwise);
+    ``coexec_backend`` is None or ``"kernel"`` (the port's only
+    co-execution backend, like its other ``*_backend`` switches) and
+    raises ``ValueError`` otherwise."""
+    if coexec_backend not in COEXEC_BACKENDS:
+        raise ValueError(f"coexec_backend={coexec_backend!r}: the port has "
+                         f"only {COEXEC_BACKENDS}")
     return {"batches": [], "ttft": [], "decode_steps": 0,
             "decode_compiles": None,
             "packed_speedup": [], "packed_prefills": 0,
             "backfilled": 0, "coexec_tiles": [], "coexec_interleave": [],
-            "coexec_backend": None, "expert_backend": expert_backend,
+            "coexec_backend": coexec_backend,
+            "expert_backend": expert_backend,
             "engine": {}}
 
 
 def record_step_packing(stats: Dict[str, Any], decode_bsz: int,
-                        waiting: List[int], cfg: ModelConfig) -> int:
+                        waiting: List[int], cfg: ModelConfig,
+                        coexec: bool) -> int:
     """Plan one step's multi-tenant placement and record its predicted
-    speedup; returns the number of co-scheduled prefills.  (The
-    reference also lowers the placement to the co-exec kernel's task
-    order; that kernel, K6, is not ported yet.)"""
+    speedup and, with ``coexec``, the size and tenant switches of its
+    fused grid-task order; returns the number of co-scheduled
+    prefills."""
     packed, serial, n_pre = plan_step_packing(decode_bsz, waiting, cfg)
     if packed.makespan > 0:
         stats["packed_speedup"].append(serial.cycles / packed.makespan)
     stats["packed_prefills"] += n_pre
+    if coexec:
+        seq = coexec_tile_sequence(packed)
+        stats["coexec_tiles"].append(len(seq))
+        stats["coexec_interleave"].append(
+            sum(a != b for a, b in zip(seq, seq[1:])))
     return n_pre

@@ -21,11 +21,19 @@
   page count at admission, so lazy boundary mapping never finds the
   free list empty and the ladder sweep never targets a rung the pool
   cannot back.
+* **int8 pools** (``kv_quant="int8"``): ``pk``/``pv`` hold int8 values
+  and ``pk_s``/``pv_s`` one bf16 scale per (page, offset, KV head) cell,
+  about half the bytes of bf16 pools.  Admission quantizes the prefilled
+  chunks as it copies them in, decode quantizes each new K/V as it
+  writes it, with the same numerics (:func:`repro_torch.kernels.
+  paged_attn.quantize_page_pool`), so admitted and decoded cells
+  dequantize identically.  A prefill parked by co-execution backfill
+  stays at model precision until its admission copies it in.
 
 Decode writes the new K/V into the pool in place and attends through K2
 (:func:`repro_torch.models.attention.paged_attn_decode_step`).  The
-reference's int8 pools, sliding-window page rings, recurrent slabs and
-cross pages are later slices and raise ``NotImplementedError``.
+reference's sliding-window page rings, recurrent slabs and cross pages
+are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.transformer import check_supported, param_dtype
 from repro_torch.serve.engine import effective_tokens, Request
 from repro_torch.serve.serve_step import make_paged_decode_step
@@ -49,7 +58,8 @@ class PagedKVCache:
 
     def __init__(self, max_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, *, n_layers: int, n_kv_heads: int,
-                 head_dim: int, dtype: torch.dtype, device: torch.device):
+                 head_dim: int, dtype: torch.dtype, device: torch.device,
+                 quant: Optional[str] = None):
         if num_pages < max_pages_per_slot:
             raise ValueError(
                 f"pool of {num_pages} pages cannot hold one full-length "
@@ -58,11 +68,20 @@ class PagedKVCache:
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
+        if quant not in POOL_QUANTS:
+            raise ValueError(f"quant={quant!r} not in {POOL_QUANTS}")
         self.device = device
+        self.quant = quant
         self.sink = num_pages                      # physical sink page id
         shape = (n_layers, num_pages + 1, page_size, n_kv_heads, head_dim)
-        self.pools = {"pk": torch.zeros(shape, dtype=dtype, device=device),
-                      "pv": torch.zeros(shape, dtype=dtype, device=device)}
+        vals = torch.int8 if quant else dtype
+        self.pools = {"pk": torch.zeros(shape, dtype=vals, device=device),
+                      "pv": torch.zeros(shape, dtype=vals, device=device)}
+        if quant:
+            plane = shape[:-1] + (1,)
+            self.pools.update(
+                pk_s=torch.zeros(plane, dtype=torch.bfloat16, device=device),
+                pv_s=torch.zeros(plane, dtype=torch.bfloat16, device=device))
         self.table = torch.full((max_slots, max_pages_per_slot), self.sink,
                                 dtype=torch.int32, device=device)
         self._reset_allocator()
@@ -155,8 +174,13 @@ class PagedKVCache:
             idx = torch.as_tensor(fresh, device=self.device)
             for name, src in (("pk", k), ("pv", v)):
                 chunks = src[:, 0].reshape(n_layers, n, self.page_size,
-                                           *src.shape[3:])
-                self.pools[name].index_copy_(1, idx, chunks[:, len(shared):])
+                                           *src.shape[3:])[:, len(shared):]
+                if self.quant:
+                    # Quantized as decode quantizes its writes (the
+                    # reference's _quantize_pool_tree at admission).
+                    chunks, scale = quantize_page_pool(chunks)
+                    self.pools[name + "_s"].index_copy_(1, idx, scale)
+                self.pools[name].index_copy_(1, idx, chunks)
         pages = shared + fresh
         if pages:
             self._write_row(slot, 0, pages)
@@ -263,8 +287,8 @@ class PagedKVCache:
         self.table.fill_(self.sink)
 
     def resident_bytes(self) -> int:
-        """Bytes of persistent paged storage: pools (sink included) and
-        the page table."""
+        """Bytes of persistent paged storage: pools (sink included; int8
+        pools with their scale planes) and the page table."""
         return (sum(p.numel() * p.element_size() for p in self.pools.values())
                 + self.table.numel() * self.table.element_size())
 
@@ -284,10 +308,6 @@ class PagedServeEngine(SlotServeEngine):
         check_supported(cfg)
         if kv_quant not in POOL_QUANTS:
             raise ValueError(f"kv_quant={kv_quant!r} not in {POOL_QUANTS}")
-        if kv_quant is not None:
-            raise NotImplementedError(
-                "int8 page pools (kv_quant='int8') are the next slice of "
-                "the port (ROADMAP.md)")
         if page_size < 1 or page_size > max_seq:
             raise ValueError(f"page_size {page_size} not in [1, {max_seq}]")
         self.page_size = page_size
@@ -316,8 +336,7 @@ class PagedServeEngine(SlotServeEngine):
                        "pages_mapped_peak": 0,
                        "pages_shared": 0, "page_cows": 0,
                        "pool_pages": self.num_pages,
-                       "kv_pool": str(param_dtype(self.params)).replace(
-                           "torch.", "")})
+                       "kv_pool": self.kv_quant or "f32"})
         return extras
 
     def _prefill_cache_len(self) -> Optional[int]:
@@ -335,7 +354,7 @@ class PagedServeEngine(SlotServeEngine):
                             n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.resolved_head_dim,
                             dtype=param_dtype(self.params),
-                            device=self.device)
+                            device=self.device, quant=self.kv_quant)
 
     def _bucket_len(self, s: int) -> Optional[int]:
         # Page-multiple buckets: admission maps exactly

@@ -13,6 +13,9 @@ inherits (the port of ``repro/serve/slot_engine.py:172-894``).
   :meth:`warmup`.
 * **Bucketed prefill**: prompts pad to a storage-defined bucket with
   the last real token's logits read back (causal masking hides pads).
+* **Co-execution backfill** (``coexec_backend="kernel"``): the
+  prefills the packer co-schedules with a window run at its boundary
+  and park decode-ready, admitted next step without a second prefill.
 * **Admission classes and preemption** via
   :class:`~repro_torch.serve.policy.SchedulingPolicy`, with a
   token-identical resume of preempted requests.
@@ -50,6 +53,7 @@ class SlotServeEngine:
                  max_batch: int = 8, max_seq: int = 256, window: int = 8,
                  ladder: Optional[Sequence[int]] = None,
                  multi_tenant: bool = True,
+                 coexec_backend: Optional[str] = None,
                  prefill_bucketing: bool = True,
                  policy: Optional[SchedulingPolicy] = None,
                  default_klass: str = KLASS_BATCH):
@@ -62,9 +66,10 @@ class SlotServeEngine:
         self.max_seq = max_seq
         self.window = window
         self.multi_tenant = multi_tenant
+        self.coexec_backend = coexec_backend
         # MoE experts always run on K4 (or its plain version on the CPU).
         self._expert_backend = "kernel" if cfg.moe is not None else None
-        self.stats = init_serve_stats(self._expert_backend)
+        self.stats = init_serve_stats(self._expert_backend, coexec_backend)
         self.stats["engine"].update(self._stats_extras())
 
         # Ladder rungs available at this engine's max_batch; decode only
@@ -145,7 +150,8 @@ class SlotServeEngine:
         self._pos[:] = 0
         self._budget[:] = 0
         self.cache.reset()
-        self.stats = init_serve_stats(self._expert_backend)
+        self.stats = init_serve_stats(self._expert_backend,
+                                      self.coexec_backend)
         self.stats["engine"].update(self._stats_extras())
 
     # Multi-token decode window -------------------------------------------
@@ -217,6 +223,14 @@ class SlotServeEngine:
         if not resume:
             note_first_token(req, logits, self.cfg.vocab_size, self.stats)
         return cache, s
+
+    def _backfill_one(self, req: Request) -> None:
+        """One co-scheduled prefill at a window boundary; the request
+        parks decode-ready (its cache at model precision) for the next
+        admission."""
+        cache, pos = self._prefill_one(req)
+        self._backfilled.append((req, cache, pos))
+        self.stats["backfilled"] += 1
 
     def _n_active(self) -> int:
         return sum(r is not None for r in self._req)
@@ -392,17 +406,19 @@ class SlotServeEngine:
                 self.stats["engine"]["slot_releases"] += 1
 
     def _plan_step(self) -> int:
-        """Multi-tenant co-schedule stats of this window."""
+        """Multi-tenant co-schedule of this window (stats, and the
+        number of prefills co-scheduled with it)."""
         if not self.multi_tenant or not self.queue:
             return 0
         waiting = [len(r.prompt) for r in self.queue]
         return record_step_packing(self.stats, self._n_active(), waiting,
-                                   self.cfg)
+                                   self.cfg, bool(self.coexec_backend))
 
     @torch.no_grad()
     def step(self, finished: List[Request], max_steps: int = 512) -> int:
         """One scheduler iteration at a window boundary: admit up to the
-        ladder target and run one decode window.  Appends newly finished
+        ladder target, run one decode window, then (``coexec_backend``)
+        run the prefills co-scheduled with it.  Appends newly finished
         requests to ``finished``; returns the decode steps consumed (0
         when idle)."""
         if self._cancelled:
@@ -412,12 +428,20 @@ class SlotServeEngine:
                 or max_steps <= 0:
             return 0
         self._admit()
-        self._plan_step()
+        n_pre = self._plan_step()
+        to_backfill: List[Request] = []
+        if self.coexec_backend and self.multi_tenant:
+            to_backfill = [self.queue.popleft()
+                           for _ in range(min(n_pre, len(self.queue)))]
         rung = self._current_rung()
-        if not rung:
-            return 1
-        self._run_window(rung, finished)
-        return self.window
+        if rung:
+            self._run_window(rung, finished)
+            consumed = self.window
+        else:
+            consumed = 1
+        for req in to_backfill:
+            self._backfill_one(req)
+        return consumed
 
     def run(self, max_steps: int = 512) -> List[Completion]:
         """Serve everything in the queue (greedy decoding); one

@@ -1,7 +1,8 @@
 """The port's kernel modules against the JAX package's kernels on the CPU.
 
-K1 (``repro_torch.kernels.sisa_gemm``) and K2 (``...paged_attn``) run
-their plain versions here — the CUDA kernels run only on the card and
+K1 (``repro_torch.kernels.sisa_gemm``), K2 (``...paged_attn``), K3
+(``sisa_gemm_splitk``) and K7 (``...moe_gemm``) run their plain versions
+here — the CUDA kernels run only on the card and
 are held against these same plain versions by ``chip_smoke.py``.  The
 plain versions are held against the reference's Pallas kernels in
 interpret mode and its XLA twins, on seeded numpy inputs, in float32
@@ -19,12 +20,17 @@ import torch
 from repro.kernels import choose_block_config as ref_block_config
 from repro.kernels import paged_attention as ref_paged_attention
 from repro.kernels import sisa_matmul as ref_sisa_matmul
-from repro.kernels.ref import gemm_ref
-from repro_torch.kernels import (_build, choose_block_config, LAUNCH_COUNTERS,
-                                 paged_attention, paged_attention_plain,
-                                 row_passes, set_default_backend,
-                                 set_paged_attn_backend, sisa_einsum_2d,
-                                 sisa_gemm, sisa_matmul)
+from repro.kernels.moe_gemm import moe_grouped_gemm as ref_moe_grouped_gemm
+from repro.kernels.ref import gemm_ref, grouped_gemm_ref
+from repro.kernels.sisa_gemm import BlockConfig as RefBlockConfig
+from repro.kernels.sisa_gemm import sisa_gemm_splitk as ref_sisa_gemm_splitk
+from repro_torch.kernels import (_build, BlockConfig, choose_block_config,
+                                 LAUNCH_COUNTERS, moe_grouped_gemm,
+                                 moe_grouped_gemm_plain, paged_attention,
+                                 paged_attention_plain, row_passes,
+                                 set_default_backend, set_paged_attn_backend,
+                                 sisa_einsum_2d, sisa_gemm, sisa_gemm_splitk,
+                                 sisa_gemm_splitk_plain, sisa_matmul)
 
 TOL = 1e-5
 M_CASES = [3, 40, 130, 256]
@@ -147,7 +153,8 @@ def test_k2_rejects_unknown_backend():
             set_paged_attn_backend(name)
 
 
-@pytest.mark.parametrize("kernel", ["sisa_gemm", "paged_attn"])
+@pytest.mark.parametrize("kernel", ["sisa_gemm", "paged_attn",
+                                    "sisa_gemm_splitk", "moe_gemm"])
 def test_non_cpu_tensors_never_take_the_plain_version(kernel):
     """Only a CPU tensor selects the plain version: a tensor on any other
     device launches the kernel or raises (here, on ``meta``, it raises
@@ -156,6 +163,14 @@ def test_non_cpu_tensors_never_take_the_plain_version(kernel):
         args = (torch.zeros(4, 8, device="meta"),
                 torch.zeros(8, 3, device="meta"))
         call = sisa_matmul
+    elif kernel == "sisa_gemm_splitk":
+        args = (torch.zeros(4, 64, device="meta"),
+                torch.zeros(64, 3, device="meta"), BlockConfig(16, 64, 32))
+        call = sisa_gemm_splitk
+    elif kernel == "moe_gemm":
+        args = (torch.zeros(2, 4, 8, device="meta"),
+                torch.zeros(2, 8, 3, device="meta"))
+        call = moe_grouped_gemm
     else:
         args = [torch.from_numpy(x).to("meta") for x in
                 _attn_case(0, 1, 2, 1, 8, 4, 2, 1, [0])]
@@ -172,5 +187,80 @@ def test_cpu_tensors_build_nothing():
     sisa_matmul(torch.ones(2, 3), torch.ones(3, 4))
     paged_attention(*[torch.from_numpy(x) for x in
                       _attn_case(0, 1, 2, 1, 8, 4, 2, 1, [0])])
+    sisa_gemm_splitk(torch.ones(2, 64), torch.ones(64, 4),
+                     BlockConfig(16, 0, 32))
+    moe_grouped_gemm(torch.ones(2, 3, 4), torch.ones(2, 4, 5))
     assert {k: c.n for k, c in LAUNCH_COUNTERS.items()} == before
     assert not _build._LIBS
+
+
+# K3 at the reference test's shapes (tests/test_kernels.py:138-149), each
+# at two slab depths, with the reference's divisible block shapes.
+@pytest.mark.parametrize("m,n,k", [(8, 256, 2048), (16, 512, 4096),
+                                   (1, 128, 1024)])
+@pytest.mark.parametrize("slabs", [2, 4])
+def test_k3_splitk_matches_pallas_and_ref(m, n, k, slabs):
+    a, b = _rand(m + k, m, k), _rand(n, k, n, scale=k ** -0.5)
+    mp = ((m + 7) // 8) * 8
+    bk = k // slabs
+    got = sisa_gemm_splitk(torch.from_numpy(a), torch.from_numpy(b),
+                           BlockConfig(bm=mp, bn=128, bk=bk)).numpy()
+    ap = np.pad(a, ((0, mp - m), (0, 0)))
+    pallas = np.asarray(ref_sisa_gemm_splitk(
+        jnp.asarray(ap), jnp.asarray(b), RefBlockConfig(bm=mp, bn=128, bk=bk),
+        interpret=True))[:m]
+    ref = np.asarray(gemm_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_k3_ragged_edges_partials_and_errors():
+    """Ragged M, N and K (the port masks them; the reference asserts
+    divisibility): the partials are the slabs' products, their sum the
+    GEMM; bad block shapes raise."""
+    a, b = _rand(1, 13, 300), _rand(2, 300, 100, scale=300 ** -0.5)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    part = sisa_gemm_splitk_plain(ta, tb, 128)
+    assert part.shape == (3, 13, 100) and part.dtype == torch.float32
+    np.testing.assert_allclose(part[2].numpy(), a[:, 256:] @ b[256:],
+                               rtol=TOL, atol=TOL)
+    got = sisa_gemm_splitk(ta, tb, BlockConfig(16, 64, 128))
+    np.testing.assert_allclose(got.numpy(), a @ b, rtol=TOL, atol=TOL)
+    bf = sisa_gemm_splitk(ta.bfloat16(), tb.bfloat16(),
+                          BlockConfig(16, 0, 128))
+    assert bf.dtype == torch.bfloat16
+    for cfg in (BlockConfig(16, 64, 0), BlockConfig(16, 100, 128)):
+        with pytest.raises(ValueError):
+            sisa_gemm_splitk(ta, tb, cfg)
+    with pytest.raises(ValueError):
+        sisa_gemm_splitk(ta, tb[:5], BlockConfig(16, 64, 32))
+    assert choose_block_config(8, 896, 896) == BlockConfig(16)
+
+
+# K7 at the reference test's shapes (tests/test_kernels.py:127-135) and
+# ragged C, d and f (the reference pads them up to its block grid).
+@pytest.mark.parametrize("e,c,d,f", [(4, 20, 64, 96), (16, 96, 128, 256),
+                                     (2, 8, 8, 8), (3, 5, 40, 72),
+                                     (2, 130, 36, 70)])
+def test_k7_moe_gemm_matches_pallas_and_ref(e, c, d, f):
+    x, w = _rand(c, e, c, d), _rand(f, e, d, f, scale=d ** -0.5)
+    got = moe_grouped_gemm(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert got.shape == (e, c, f)
+    np.testing.assert_array_equal(
+        got, moe_grouped_gemm_plain(torch.from_numpy(x),
+                                    torch.from_numpy(w)).numpy())
+    pallas = np.asarray(ref_moe_grouped_gemm(jnp.asarray(x), jnp.asarray(w),
+                                             interpret=True))
+    ref = np.asarray(grouped_gemm_ref(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_k7_rejects_bad_operands():
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError):
+        moe_grouped_gemm(x, torch.zeros(3, 4, 5))
+    with pytest.raises(ValueError):
+        moe_grouped_gemm(x, torch.zeros(2, 5, 5))
+    with pytest.raises(ValueError):
+        moe_grouped_gemm(x, torch.zeros(2, 4, 5, dtype=torch.bfloat16))

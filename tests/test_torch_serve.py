@@ -191,8 +191,8 @@ def test_warmup_leaves_no_decode_compiles(setup):
     ("slot", {}, NotImplementedError),
     ("sequential", {}, NotImplementedError),
     ("dense", {}, ValueError),
-    ("paged", {"kv_quant": "int8"}, NotImplementedError),
-    ("paged", {"coexec_backend": "xla"}, NotImplementedError),
+    ("paged", {"kv_quant": "fp8"}, ValueError),
+    ("paged", {"coexec_backend": "xla"}, ValueError),
     ("paged", {"expert_backend": "xla"}, ValueError),
     ("paged", {"expert_backend": "pallas"}, ValueError),
 ])
