@@ -9,11 +9,17 @@ Phases (any failure exits non-zero before the last line is printed):
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the six CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
-3. K1 (SISA GEMM) against its plain version at the main path's shapes,
-   every tile height at full height and the ragged residual split, in
-   float32 and bfloat16 (elementwise, one bf16 ulp in bfloat16); and
-   K1's backward at 2048 rows (dA with B transposed, dB = Aᵀ dC, the LM
-   head's ``table.T``);
+3. K1 (SISA GEMM): its library's ``ptxas -v`` report per wgmma
+   instantiation and its count of ``HGMMA`` and ``UTMALDG`` instructions
+   (``cuobjdump -sass``); then K1 against its plain version at the main
+   path's shapes (qwen's, and phi3.5-moe's 4096-wide projections at 8 and
+   208 rows), every tile height at full height and the ragged residual
+   split (the 208-row prefill's 128 + 80), in float32 and bfloat16
+   (elementwise, one bf16 ulp in bfloat16), with every branch of the
+   wgmma body the main path uses reached (swap-AB at n8 and n16, each
+   cluster size, each CTA tile); and K1's backward at 2048 rows (dA with
+   B transposed, dB = Aᵀ dC with Aᵀ read in place, the LM head's
+   ``table.T``);
 4. K2 (paged attention) against its plain version: GQA 14/2 with
    head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe), 16-token
    pages, tables with sink entries, positions on page edges;
@@ -59,7 +65,9 @@ Phases (any failure exits non-zero before the last line is printed):
    the host's launch gaps do not count; the span of calls issued one
    after another (gaps included) is printed beside it as ``*_span``, and
    the kernel time ``torch.profiler`` recorded as ``*_profiler`` (it can
-   drop kernels on this card).  K2 on int8 pools and K3 are timed at the
+   drop kernels on this card).  K1's host cost per launch
+   (``host_us``, beside ``torch.matmul``'s) is the host time to issue
+   one step's calls.  K2 on int8 pools and K3 are timed at the
    qwen decode step; K6 on each scenario (one fused launch on pre-packed
    operands against ``sequential_matmul``'s launches, with
    ``torch._grouped_mm`` as the yardstick), each path first run once
@@ -91,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -210,7 +219,8 @@ def _times(torch, fns: dict) -> dict:
 
 # Each kernel's launch counter name, also a substring of its CUDA symbol.
 KERNEL_NAMES = ("sisa_gemm", "paged_attn", "grouped_gemm")
-K1_ROWS = (1, 8, 16, 32, 64, 128, 200, 256)
+K1_ROWS = (1, 8, 16, 32, 64, 128, 200, 208, 256)
+K1_PHI_ROWS = (8, 208)      # phi3.5-moe's 4096-wide projections
 BF16_REL = 2.0 ** -7        # one bf16 ulp, relative to the value
 
 
@@ -236,35 +246,49 @@ def _max_err(what, got, ref, rel, atol) -> float:
     return diff.max().item()
 
 
-def _k1_cases(torch, gen, dtype, table):
+def _k1_cases(torch, gen, dtype, table, m):
     """(name, A's column count, A's row stride, B) at the main path's
     shapes, then ragged edges: K and N off every tile multiple with
-    16-byte aligned rows (strided views: partial 16-byte chunks on the
-    tensor cores), and K = 100, whose rows are not 16-byte aligned (the
-    CUDA-core body)."""
+    16-byte aligned rows (strided views: TMA's zero fill on the tensor
+    cores), and K = 100, whose rows are not 16-byte aligned (the
+    CUDA-core body).  phi3.5-moe's 4096-wide q and k/v projections at
+    ``K1_PHI_ROWS``."""
     def rand(*shape):
         return (torch.randn(*shape, device="cuda", generator=gen)
                 / shape[0] ** 0.5).to(dtype)
 
     for k, n in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
         yield f"{k}x{n}", k, k, rand(k, n)
+    if m in K1_PHI_ROWS:
+        for k, n in ((4096, 4096), (4096, 1024)):
+            yield f"phi {k}x{n}", k, k, rand(k, n)
     yield "lm_head 896x153600 trans_b", 896, 896, table.T
     yield "ragged 900x1000", 900, 904, rand(900, 1008)[:, :1000]
     yield "ragged 900x1000 trans_b", 900, 904, rand(1000, 904)[:, :900].T
     yield "unaligned 100x36", 100, 100, rand(100, 36)
 
 
+def _k1_plans_of(kernels, m, k, n):
+    """The launch plans of one bf16 K1 call with aligned rows: one per
+    row pass (the ragged residual is its own pass)."""
+    return [kernels.k1_plan(hi - lo, n, k) for lo, hi in kernels.row_passes(m)]
+
+
 def check_k1(torch, kernels, gen) -> float:
     """Every tile height at full height (M = 16, 32, 64, 128, 256), the
     decode rungs 1 and 8, and the ragged main-plus-residual split
-    (M = 200), each at the main path's shapes and the ragged cases."""
+    (M = 200 and the 208-row prefill's 128 + 80), each at the main path's
+    shapes and the ragged cases.  The bf16 plans reached must cover every
+    branch of K1's wgmma body that the main path's shapes use: swap-AB at
+    n8 and n16, each cluster size, and each CTA tile."""
     worst, n_cases = 0.0, 0
+    reached = set()
     for dtype in (torch.float32, torch.bfloat16):
         rel = 0.0 if dtype == torch.float32 else BF16_REL
         table = (torch.randn(153600, 896, device="cuda", generator=gen)
                  / 896 ** 0.5).to(dtype)
         for m in K1_ROWS:
-            for name, k, lda, b in _k1_cases(torch, gen, dtype, table):
+            for name, k, lda, b in _k1_cases(torch, gen, dtype, table, m):
                 a = torch.randn(m, lda, device="cuda",
                                 generator=gen).to(dtype)[:, :k]
                 ref = kernels.sisa_gemm_plain(a, b)
@@ -273,11 +297,62 @@ def check_k1(torch, kernels, gen) -> float:
                                _f32_atol(ref))
                 worst = max(worst, err)
                 n_cases += 1
+                if dtype == torch.bfloat16 and k % 8 == 0:
+                    reached.update((p.swap_ab, p.bm, p.bn, p.cluster)
+                                   for p in _k1_plans_of(kernels, m, k,
+                                                         b.shape[1]))
+    # qwen's serve (decode rungs, the 208-row prefill), phi's serve and
+    # training (2048 rows).
+    qwen = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 153600))
+    phi = ((4096, 4096), (4096, 1024), (4096, 32768))
+    main_path = [p for ms, shapes in (((1, 8, 16, 208), qwen),
+                                      ((8, 208, 2048), phi))
+                 for m in ms for k, n in shapes
+                 for p in _k1_plans_of(kernels, m, k, n)]
+
+    def branches(plans):
+        return ({("swap", p[1]) for p in plans if p[0]}
+                | {("cluster", p[3]) for p in plans}
+                | {("tile", p[1], p[2]) for p in plans if not p[0]})
+
+    need = branches([(p.swap_ab, p.bm, p.bn, p.cluster) for p in main_path])
+    got = branches(reached)
+    if need - got:
+        raise AssertionError(f"K1 branches of the main path not checked: "
+                             f"{sorted(need - got)}")
     _say(f"k1: {n_cases} cases (M in {K1_ROWS}; main-path shapes and "
          f"ragged edges; f32 and bf16) agree with the plain version (max "
          f"abs err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 "
-         f"2^-7*|ref| + 2e-5*max|ref|)")
+         f"2^-7*|ref| + 2e-5*max|ref|); bf16 plans reached (swap-AB, bm, bn, "
+         f"cluster): {sorted(reached)}")
     return worst
+
+
+def k1_build_report(kernels, build) -> None:
+    """K1's library as built: ``ptxas -v`` (registers, shared memory,
+    spills) of each wgmma instantiation, and the count of ``HGMMA``
+    (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS."""
+    lib = build.library_path("sisa_gemm")
+    lines = lib.with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "wgmma_kernel" in line:
+            args = re.findall(r"L[ib](\d+)E", line.split("wgmma_kernelI")[-1])
+            stats = " ".join(x.split("ptxas info    :")[-1].strip()
+                             for x in lines[i + 1:i + 4]
+                             if "registers" in x or "spill" in x)
+            _say(f"k1 ptxas <NWG, BQ, STAGES, X_MN, Y_MN, SWAP> = "
+                 f"<{', '.join(args[:6])}>: {stats}")
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        _say("k1 sass: cuobjdump not in the toolkit; HGMMA/UTMALDG not "
+             "counted")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+    _say(f"k1 sass: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
+    if not hgmma or not utmaldg:
+        raise AssertionError("K1's library has no wgmma or no TMA load")
 
 
 def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
@@ -822,6 +897,24 @@ def _bound_ms(nbytes: float, flops: float):
                                        else "operations")
 
 
+def _host_us(torch, fns: dict, calls: int) -> dict:
+    """Host microseconds per call to issue ``calls`` calls (the best of
+    three runs, no synchronisation inside): what a host-bound step pays
+    for each launch."""
+    out = {}
+    for key, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        out[key] = best / calls * 1e6
+    return out
+
+
 def time_k1(torch, kernels, params, cfg, rows: int):
     """All K1 work of one forward at ``rows`` rows: 7 linears x 24
     layers, plus the LM head over ``min(rows, 8)`` rows (decode reads
@@ -849,6 +942,9 @@ def time_k1(torch, kernels, params, cfg, rows: int):
     out = _times(torch, {"ms": run(kernels.sisa_matmul),
                          "plain_ms": run(kernels.sisa_gemm_plain),
                          "library_ms": run(torch.matmul)})
+    out.update(_host_us(torch, {"host_us": run(kernels.sisa_matmul),
+                                "library_host_us": run(torch.matmul)},
+                        len(gemms)))
     nbytes = sum(2 * (a.shape[0] * a.shape[1] + b.shape[0] * b.shape[1]
                       + a.shape[0] * b.shape[1]) for a, b in gemms)
     flops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in gemms)
@@ -1075,8 +1171,10 @@ def profile_train_step(torch, trainer, params, opt_state) -> dict:
 def time_train_k1(torch, kernels, params, cfg, rows: int):
     """K1's work in one train step at ``rows`` tokens: the forward GEMMs
     (q, k, v, o of every layer and the untied LM head) and their
-    backward (dA = dC Bᵀ with B read transposed, dB = Aᵀ dC over a
-    transposed copy of A), as ``sisa_matmul``'s backward runs them."""
+    backward (dA = dC Bᵀ with B read transposed, dB = Aᵀ dC with Aᵀ
+    read in place), as ``sisa_matmul``'s backward runs them; beside the
+    backward, ``at_copy_ms``, the time of the Aᵀ copies that reading Aᵀ
+    in place saves."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x = torch.randn(rows, cfg.d_model, device="cuda",
                     generator=gen).bfloat16()
@@ -1090,14 +1188,17 @@ def time_train_k1(torch, kernels, params, cfg, rows: int):
         return lambda: [fn(a, b) for a, b in gemms]
 
     def bwd(fn):
-        return lambda: [(fn(dc, b.t()), fn(a.t().contiguous(), dc))
+        return lambda: [(fn(dc, b.t()), fn(a.t(), dc))
                         for (a, b), dc in zip(gemms, dcs)]
 
     out = {}
     for label, run in (("fwd", fwd), ("bwd", bwd)):
-        t = _times(torch, {"ms": run(kernels.sisa_matmul),
-                           "plain_ms": run(kernels.sisa_gemm_plain),
-                           "library_ms": run(torch.matmul)})
+        fns = {"ms": run(kernels.sisa_matmul),
+               "plain_ms": run(kernels.sisa_gemm_plain),
+               "library_ms": run(torch.matmul)}
+        if label == "bwd":   # what copying each Aᵀ before dB would add
+            fns["at_copy_ms"] = lambda: [a.t().contiguous() for a, _ in gemms]
+        t = _times(torch, fns)
         mult = 1 if label == "fwd" else 2
         nbytes = mult * sum(2 * (a.numel() + b.numel() + a.shape[0]
                                  * b.shape[1]) for a, b in gemms)
@@ -1691,6 +1792,7 @@ def main() -> int:
     secs = _build.build()
     _say(f"build: {json.dumps(secs)}, {time.perf_counter() - t0:.2f} s wall")
 
+    k1_build_report(kernels, _build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_err = check_k1(torch, kernels, gen)
     k1_bwd_err = check_k1_backward(torch, kernels, gen)

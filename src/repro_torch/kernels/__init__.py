@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels for the port's main path.
 
 * ``sisa_gemm`` — K1, the SISA-scheduled GEMM (CUDA C++,
-  ``csrc/sisa_gemm.cu``), behind every linear layer and the LM head.
+  ``csrc/sisa_gemm.cu`` on the TMA + ``wgmma`` mainloop of
+  ``csrc/hopper_gemm.cuh``, laid out by ``k1_plan``), behind every
+  linear layer and the LM head.
 * ``paged_attn`` — K2, paged-attention decode over the flat page pool
   (CUDA C++, ``csrc/paged_attn.cu``).
 * ``grouped_gemm`` — K4, the flat ragged grouped GEMM behind every MoE
@@ -57,8 +59,8 @@ from repro_torch.kernels.paged_attn import (paged_attention,
 from repro_torch.kernels.sisa_gemm import LAUNCHES as _K1_LAUNCHES
 from repro_torch.kernels.sisa_gemm import SPLITK_LAUNCHES as _K3_LAUNCHES
 from repro_torch.kernels.sisa_gemm import (BlockConfig, choose_block_config,
-                                           sisa_gemm, sisa_gemm_plain,
-                                           sisa_gemm_splitk,
+                                           K1Plan, k1_plan, sisa_gemm,
+                                           sisa_gemm_plain, sisa_gemm_splitk,
                                            sisa_gemm_splitk_plain)
 
 LAUNCH_COUNTERS = {"sisa_gemm": _K1_LAUNCHES, "paged_attn": _K2_LAUNCHES,
@@ -71,7 +73,8 @@ LAUNCH_COUNTERS = {"sisa_gemm": _K1_LAUNCHES, "paged_attn": _K2_LAUNCHES,
                    "moe_gemm": _K7_LAUNCHES}
 
 __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
-           "sisa_gemm_plain", "sisa_matmul", "sisa_einsum_2d",
+           "sisa_gemm_plain", "K1Plan", "k1_plan", "sisa_matmul",
+           "sisa_einsum_2d",
            "set_default_backend", "row_passes", "paged_attention",
            "paged_attention_plain", "set_paged_attn_backend",
            "quantize_page_pool",

@@ -5,48 +5,63 @@
 // accumulator per output held for the whole K sweep, C written once in A's
 // dtype, inputs bf16 or f32.
 //
-// SISA's three execution modes are template instantiations of the tile
-// height BM: a skinny slab (BM = 16, one mma row group, covering every decode
-// rung up to 16), fused slabs (BM = 32 / 64) and the monolithic 128-row tile.
-// The ragged M > 128 residual pass is a second launch on the tail rows
-// (repro_torch/kernels/ops.py), writing its own rows of the same C.
+// SISA's three execution modes come from the tile height bm of
+// choose_block_config (repro_torch/kernels/sisa_gemm.py): a skinny slab
+// (bm 16, every decode rung up to 16), fused slabs (bm 32 / 64) and the
+// monolithic 128-row tile.  The ragged M > 128 residual pass is a second
+// launch on the tail rows (repro_torch/kernels/ops.py), writing its own rows
+// of the same C through ldc.  How each mode is laid out on the card is the
+// launch plan's (k1_plan, beside choose_block_config): this file only
+// instantiates the plans it names and refuses any other.
 //
-// What bounds it on an H100: decode (M <= 16) reads every weight once for a
-// handful of rows, so it is bound by device-memory bytes (K*N elements);
-// prefill (M in the hundreds) is bound by operations.  Two bodies share the
-// tile heights:
+// What bounds it on an H100, and what the design does about it:
+// * Decode slabs (M <= 16) read every weight once for a handful of rows:
+//   bound by device-memory bytes (K*N elements), so what matters is the
+//   bytes in flight.  The slab runs swap-AB: 64 weight columns form wgmma's
+//   64-row side and the 1-16 tokens its n8 / n16 side, so no instruction
+//   multiplies rows of zeros, and each CTA keeps 8 stages of 8 KB weight
+//   tiles in flight through TMA.  Where N / 64 tiles leave SMs idle and K
+//   is deep, a thread-block cluster of s = 2, 4 or 8 CTAs splits K and
+//   reduces through distributed shared memory.
+// * Prefill passes (M in the tens to hundreds) are too small to fill 132
+//   SMs with 128 x 128 tiles: the plan takes the least K split, then the
+//   widest tile, that puts half a wave of CTAs on the card.  Each such GEMM
+//   lasts a few microseconds, so launch latency counts: every launch is a
+//   programmatic dependent launch, whose barrier setup and tensor-map
+//   prefetch overlap the previous kernel's tail.
+// * Training (M 2048) is bound by operations: 128 x 256 or 128 x 128 tiles,
+//   two consumer warpgroups issuing wgmma m64nNk16 from 128-byte swizzled
+//   shared memory fed by a producer warp's TMA loads (hopper_gemm.cuh),
+//   which spend no registers or instructions of the consumers.
+// Operands are read in place: A K-major or, for dB = A^T dC, M-major; B
+// N-major (row-major weights) or K-major (the tied LM head's table.T and
+// dA = dC B^T) through wgmma's transpose bits.  Ragged M, N and K edges
+// arrive as TMA's zero fill and the epilogue masks its stores.
 //
-// * bf16 (the serving path): tensor cores through mma.sync m16n8k16 with an
-//   f32 accumulator, fed by a cp.async pipeline of STAGES shared-memory
-//   tiles so several K steps are in flight while one is multiplied.  Ragged
-//   edges are zero-filled by cp.async's source size, so no operand is padded
-//   or copied.  The decode slab splits each K tile over WK warps (summed in
-//   shared memory at the end) to keep more weight bytes in flight per block.
-//   It needs 16-byte aligned rows (the wrapper checks; every main-path
-//   shape has them).
-// * f32, and bf16 rows that are not 16-byte aligned: a plain shared-memory
-//   tiled kernel on the CUDA cores (each thread a TM x TN register tile), so
-//   float32 stays exact float32 (no TF32).
-//
-// B may arrive transposed (the tied LM head reads the (vocab, d) embedding
-// table as B = table.T without a copy): TRANS_B instantiations walk the
-// contiguous K axis of B.  wgmma and TMA are later work.
+// float32 (exact, no TF32), and bf16 rows that are not 16-byte aligned, run
+// a plain shared-memory tiled kernel on the CUDA cores (each thread a TM x
+// TN register tile) at the same tile heights.
 //
 // K3, the split-K variant (repro/kernels/sisa_gemm.py::_splitk_kernel,
 // launched by sisa_gemm_splitk), is the last kernel of this file: K is cut
 // into slabs of bk columns, and each slab's block writes its own f32
-// partial C into (n_k, M, N); the wrapper sums the partials.  For a decode
-// GEMV (M and N both small) this puts n_k times as many blocks, each
-// reading a slab of the weights, in flight.  Its tile bodies are
-// tile_gemm.cuh's, shared with K6 and K7; K1's own bodies above are not
-// touched by it.
+// partial C into (n_k, M, N); the wrapper sums the partials.  Its tile
+// bodies are tile_gemm.cuh's, shared with K6 and K7; K1's own bodies above
+// are not touched by it.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 #include "gemm_tiles.cuh"
+#include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
 
 template <typename T, int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
@@ -142,217 +157,279 @@ cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body.
+// bf16 tensor-core body: TMA + wgmma, warp-specialised (hopper_gemm.cuh).
 // ---------------------------------------------------------------------------
-// C tile BM x BN per block; warps laid out WM x WN over the tile and WK
-// deep over each K tile (WK > 1: partial sums added in shared memory).
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
-          bool TRANS_B>
-__global__ void __launch_bounds__(WM* WN* WK * 32)
-    sisa_gemm_tc_kernel(const __nv_bfloat16* __restrict__ a,
-                        const __nv_bfloat16* __restrict__ b,
-                        __nv_bfloat16* __restrict__ c, int m, int n, int k,
-                        long long lda, long long ldb, long long ldc) {
-  using Stage = TcStage<BM, BN, BK, TRANS_B>;
-  constexpr int NT = WM * WN * WK * 32;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
-  constexpr int FM = WTM / 16, FN = WTN / 8;   // mma fragments per warp
-  constexpr int KW = BK / WK;                  // K columns per warp per tile
-  static_assert(WTM % 16 == 0 && WTN % 8 == 0 && KW % 16 == 0, "tile");
-  static_assert(BK % 8 == 0 && BN % 8 == 0, "16-byte chunks");
-
+// The CTA computes D[BP x BQ] = X * Y over its K slice, then writes D to C:
+// * normal: X = A (rows p of C), Y = B (columns q of C);
+// * swap-AB (decode slabs): X = B^T (64 weight columns as wgmma's 64 rows),
+//   Y = A^T (the 8 or 16 tokens as its n8 / n16 side); D is C^T.
+// Grid (s, P tiles, Q tiles) with clusters of s CTAs along x.  With s > 1
+// the cluster's CTAs split K evenly, park their f32 tiles in shared memory,
+// and rank r sums rows [r BP/s, (r+1) BP/s) of the tile over ranks 0..s-1
+// in order through distributed shared memory, then stores them: one
+// launch, no workspace, no atomics, a fixed summation order.
+template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool SWAP>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    sisa_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap ty,
+                           __nv_bfloat16* __restrict__ c, int p_total,
+                           int q_total, int ksteps, long long ldc) {
+  using S = HgStage<NWG, BQ, X_MN, Y_MN>;
+  constexpr int BP = S::kBP;
+  constexpr int kConsumers = NWG * 128;
   extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_raw) +
+                  ((1024 - (hg_smem(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::kBytes);
+  uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp % WM;
-  const int wn = (warp / WM) % WN;
-  const int wk = warp / (WM * WN);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ktiles = (k + BK - 1) / BK;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int p0 = blockIdx.y * BP, q0 = blockIdx.z * BQ;
+  const int kb = static_cast<int>((long long)rank * ksteps / s);
+  const int ke = static_cast<int>((long long)(rank + 1) * ksteps / s);
+  const int warp = threadIdx.x / 32;
 
-  auto load_tile = [&](int stage, int kt) {
-    __nv_bfloat16* as = smem + stage * Stage::kElems;
-    __nv_bfloat16* bs = as + Stage::kA;
-    const int k0 = kt * BK;
-    for (int e = tid; e < BM * (BK / 8); e += NT) {
-      const int r = e / (BK / 8), kc = (e % (BK / 8)) * 8;
-      const int gr = m0 + r, gk = k0 + kc;
-      const int nb = (gr < m) ? 2 * max(0, min(8, k - gk)) : 0;
-      cp_async16(as + r * (BK + kPad) + kc,
-                 nb ? a + (long long)gr * lda + gk : a, nb);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NWG * 4);
     }
-    if (TRANS_B) {
-      for (int e = tid; e < BN * (BK / 8); e += NT) {
-        const int r = e / (BK / 8), kc = (e % (BK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + kc;
-        const int nb = (gn < n) ? 2 * max(0, min(8, k - gk)) : 0;
-        cp_async16(bs + r * (BK + kPad) + kc,
-                   nb ? b + (long long)gn * ldb + gk : b, nb);
-      }
-    } else {
-      for (int e = tid; e < BK * (BN / 8); e += NT) {
-        const int r = e / (BN / 8), nc = (e % (BN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        const int nb = (gk < k) ? 2 * max(0, min(8, n - gn)) : 0;
-        cp_async16(bs + r * (BN + kPad) + nc,
-                   nb ? b + (long long)gk * ldb + gn : b, nb);
-      }
-    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // Launched with programmatic stream serialization: everything above ran
+  // while the previous kernel on the stream finished; nothing below reads
+  // or writes global memory before that kernel is complete.
+  grid_dependency_wait();
+
+  float acc[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) acc[i] = 0.f;
+  if (warp == NWG * 4) {
+    if (threadIdx.x % 32 == 0)
+      hg_produce<NWG, BQ, STAGES, X_MN, Y_MN>(ring, full, empty, &tx, &ty, p0,
+                                              q0, kb, ke);
+  } else {
+    hg_consume<NWG, BQ, STAGES, X_MN, Y_MN>(ring, full, empty, warp / 4,
+                                            ke - kb, acc);
+  }
+
+  // The next kernel on the stream may start its prologue now.
+  launch_dependents();
+
+  // D element (p, q) of the tile is C[p][q], or C[q][p] when swapped.
+  auto put = [&](int p, int q, float v) {
+    if (p < p_total && q < q_total)
+      c[SWAP ? (long long)q * ldc + p : (long long)p * ldc + q] =
+          __float2bfloat16(v);
   };
+  // This thread's fragment rows (r, r + 8) and first column (hopper_gemm.cuh).
+  const int t = threadIdx.x % 128;
+  const int r0 = (warp / 4) * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int c0 = 2 * (t % 4);
 
-  float acc[FM][FN][4];
+  if (s == 1) {
+    if (warp >= NWG * 4) return;
+    const bool vec = !SWAP && ldc % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(c) % 4 == 0;
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int cc = 0; cc < BQ / 8; ++cc)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_tile(next % STAGES, next);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = smem + (kt % STAGES) * Stage::kElems;
-    const __nv_bfloat16* bs = as + Stage::kA;
-#pragma unroll
-    for (int ks = 0; ks < KW / 16; ++ks) {
-      const int kk = wk * KW + ks * 16;
-      uint32_t af[FM][4], bf[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldmatrix_x4(af[i], as + (wm * WTM + i * 16 + lane % 16) * (BK + kPad) +
-                               kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if (TRANS_B)
-          ldmatrix_x2(bf[j], bs + (wn * WTN + j * 8 + lane % 8) * (BK + kPad) +
-                                 kk + ((lane / 8) % 2) * 8);
-        else
-          ldmatrix_x2_trans(bf[j], bs + (kk + lane % 16) * (BN + kPad) +
-                                       wn * WTN + j * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Fragment (i, j) element q sits at row g (+8 for q >= 2), column
-  // 2 * (lane % 4) + (q % 2) of its 16 x 8 tile, g = lane / 4.
-  const int g = lane / 4, t2 = 2 * (lane % 4);
-  if (WK > 1) {
-    __syncthreads();  // the pipeline's buffers become the reduction buffer
-    float* red = reinterpret_cast<float*>(smem_raw);  // [WK][BM][BN]
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = wm * WTM + i * 16 + g + (q / 2) * 8;
-          const int cc = wn * WTN + j * 8 + t2 + q % 2;
-          red[(wk * BM + r) * BN + cc] = acc[i][j][q];
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + r0 + 8 * h, q = q0 + 8 * cc + c0;
+        const float v0 = acc[4 * cc + 2 * h], v1 = acc[4 * cc + 2 * h + 1];
+        if (vec && p < p_total && q + 1 < q_total) {
+          *reinterpret_cast<__nv_bfloat162*>(c + (long long)p * ldc + q) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          put(p, q, v0);
+          put(p, q + 1, v1);
         }
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN, cc = e % BN;
-      const int gr = m0 + r, gc = n0 + cc;
-      if (gr >= m || gc >= n) continue;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < WK; ++w) sum += red[(w * BM + r) * BN + cc];
-      c[(long long)gr * ldc + gc] = __float2bfloat16(sum);
-    }
+      }
     return;
   }
+
+  // Split-K: the ring becomes the f32 tile red[BP][RS] once every
+  // warpgroup's wgmmas have drained.  The row pitch RS = BQ + 8 keeps a
+  // half-warp's float2 stores on 32 distinct banks.
+  constexpr int RS = BQ + 8;
+  static_assert(BP * RS * 4 <= STAGES * S::kBytes, "split-K tile");
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+  if (warp < NWG * 4) {
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int cc = 0; cc < BQ / 8; ++cc)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(red + (r0 + 8 * h) * RS + 8 * cc + c0) =
+            make_float2(acc[4 * cc + 2 * h], acc[4 * cc + 2 * h + 1]);
+  }
+  cluster.sync();
+  // Four neighbouring columns q of one row p a step; the s ranks' values
+  // are all loaded before they are added, in rank order.
+  const float4* src[8];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int gr = m0 + wm * WTM + i * 16 + g + (q / 2) * 8;
-        const int gc = n0 + wn * WTN + j * 8 + t2 + q % 2;
-        if (gr < m && gc < n)
-          c[(long long)gr * ldc + gc] = __float2bfloat16(acc[i][j][q]);
+  for (int r = 0; r < 8; ++r)
+    src[r] = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(red, r < s ? r : 0));
+  const int rows = BP / s;
+  for (int e = threadIdx.x; e < rows * (BQ / 4); e += kConsumers + 32) {
+    // Neighbouring threads on neighbouring addresses of C.
+    const int pr = SWAP ? e % rows : e / (BQ / 4);
+    const int q = 4 * (SWAP ? e / rows : e % (BQ / 4));
+    const int p = rank * rows + pr;
+    float4 v[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < s) v[r] = src[r][(p * RS + q) / 4];
+    float4 sum = v[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r)
+      if (r < s) {
+        sum.x += v[r].x;
+        sum.y += v[r].y;
+        sum.z += v[r].z;
+        sum.w += v[r].w;
       }
-}
-
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
-          bool TRANS_B>
-cudaError_t launch_tc_one(const void* a, const void* b, void* c, int m, int n,
-                          int k, long long lda, long long ldb, long long ldc,
-                          cudaStream_t stream) {
-  constexpr int kStageBytes =
-      TcStage<BM, BN, BK, TRANS_B>::kElems * (int)sizeof(__nv_bfloat16);
-  constexpr int kRedBytes = WK > 1 ? WK * BM * BN * (int)sizeof(float) : 0;
-  constexpr int kSmem =
-      STAGES * kStageBytes > kRedBytes ? STAGES * kStageBytes : kRedBytes;
-  if (kSmem > 48 * 1024) {
-    static bool raised = false;  // once per instantiation
-    if (!raised) {
-      cudaError_t err = cudaFuncSetAttribute(
-          sisa_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-      if (err != cudaSuccess) return err;
-      raised = true;
-    }
+    put(p0 + p, q0 + q, sum.x);
+    put(p0 + p, q0 + q + 1, sum.y);
+    put(p0 + p, q0 + q + 2, sum.z);
+    put(p0 + p, q0 + q + 3, sum.w);
   }
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  sisa_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>
-      <<<grid, WM * WN * WK * 32, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<__nv_bfloat16*>(c), m, n, k, lda, ldb, ldc);
-  return cudaGetLastError();
+  cluster.sync();  // no CTA leaves while another reads its tile
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
-cudaError_t launch_tc(const void* a, const void* b, void* c, int m, int n,
-                      int k, long long lda, long long sbk, long long sbn,
-                      long long ldc, int trans_b, cudaStream_t s) {
-  if (trans_b)
-    return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, true>(
-        a, b, c, m, n, k, lda, sbn, ldc, s);
-  return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, false>(
-      a, b, c, m, n, k, lda, sbk, ldc, s);
+// Tensor maps: 2-D, bf16, boxes 64 wide along the contiguous axis (one
+// 128-byte swizzle row), encoded through the driver's entry point (no link
+// against libcuda) on every call.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
 }
 
-// Tensor-core tile table: the height bm comes from choose_block_config
-// (repro_torch/kernels/sisa_gemm.py); width and depth are set only here.
-cudaError_t dispatch_tc(int bm, const void* a, const void* b, void* c, int m,
-                        int n, int k, long long lda, long long sbk,
-                        long long sbn, long long ldc, int trans_b,
-                        cudaStream_t s) {
-  switch (bm) {
-    case 16:  // slab: K split over 4 warps, 3 stages of 128-deep K tiles
-      return launch_tc<16, 32, 128, 1, 1, 4, 3>(a, b, c, m, n, k, lda, sbk,
-                                                sbn, ldc, trans_b, s);
-    case 32:  // fused pair
-      return launch_tc<32, 64, 32, 2, 2, 1, 4>(a, b, c, m, n, k, lda, sbk, sbn,
-                                               ldc, trans_b, s);
-    case 64:  // fused quad
-      return launch_tc<64, 64, 32, 2, 2, 1, 4>(a, b, c, m, n, k, lda, sbk, sbn,
-                                               ldc, trans_b, s);
-    case 128:  // monolithic
-      return launch_tc<128, 128, 32, 4, 2, 1, 3>(a, b, c, m, n, k, lda, sbk,
-                                                 sbn, ldc, trans_b, s);
-    default:
-      return cudaErrorInvalidValue;
+// (outer x inner) bf16 matrix at ptr with rows `stride` elements apart;
+// boxes of box_rows x 64.
+cudaError_t tensor_map(CUtensorMap* out, const void* ptr, long long inner,
+                       long long outer, long long stride, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool SWAP>
+cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
+                         void* c, int p_total, int q_total, int ksteps,
+                         long long ldc, int cluster, cudaStream_t stream) {
+  using S = HgStage<NWG, BQ, X_MN, Y_MN>;
+  constexpr int kSmem = STAGES * S::kBytes + 2 * STAGES * 8 + 1024;
+  auto kernel = sisa_gemm_wgmma_kernel<NWG, BQ, STAGES, X_MN, Y_MN, SWAP>;
+  static unsigned long long raised = 0;  // per instantiation, a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(raised >> dev & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    raised |= 1ull << dev;
   }
+  const long long ptiles = (p_total + S::kBP - 1) / S::kBP;
+  const long long qtiles = (q_total + BQ - 1) / BQ;
+  if (ptiles > 65535 || qtiles > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (unsigned)ptiles, (unsigned)qtiles);
+  cfg.blockDim = dim3(NWG * 128 + 32);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;  // s = 1: no cluster
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, ty,
+                           static_cast<__nv_bfloat16*>(c), p_total, q_total,
+                           ksteps, ldc);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The plans K1's launch plan (repro_torch/kernels/sisa_gemm.py::k1_plan)
+// can name; any other is refused.  Normal tiles: (bm, bn, stages) with
+// bm / 64 consumer warpgroups; swap-AB: 64 weight columns by bm = 8 or 16
+// tokens, 8 stages.
+cudaError_t dispatch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
+                           void* c, int m, int n, int ksteps, long long ldc,
+                           int a_mn, int b_kmajor, int swap_ab, int bm, int bn,
+                           int stages, int cluster, cudaStream_t s) {
+#define K1_NORMAL(BM, BN, ST)                                                 \
+  if (bm == BM && bn == BN && stages == ST) {                                 \
+    if (a_mn)                                                                 \
+      return launch_wgmma<BM / 64, BN, ST, true, true, false>(                \
+          tx, ty, c, m, n, ksteps, ldc, cluster, s);                          \
+    if (b_kmajor)                                                             \
+      return launch_wgmma<BM / 64, BN, ST, false, false, false>(              \
+          tx, ty, c, m, n, ksteps, ldc, cluster, s);                          \
+    return launch_wgmma<BM / 64, BN, ST, false, true, false>(                 \
+        tx, ty, c, m, n, ksteps, ldc, cluster, s);                            \
+  }
+#define K1_SWAP(BM, ST)                                                       \
+  if (bm == BM && bn == 64 && stages == ST) {                                 \
+    if (b_kmajor)                                                             \
+      return launch_wgmma<1, BM, ST, false, false, true>(tx, ty, c, n, m,     \
+                                                         ksteps, ldc,         \
+                                                         cluster, s);         \
+    return launch_wgmma<1, BM, ST, true, false, true>(tx, ty, c, n, m,        \
+                                                      ksteps, ldc, cluster,   \
+                                                      s);                     \
+  }
+  if (swap_ab) {
+    K1_SWAP(8, 8)
+    K1_SWAP(16, 8)
+  } else {
+    K1_NORMAL(128, 256, 4)
+    K1_NORMAL(128, 128, 4)
+    K1_NORMAL(128, 64, 4)
+    K1_NORMAL(64, 64, 6)
+  }
+#undef K1_NORMAL
+#undef K1_SWAP
+  return cudaErrorInvalidValue;
 }
 
 // CUDA-core tile table: bm as above; width and depth are set only here.
@@ -440,21 +517,57 @@ cudaError_t splitk_launch(const void* a, const void* b, float* part, int m,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; tensor_cores: bf16 with 16-byte aligned
-// rows (checked by the caller).  Returns the launch's cudaError_t.
+// The CUDA-core body: dtype 0 = float32, 1 = bfloat16 (rows not 16-byte
+// aligned); bm: the tile height from choose_block_config.  Returns the
+// launch's cudaError_t.
 extern "C" int sisa_gemm(const void* a, const void* b, void* c, int m, int n,
                          int k, long long lda, long long sbk, long long sbn,
                          long long ldc, int trans_b, int dtype, int bm,
-                         int tensor_cores, void* stream) {
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float>(bm, a, b, c, m, n, k, lda, sbk, sbn, ldc, trans_b, s);
-  if (dtype == 1 && tensor_cores)
-    return dispatch_tc(bm, a, b, c, m, n, k, lda, sbk, sbn, ldc, trans_b, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(bm, a, b, c, m, n, k, lda, sbk, sbn, ldc,
                                    trans_b, s);
   return cudaErrorInvalidValue;
+}
+
+// The wgmma body for bf16 C[m, n] = A[m, k] @ B[k, n] with 16-byte aligned
+// rows (checked by the caller), following a plan of k1_plan: A is K-major
+// (row stride lda) or, with a_mn, M-major (A^T stored row-major, column
+// stride lda); B is N-major (row stride ldb) or, with b_kmajor, K-major (B^T
+// stored row-major, as the LM head's table.T).  C is row-major with row
+// stride ldc.  Any plan that was not instantiated returns
+// cudaErrorInvalidValue.
+extern "C" int sisa_gemm_wgmma(const void* a, const void* b, void* c, int m,
+                               int n, int k, long long lda, long long ldb,
+                               long long ldc, int a_mn, int b_kmajor,
+                               int swap_ab, int bm, int bn, int stages,
+                               int cluster, void* stream) {
+  const int ksteps = (k + kHgBK - 1) / kHgBK;
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+    return cudaErrorInvalidValue;
+  if (m <= 0 || n <= 0 || ksteps <= 0 ||
+      (cluster > 1 && ksteps < 2 * cluster) || (a_mn && (swap_ab || b_kmajor)))
+    return cudaErrorInvalidValue;
+  CUtensorMap tx, ty;
+  cudaError_t err;
+  if (swap_ab) {  // X = B^T (64-row boxes of weight columns), Y = A^T
+    err = b_kmajor ? tensor_map(&tx, b, k, n, ldb, 64)
+                   : tensor_map(&tx, b, n, k, ldb, 64);
+    if (err == cudaSuccess) err = tensor_map(&ty, a, k, m, lda, bm);
+  } else {  // X = A, Y = B
+    err = a_mn ? tensor_map(&tx, a, m, k, lda, 64)
+               : tensor_map(&tx, a, k, m, lda, bm);
+    if (err == cudaSuccess)
+      err = b_kmajor ? tensor_map(&ty, b, k, n, ldb, bn)
+                     : tensor_map(&ty, b, n, k, ldb, 64);
+  }
+  if (err != cudaSuccess) return err;
+  return dispatch_wgmma(tx, ty, c, m, n, ksteps, ldc, a_mn, b_kmajor, swap_ab,
+                        bm, bn, stages, cluster,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K3: part (n_k, m, n) f32 partials of a (m, k) @ b (k, n), slabs of bk

@@ -64,8 +64,9 @@ class _SisaMatmul(torch.autograd.Function):
         dc = dc.contiguous()
         # dA[M,K] = dC[M,N] @ B^T[N,K]  — same M-skew as the forward GEMM.
         da = _forward(dc, b.t())
-        # dB[K,N] = A^T[K,M] @ dC[M,N]  — M becomes the contraction dim.
-        db = _forward(a.t().contiguous(), dc)
+        # dB[K,N] = A^T[K,M] @ dC[M,N]  — M becomes the contraction dim;
+        # K1 reads A^T in place as an M-major operand (bf16 on the card).
+        db = _forward(a.t(), dc)
         return da.to(a.dtype), db.to(b.dtype)
 
 

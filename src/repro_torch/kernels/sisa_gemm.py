@@ -2,36 +2,48 @@
 
 Replaces the JAX package's TPU kernel ``repro/kernels/sisa_gemm.py::
 _gemm_kernel`` (``sisa_gemm``, ``pallas_call`` at line 166).  The CUDA
-source is ``csrc/sisa_gemm.cu``; its header says what bounds the kernel
-on an H100 and what the design does about it.
+source is ``csrc/sisa_gemm.cu`` on the TMA + ``wgmma`` mainloop of
+``csrc/hopper_gemm.cuh``; its header says what bounds the kernel in
+each mode on an H100 and what the design does about it.
 
 :func:`choose_block_config` keeps the paper's §3.2 scheduler — three
 execution modes picked from M — with tile heights re-derived for Hopper
 instead of the TPU's (8, 128) tiling and 8 MiB VMEM budget:
 
-* ``M <= 16``  -> slab tiles, ``bm = 16``: the height of one ``mma``
-  row group, covering every decode rung up to 16 in one tile row; the
-  freed width is re-invested as more, narrower column blocks so a
-  GEMV-shaped decode still spreads over the SMs, and (bf16) as a deeper
-  K tile split over four warps, so each block keeps more weight bytes
-  in flight.
+* ``M <= 16``  -> slab, ``bm = 16``: every decode rung up to 16.
 * ``16 < M <= 64`` -> fused slabs, ``bm = 32`` or ``64``.
 * ``M > 64`` -> the monolithic 128-row tile.
 
-Only the height crosses into K1's library: the tile width and depth of
-each height are set in one place, ``dispatch_tc`` and ``dispatch`` in
-``csrc/sisa_gemm.cu``.
+:func:`k1_plan` is the one place that lays a mode out on the card for
+bf16 operands with 16-byte aligned rows.  It reads ``bm`` and never
+changes it, and picks:
 
-bf16 operands with 16-byte aligned rows (every main-path shape) run on
-the tensor cores (``mma.sync``, a ``cp.async`` pipeline of 3-4 stages);
-float32, and bf16 rows without that alignment, run the same tile heights
-on the CUDA cores, so float32 stays exact float32.  A ragged ``M > 128``
-runs as a full-height main pass plus a scale-in residual pass
-(``repro_torch.kernels.ops``); ragged edges are masked inside the
+* for the slab, **swap-AB**: each CTA computes a Cᵀ tile of 64 weight
+  columns (wgmma's 64-row side) by the 8 or 16 tokens (its n8 / n16
+  side), so the 64-row instruction never multiplies rows of zeros.  A
+  decode GEMV is bound by weight bytes, and the plan's job is to keep
+  enough of them in flight;
+* for fused and monolithic passes, 128 x 256, 128 x 128, 128 x 64 or
+  64 x 64 CTA tiles (one consumer warpgroup per 64 rows), and where the
+  tiles alone leave most SMs idle, a **thread-block cluster** of ``s`` =
+  2, 4 or 8 CTAs that split K (each slice at least two 64-deep steps)
+  and sum their f32 tiles through distributed shared memory in rank
+  order: one launch, no workspace.  A prefill pass of 80-208 rows is
+  too short to fill the card with wide tiles, so the plan looks for
+  half a wave of CTAs (``K1_MIN_CTAS``): the tallest tile first (each
+  row tile re-reads the weights), then the least split, then the widest
+  tile.
+
+float32, and bf16 rows without that alignment, run the CUDA-core body at
+the same tile heights, so float32 stays exact float32.  A ragged
+``M > 128`` runs as a full-height main pass plus a scale-in residual
+pass (``repro_torch.kernels.ops``); ragged edges are masked inside the
 kernel, so operands are never padded.
 
-:func:`sisa_gemm` launches the kernel for CUDA tensors and takes its
-plain version, :func:`sisa_gemm_plain`, only for CPU tensors.
+:func:`sisa_gemm` launches the kernel the plan names for CUDA tensors,
+or raises; it takes its plain version, :func:`sisa_gemm_plain`, only
+for CPU tensors.  :func:`sisa_gemm_plan_plain` follows a plan's K
+slices and rank-order sum on the CPU.
 
 K3, the split-K variant (``repro/kernels/sisa_gemm.py::_splitk_kernel``,
 ``pallas_call`` at line 132), is :func:`sisa_gemm_splitk`: each slab of
@@ -44,7 +56,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -56,6 +69,17 @@ TILE_HEIGHTS = (16, 32, 64, 128)
 # refuses any other.
 TILE_COLS = 64
 TILE_K = 32
+
+# K1's wgmma body (csrc/sisa_gemm.cu): SMs of an H100 SXM, the K step of a
+# stage, the normal CTA tiles (bm, bn) in order of preference with their
+# pipeline depths, the swap-AB slab's depth, and the cluster sizes.
+SMS = 132
+K1_BK = 64
+K1_TILES = ((128, 256), (128, 128), (128, 64), (64, 64))
+K1_STAGES = {(128, 256): 4, (128, 128): 4, (128, 64): 4, (64, 64): 6}
+K1_SWAP_STAGES = 8
+K1_CLUSTERS = (1, 2, 4, 8)
+K1_MIN_CTAS = SMS // 2     # CTAs a plan splits K to reach
 
 LAUNCHES = _build.LaunchCounter("sisa_gemm")
 SPLITK_LAUNCHES = _build.LaunchCounter("sisa_gemm_splitk")
@@ -96,27 +120,104 @@ def choose_block_config(m: int, n: int, k: int,
     return BlockConfig(bm)
 
 
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """How one K1 launch is laid out on the card (:func:`k1_plan`).
+    ``bm`` x ``bn`` is the tile of C one CTA covers (for swap-AB: ``bm``
+    tokens by ``bn`` = 64 weight columns), in ``stages`` pipeline stages
+    of ``K1_BK``; ``cluster`` CTAs split K."""
+
+    bm: int
+    bn: int
+    stages: int
+    cluster: int
+    swap_ab: bool
+
+
+def _k_splits(ksteps: int) -> List[int]:
+    """Cluster sizes K allows: every slice at least two K steps."""
+    return [s for s in K1_CLUSTERS if s == 1 or ksteps >= 2 * s]
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_plan(m: int, n: int, k: int) -> K1Plan:
+    """K1's launch plan for a bf16 pass of ``m`` rows (aligned rows; see
+    module doc).  The mode is ``choose_block_config(m, n, k).bm``'s.
+
+    The plan takes the tallest tile (every row tile reads all of B
+    again), then the least K split, then the widest tile, that puts
+    ``K1_MIN_CTAS`` CTAs on the card; where none does, the most CTAs K
+    allows.  A split costs a cluster launch, two cluster barriers and
+    the reduction, so it pays only where more than half the SMs would
+    idle without it (``scripts/k1_sweep.py``, PERF.md)."""
+    bm = choose_block_config(m, n, k).bm
+    splits = _k_splits(-(-k // K1_BK))
+    if bm == 16:
+        tiles = -(-n // 64)
+        s = next((s for s in splits if tiles * s >= K1_MIN_CTAS), splits[-1])
+        return K1Plan(8 if m <= 8 else 16, 64, K1_SWAP_STAGES, s, True)
+    heights = (128, 64) if bm == 128 else (64,)
+    cands = [(s, -(-m // tm) * -(-n // tn), tm, tn) for h in heights
+             for s in splits for tm, tn in K1_TILES if tm == h]
+    s, _, tm, tn = next(
+        (c for c in cands if c[0] * c[1] >= K1_MIN_CTAS),
+        max(cands, key=lambda c: c[0] * c[1]))
+    return K1Plan(tm, tn, K1_STAGES[(tm, tn)], s, False)
+
+
+def plan_k_slices(plan: K1Plan, k: int) -> List[Tuple[int, int]]:
+    """Column ranges of K each CTA of a cluster sums, by rank: the K steps
+    split evenly, as the kernel splits them."""
+    ksteps = -(-k // K1_BK)
+    s = plan.cluster
+    return [(r * ksteps // s * K1_BK, min(k, (r + 1) * ksteps // s * K1_BK))
+            for r in range(s)]
+
+
+def sisa_gemm_plan_plain(a: torch.Tensor, b: torch.Tensor,
+                         plan: K1Plan) -> torch.Tensor:
+    """Plain version of a planned launch: each rank's f32 product over its
+    K slice, summed in rank order as the cluster sums them; f32 result."""
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for lo, hi in plan_k_slices(plan, a.shape[1]):
+        out = out + a[:, lo:hi].float() @ b[lo:hi].float()
+    return out
+
+
 def sisa_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: f32 accumulation, result in A's dtype (the
     twin of the reference's ``gemm_ref``)."""
     return (a.float() @ b.float()).to(a.dtype)
 
 
-def _lib():
-    lib = _build.load("sisa_gemm")
-    fn = lib.sisa_gemm
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C signatures of K1's CUDA-core body, its wgmma body and K3.
+_CORE_ARGS = [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _I, _P]
+_WGMMA_ARGS = [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I,
+               _I, _P]
+_SPLITK_ARGS = [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P]
+
+
+def _lib(name: str, argtypes: list):
+    fn = getattr(_build.load("sisa_gemm"), name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, i, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _aligned(t: torch.Tensor, stride: int, inner: int) -> bool:
+    """Rows TMA can read: 16-byte aligned start and row stride."""
+    return t.data_ptr() % 16 == 0 and stride % 8 == 0 and stride >= inner
 
 
 def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[M,N] = A[M,K] @ B[K,N] in one launch of K1 (any M; ragged edges
     are masked in the kernel).  ``b`` may be row-major or a transposed
-    view (``table.T``), read in place either way.  ``out``, if given,
+    view (``table.T``), and bf16 ``a`` with more than 16 rows may be a
+    transposed view (``x.t()``), each read in place.  ``out``, if given,
     receives C and must be a contiguous (M, N) tensor of A's dtype."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"sisa_gemm needs (M,K) @ (K,N), got "
@@ -142,8 +243,6 @@ def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
-    if a.stride(1) != 1:
-        a = a.contiguous()
     if b.stride(1) == 1:
         trans_b, sbk, sbn = 0, b.stride(0), 1
     elif b.stride(0) == 1:
@@ -151,16 +250,30 @@ def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
     else:
         b = b.contiguous()
         trans_b, sbk, sbn = 0, b.stride(0), 1
-    cfg = choose_block_config(m, n, k, a.dtype)
-    # The tensor-core body copies 16-byte chunks of A's and B's rows.
     ldb = sbn if trans_b else sbk
-    tensor_cores = (a.dtype == torch.bfloat16 and a.data_ptr() % 16 == 0
-                    and b.data_ptr() % 16 == 0 and a.stride(0) % 8 == 0
-                    and ldb % 8 == 0)
-    err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                 a.stride(0), sbk, sbn, n, trans_b,
-                 _DTYPES[a.dtype], cfg.bm, int(tensor_cores),
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    bf16 = a.dtype == torch.bfloat16
+    # An M-major A (dB = A^T dC's x.t()) is read in place by the normal
+    # wgmma body with a row-major B; anything else gets a K-major copy.
+    a_mn = (bf16 and a.stride(1) != 1 and a.stride(0) == 1 and m > 16
+            and not trans_b and _aligned(a, a.stride(1), m))
+    if a.stride(1) != 1 and not a_mn:
+        a = a.contiguous()
+    lda = a.stride(1) if a_mn else a.stride(0)
+    if bf16 and (a_mn or _aligned(a, lda, k)) and _aligned(
+            b, ldb, k if trans_b else n):
+        plan = k1_plan(m, n, k)
+        err = _lib("sisa_gemm_wgmma", _WGMMA_ARGS)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, ldb, n,
+            int(a_mn), trans_b, int(plan.swap_ab), plan.bm, plan.bn,
+            plan.stages, plan.cluster, stream)
+    else:
+        if a_mn:
+            a, lda = a.contiguous(), k
+        err = _lib("sisa_gemm", _CORE_ARGS)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, sbk,
+            sbn, n, trans_b, _DTYPES[a.dtype],
+            choose_block_config(m, n, k, a.dtype).bm, stream)
     LAUNCHES.n += 1
     _build.check("sisa_gemm", err)
     return out
@@ -172,15 +285,6 @@ def sisa_gemm_splitk_plain(a: torch.Tensor, b: torch.Tensor,
     products of ``a @ b`` over slabs of ``bk`` columns of K."""
     return torch.stack([a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
                         for k0 in range(0, a.shape[1], bk)])
-
-
-def _splitk_lib():
-    fn = _build.load("sisa_gemm").sisa_gemm_splitk
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, i, i, ll, ll, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _splitk_partials(a: torch.Tensor, b: torch.Tensor,
@@ -199,10 +303,10 @@ def _splitk_partials(a: torch.Tensor, b: torch.Tensor,
     tensor_cores = (a.dtype == torch.bfloat16 and cfg.bk % 8 == 0
                     and k % 8 == 0 and n % 8 == 0
                     and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
-    err = _splitk_lib()(a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n,
-                        k, cfg.bk, k, n, _DTYPES[a.dtype], cfg.bm,
-                        int(tensor_cores),
-                        torch.cuda.current_stream(a.device).cuda_stream)
+    err = _lib("sisa_gemm_splitk", _SPLITK_ARGS)(
+        a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n, k, cfg.bk, k, n,
+        _DTYPES[a.dtype], cfg.bm, int(tensor_cores),
+        torch.cuda.current_stream(a.device).cuda_stream)
     SPLITK_LAUNCHES.n += 1
     _build.check("sisa_gemm", err)
     return part
