@@ -9,9 +9,10 @@ Phases (any failure exits non-zero before the last line is printed):
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the six CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
-3. K1 (SISA GEMM): its library's ``ptxas -v`` report per wgmma
-   instantiation and its count of ``HGMMA`` and ``UTMALDG`` instructions
-   (``cuobjdump -sass``); then K1 against its plain version at the main
+3. the wgmma libraries of K1 (SISA GEMM), K4 and K5 (the grouped GEMMs):
+   each one's ``ptxas -v`` report per wgmma instantiation and its count of
+   ``HGMMA`` and ``UTMALDG`` instructions (``cuobjdump -sass``), which must
+   be > 0; then K1 against its plain version at the main
    path's shapes (qwen's, and phi3.5-moe's 4096-wide projections at 8 and
    208 rows), every tile height at full height and the ragged residual
    split (the 208-row prefill's 128 + 80), in float32 and bfloat16
@@ -25,12 +26,17 @@ Phases (any failure exits non-zero before the last line is printed):
    pages, tables with sink entries, positions on page edges;
 5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
    expert shapes (4096 -> 6400 and 6400 -> 4096, 16 experts): decode-
-   and prefill-like expert sizes, sizes off the row block, tail tiles,
-   and a capacity-strided layout, in float32 and bfloat16; rows past
-   each tile's ``hi`` must be exactly 0.  Then the backward at the same
-   shapes and also a 2048-token training layout and shared-gid a2a
-   segments: K4's dX (``w`` read transposed) and K5's dW against their
-   plain versions, with empty experts' dW blocks exactly 0.  Then K2 on
+   and prefill-like expert sizes, sizes off the row block, tail tiles, a
+   capacity-strided layout, a 2048-token training layout and shared-gid
+   a2a segments, in float32 and bfloat16; rows past each tile's ``hi``
+   must be exactly 0.  Then the backward at the same layouts: K4's dX
+   (``w`` read transposed, through a K-major map) and K5's dW against
+   their plain versions, with empty experts' dW blocks exactly 0.  The
+   rows outside every segment hold NaN in x and large finite values in
+   dy (the reference masks only X).  Every bf16 case must take the wgmma
+   route, and together they must reach every route (``k4_plan`` /
+   ``k5_plan``: swap-AB width, warpgroups, stages) of phi3.5-moe's
+   decode, 208-token prefill and 2048-token training step.  Then K2 on
    int8 pools (``quantize_page_pool``) at both head layouts; K3 (split-K)
    at qwen's decode GEMV shapes, two slab depths each, and ragged
    edges; K7 (the capacity MoE GEMM) at phi3.5-moe's expert shapes with
@@ -88,8 +94,10 @@ Phases (any failure exits non-zero before the last line is printed):
     median step time, tokens/s and peak memory; one profiled step
     (device time per family: K1, K4 forward, K4 dX, K5, optimizer,
     other, and the idle share); and the times of one step's K1 (forward
-    and backward), K4 dX and K5 work beside their plain versions,
-    bounds and library calls (``torch._grouped_mm`` for K4 dX and K5).
+    and backward), K4 forward, K4 dX and K5 work beside their plain
+    versions, bounds and library calls (``torch._grouped_mm`` for K4 and
+    K5).  The serve and the training run must launch K4 and K5 only
+    through their wgmma routes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -328,31 +336,44 @@ def check_k1(torch, kernels, gen) -> float:
     return worst
 
 
-def k1_build_report(kernels, build) -> None:
-    """K1's library as built: ``ptxas -v`` (registers, shared memory,
-    spills) of each wgmma instantiation, and the count of ``HGMMA``
-    (wgmma) and ``UTMALDG`` (TMA load) instructions in its SASS."""
-    lib = build.library_path("sisa_gemm")
-    lines = lib.with_suffix(".log").read_text().splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "wgmma_kernel" in line:
-            args = re.findall(r"L[ib](\d+)E", line.split("wgmma_kernelI")[-1])
-            stats = " ".join(x.split("ptxas info    :")[-1].strip()
-                             for x in lines[i + 1:i + 4]
-                             if "registers" in x or "spill" in x)
-            _say(f"k1 ptxas <NWG, BQ, STAGES, X_MN, Y_MN, SWAP> = "
-                 f"<{', '.join(args[:6])}>: {stats}")
+# The libraries whose bf16 bodies run on hopper_gemm.cuh's TMA + wgmma
+# mainloop, with the template parameters of their wgmma kernels.
+WGMMA_LIBS = {"sisa_gemm": "NWG, BQ, STAGES, X_MN, Y_MN, SWAP",
+              "grouped_gemm": "NWG, BQ, STAGES, X_MN",
+              "grouped_dw": "NWG, BQ, STAGES"}
+
+
+def wgmma_build_report(build) -> None:
+    """K1's, K4's and K5's libraries as built: ``ptxas -v`` (registers,
+    shared memory, spills) of each wgmma instantiation, and the count of
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
+    library's SASS, which must be > 0."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
-    if not tool.exists():
-        _say("k1 sass: cuobjdump not in the toolkit; HGMMA/UTMALDG not "
-             "counted")
-        return
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
-    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
-    _say(f"k1 sass: {hgmma} HGMMA, {utmaldg} UTMALDG instructions")
-    if not hgmma or not utmaldg:
-        raise AssertionError("K1's library has no wgmma or no TMA load")
+    for name, params in WGMMA_LIBS.items():
+        lib = build.library_path(name)
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "wgmma_kernel" in line:
+                args = re.findall(r"L[ib](\d+)E",
+                                  line.split("wgmma_kernelI")[-1])
+                stats = " ".join(x.split("ptxas info    :")[-1].strip()
+                                 for x in lines[i + 1:i + 4]
+                                 if "registers" in x or "spill" in x)
+                n = params.count(",") + 1
+                _say(f"{name} ptxas <{params}> = <{', '.join(args[:n])}>: "
+                     f"{stats}")
+        if not tool.exists():
+            _say(f"{name} sass: cuobjdump not in the toolkit; HGMMA/UTMALDG "
+                 "not counted")
+            continue
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+        _say(f"{name} sass: {hgmma} HGMMA, {utmaldg} UTMALDG, "
+             f"{sass.count('UTMASTG')} UTMASTG instructions")
+        if not hgmma or not utmaldg:
+            raise AssertionError(f"{name}'s library has no wgmma or no TMA "
+                                 "load")
 
 
 def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
@@ -426,27 +447,84 @@ def _k4_layouts(torch, kernels):
            torch.tensor(pre40, dtype=torch.int32, device="cuda"), ar, bm8)
 
 
+DEAD_DY = 3.0e4     # dy's rows outside every segment: large, finite
+
+
+def _poison(x, covered, value):
+    """``x`` with the rows outside every segment set to ``value``: the
+    kernels must not let them reach a live output."""
+    return x.masked_fill(~covered[:, None], value)
+
+
+def _covered(torch, m, starts, sizes):
+    covered = torch.zeros(m, dtype=torch.bool, device="cuda")
+    for s, n in zip(starts.tolist(), sizes.tolist()):
+        covered[s:s + n] = True
+    return covered
+
+
+def _main_routes(torch, kernels):
+    """The wgmma routes, ``(counter, bq, nwg, stages)``, that phi3.5-moe's
+    serve and training take: K4's forward at the rung-8 decode, a
+    208-token prefill and a 2048-token step, K4's dX and K5 at the step,
+    each at the row block and flat size the MoE layer picks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cf = get_config("phi3.5-moe-42b").moe.capacity_factor
+    routes = set()
+    for tokens in (8, 208, 2048):
+        cap = moe._capacity(tokens, MOE_E, 2, cf)
+        bm = kernels.flat_block_rows(min(cap, 64), MOE_FF, MOE_D,
+                                     torch.bfloat16)
+        n_mt = MOE_E * -(-cap // bm)
+        names = ("grouped_gemm",) + (("grouped_gemm_dx",) if tokens == 2048
+                                     else ())
+        for k in (MOE_D, MOE_FF):
+            p = kernels.k4_plan(bm, n_mt, k)
+            routes |= {(name, p.bq, p.nwg, p.stages) for name in names}
+    p = kernels.k5_plan()
+    return routes | {("grouped_dw", p.bq, p.nwg, p.stages)}
+
+
+def _wgmma_routed(routes, before, names) -> None:
+    """One more launch of each of ``names`` on a wgmma route than
+    ``before``: the case did not take the CUDA-core body."""
+    for name in names:
+        n = sum(c for r, c in routes.items() if r[0] == name)
+        m = sum(c for r, c in before.items() if r[0] == name)
+        if n != m + 1:
+            raise AssertionError(f"a bf16 {name} launch left the wgmma "
+                                 f"route ({m} -> {n})")
+
+
 def check_k4(torch, kernels, gen) -> float:
-    """K4 against its plain version at every layout of ``_k4_layouts``,
-    up/gate (4096 -> 6400) and down (6400 -> 4096), f32 and bf16; rows
-    outside every segment must come out exactly 0."""
+    """K4 against its plain version at every layout of ``_k5_layouts``,
+    up/gate (4096 -> 6400) and down (6400 -> 4096), f32 and bf16, with
+    NaN in x's rows outside every segment; those rows must come out
+    exactly 0, and each bf16 case must take the wgmma route."""
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
+
     worst, n_cases = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         rel = 0.0 if dtype == torch.float32 else BF16_REL
         ws = {(k, n): (torch.randn(MOE_E, k, n, device="cuda", generator=gen)
                        / k ** 0.5).to(dtype)
               for k, n in ((MOE_D, MOE_FF), (MOE_FF, MOE_D))}
-        for name, m, starts, sizes, gids, bm in _k4_layouts(torch, kernels):
-            covered = torch.zeros(m, dtype=torch.bool, device="cuda")
-            for s, n in zip(starts.tolist(), sizes.tolist()):
-                covered[s:s + n] = True
+        for name, m, starts, sizes, gids, bm in _k5_layouts(torch, kernels):
+            covered = _covered(torch, m, starts, sizes)
             for (k, n), w in ws.items():
-                x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+                x = _poison(torch.randn(m, k, device="cuda",
+                                        generator=gen).to(dtype),
+                            covered, float("nan"))
+                before = dict(ROUTE_LAUNCHES)
                 got = kernels.segment_grouped_gemm(x, w, starts, sizes, gids,
                                                    block_rows=bm)
                 ref = kernels.segment_grouped_gemm_plain(
                     x, w, starts, sizes, gids, block_rows=bm)
                 what = f"K4 {dtype} {name} bm {bm} {k}x{n}"
+                if dtype == torch.bfloat16:
+                    _wgmma_routed(ROUTE_LAUNCHES, before, ("grouped_gemm",))
                 worst = max(worst, _max_err(what, got, ref, rel,
                                             _f32_atol(ref)))
                 if (got[~covered] != 0).any():
@@ -454,10 +532,11 @@ def check_k4(torch, kernels, gen) -> float:
                                          "segment is not 0")
                 n_cases += 1
     _say(f"k4: {n_cases} cases (decode- and prefill-like expert sizes, "
-         f"tail tiles, capacity stride; 4096x6400 and 6400x4096; f32 and "
-         f"bf16) agree with the plain version (max abs err {worst}; "
-         f"elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
-         f"2e-5*max|ref|; uncovered rows exactly 0)")
+         f"tail tiles, capacity stride, 2048-token training, shared-gid "
+         f"a2a; 4096x6400 and 6400x4096; f32 and bf16; NaN in x's rows "
+         f"outside every segment) agree with the plain version (max abs "
+         f"err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 "
+         f"2^-7*|ref| + 2e-5*max|ref|; uncovered rows exactly 0)")
     return worst
 
 
@@ -487,10 +566,16 @@ def _k5_layouts(torch, kernels):
 def check_k4_dx_and_k5(torch, kernels, gen):
     """The backward of ``segment_grouped_gemm`` on the card, at every
     layout of ``_k5_layouts``, up/gate (4096 -> 6400) and down (6400 ->
-    4096), f32 and bf16: dX (K4 reading ``w`` transposed) against the
+    4096), f32 and bf16, with NaN in x's rows outside every segment and
+    ``DEAD_DY`` in dy's: dX (K4 reading ``w`` transposed) against the
     plain K4 with ``w.transpose(1, 2)``, dW (K5) against
     ``segment_grouped_dw_plain``.  Rows of dX outside every segment and
-    dW blocks of groups with no rows must be exactly 0."""
+    dW blocks of groups with no rows must be exactly 0; each bf16 case
+    must take both wgmma routes.  Then every route of the main path
+    (``_main_routes``) must have been reached, here or in ``check_k4``
+    (the route counts start at zero there)."""
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
+
     worst = {"dx": 0.0, "dw": 0.0}
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -500,18 +585,22 @@ def check_k4_dx_and_k5(torch, kernels, gen):
                   / k ** 0.5).to(dtype).requires_grad_())
             for name, m, starts, sizes, gids, bm in _k5_layouts(torch,
                                                                  kernels):
-                covered = torch.zeros(m, dtype=torch.bool, device="cuda")
+                covered = _covered(torch, m, starts, sizes)
                 rows = torch.zeros(MOE_E, dtype=torch.long, device="cuda")
-                for s, z, g in zip(starts.tolist(), sizes.tolist(),
-                                   gids.tolist()):
-                    covered[s:s + z] = True
-                    rows[g] += z
-                x = torch.randn(m, k, device="cuda",
-                                generator=gen).to(dtype).requires_grad_()
-                dy = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+                rows.index_add_(0, gids.long(), sizes.long())
+                x = _poison(torch.randn(m, k, device="cuda",
+                                        generator=gen).to(dtype),
+                            covered, float("nan")).requires_grad_()
+                dy = _poison(torch.randn(m, n, device="cuda",
+                                         generator=gen).to(dtype),
+                             covered, DEAD_DY)
                 w.grad = None
+                before = dict(ROUTE_LAUNCHES)
                 kernels.segment_grouped_gemm(x, w, starts, sizes, gids,
                                              block_rows=bm).backward(dy)
+                if dtype == torch.bfloat16:
+                    _wgmma_routed(ROUTE_LAUNCHES, before,
+                                  ("grouped_gemm_dx", "grouped_dw"))
                 with torch.no_grad():
                     dx_ref = kernels.segment_grouped_gemm_plain(
                         dy, w.transpose(1, 2), starts, sizes, gids,
@@ -531,13 +620,20 @@ def check_k4_dx_and_k5(torch, kernels, gen):
                                          "has a nonzero block")
                 n_cases += 1
             del w
+    missing = _main_routes(torch, kernels) - {r for r, c in
+                                              ROUTE_LAUNCHES.items() if c}
+    if missing:
+        raise AssertionError(f"wgmma routes of the main path not checked: "
+                             f"{sorted(missing)}")
     _say(f"k4 dX and k5: {n_cases} backward cases (decode, prefill, "
          f"capacity-stride, 2048-token training and shared-gid a2a "
-         f"layouts; 4096x6400 and 6400x4096; f32 and bf16) agree with the "
+         f"layouts; 4096x6400 and 6400x4096; f32 and bf16; NaN in x's and "
+         f"{DEAD_DY} in dy's rows outside every segment) agree with the "
          f"plain versions (max abs err dX {worst['dx']}, dW {worst['dw']}; "
          f"elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
          f"2e-5*max|ref|; uncovered dX rows and empty-group dW blocks "
-         f"exactly 0)")
+         f"exactly 0); wgmma launches by route (counter, bq, nwg, stages): "
+         f"{sorted(ROUTE_LAUNCHES.items())}")
     return worst
 
 
@@ -740,6 +836,7 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     > 0 just after, and every request must be prefilled once.  Returns
     the engine, the weights, the launch counts and the completions."""
     from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
     from repro_torch.models.common import padded_vocab
     from repro_torch.serve import make_engine, Request, validate_stats
@@ -768,6 +865,7 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     torch.cuda.reset_peak_memory_stats()
     for counter in LAUNCH_COUNTERS.values():
         counter.reset()
+    ROUTE_LAUNCHES.clear()
     t0 = time.perf_counter()
     for req in reqs:
         eng.submit(req)
@@ -775,6 +873,7 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    routes = _only_wgmma_routes(launches)
     n_prefills = len(prefills)
     peak = torch.cuda.max_memory_allocated()
     validate_stats(eng.stats)
@@ -820,9 +919,26 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
                "coexec_backend": eng.stats["coexec_backend"],
                "backfilled": eng.stats["backfilled"],
                "coexec_steps": len(eng.stats["coexec_tiles"]),
-               "prefills": n_prefills, "launches": launches}
+               "prefills": n_prefills, "launches": launches,
+               "wgmma_routes": routes}
     _say(f"serve: {json.dumps(summary)}")
     return eng, params, launches, sorted(outs, key=lambda c: c.rid)
+
+
+def _only_wgmma_routes(launches) -> dict:
+    """Launches of K4 and K5 by wgmma route (``counter bq nwg stages``);
+    raises unless every bf16 launch of a run took one (none fell to the
+    CUDA-core bodies)."""
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
+
+    for name in ("grouped_gemm", "grouped_gemm_dx", "grouped_dw"):
+        routed = sum(c for r, c in ROUTE_LAUNCHES.items() if r[0] == name)
+        if routed != launches[name]:
+            raise AssertionError(f"{launches[name] - routed} of "
+                                 f"{launches[name]} {name} launches left "
+                                 "the wgmma route")
+    return {" ".join(map(str, r)): c for r, c in sorted(
+        ROUTE_LAUNCHES.items())}
 
 
 def profile_window(torch, np, eng, cfg) -> dict:
@@ -1075,6 +1191,7 @@ def train_full_width(torch, cfg):
     before the run; K1's, K4's (forward and dX) and K5's must be > 0 just
     after, and every loss finite."""
     from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
     from repro_torch.train import Trainer, TrainerConfig
 
@@ -1093,9 +1210,11 @@ def train_full_width(torch, cfg):
     torch.cuda.reset_peak_memory_stats()
     for counter in LAUNCH_COUNTERS.values():
         counter.reset()
+    ROUTE_LAUNCHES.clear()
     out = trainer.run()
     torch.cuda.synchronize()
     launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    routes = _only_wgmma_routes(launches)
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in out["history"]]
     if len(losses) != TRAIN_STEPS or not all(
@@ -1111,7 +1230,7 @@ def train_full_width(torch, cfg):
                "first_step_s": out["history"][0]["dt"],
                "median_step_s": step_s, "tokens_per_s": tokens / step_s,
                "peak_memory_gb": peak / 1e9,
-               "launches": launches,
+               "launches": launches, "wgmma_routes": routes,
                "launches_per_step": {k: v / TRAIN_STEPS
                                      for k, v in launches.items() if v}}
     _say(f"train: {json.dumps(summary)}")
@@ -1213,13 +1332,14 @@ def time_train_k1(torch, kernels, params, cfg, rows: int):
 
 
 def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
-    """One train step's K4 dX and K5 work at ``n_tokens`` tokens: up,
-    gate and down of every layer, each layer's expert sizes routed by
-    its own router from random hidden states, at the row block and flat
-    size the MoE layer picks; rows outside every segment are 0 in x and
-    dy, as in the layer.  Bounds: K4 dX reads the live experts' weights
-    and live dy rows and writes the whole dX; K5 reads the live rows of
-    x and dy and writes every expert's dW block; FLOPs count live rows."""
+    """One train step's K4 forward, K4 dX and K5 work at ``n_tokens``
+    tokens: up, gate and down of every layer, each layer's expert sizes
+    routed by its own router from random hidden states, at the row block
+    and flat size the MoE layer picks; rows outside every segment are 0
+    in x and dy, as in the layer.  Bounds: K4 (forward and dX) reads the
+    live experts' weights and live input rows and writes the whole
+    output; K5 reads the live rows of x and dy and writes every expert's
+    dW block; FLOPs count live rows."""
     from repro_torch.models import moe
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1229,8 +1349,8 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
     bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
     m_flat = e * (-(-cap // bm)) * bm
     gids = torch.arange(e, dtype=torch.int32, device="cuda")
-    dx_calls, dw_calls, live = [], [], []
-    cost = {"dx": [0, 0], "dw": [0, 0]}
+    fwd_calls, dx_calls, dw_calls, live = [], [], [], []
+    cost = {"fwd": [0, 0], "dx": [0, 0], "dw": [0, 0]}
     for layer in params["layers"]:
         p = layer["moe"]
         h = torch.randn(n_tokens, d, device="cuda", generator=gen)
@@ -1251,16 +1371,18 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
         for x, dy, w in ((x_d, dy_ff, p["up"]), (x_d, dy_ff, p["gate"]),
                          (x_ff, dy_d, p["down"])):
             kk, nn = w.shape[1:]
+            fwd_calls.append((x, w, offs, sizes))
             dx_calls.append((dy, w.transpose(1, 2), offs, sizes))
             dw_calls.append((x, dy, offs, sizes))
+            cost["fwd"][0] += 2 * (active * kk * nn + rows * kk + m_flat * nn)
             cost["dx"][0] += 2 * (active * kk * nn + rows * nn + m_flat * kk)
             cost["dw"][0] += 2 * (rows * kk + rows * nn + e * kk * nn)
             for key in cost:
                 cost[key][1] += 2 * rows * kk * nn
 
-    def run_dx(fn):
-        return lambda: [fn(dy, wt, offs[:-1], sizes, gids, block_rows=bm)
-                        for dy, wt, offs, sizes in dx_calls]
+    def run_k4(fn, calls):
+        return lambda: [fn(a, w, offs[:-1], sizes, gids, block_rows=bm)
+                        for a, w, offs, sizes in calls]
 
     def run_dw(fn):
         return lambda: [fn(x, dy, offs[:-1], sizes, gids, e)
@@ -1276,12 +1398,15 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
         return [_launch_dw(x, dy, meta, bm, e)
                 for (x, dy, _, _), meta in zip(dw_calls, metas)]
 
-    library, lib_name = _k4_library(torch, kernels, dx_calls, gids, bm)
-    dx = _times(torch, {"ms": run_dx(kernels.segment_grouped_gemm),
-                        "plain_ms": run_dx(kernels.segment_grouped_gemm_plain),
-                        "library_ms": library})
-    dx.update(zip(("bound_ms", "bound_by"), _bound_ms(*cost["dx"])))
-    dx["library"] = lib_name
+    k4 = {}
+    for key, calls in (("fwd", fwd_calls), ("dx", dx_calls)):
+        library, lib_name = _k4_library(torch, kernels, calls, gids, bm)
+        k4[key] = _times(torch, {
+            "ms": run_k4(kernels.segment_grouped_gemm, calls),
+            "plain_ms": run_k4(kernels.segment_grouped_gemm_plain, calls),
+            "library_ms": library})
+        k4[key].update(zip(("bound_ms", "bound_by"), _bound_ms(*cost[key])))
+        k4[key]["library"] = lib_name
     library, lib_name = _k5_library(torch, kernels, dw_calls, gids, e)
     dw = _times(torch, {"ms": run_k5,
                         "plain_ms": run_dw(kernels.segment_grouped_dw_plain),
@@ -1291,10 +1416,12 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
     common = {"launches_timed": len(dw_calls), "tokens": n_tokens,
               "capacity": cap, "bm": bm, "m_flat": m_flat,
               "rows_and_active_experts_per_layer": live}
-    out = {"k4_dx": {**dx, **common, "bytes": cost["dx"][0],
-                     "flops": cost["dx"][1]},
-           "k5": {**dw, **common, "bytes": cost["dw"][0],
-                  "flops": cost["dw"][1]}}
+    out = {f"k4_{key}": {**k4[key], **common, "bytes": cost[key][0],
+                         "flops": cost[key][1]} for key in k4}
+    out["k5"] = {**dw, **common, "bytes": cost["dw"][0],
+                 "flops": cost["dw"][1]}
+    _say(f"k4 forward, train step ({n_tokens} tokens, {len(fwd_calls)} "
+         f"launches): {json.dumps(out['k4_fwd'])}")
     _say(f"k4 dX, train step ({n_tokens} tokens, {len(dx_calls)} launches): "
          f"{json.dumps(out['k4_dx'])}")
     _say(f"k5, train step ({n_tokens} tokens, {len(dw_calls)} launches): "
@@ -1792,11 +1919,12 @@ def main() -> int:
     secs = _build.build()
     _say(f"build: {json.dumps(secs)}, {time.perf_counter() - t0:.2f} s wall")
 
-    k1_build_report(kernels, _build)
+    wgmma_build_report(_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_err = check_k1(torch, kernels, gen)
     k1_bwd_err = check_k1_backward(torch, kernels, gen)
     k2_err = check_k2(torch, kernels, gen)
+    kernels.grouped_gemm.ROUTE_LAUNCHES.clear()
     k4_err = check_k4(torch, kernels, gen)
     k45_err = check_k4_dx_and_k5(torch, kernels, gen)
     k2_int8_err = check_k2_int8(torch, kernels, gen)

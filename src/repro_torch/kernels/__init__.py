@@ -9,7 +9,8 @@
 * ``grouped_gemm`` — K4, the flat ragged grouped GEMM behind every MoE
   expert FFN and its input gradient (CUDA C++, ``csrc/grouped_gemm.cu``),
   and K5, the segment-sum weight gradient of the experts (CUDA C++,
-  ``csrc/grouped_dw.cu``).
+  ``csrc/grouped_dw.cu``), both on the mainloop of
+  ``csrc/hopper_gemm.cuh``, laid out by ``k4_plan`` and ``k5_plan``.
 * ``coexec`` — K6, fused multi-tenant co-execution: the packer's
   placement of many GEMMs run in one launch (CUDA C++,
   ``csrc/coexec.cu``).
@@ -40,7 +41,8 @@ from repro_torch.kernels.grouped_gemm import LAUNCHES as _K4_LAUNCHES
 from repro_torch.kernels.grouped_gemm import (aligned_block_rows,
                                               flat_block_rows,
                                               flat_group_offsets,
-                                              flat_ragged_gemm,
+                                              flat_ragged_gemm, K4Plan,
+                                              k4_plan, K5Plan, k5_plan,
                                               ragged_grouped_gemm,
                                               segment_grouped_dw_plain,
                                               segment_grouped_gemm,
@@ -81,7 +83,8 @@ __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
            "segment_grouped_gemm", "segment_grouped_gemm_plain",
            "segment_grouped_dw_plain",
            "flat_ragged_gemm", "ragged_grouped_gemm", "flat_block_rows",
-           "aligned_block_rows", "flat_group_offsets",
+           "aligned_block_rows", "flat_group_offsets", "K4Plan", "k4_plan",
+           "K5Plan", "k5_plan",
            "sisa_gemm_splitk", "sisa_gemm_splitk_plain",
            "moe_grouped_gemm", "moe_grouped_gemm_plain",
            "CoexecTenant", "CoexecPlan", "interleave_order",

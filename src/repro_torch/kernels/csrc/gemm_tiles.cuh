@@ -1,9 +1,9 @@
-// Device helpers shared by the GEMM kernels K1 (sisa_gemm.cu), K4
-// (grouped_gemm.cu) and K5 (grouped_dw.cu): f32 <-> element conversions,
-// cp.async copies into shared memory, ldmatrix fragment loads and the bf16
-// mma.sync m16n8k16 with an f32 accumulator, and the shared-memory layout
-// of one pipeline stage of the tensor-core body.  Included inside each
-// source's anonymous namespace.
+// Device helpers shared by the GEMM kernels: f32 <-> element conversions
+// (the CUDA-core bodies of K1, K4 and K5), and for tile_gemm.cuh's
+// tensor-core body (K3, K6, K7) cp.async copies into shared memory,
+// ldmatrix fragment loads, the bf16 mma.sync m16n8k16 with an f32
+// accumulator, and the shared-memory layout of one pipeline stage.
+// Included inside each source's anonymous namespace.
 #pragma once
 
 template <typename T>
@@ -50,15 +50,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
-}
-// Four 8x8 tiles, each transposed: an A fragment read from a tile stored
-// k-major ([k][m], m contiguous), as K5 reads X^T.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
 }
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"

@@ -10,39 +10,63 @@
 // against w[gid] with an f32 accumulator; rows >= hi are written 0; the
 // output is in x's dtype.
 //
-// Scale-in: a block whose tile starts at or past `hi` (an empty expert's
+// Scale-in: a CTA whose tile starts at or past `hi` (an empty expert's
 // capacity, an alignment gap, the flat buffer's tail) writes zeros and
 // exits before it reads a weight byte or does a multiply-add -- the TPU
-// kernel's pl.when(row0 < hi).  Live tiles also zero-fill the A rows at
-// or past `hi` instead of reading them.
+// kernel's pl.when(row0 < hi).
 //
-// What bounds it on an H100: in MoE decode each expert holds a few rows,
-// so the kernel is bound by device-memory bytes, the (d, f) weights of
-// the experts that hold rows; at prefill the experts fill their tiles and
-// it still reads each live expert's weights once per row tile.  The
-// bodies are K1's (sisa_gemm.cu) with the B pointer moved to w[gid]:
-// bf16 with 16-byte aligned rows on the tensor cores (mma.sync m16n8k16,
-// a cp.async pipeline; the 16-row slab splits each K tile over four
-// warps), f32 and unaligned bf16 on the CUDA cores, so f32 stays exact
-// f32.  Tile heights follow K1's: the block's height BM is the smallest of
-// 16 / 32 / 64 / 128 that holds `bm` (a capacity stride may force bm = 8).
+// What bounds it on an H100, and what the design does about it:
+// * MoE decode (a few rows an expert) and prefill (one row tile an
+//   expert) read each live expert's (d, f) weights once for a handful of
+//   rows: bound by device-memory bytes.  Training (4-5 row tiles an
+//   expert) is near the balance of bytes and operations.
+// * The bf16 body (16-byte aligned rows) is the TMA + wgmma pipeline of
+//   hopper_gemm.cuh, swap-AB in every mode: 64 * NWG weight columns of
+//   w[gid] form wgmma's 64-row side and the row tile's rows its n8 ... n128
+//   side (BQ, the smallest of 8 / 16 / 32 / 64 / 128 that holds `bm`), so a
+//   CTA never spans two row tiles, and so never two experts, and no
+//   instruction multiplies the padding rows of a short decode tile.  The
+//   weights come through a 3-D tensor map (inner, rows, expert), so a box
+//   at an expert's edge gets TMA's zero fill instead of the next expert's
+//   rows; x's rows past `hi` are read as they are, and only their own
+//   output rows, written as 0, depend on them.
+// * The grid is raster-banded: `band` row tiles run side by side for each
+//   tile of weight columns, so an expert's row tiles read its weight slab
+//   from L2 after the first read, while the band's rows of x stay in L2
+//   across the weight tiles (the launch plan sizes the band).
+// * The C tile leaves transposed: staged through shared memory and stored
+//   as whole 16-byte pieces of output rows, not as scattered 2-byte
+//   writes.
+// * Every launch is a programmatic dependent launch: barrier setup runs
+//   while the kernel before (the tile table's stack) finishes, and the
+//   table is read only after griddepcontrol.wait.
+// The launch plan (repro_torch/kernels/grouped_gemm.py::k4_plan) names BQ,
+// NWG, the stages and the band; the entry refuses any plan it was not
+// instantiated for.
 //
 // The backward's dX = dY @ W[gid]^T (the TPU kernel's custom VJP,
-// grouped_gemm.py:301-310) runs through the same kernel: TRANS_B
-// instantiations read w[gid] (d, f) in place as the (f, d) operand, walking
-// its contiguous axis, as K1 reads the tied LM head's table.T -- no
+// grouped_gemm.py:301-310) runs through the same body: w[gid] (d, f) is
+// read in place as the (f, d) operand through a K-major map -- no
 // transposed copy of the (G, d, f) expert stack.
 //
-// One block per (column tile, row tile); the table is built on the device
-// (repro_torch/kernels/grouped_gemm.py::_tile_metadata), so the caller
-// never copies anything to the host.  gids are clamped into [0, G).
+// float32 (exact, no TF32), and bf16 rows that are not 16-byte aligned, run
+// a shared-memory tiled body on the CUDA cores at the tile height of 16 /
+// 32 / 64 / 128 that holds `bm`, one block per (column tile, row tile).
+//
+// The table is built on the device (repro_torch/kernels/grouped_gemm.py::
+// _tile_metadata), so the caller never copies anything to the host.  gids
+// are clamped into [0, G).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 #include "gemm_tiles.cuh"
+#include "hopper_gemm.cuh"
 
 // Rows of this block's tile: [row0, live) contract against w[gid];
 // [live, end) are written 0.
@@ -51,9 +75,8 @@ struct RowTile {
 };
 
 __device__ __forceinline__ RowTile row_tile(const int* __restrict__ meta,
-                                            int n_mt, int n_groups, int m,
-                                            int bm) {
-  const int i = blockIdx.y;
+                                            int i, int n_mt, int n_groups,
+                                            int m, int bm) {
   RowTile t;
   t.row0 = i * bm;
   t.gid = min(max(meta[i], 0), n_groups - 1);
@@ -83,7 +106,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   constexpr int RT = BM / TM;  // thread rows
   constexpr int CT = BN / TN;  // thread columns
   constexpr int NT = RT * CT;
-  const RowTile t = row_tile(meta, n_mt, n_groups, m, bm);
+  const RowTile t = row_tile(meta, blockIdx.y, n_mt, n_groups, m, bm);
   const int n0 = blockIdx.x * BN;
   if (t.live <= t.row0) {  // scale-in: no weight bytes, no MACs
     zero_rows<T, BN>(c, t.row0, t.end, n0, n, ldc, NT);
@@ -169,233 +192,170 @@ cudaError_t launch(const void* x, const void* w, void* c, const int* meta,
   return cudaGetLastError();
 }
 
-// bf16 tensor-core body: K1's sisa_gemm_tc_kernel with B at w[gid]
-// (row-major, or transposed under TRANS_B) and the tile's rows bounded by
-// `hi`.
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
-          bool TRANS_B>
-__global__ void __launch_bounds__(WM* WN* WK * 32)
-    grouped_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ w,
-                           __nv_bfloat16* __restrict__ c,
-                           const int* __restrict__ meta, int n_mt,
-                           int n_groups, int m, int n, int k, int bm,
-                           long long ldx, long long ldc) {
-  using Stage = TcStage<BM, BN, BK, TRANS_B>;
-  constexpr int NT = WM * WN * WK * 32;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
-  constexpr int FM = WTM / 16, FN = WTN / 8;   // mma fragments per warp
-  constexpr int KW = BK / WK;                  // K columns per warp per tile
-  static_assert(WTM % 16 == 0 && WTN % 8 == 0 && KW % 16 == 0, "tile");
-  static_assert(BK % 8 == 0 && BN % 8 == 0, "16-byte chunks");
-
-  const RowTile t = row_tile(meta, n_mt, n_groups, m, bm);
-  const int n0 = blockIdx.x * BN;
-  if (t.live <= t.row0) {  // scale-in: no weight bytes, no MACs
-    zero_rows<__nv_bfloat16, BN>(c, t.row0, t.end, n0, n, ldc, NT);
-    return;
-  }
-  const __nv_bfloat16* __restrict__ b = w + (long long)t.gid * k * n;
-
+// ---------------------------------------------------------------------------
+// bf16 body: TMA + wgmma, warp-specialised, swap-AB (hopper_gemm.cuh).
+// ---------------------------------------------------------------------------
+// CTA (row tile i, weight-column tile p0) computes D[BP x BQ] = W^T * x^T:
+// X = w[gid]^T (BP = 64 NWG weight columns by K; MN-major for the forward's
+// row-major (K, N) w[gid], K-major for dX's w[gid] read as its transpose),
+// Y = the tile's rows of x (K-major), BQ >= bm of them; D is out^T.
+template <int NWG, int BQ, int STAGES, bool X_MN>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                              const __grid_constant__ CUtensorMap tx,
+                              __nv_bfloat16* __restrict__ c,
+                              const int* __restrict__ meta, int n_mt,
+                              int n_groups, int m, int n, int ksteps, int bm,
+                              int band, long long ldc) {
+  using S = HgStage<NWG, BQ, X_MN, false>;
+  constexpr int BP = S::kBP;
+  constexpr int kPitch = BP + 8;  // staged out^T row (bf16): 16-byte aligned
+  static_assert(BQ * kPitch * 2 <= STAGES * S::kBytes, "staging tile");
   extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp % WM;
-  const int wn = (warp / WM) % WN;
-  const int wk = warp / (WM * WN);
-  const int ktiles = (k + BK - 1) / BK;
-
-  auto load_tile = [&](int stage, int kt) {
-    __nv_bfloat16* as = smem + stage * Stage::kElems;
-    __nv_bfloat16* bs = as + Stage::kA;
-    const int k0 = kt * BK;
-    for (int e = tid; e < BM * (BK / 8); e += NT) {
-      const int r = e / (BK / 8), kc = (e % (BK / 8)) * 8;
-      const int gr = t.row0 + r, gk = k0 + kc;
-      const int nb = (gr < t.live) ? 2 * max(0, min(8, k - gk)) : 0;
-      cp_async16(as + r * (BK + kPad) + kc,
-                 nb ? x + (long long)gr * ldx + gk : x, nb);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_raw) +
+                  ((1024 - (hg_smem(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::kBytes);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NWG * 4);
     }
-    if (TRANS_B) {  // B tile [BN][BK]: rows of w[gid], k contiguous
-      for (int e = tid; e < BN * (BK / 8); e += NT) {
-        const int r = e / (BK / 8), kc = (e % (BK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + kc;
-        const int nb = (gn < n) ? 2 * max(0, min(8, k - gk)) : 0;
-        cp_async16(bs + r * (BK + kPad) + kc,
-                   nb ? b + (long long)gn * k + gk : b, nb);
-      }
-    } else {
-      for (int e = tid; e < BK * (BN / 8); e += NT) {
-        const int r = e / (BN / 8), nc = (e % (BN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        const int nb = (gk < k) ? 2 * max(0, min(8, n - gn)) : 0;
-        cp_async16(bs + r * (BN + kPad) + nc,
-                   nb ? b + (long long)gk * n + gn : b, nb);
-      }
-    }
-  };
-
-  float acc[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
+    mbar_fence_init();
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_tile(next % STAGES, next);
-    cp_async_commit();
+  __syncthreads();
+  // Launched with programmatic stream serialization: the tile table is
+  // written by the kernels just before, so it is read only after this.
+  grid_dependency_wait();
 
-    const __nv_bfloat16* as = smem + (kt % STAGES) * Stage::kElems;
-    const __nv_bfloat16* bs = as + Stage::kA;
-#pragma unroll
-    for (int ks = 0; ks < KW / 16; ++ks) {
-      const int kk = wk * KW + ks * 16;
-      uint32_t af[FM][4], bf[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        ldmatrix_x4(af[i], as + (wm * WTM + i * 16 + lane % 16) * (BK + kPad) +
-                               kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if (TRANS_B)
-          ldmatrix_x2(bf[j], bs + (wn * WTN + j * 8 + lane % 8) * (BK + kPad) +
-                                 kk + ((lane / 8) % 2) * 8);
-        else
-          ldmatrix_x2_trans(bf[j], bs + (kk + lane % 16) * (BN + kPad) +
-                                       wn * WTN + j * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Fragment (i, j) element q sits at row g (+8 for q >= 2), column
-  // 2 * (lane % 4) + (q % 2) of its 16 x 8 tile, g = lane / 4.
-  const int g = lane / 4, t2 = 2 * (lane % 4);
-  if (WK > 1) {
-    __syncthreads();  // the pipeline's buffers become the reduction buffer
-    float* red = reinterpret_cast<float*>(smem_raw);  // [WK][BM][BN]
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = wm * WTM + i * 16 + g + (q / 2) * 8;
-          const int cc = wn * WTN + j * 8 + t2 + q % 2;
-          red[(wk * BM + r) * BN + cc] = acc[i][j][q];
-        }
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN, cc = e % BN;
-      const int gr = t.row0 + r, gc = n0 + cc;
-      if (gr >= t.end || gc >= n) continue;
-      float sum = 0.f;
-#pragma unroll
-      for (int ww = 0; ww < WK; ++ww) sum += red[(ww * BM + r) * BN + cc];
-      c[(long long)gr * ldc + gc] = __float2bfloat16(gr < t.live ? sum : 0.f);
+  // Raster bands: `band` row tiles (fastest) by every weight-column tile.
+  const int p_tiles = (n + BP - 1) / BP;
+  const int per_band = band * p_tiles;
+  const int b = blockIdx.x / per_band, off = blockIdx.x % per_band;
+  const int rows_in_band = min(band, n_mt - b * band);
+  const RowTile t =
+      row_tile(meta, b * band + off % rows_in_band, n_mt, n_groups, m, bm);
+  const int p0 = (off / rows_in_band) * BP;
+  if (t.live <= t.row0) {  // scale-in: no weight bytes, no MACs
+    for (int e = threadIdx.x; e < (t.end - t.row0) * BP; e += blockDim.x) {
+      const int p = p0 + e % BP;
+      if (p < n)
+        c[(long long)(t.row0 + e / BP) * ldc + p] = __float2bfloat16(0.f);
     }
     return;
   }
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int gr = t.row0 + wm * WTM + i * 16 + g + (q / 2) * 8;
-        const int gc = n0 + wn * WTN + j * 8 + t2 + q % 2;
-        if (gr < t.end && gc < n)
-          c[(long long)gr * ldc + gc] =
-              __float2bfloat16(gr < t.live ? acc[i][j][q] : 0.f);
-      }
-}
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES,
-          bool TRANS_B>
-cudaError_t launch_tc_one(const void* x, const void* w, void* c,
-                          const int* meta, int n_mt, int n_groups, int m,
-                          int n, int k, int bm, long long ldx, long long ldc,
-                          cudaStream_t stream) {
-  constexpr int kStageBytes =
-      TcStage<BM, BN, BK, TRANS_B>::kElems * (int)sizeof(__nv_bfloat16);
-  constexpr int kRedBytes = WK > 1 ? WK * BM * BN * (int)sizeof(float) : 0;
-  constexpr int kSmem =
-      STAGES * kStageBytes > kRedBytes ? STAGES * kStageBytes : kRedBytes;
-  if (kSmem > 48 * 1024) {
-    static bool raised = false;  // once per instantiation
-    if (!raised) {
-      cudaError_t err = cudaFuncSetAttribute(
-          grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-      if (err != cudaSuccess) return err;
-      raised = true;
+  const int warp = threadIdx.x / 32;
+  float acc[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) acc[i] = 0.f;
+  if (warp == NWG * 4) {
+    if (threadIdx.x % 32 == 0) {
+      tma_prefetch_map(&tw);
+      tma_prefetch_map(&tx);
+      hg_produce_at<NWG, BQ, STAGES, X_MN, false, true>(
+          ring, full, empty, &tw, &tx, p0, t.row0, 0, ksteps, t.gid, 0);
+    }
+  } else {
+    hg_consume<NWG, BQ, STAGES, X_MN, false>(ring, full, empty, warp / 4,
+                                             ksteps, acc);
+  }
+  launch_dependents();
+
+  // Every wgmma has drained: the ring becomes the out^T tile, rows q of
+  // the tile at or past `hi` set to 0 (only they read x's rows past hi).
+  __syncthreads();
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+  if (warp < NWG * 4) {
+    // This thread's fragment rows p (r, r + 8) and columns q (hopper_gemm.cuh).
+    const int tt = threadIdx.x % 128;
+    const int r = (warp / 4) * 64 + (tt / 32) * 16 + (tt % 32) / 4;
+    const int c0 = 2 * (tt % 4);
+#pragma unroll
+    for (int cc = 0; cc < BQ / 8; ++cc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int q = 8 * cc + c0 + j;
+          tile[q * kPitch + r + 8 * h] = __float2bfloat16(
+              t.row0 + q < t.live ? acc[4 * cc + 2 * h + j] : 0.f);
+        }
+  }
+  __syncthreads();
+  // Whole output rows: 16-byte pieces of 8 columns, neighbouring threads
+  // on neighbouring pieces.
+  const bool vec = ldc % 8 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  for (int e = threadIdx.x; e < (t.end - t.row0) * (BP / 8);
+       e += blockDim.x) {
+    const int q = e / (BP / 8), p = p0 + 8 * (e % (BP / 8));
+    const __nv_bfloat16* src = tile + q * kPitch + (p - p0);
+    __nv_bfloat16* dst = c + (long long)(t.row0 + q) * ldc + p;
+    if (vec && p + 8 <= n) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && p + j < n; ++j) dst[j] = src[j];
     }
   }
-  const dim3 grid((n + BN - 1) / BN, n_mt);
-  grouped_gemm_tc_kernel<BM, BN, BK, WM, WN, WK, STAGES, TRANS_B>
-      <<<grid, WM * WN * WK * 32, kSmem, stream>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(c), meta, n_mt, n_groups, m, n, k, bm,
-          ldx, ldc);
-  return cudaGetLastError();
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
-cudaError_t launch_tc(const void* x, const void* w, void* c, const int* meta,
-                      int n_mt, int n_groups, int m, int n, int k, int bm,
-                      long long ldx, long long ldc, int trans_b,
-                      cudaStream_t s) {
-  if (trans_b)
-    return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, true>(
-        x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, s);
-  return launch_tc_one<BM, BN, BK, WM, WN, WK, STAGES, false>(
-      x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, s);
+template <int NWG, int BQ, int STAGES, bool X_MN>
+cudaError_t launch_wgmma(const CUtensorMap& tw, const CUtensorMap& tx,
+                         void* c, const int* meta, int n_mt, int n_groups,
+                         int m, int n, int ksteps, int bm, int band,
+                         long long ldc, cudaStream_t stream) {
+  using S = HgStage<NWG, BQ, X_MN, false>;
+  constexpr int kSmem = STAGES * S::kBytes + 2 * STAGES * 8 + 1024;
+  auto kernel = grouped_gemm_wgmma_kernel<NWG, BQ, STAGES, X_MN>;
+  static unsigned long long raised = 0;  // per instantiation, a bit a device
+  cudaError_t err = hg_raise_smem(kernel, kSmem, raised);
+  if (err != cudaSuccess) return err;
+  const long long ctas = (long long)n_mt * ((n + S::kBP - 1) / S::kBP);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3(NWG * 128 + 32);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tw, tx,
+                           static_cast<__nv_bfloat16*>(c), meta, n_mt,
+                           n_groups, m, n, ksteps, bm, band, ldc);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The plans k4_plan (repro_torch/kernels/grouped_gemm.py) can name, as
+// (BQ, NWG, stages), one for each wgmma width; any other is refused.
+// trans_b: dX's K-major weights.
+cudaError_t dispatch_wgmma(const CUtensorMap& tw, const CUtensorMap& tx,
+                           void* c, const int* meta, int n_mt, int n_groups,
+                           int m, int n, int ksteps, int bm, int band,
+                           long long ldc, int trans_b, int bq, int nwg,
+                           int stages, cudaStream_t s) {
+#define K4_PLAN(BQ, NWG, ST)                                                  \
+  if (bq == BQ && nwg == NWG && stages == ST)                                 \
+    return trans_b ? launch_wgmma<NWG, BQ, ST, false>(                        \
+                         tw, tx, c, meta, n_mt, n_groups, m, n, ksteps, bm,   \
+                         band, ldc, s)                                        \
+                   : launch_wgmma<NWG, BQ, ST, true>(                         \
+                         tw, tx, c, meta, n_mt, n_groups, m, n, ksteps, bm,   \
+                         band, ldc, s);
+  K4_PLAN(8, 1, 8)
+  K4_PLAN(16, 1, 8)
+  K4_PLAN(32, 1, 8)
+  K4_PLAN(64, 4, 5)
+  K4_PLAN(128, 2, 4)
+#undef K4_PLAN
+  return cudaErrorInvalidValue;
 }
 
 // Block height: the smallest of K1's tile heights that holds `bm` rows.
 int block_height(int bm) {
   return bm <= 16 ? 16 : bm <= 32 ? 32 : bm <= 64 ? 64 : bm <= 128 ? 128 : 0;
-}
-
-// Tile widths and depths per height, as in K1's dispatch tables.
-cudaError_t dispatch_tc(const void* x, const void* w, void* c,
-                        const int* meta, int n_mt, int n_groups, int m, int n,
-                        int k, int bm, long long ldx, long long ldc,
-                        int trans_b, cudaStream_t s) {
-  switch (block_height(bm)) {
-    case 16:  // slab: K split over 4 warps, 3 stages of 128-deep K tiles
-      return launch_tc<16, 32, 128, 1, 1, 4, 3>(
-          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
-    case 32:  // fused pair
-      return launch_tc<32, 64, 32, 2, 2, 1, 4>(
-          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
-    case 64:  // fused quad
-      return launch_tc<64, 64, 32, 2, 2, 1, 4>(
-          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
-    case 128:  // monolithic
-      return launch_tc<128, 128, 32, 4, 2, 1, 3>(
-          x, w, c, meta, n_mt, n_groups, m, n, k, bm, ldx, ldc, trans_b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 template <typename T>
@@ -426,25 +386,48 @@ cudaError_t dispatch(const void* x, const void* w, void* c, const int* meta,
 // x (m, k) with row stride ldx; w contiguous, (n_groups, k, n), or
 // (n_groups, n, k) read as its transpose when trans_b; c (m, n) with row
 // stride ldc; meta (2, n_mt) int32 [gid; hi], n_mt = ceil(m / bm).
-// dtype: 0 = float32, 1 = bfloat16; tensor_cores: bf16 with 16-byte aligned
-// rows (checked by the caller).  Returns the launch's cudaError_t.
+// The CUDA-core body: dtype 0 = float32, 1 = bfloat16 (rows not 16-byte
+// aligned).  Returns the launch's cudaError_t.
 extern "C" int grouped_gemm(const void* x, const void* w, void* c,
                             const void* meta, int n_mt, int n_groups, int m,
                             int n, int k, int bm, long long ldx, long long ldc,
-                            int trans_b, int dtype, int tensor_cores,
-                            void* stream) {
+                            int trans_b, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mt = static_cast<const int*>(meta);
   if (dtype == 0)
     return dispatch<float>(x, w, c, mt, n_mt, n_groups, m, n, k, bm, ldx, ldc,
                            trans_b, s);
-  if (dtype == 1 && tensor_cores)
-    return dispatch_tc(x, w, c, mt, n_mt, n_groups, m, n, k, bm, ldx, ldc,
-                       trans_b, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(x, w, c, mt, n_mt, n_groups, m, n, k, bm,
                                    ldx, ldc, trans_b, s);
   return cudaErrorInvalidValue;
+}
+
+// The wgmma body for bf16 with 16-byte aligned rows (checked by the
+// caller), arguments as above, following a plan of k4_plan: bq rows of a
+// row tile (>= bm), nwg consumer warpgroups (64 nwg weight columns a CTA),
+// stages, and band row tiles side by side.  Any plan that was not
+// instantiated returns cudaErrorInvalidValue.
+extern "C" int grouped_gemm_wgmma(const void* x, const void* w, void* c,
+                                  const void* meta, int n_mt, int n_groups,
+                                  int m, int n, int k, int bm, long long ldx,
+                                  long long ldc, int trans_b, int bq, int nwg,
+                                  int stages, int band, void* stream) {
+  const int ksteps = (k + kHgBK - 1) / kHgBK;
+  if (m <= 0 || n <= 0 || ksteps <= 0 || n_mt <= 0 || n_groups <= 0 ||
+      bm <= 0 || bm > bq || band <= 0 || (long long)n_mt * bm < m)
+    return cudaErrorInvalidValue;
+  CUtensorMap tw, tx;
+  // Y: bq rows of x from the tile's first row, 64 of K a box.
+  cudaError_t err = tensor_map(&tx, x, k, m, ldx, bq);
+  // X: the weight stack, (G, k, n) N-major, or (G, n, k) K-major for dX.
+  if (err == cudaSuccess)
+    err = trans_b ? tensor_map_3d(&tw, w, k, n, n_groups, 64 * nwg)
+                  : tensor_map_3d(&tw, w, n, k, n_groups, 64);
+  if (err != cudaSuccess) return err;
+  return dispatch_wgmma(tw, tx, c, static_cast<const int*>(meta), n_mt,
+                        n_groups, m, n, ksteps, bm, band, ldc, trans_b, bq,
+                        nwg, stages, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* grouped_gemm_error_string(int err) {

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma GEMM mainloop, shared by
 // the kernels that multiply bf16 tiles on the tensor cores at the card's
-// full rate: mbarrier and TMA (cp.async.bulk.tensor.2d) wrappers, the
-// shared-memory matrix descriptors of wgmma for the 128-byte swizzle,
-// wgmma.mma_async m64nNk16 (f32 += bf16 * bf16) with its fence, commit and
-// wait, and the producer and consumer loops of a warp-specialised pipeline.
-// Included inside a source's anonymous namespace; needs <cuda.h> for
-// CUtensorMap.
+// full rate (K1 in sisa_gemm.cu, K4 in grouped_gemm.cu, K5 in
+// grouped_dw.cu): mbarrier and TMA (cp.async.bulk.tensor.2d / .3d loads, the
+// 3-D store) wrappers, the shared-memory matrix descriptors of wgmma for the
+// 128-byte swizzle, wgmma.mma_async m64nNk16 (f32 += bf16 * bf16) with its
+// fence, commit and wait, the producer and consumer loops of a
+// warp-specialised pipeline, and the host-side encoding of tensor maps.
+// Included inside a source's anonymous namespace; the source includes
+// <cuda.h> (CUtensorMap) and <mutex> before it.
 //
 // Layouts.  Every operand tile is 64 bf16 (128 bytes) deep along its
 // contiguous axis, loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -82,6 +84,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(hg_smem(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+// The same from a 3-D map (c2: the outermost coordinate, e.g. the expert of
+// a (G, rows, cols) weight stack: a box never reads a neighbouring expert's
+// rows, it gets TMA's zero fill past the expert's own).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(hg_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hg_smem(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+// One box of shared memory at `src` to `map` at (c0, c1, c2); the parts of
+// the box outside the tensor are not written.  The writes of the generic
+// proxy to `src` must be fenced first (fence_proxy_async) and the box may
+// be reused only after tma_store_wait_read.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(hg_smem(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until every committed store has read its shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier ID (1-15; 0 is __syncthreads) over THREADS threads.  The
+// id is a constant, so ptxas reserves only the barriers a kernel names.
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
@@ -164,6 +210,22 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
       "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -286,6 +348,7 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
                                           uint64_t db) {
   if constexpr (N == 8) wgmma_m64n8k16<TA, TB>(d, da, db);
   else if constexpr (N == 16) wgmma_m64n16k16<TA, TB>(d, da, db);
+  else if constexpr (N == 32) wgmma_m64n32k16<TA, TB>(d, da, db);
   else if constexpr (N == 64) wgmma_m64n64k16<TA, TB>(d, da, db);
   else if constexpr (N == 128) wgmma_m64n128k16<TA, TB>(d, da, db);
   else {
@@ -372,4 +435,172 @@ __device__ __forceinline__ void hg_consume(uint8_t* ring, uint64_t* full,
   }
   wgmma_wait<0>();
   wgmma_fence_acc(acc);
+}
+
+// The producer of a grouped GEMM: as hg_produce, but K runs over n_k steps
+// of 64 from element k0 (K5 contracts over one group's rows, which start
+// at any row tile), and with X_3D, X comes from a 3-D map at outermost
+// coordinate xz (K4's weight stack, xz = the expert).  Y is 2-D.  The
+// steps are the ring's steps it0 .. it0 + n_k - 1, so a persistent CTA
+// walks its tiles through one ring without draining it between them.
+template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool X_3D>
+__device__ __forceinline__ void hg_produce_at(uint8_t* ring, uint64_t* full,
+                                              uint64_t* empty,
+                                              const CUtensorMap* tx,
+                                              const CUtensorMap* ty, int p0,
+                                              int q0, int k0, int n_k,
+                                              int xz, int it0) {
+  using S = HgStage<NWG, BQ, X_MN, Y_MN>;
+  auto load_x = [&](void* dst, int c0, int c1, uint64_t* bar) {
+    if constexpr (X_3D) tma_load_3d(dst, tx, c0, c1, xz, bar);
+    else tma_load_2d(dst, tx, c0, c1, bar);
+  };
+  for (int i = 0; i < n_k; ++i) {
+    const int it = it0 + i;
+    const int st = it % STAGES;
+    if (it >= STAGES) mbar_wait(&empty[st], ((it / STAGES) + 1) & 1);
+    mbar_expect_tx(&full[st], S::kBytes);
+    uint8_t* xs = ring + st * S::kBytes;
+    uint8_t* ys = xs + S::kX;
+    const int kc = k0 + i * kHgBK;
+    if (X_MN) {
+#pragma unroll
+      for (int g = 0; g < NWG; ++g)
+        load_x(xs + g * kHgChunk, p0 + g * 64, kc, &full[st]);
+    } else {
+      load_x(xs, kc, p0, &full[st]);
+    }
+    if (Y_MN) {
+#pragma unroll
+      for (int j = 0; j < BQ / 64; ++j)
+        tma_load_2d(ys + j * kHgChunk, ty, q0 + j * 64, kc, &full[st]);
+    } else {
+      tma_load_2d(ys, ty, kc, q0, &full[st]);
+    }
+  }
+}
+
+// hg_consume over the ring's steps it0 .. it0 + n_k - 1 (hg_produce_at),
+// with a hook: once step i has landed, and before any wgmma reads it, the
+// warpgroup calls prep(i, its X tile) (K5 zeroes the rows of x that are
+// not its group's there); prep ends with the proxy fence and a barrier of
+// the warpgroup if it writes the tile.  Every stage is handed back,
+// the last one too, so the next tile's steps can follow in the ring.
+template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, class Prep>
+__device__ __forceinline__ void hg_consume_prep(uint8_t* ring, uint64_t* full,
+                                                uint64_t* empty, int g,
+                                                int it0, int n_k,
+                                                float (&acc)[BQ / 2],
+                                                Prep prep) {
+  using S = HgStage<NWG, BQ, X_MN, Y_MN>;
+  const bool signaller = threadIdx.x % 32 == 0;
+  for (int i = 0; i < n_k; ++i) {
+    const int it = it0 + i;
+    const int st = it % STAGES;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    prep(i, ring + st * S::kBytes + g * kHgChunk);
+    const uint32_t xs = hg_smem(ring + st * S::kBytes) + g * kHgChunk;
+    const uint32_t ys = hg_smem(ring + st * S::kBytes + S::kX);
+    wgmma_fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHgBK / 16; ++kk)
+      wgmma_k16<BQ, X_MN, Y_MN>(acc, hg_tile_desc<X_MN>(xs, kk),
+                                hg_tile_desc<Y_MN>(ys, kk));
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_fence_acc(acc);
+    if (i > 0 && signaller) mbar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  wgmma_fence_acc(acc);
+  if (n_k > 0 && signaller) mbar_arrive(&empty[(it0 + n_k - 1) % STAGES]);
+}
+
+// ---- tensor maps (host) -----------------------------------------------------
+// bf16, 128-byte swizzle, boxes 64 wide along the contiguous axis (one
+// swizzle row), encoded through the driver's entry point (no link against
+// libcuda) on every call.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
+}
+
+// (outer x inner) bf16 matrix at ptr with rows `stride` elements apart;
+// boxes of box_rows x 64.
+inline cudaError_t tensor_map(CUtensorMap* out, const void* ptr,
+                              long long inner, long long outer,
+                              long long stride, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous (planes x rows x inner) bf16 stack at ptr, e.g. an expert
+// stack (G, K, N); boxes of box_rows x 64 within one plane.
+inline cudaError_t tensor_map_3d(CUtensorMap* out, const void* ptr,
+                                 long long inner, long long rows,
+                                 long long planes, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
+                                 (cuuint64_t)(inner * rows) * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes`, once per device
+// (`raised`: one bit a device, kept by the caller per instantiation).
+template <class Kernel>
+inline cudaError_t hg_raise_smem(Kernel kernel, int bytes,
+                                 unsigned long long& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(raised >> dev & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    raised |= 1ull << dev;
+  }
+  return cudaSuccess;
 }

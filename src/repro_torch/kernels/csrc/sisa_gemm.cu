@@ -301,53 +301,6 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   cluster.sync();  // no CTA leaves while another reads its tile
 }
 
-// Tensor maps: 2-D, bf16, boxes 64 wide along the contiguous axis (one
-// 128-byte swizzle row), encoded through the driver's entry point (no link
-// against libcuda) on every call.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  });
-  return fn;
-}
-
-// (outer x inner) bf16 matrix at ptr with rows `stride` elements apart;
-// boxes of box_rows x 64.
-cudaError_t tensor_map(CUtensorMap* out, const void* ptr, long long inner,
-                       long long outer, long long stride, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool SWAP>
 cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
                          void* c, int p_total, int q_total, int ksteps,
@@ -356,16 +309,8 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
   constexpr int kSmem = STAGES * S::kBytes + 2 * STAGES * 8 + 1024;
   auto kernel = sisa_gemm_wgmma_kernel<NWG, BQ, STAGES, X_MN, Y_MN, SWAP>;
   static unsigned long long raised = 0;  // per instantiation, a bit a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = hg_raise_smem(kernel, kSmem, raised);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!(raised >> dev & 1)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    raised |= 1ull << dev;
-  }
   const long long ptiles = (p_total + S::kBP - 1) / S::kBP;
   const long long qtiles = (q_total + BQ - 1) / BQ;
   if (ptiles > 65535 || qtiles > 65535) return cudaErrorInvalidValue;

@@ -32,10 +32,21 @@ and :func:`segment_grouped_dw_plain`.  The row block comes from the
 port's Hopper :func:`~repro_torch.kernels.sisa_gemm.choose_block_config`,
 so rows sit elsewhere than in the JAX layout; the values of every
 segment's rows are the same.
+
+bf16 operands with 16-byte aligned rows run both kernels on the TMA +
+``wgmma`` mainloop of ``csrc/hopper_gemm.cuh``, laid out by
+:func:`k4_plan` and :func:`k5_plan` (pure Python, like K1's
+``k1_plan``); each C entry refuses a plan it was not instantiated for.
+float32, and bf16 rows without that alignment, run the CUDA-core bodies,
+so float32 stays exact float32.  :func:`segment_grouped_dw_plan_plain`
+follows K5's plan stage by stage on the CPU.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -48,10 +59,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BLOCK_ROWS = 128       # the tallest of K1's tile heights
 _MAX_ROW_TILES = 65535      # CUDA grid y limit
 
+# The wgmma bodies' instantiations (csrc/grouped_gemm.cu, grouped_dw.cu),
+# mirrored from their C dispatch, as (bq, nwg, stages): K4's one for each
+# wgmma width bq, in ascending bq; K5's one.  At bq 64, four warpgroups
+# beat two and one, and K5's 128 x 256 tiles beat 128 x 128, at the
+# prefill and training shapes scripts/k4_sweep.py times (PERF.md).
+K4_PLANS = ((8, 1, 8), (16, 1, 8), (32, 1, 8), (64, 4, 5), (128, 2, 4))
+K5_PLANS = ((256, 2, 3),)
+HG_BK = 64                  # K (K5: rows) per pipeline stage
+K4_BAND_BYTES = 8 << 20     # rows of x a raster band keeps in L2
+
 LAUNCHES = _build.LaunchCounter("grouped_gemm")
 # K4 launches that read ``w`` transposed: the backward's dX.
 DX_LAUNCHES = _build.LaunchCounter("grouped_gemm_dx")
 DW_LAUNCHES = _build.LaunchCounter("grouped_dw")
+# Launches of the wgmma bodies by route: (counter name, bq, nwg, stages).
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 
 Tensor = torch.Tensor
 
@@ -87,6 +110,51 @@ def flat_group_offsets(group_sizes, block_rows: int) -> Tensor:
     aligned = (sizes + block_rows - 1) // block_rows * block_rows
     return torch.cat([sizes.new_zeros(1),
                       torch.cumsum(aligned, 0).to(torch.int32)])
+
+
+@dataclasses.dataclass(frozen=True)
+class K4Plan:
+    """How one bf16 K4 launch is laid out on the card (:func:`k4_plan`).
+    Always swap-AB: a CTA covers ``64 * nwg`` weight columns (wgmma's
+    64-row side) by the ``bq`` rows of one row tile (its n side), in
+    ``stages`` pipeline stages of ``HG_BK``; ``band`` row tiles run side
+    by side for each tile of weight columns."""
+
+    bq: int
+    nwg: int
+    stages: int
+    band: int
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """How one bf16 K5 launch is laid out (:func:`k5_plan`): output tiles
+    of ``64 * nwg`` rows of d by ``bq`` columns of f (not swapped), over
+    a group's rows in ``stages`` pipeline stages of ``HG_BK`` rows; one
+    persistent CTA an SM walks the tiles."""
+
+    bq: int
+    nwg: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=4096)
+def k4_plan(bm: int, n_mt: int, k: int) -> K4Plan:
+    """K4's launch plan for ``n_mt`` row tiles of ``bm`` rows against
+    weights of depth ``k``: the least wgmma width ``bq`` that holds the
+    row tile, so a CTA never covers two tiles (two experts), with that
+    width's warpgroups and stages, and a band of row tiles that holds
+    ``K4_BAND_BYTES`` of x."""
+    bq, nwg, stages = next(p for p in K4_PLANS if p[0] >= bm)
+    band = max(1, min(n_mt, K4_BAND_BYTES // (bq * k * 2)))
+    return K4Plan(bq, nwg, stages, band)
+
+
+def k5_plan() -> K5Plan:
+    """K5's launch plan: its one instantiation, 128 x 256 tiles of dW,
+    two consumer warpgroups, three stages (the persistent CTAs, one an
+    SM, walk the tiles, so no shape leaves the card short of CTAs)."""
+    return K5Plan(*K5_PLANS[0])
 
 
 def _tile_metadata(seg_starts: Tensor, seg_sizes: Tensor, seg_gids: Tensor,
@@ -165,14 +233,51 @@ def segment_grouped_dw_plain(x: Tensor, dy: Tensor, seg_starts: Tensor,
     return dw.to(x.dtype)
 
 
+def segment_grouped_dw_plan_plain(x: Tensor, dy: Tensor, seg_starts: Tensor,
+                                  seg_sizes: Tensor, seg_gids: Tensor,
+                                  n_groups: int, *,
+                                  block_rows: int) -> Tensor:
+    """Plain version of K5's wgmma body, stage by stage: for each group,
+    its rows ``[r0, r1)`` of the tile table in steps of ``HG_BK`` rows;
+    in each step the rows that are not live (past ``r1``, or at or past
+    ``hi[r // block_rows]``) of x are set to 0 (NaN included) before the
+    step's f32 product, as the kernel zeroes them in shared memory; dy is
+    read as it is.  f32 sums in step order, result in x's dtype."""
+    m, d = x.shape
+    bm = block_rows
+    n_mt = -(-m // bm)
+    gid, hi = _tile_metadata(seg_starts, seg_sizes, seg_gids, n_mt, bm)
+    bounds = torch.searchsorted(gid, torch.arange(n_groups + 1,
+                                                  dtype=gid.dtype)).tolist()
+    hi_rows = torch.repeat_interleave(hi, bm)[:m]
+    dw = torch.zeros((n_groups, d, dy.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for g in range(n_groups):
+        t0, t1 = bounds[g], bounds[g + 1]
+        r0 = t0 * bm
+        r1 = max(r0, min(m, int(hi[t1 - 1]))) if t1 > t0 else r0
+        for s in range(r0, r1, HG_BK):
+            rows = torch.arange(s, min(s + HG_BK, m), device=x.device)
+            live = (rows < r1) & (rows < hi_rows[rows])
+            xs = torch.where(live[:, None], x[rows].float(),
+                             torch.zeros((), device=x.device))
+            dw[g] += xs.T @ dy[rows].float()
+    return dw.to(x.dtype)
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The C signatures of ``grouped_gemm`` (K4) and ``grouped_dw`` (K5).
-_K4_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P]
-_K5_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]
+# The C signatures of K4's and K5's CUDA-core bodies (``grouped_gemm``,
+# ``grouped_dw``) and wgmma bodies (``*_wgmma``).
+_K4_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]
+_K4_WGMMA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I,
+                  _I, _I, _I, _P]
+_K5_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I, _P]
+_K5_WGMMA_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _I,
+                  _I, _I, _P]
 
 
-def _lib(name: str, argtypes: list):
-    fn = getattr(_build.load(name), name)
+def _lib(lib: str, name: str, argtypes: list):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -209,15 +314,24 @@ def _launch(x: Tensor, w: Tensor, meta: Tensor, bm: int) -> Tensor:
     if not trans_b:
         w = w.contiguous()
     row = d if trans_b else f           # elements per row of w's storage
-    # The tensor-core body copies 16-byte chunks of x's and w's rows.
-    tensor_cores = (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
-                    and w.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
-                    and row % 8 == 0)
-    err = _lib("grouped_gemm", _K4_ARGS)(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(), n_mt, g,
-        m, f, d, bm, x.stride(0), f, int(trans_b), _DTYPES[x.dtype],
-        int(tensor_cores), torch.cuda.current_stream(x.device).cuda_stream)
-    (DX_LAUNCHES if trans_b else LAUNCHES).n += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counter = DX_LAUNCHES if trans_b else LAUNCHES
+    # TMA reads 16-byte aligned rows of x and of w's storage.
+    if (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+            and row % 8 == 0):
+        plan = k4_plan(bm, n_mt, d)
+        err = _lib("grouped_gemm", "grouped_gemm_wgmma", _K4_WGMMA_ARGS)(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(),
+            n_mt, g, m, f, d, bm, x.stride(0), f, int(trans_b), plan.bq,
+            plan.nwg, plan.stages, plan.band, stream)
+        ROUTE_LAUNCHES[(counter.name, plan.bq, plan.nwg, plan.stages)] += 1
+    else:
+        err = _lib("grouped_gemm", "grouped_gemm", _K4_ARGS)(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), meta.data_ptr(),
+            n_mt, g, m, f, d, bm, x.stride(0), f, int(trans_b),
+            _DTYPES[x.dtype], stream)
+    counter.n += 1
     _build.check("grouped_gemm", err)
     return out
 
@@ -242,14 +356,22 @@ def _launch_dw(x: Tensor, dy: Tensor, meta: Tensor, bm: int,
         meta[0].contiguous(),
         torch.arange(n_groups + 1, dtype=torch.int32, device=x.device),
     ).to(torch.int32)
-    tensor_cores = (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
-                    and dy.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
-                    and dy.stride(0) % 8 == 0 and d % 8 == 0 and f % 8 == 0)
-    err = _lib("grouped_dw", _K5_ARGS)(
-        x.data_ptr(), dy.data_ptr(), out.data_ptr(), meta.data_ptr(),
-        bounds.data_ptr(), meta.shape[1], n_groups, m, d, f, bm, x.stride(0),
-        dy.stride(0), _DTYPES[x.dtype], int(tensor_cores),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), dy.data_ptr(), out.data_ptr(), meta.data_ptr(),
+            bounds.data_ptr(), meta.shape[1], n_groups, m, d, f, bm,
+            x.stride(0), dy.stride(0))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # TMA reads 16-byte aligned rows of x and dy and writes dw's.
+    if (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and dy.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+            and dy.stride(0) % 8 == 0 and d % 8 == 0 and f % 8 == 0):
+        plan = k5_plan()
+        err = _lib("grouped_dw", "grouped_dw_wgmma", _K5_WGMMA_ARGS)(
+            *args, plan.bq, plan.nwg, plan.stages, stream)
+        ROUTE_LAUNCHES[(DW_LAUNCHES.name, plan.bq, plan.nwg,
+                        plan.stages)] += 1
+    else:
+        err = _lib("grouped_dw", "grouped_dw", _K5_ARGS)(
+            *args, _DTYPES[x.dtype], stream)
     DW_LAUNCHES.n += 1
     _build.check("grouped_dw", err)
     return out
