@@ -9,8 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the six CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
-3. the wgmma libraries of K1 (SISA GEMM), K4 and K5 (the grouped GEMMs):
-   each one's ``ptxas -v`` report per wgmma instantiation and its count of
+3. the wgmma libraries of K1 (SISA GEMM), K4 and K5 (the grouped GEMMs)
+   and K7 (the capacity MoE GEMM): each one's ``ptxas -v`` report per
+   wgmma instantiation and its count of
    ``HGMMA`` and ``UTMALDG`` instructions (``cuobjdump -sass``), which must
    be > 0; then K1 against its plain version at the main
    path's shapes (qwen's, and phi3.5-moe's 4096-wide projections at 8 and
@@ -21,9 +22,11 @@ Phases (any failure exits non-zero before the last line is printed):
    cluster size, each CTA tile); and K1's backward at 2048 rows (dA with
    B transposed, dB = Aᵀ dC with Aᵀ read in place, the LM head's
    ``table.T``);
-4. K2 (paged attention) against its plain version: GQA 14/2 with
-   head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe), 16-token
-   pages, tables with sink entries, positions on page edges;
+4. K2 (split-KV paged attention) against its plain version: GQA 14/2
+   with head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe),
+   16-token pages, q in f32 and bf16, tables with sink entries, a row at
+   position 0 (every split but the first empty), rows on page edges and
+   on either side of the plan's first two split edges, a full row;
 5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
    expert shapes (4096 -> 6400 and 6400 -> 4096, 16 experts): decode-
    and prefill-like expert sizes, sizes off the row block, tail tiles, a
@@ -37,7 +40,7 @@ Phases (any failure exits non-zero before the last line is printed):
    route, and together they must reach every route (``k4_plan`` /
    ``k5_plan``: swap-AB width, warpgroups, stages) of phi3.5-moe's
    decode, 208-token prefill and 2048-token training step.  Then K2 on
-   int8 pools (``quantize_page_pool``) at both head layouts; K3 (split-K)
+   int8 pools (``quantize_page_pool``) at the cases of phase 4; K3 (split-K)
    at qwen's decode GEMV shapes, two slab depths each, and ragged
    edges; K7 (the capacity MoE GEMM) at phi3.5-moe's expert shapes with
    capacities 2, 37 and 320; and K6 (co-execution) on the four
@@ -73,12 +76,14 @@ Phases (any failure exits non-zero before the last line is printed):
    the kernel time ``torch.profiler`` recorded as ``*_profiler`` (it can
    drop kernels on this card).  K1's host cost per launch
    (``host_us``, beside ``torch.matmul``'s) is the host time to issue
-   one step's calls.  K2 on int8 pools and K3 are timed at the
-   qwen decode step; K6 on each scenario (one fused launch on pre-packed
-   operands against ``sequential_matmul``'s launches, with
+   one step's calls, and K2's (``host_us``) the host time a
+   ``paged_attention`` call.  K2 on bf16 and int8 pools is timed at the
+   qwen decode step (24 layers) and at phi3.5-moe's layout (8 layers), K3
+   at the qwen decode step; K6 on each scenario (one fused launch on
+   pre-packed operands against ``sequential_matmul``'s launches, with
    ``torch._grouped_mm`` as the yardstick), each path first run once
    with the counters zeroed; K7 at phi3.5-moe's expert shapes at
-   capacities 2 and 320 (``torch.bmm`` as the yardstick);
+   capacities 2, 37 and 320 (``torch.bmm`` as the yardstick);
 10. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
@@ -340,14 +345,15 @@ def check_k1(torch, kernels, gen) -> float:
 # mainloop, with the template parameters of their wgmma kernels.
 WGMMA_LIBS = {"sisa_gemm": "NWG, BQ, STAGES, X_MN, Y_MN, SWAP",
               "grouped_gemm": "NWG, BQ, STAGES, X_MN",
-              "grouped_dw": "NWG, BQ, STAGES"}
+              "grouped_dw": "NWG, BQ, STAGES",
+              "moe_gemm": "NWG, BQ, STAGES"}
 
 
 def wgmma_build_report(build) -> None:
-    """K1's, K4's and K5's libraries as built: ``ptxas -v`` (registers,
+    """K1's, K4's, K5's and K7's libraries as built: ``ptxas -v`` (registers,
     shared memory, spills) of each wgmma instantiation, and the count of
     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
-    library's SASS, which must be > 0."""
+    library's SASS, which must be > 0; then K2's registers and spills."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     for name, params in WGMMA_LIBS.items():
         lib = build.library_path(name)
@@ -374,6 +380,17 @@ def wgmma_build_report(build) -> None:
         if not hgmma or not utmaldg:
             raise AssertionError(f"{name}'s library has no wgmma or no TMA "
                                  "load")
+    # K2's instantiations (<q, pool, head_dim, int8> as mangled): registers
+    # and spills.
+    lines = build.library_path("paged_attn").with_suffix(
+        ".log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "split_kernelI" in line:
+            args = line.split("split_kernelI")[-1].split("EEv")[0]
+            stats = " ".join(x.split("ptxas info    :")[-1].strip()
+                             for x in lines[i + 1:i + 4]
+                             if "registers" in x or "spill" in x)
+            _say(f"paged_attn ptxas <{args}>: {stats}")
 
 
 def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
@@ -396,23 +413,42 @@ def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
 K2_HEADS = ((14, 2, 64), (32, 8, 128))     # qwen2.5-0.5b, phi3.5-moe-42b
 
 
-def check_k2(torch, kernels, gen) -> float:
-    worst = 0.0
-    pos = [0, 15, 16, 31, 32, 127, 128, 255]
+def _k2_cases(torch, kernels, gen, quant):
+    """K2 against its plain version at both head layouts, q in f32 and
+    bf16, float or int8 pools, 8 rows of 16-page tables: a row at ``pos``
+    0 (every split but the first empty), rows ending on a page edge and on
+    either side of the first two split edges of the plan the wrapper
+    takes, a full row (255), and dead table entries on the sink."""
+    worst, edges = 0.0, set()
     for heads in K2_HEADS:
+        h, hkv, hd = heads
         for dtype in (torch.float32, torch.bfloat16):
+            size = 1 if quant else torch.tensor([], dtype=dtype).element_size()
+            plan = kernels.k2_plan(8, h, hkv, hd, 16, 16, size, quant)
+            edge = plan.pages_per_split * 16
+            edges.add(edge)
+            pos = [0, 16, edge - 1, edge, 2 * edge - 1, min(2 * edge, 254),
+                   128, 255]
             q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos,
                                                    heads=heads)
+            pools = _int8_pools(kernels, pk, pv) if quant else (pk, pv)
             rel = 0.0 if dtype == torch.float32 else BF16_REL
-            err = _max_err(
-                f"K2 {heads} {dtype}",
-                kernels.paged_attention(q, pk, pv, table, pos_t),
-                kernels.paged_attention_plain(q, pk, pv, table, pos_t),
-                rel, 1e-5)
-            worst = max(worst, err)
-    _say(f"k2: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, agree with the "
-         f"plain version (max abs err {worst}; elementwise tol f32 1e-5, "
-         f"bf16 2^-7*|ref| + 1e-5)")
+            worst = max(worst, _max_err(
+                f"K2 {'int8 ' if quant else ''}{heads} {dtype} {plan}",
+                kernels.paged_attention(q, pools[0], pools[1], table, pos_t,
+                                        *pools[2:]),
+                kernels.paged_attention_plain(q, pools[0], pools[1], table,
+                                              pos_t, *pools[2:]),
+                rel, 1e-5))
+    return worst, sorted(edges)
+
+
+def check_k2(torch, kernels, gen) -> float:
+    worst, edges = _k2_cases(torch, kernels, gen, quant=False)
+    _say(f"k2: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, f32 and bf16, "
+         f"split edges at cells {edges}, pos 0, full rows and sink entries, "
+         f"agree with the plain version (max abs err {worst}; elementwise "
+         f"tol f32 1e-5, bf16 2^-7*|ref| + 1e-5)")
     return worst
 
 
@@ -1069,28 +1105,38 @@ def time_k1(torch, kernels, params, cfg, rows: int):
             "bytes": nbytes, "flops": flops}
 
 
-def time_k2(torch, kernels, cfg):
-    """One decode step of K2 (24 launches) at 8 rows, each at the
-    position it reaches at the end of the serve phase."""
+def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False):
+    """One decode step of K2 (a launch a layer) at 8 rows, each at the
+    position it reaches at the end of the serve phase: qwen2.5-0.5b's
+    layout (14/2 heads, hd 64, 24 layers) unless ``heads``/``layers``
+    say otherwise, on bf16 pools or (``quant``) int8 pools; with the host
+    microseconds a ``paged_attention`` call."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
-    q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos)
-    layers = cfg.n_layers
+    q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos,
+                                           heads=heads)
+    scales = ()
+    if quant:
+        pk, pv, *scales = _int8_pools(kernels, pk, pv)
 
     def run(fn):
-        return lambda: [fn(q, pk, pv, table, pos_t) for _ in range(layers)]
+        return lambda: [fn(q, pk, pv, table, pos_t, *scales)
+                        for _ in range(layers)]
 
     out = _times(torch, {"ms": run(kernels.paged_attention),
                          "plain_ms": run(kernels.paged_attention_plain)})
-    hd, h, hkv = 64, 14, 2
+    out.update(_host_us(torch, {"host_us": run(kernels.paged_attention)},
+                        layers))
+    h, hkv, hd = heads
     cells = sum(p + 1 for p in pos)              # cells this data attends
-    per_layer = (2 * cells * hkv * hd * 2        # K and V, bf16
+    kv_cell = hd + 2 if quant else 2 * hd        # int8 + bf16 scale, or bf16
+    per_layer = (2 * cells * hkv * kv_cell       # K and V
                  + 2 * 2 * len(pos) * h * hd     # q in, out
                  + 4 * (table.numel() + len(pos)))
     flops = layers * 4 * cells * h * hd
     bound, by = _bound_ms(layers * per_layer, flops)
     return {**out, "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "launches_timed": layers}
+            "launches_timed": layers, "heads": list(heads)}
 
 
 def time_k4(torch, kernels, params, cfg, n_tokens: int):
@@ -1485,27 +1531,13 @@ def _int8_pools(kernels, pk, pv):
 
 def check_k2_int8(torch, kernels, gen) -> float:
     """K2 on int8 pools made by ``quantize_page_pool``, against its plain
-    version: GQA 14/2 at head_dim 64 and 32/8 at 128, 16-token pages,
-    sink entries, positions on page edges, q in f32 and bf16."""
-    worst = 0.0
-    pos = [0, 15, 16, 31, 32, 127, 128, 255]
-    for heads in K2_HEADS:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos,
-                                                   heads=heads)
-            pools = _int8_pools(kernels, pk, pv)
-            rel = 0.0 if dtype == torch.float32 else BF16_REL
-            err = _max_err(
-                f"K2 int8 {heads} {dtype}",
-                kernels.paged_attention(q, pools[0], pools[1], table, pos_t,
-                                        *pools[2:]),
-                kernels.paged_attention_plain(q, pools[0], pools[1], table,
-                                              pos_t, *pools[2:]),
-                rel, 1e-5)
-            worst = max(worst, err)
+    version, at the cases of :func:`_k2_cases`."""
+    worst, edges = _k2_cases(torch, kernels, gen, quant=True)
     _say(f"k2 int8: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, int8 pools "
-         f"with bf16 scale planes, agree with the plain version (max abs "
-         f"err {worst}; elementwise tol f32 1e-5, bf16 2^-7*|ref| + 1e-5)")
+         f"with bf16 scale planes, q in f32 and bf16, split edges at cells "
+         f"{edges}, pos 0, full rows and sink entries, agree with the plain "
+         f"version (max abs err {worst}; elementwise tol f32 1e-5, bf16 "
+         f"2^-7*|ref| + 1e-5)")
     return worst
 
 
@@ -1720,31 +1752,9 @@ def serve_coexec(torch, np, cfg, params):
     return launches
 
 
-def time_k2_int8(torch, kernels, cfg):
-    """One decode step of K2 on int8 pools (24 launches) at 8 rows, each
-    at the position it reaches at the end of the serve phase."""
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
-    q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos)
-    pk8, pv8, pks, pvs = _int8_pools(kernels, pk, pv)
-    del pk, pv
-    layers = cfg.n_layers
-
-    def run(fn):
-        return lambda: [fn(q, pk8, pv8, table, pos_t, pks, pvs)
-                        for _ in range(layers)]
-
-    out = _times(torch, {"ms": run(kernels.paged_attention),
-                         "plain_ms": run(kernels.paged_attention_plain)})
-    hd, h, hkv = 64, 14, 2
-    cells = sum(p + 1 for p in pos)
-    per_layer = (2 * cells * hkv * (hd + 2)      # int8 K and V, bf16 scales
-                 + 2 * 2 * len(pos) * h * hd     # q in, out
-                 + 4 * (table.numel() + len(pos)))
-    flops = layers * 4 * cells * h * hd
-    bound, by = _bound_ms(layers * per_layer, flops)
-    return {**out, "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "launches_timed": layers}
+def time_k2_int8(torch, kernels, heads=K2_HEADS[0], layers=24):
+    """:func:`time_k2` on int8 pools (``quantize_page_pool``)."""
+    return time_k2(torch, kernels, heads, layers, quant=True)
 
 
 def time_k3(torch, kernels, params, cfg, rows: int = 8):
@@ -1947,8 +1957,10 @@ def main() -> int:
     serve_coexec(torch, np, cfg, params)
     k1 = time_k1(torch, kernels, params, cfg, rows=8)
     k1_prefill = time_k1(torch, kernels, params, cfg, rows=208)
-    k2 = time_k2(torch, kernels, cfg)
-    k2_int8 = time_k2_int8(torch, kernels, cfg)
+    k2 = time_k2(torch, kernels, layers=cfg.n_layers)
+    k2_int8 = time_k2_int8(torch, kernels, layers=cfg.n_layers)
+    k2_phi = time_k2(torch, kernels, K2_HEADS[1], MOE_LAYERS)
+    k2_phi_int8 = time_k2_int8(torch, kernels, K2_HEADS[1], MOE_LAYERS)
     k3 = time_k3(torch, kernels, params, cfg)
     _say(f"k1 decode step (rung 8, {k1['gemms']} GEMMs): {json.dumps(k1)}")
     _say(f"k1 prefill (208 rows, LM head on 1 row): {json.dumps(k1_prefill)}")
@@ -1956,6 +1968,11 @@ def main() -> int:
          f"{json.dumps(k2)}")
     _say(f"k2 int8 decode step (8 rows, {k2_int8['launches_timed']} "
          f"layers): {json.dumps(k2_int8)}")
+    _say(f"k2 phi3.5-moe-42b layout decode step (8 rows, GQA 32/8 hd 128, "
+         f"{k2_phi['launches_timed']} layers): {json.dumps(k2_phi)}")
+    _say(f"k2 int8 phi3.5-moe-42b layout decode step (8 rows, "
+         f"{k2_phi_int8['launches_timed']} layers): "
+         f"{json.dumps(k2_phi_int8)}")
     _say(f"k3 decode step (rung 8, {k3['gemms']} GEMMs, slabs of "
          f"{K3_BK}): {json.dumps(k3)}")
     del eng, params
@@ -1974,8 +1991,11 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
     k7 = time_k7(torch, kernels, cap=2)
+    k7_ragged = time_k7(torch, kernels, cap=37)
     k7_train = time_k7(torch, kernels, cap=320)
     _say(f"k7 decode capacity (E 16, C 2, up/gate/down): {json.dumps(k7)}")
+    _say(f"k7 ragged capacity (E 16, C 37, up/gate/down): "
+         f"{json.dumps(k7_ragged)}")
     _say(f"k7 training capacity (E 16, C 320, up/gate/down): "
          f"{json.dumps(k7_train)}")
     gc.collect()
@@ -2022,8 +2042,11 @@ def main() -> int:
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
+         "note": "times: one qwen2.5-0.5b decode step (24 launches); "
+                 "phi_* at phi3.5-moe-42b's layout (8 launches)",
          "launches": launches["paged_attn"], "max_abs_err": k2_err,
-         **{k: k2[k] for k in keys}},
+         **{k: k2[k] for k in keys},
+         **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")}},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
@@ -2048,10 +2071,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "note": "K2's quant=True branch: int8 pools with bf16 scale "
-                 "planes; launches from the kv_quant='int8' serve",
+                 "planes; launches from the kv_quant='int8' serve; phi_* "
+                 "at phi3.5-moe-42b's layout",
          "launches": int8_launches["paged_attn_int8"],
          "max_abs_err": max(k2_int8_err, k2_pool_err),
-         **{k: k2_int8[k] for k in keys}},
+         **{k: k2_int8[k] for k in keys},
+         **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")}},
         {"name": "coexec", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/coexec.cu",
          "replaces": "src/repro/kernels/coexec.py:209",
@@ -2071,9 +2096,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gemm.py:22",
          "note": "launches and times: phi3.5-moe-42b's up, gate and down "
                  "expert GEMMs at decode capacity 2 through "
-                 "moe_grouped_gemm",
+                 "moe_grouped_gemm; c37_*, c320_* at capacities 37, 320",
          "launches": k7["launches"], "max_abs_err": k7_err,
-         **{k: k7[k] for k in keys}},
+         **{k: k7[k] for k in keys},
+         **{f"c37_{k}": k7_ragged[k] for k in ("ms", "library_ms")},
+         **{f"c320_{k}": k7_train[k] for k in ("ms", "library_ms")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

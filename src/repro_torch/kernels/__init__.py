@@ -4,8 +4,8 @@
   ``csrc/sisa_gemm.cu`` on the TMA + ``wgmma`` mainloop of
   ``csrc/hopper_gemm.cuh``, laid out by ``k1_plan``), behind every
   linear layer and the LM head.
-* ``paged_attn`` — K2, paged-attention decode over the flat page pool
-  (CUDA C++, ``csrc/paged_attn.cu``).
+* ``paged_attn`` — K2, split-KV paged-attention decode over the flat
+  page pool (CUDA C++, ``csrc/paged_attn.cu``, laid out by ``k2_plan``).
 * ``grouped_gemm`` — K4, the flat ragged grouped GEMM behind every MoE
   expert FFN and its input gradient (CUDA C++, ``csrc/grouped_gemm.cu``),
   and K5, the segment-sum weight gradient of the experts (CUDA C++,
@@ -15,10 +15,11 @@
   placement of many GEMMs run in one launch (CUDA C++,
   ``csrc/coexec.cu``).
 * ``moe_gemm`` — K7, the capacity-padded batched expert GEMM (CUDA C++,
-  ``csrc/moe_gemm.cu``).
+  ``csrc/moe_gemm.cu``, bf16 on the mainloop of ``csrc/hopper_gemm.cuh``,
+  laid out by ``k7_plan``).
 * K3, the split-K GEMM, is ``sisa_gemm.sisa_gemm_splitk`` (CUDA C++, in
-  ``csrc/sisa_gemm.cu``); K3, K6 and K7 share the tile bodies of
-  ``csrc/tile_gemm.cuh``.
+  ``csrc/sisa_gemm.cu``); K3 and K6 share the tile bodies of
+  ``csrc/tile_gemm.cuh``, and K7 its CUDA-core body for float32.
 * ``ops`` — the differentiable, ragged-M entry points for K1.
 * ``_build`` — ``nvcc`` build and ``ctypes`` loading of ``csrc/``.
 
@@ -48,14 +49,16 @@ from repro_torch.kernels.grouped_gemm import (aligned_block_rows,
                                               segment_grouped_gemm,
                                               segment_grouped_gemm_plain)
 from repro_torch.kernels.moe_gemm import LAUNCHES as _K7_LAUNCHES
-from repro_torch.kernels.moe_gemm import (moe_grouped_gemm,
+from repro_torch.kernels.moe_gemm import (K7Plan, k7_plan, moe_grouped_gemm,
                                           moe_grouped_gemm_plain)
 from repro_torch.kernels.ops import (row_passes, set_default_backend,
                                      sisa_einsum_2d, sisa_matmul)
 from repro_torch.kernels.paged_attn import LAUNCHES as _K2_LAUNCHES
 from repro_torch.kernels.paged_attn import LAUNCHES_INT8 as _K2_INT8_LAUNCHES
-from repro_torch.kernels.paged_attn import (paged_attention,
+from repro_torch.kernels.paged_attn import (K2Plan, k2_plan,
+                                            paged_attention,
                                             paged_attention_plain,
+                                            paged_attention_split_plain,
                                             quantize_page_pool,
                                             set_paged_attn_backend)
 from repro_torch.kernels.sisa_gemm import LAUNCHES as _K1_LAUNCHES
@@ -78,7 +81,8 @@ __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
            "sisa_gemm_plain", "K1Plan", "k1_plan", "sisa_matmul",
            "sisa_einsum_2d",
            "set_default_backend", "row_passes", "paged_attention",
-           "paged_attention_plain", "set_paged_attn_backend",
+           "paged_attention_plain", "paged_attention_split_plain",
+           "K2Plan", "k2_plan", "set_paged_attn_backend",
            "quantize_page_pool",
            "segment_grouped_gemm", "segment_grouped_gemm_plain",
            "segment_grouped_dw_plain",
@@ -86,7 +90,8 @@ __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
            "aligned_block_rows", "flat_group_offsets", "K4Plan", "k4_plan",
            "K5Plan", "k5_plan",
            "sisa_gemm_splitk", "sisa_gemm_splitk_plain",
-           "moe_grouped_gemm", "moe_grouped_gemm_plain",
+           "moe_grouped_gemm", "moe_grouped_gemm_plain", "K7Plan",
+           "k7_plan",
            "CoexecTenant", "CoexecPlan", "interleave_order",
            "build_coexec_plan", "pack_operands", "run_plan",
            "run_plan_plain", "unpack_outputs", "coexec_matmul",

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma GEMM mainloop, shared by
 // the kernels that multiply bf16 tiles on the tensor cores at the card's
 // full rate (K1 in sisa_gemm.cu, K4 in grouped_gemm.cu, K5 in
-// grouped_dw.cu): mbarrier and TMA (cp.async.bulk.tensor.2d / .3d loads, the
-// 3-D store) wrappers, the shared-memory matrix descriptors of wgmma for the
+// grouped_dw.cu, K7 in moe_gemm.cu; K2 in paged_attn.cu takes only its
+// programmatic-dependent-launch and shared-memory helpers): mbarrier and
+// TMA (cp.async.bulk.tensor.2d / .3d loads, the 3-D store) wrappers, the
+// shared-memory matrix descriptors of wgmma for the
 // 128-byte swizzle, wgmma.mma_async m64nNk16 (f32 += bf16 * bf16) with its
 // fence, commit and wait, the producer and consumer loops of a
 // warp-specialised pipeline, and the host-side encoding of tensor maps.
@@ -440,17 +442,21 @@ __device__ __forceinline__ void hg_consume(uint8_t* ring, uint64_t* full,
 // The producer of a grouped GEMM: as hg_produce, but K runs over n_k steps
 // of 64 from element k0 (K5 contracts over one group's rows, which start
 // at any row tile), and with X_3D, X comes from a 3-D map at outermost
-// coordinate xz (K4's weight stack, xz = the expert).  Y is 2-D.  The
-// steps are the ring's steps it0 .. it0 + n_k - 1, so a persistent CTA
-// walks its tiles through one ring without draining it between them.
-template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool X_3D>
+// coordinate xz (K4's weight stack, xz = the expert); with Y_3D, a K-major
+// Y from a 3-D map at outermost coordinate yz (K7's (E, C, d) rows, yz =
+// the expert: a box at the C edge gets zero fill).  The steps are the
+// ring's steps it0 .. it0 + n_k - 1, so a persistent CTA walks its tiles
+// through one ring without draining it between them.
+template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool X_3D,
+          bool Y_3D = false>
 __device__ __forceinline__ void hg_produce_at(uint8_t* ring, uint64_t* full,
                                               uint64_t* empty,
                                               const CUtensorMap* tx,
                                               const CUtensorMap* ty, int p0,
                                               int q0, int k0, int n_k,
-                                              int xz, int it0) {
+                                              int xz, int it0, int yz = 0) {
   using S = HgStage<NWG, BQ, X_MN, Y_MN>;
+  static_assert(!(Y_MN && Y_3D), "a 3-D Y is K-major");
   auto load_x = [&](void* dst, int c0, int c1, uint64_t* bar) {
     if constexpr (X_3D) tma_load_3d(dst, tx, c0, c1, xz, bar);
     else tma_load_2d(dst, tx, c0, c1, bar);
@@ -474,6 +480,8 @@ __device__ __forceinline__ void hg_produce_at(uint8_t* ring, uint64_t* full,
 #pragma unroll
       for (int j = 0; j < BQ / 64; ++j)
         tma_load_2d(ys + j * kHgChunk, ty, q0 + j * 64, kc, &full[st]);
+    } else if constexpr (Y_3D) {
+      tma_load_3d(ys, ty, kc, q0, yz, &full[st]);
     } else {
       tma_load_2d(ys, ty, kc, q0, &full[st]);
     }

@@ -1,7 +1,8 @@
 // One output tile of A @ B per block, for the kernels that write whole
 // tiles without K1's mode tables: K3 (split-K partials, sisa_gemm.cu), K6
-// (co-execution, coexec.cu) and K7 (the capacity-padded MoE GEMM,
-// moe_gemm.cu).  Included inside each source's anonymous namespace, after
+// (co-execution, coexec.cu) and the CUDA-core body of K7 (the
+// capacity-padded MoE GEMM, moe_gemm.cu).  Included inside each source's
+// anonymous namespace, after
 // gemm_tiles.cuh, whose helpers (cp.async, ldmatrix, mma.sync, TcStage,
 // to_f32 / from_f32) it uses.
 //

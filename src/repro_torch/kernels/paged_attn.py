@@ -4,8 +4,8 @@ Hopper kernel.
 Replaces the JAX package's TPU kernel ``repro/kernels/paged_attn.py::
 _paged_attn_kernel`` (``_paged_attention_pallas``, ``pallas_call`` at
 line 177).  The CUDA source is ``csrc/paged_attn.cu``; its header says
-what bounds the kernel on an H100 (the live K/V bytes) and how the
-layout and the ``pos``-bounded page loop address it.
+what bounds the kernel on an H100 (latency: the live K/V bytes take a
+fraction of a microsecond) and how the split-KV design shortens it.
 
 The pool stays stationary: the page table is read inside the kernel, so
 K/V never exists in dense logical order.  Pools are float (q's dtype),
@@ -15,6 +15,12 @@ inside the kernel as the reference's ``_dequant_block`` does.  The int8
 launches count apart (``LAUNCHES_INT8``), so a serve shows which variant
 ran.
 
+:func:`k2_plan` lays a launch out from static shapes only (the rows'
+positions live on the card): pages a split and splits, one KV head a
+CTA.
+:func:`paged_attention_split_plain` computes what the kernel computes
+under a plan, split by split, then the combine.
+
 The port has one backend, ``"kernel"``: the operands' device decides.
 CUDA tensors launch K2 (or raise); CPU tensors take
 :func:`paged_attention_plain`, the page-blocked online softmax twin of
@@ -23,6 +29,8 @@ the reference's ``_paged_attention_xla``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -34,6 +42,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 _MAX_PAGE = 32      # one lane per page offset
 _MAX_GROUP = 32     # one warp per query head of a GQA group
+K2_MAX_PPS = 8      # pages a split keeps in flight (kMaxPps in the source)
+K2_PPS = 2          # pages a split by default (scripts/k2_sweep.py)
+K2_MAX_SMEM = 227 * 1024 - 1024     # dynamic bytes a CTA may ask (kMaxSmem)
 
 LAUNCHES = _build.LaunchCounter("paged_attn")
 LAUNCHES_INT8 = _build.LaunchCounter("paged_attn_int8")
@@ -60,6 +71,94 @@ def quantize_page_pool(x: torch.Tensor):
     return q, scale.to(torch.bfloat16)
 
 
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """How one K2 launch is laid out on the card (:func:`k2_plan`): a
+    row's ``pmax`` pages are cut into ``n_splits`` splits of
+    ``pages_per_split`` pages; one CTA per (split, KV head, row), one
+    warp per (page of the split, query head of the KV head's group).
+    Every page of a split is in flight, and computed, at once, so
+    ``pages_per_split`` is also the pipeline depth."""
+
+    pages_per_split: int
+    n_splits: int
+
+
+def k2_smem_bytes(heads: int, psz: int, pages: int, hd: int,
+                  pool_itemsize: int, quant: bool) -> int:
+    """A CTA's dynamic shared memory (``smem_bytes`` in the source): q in
+    f32, ``pages`` pages of K and V cell rows in the pool's dtype, each
+    row padded by 16 bytes, each (page, head) warp's f32 state (m, l,
+    acc), and for int8 pools the pages' scales in f32."""
+    return (heads * hd * 4 + pages * 2 * psz * (hd * pool_itemsize + 16)
+            + pages * heads * (hd + 2) * 4
+            + (pages * 2 * psz * 4 if quant else 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def k2_plan(b: int, n_heads: int, n_kv: int, hd: int, psz: int, pmax: int,
+            pool_itemsize: int = 2, quant: bool = False, *,
+            pages_per_split: int = 0) -> K2Plan:
+    """K2's launch plan from static shapes (no CTA knows the rows'
+    positions before it runs): ``K2_PPS`` pages a split, computed side by
+    side by one warp a (page, query head), unless asked otherwise; fewer
+    pages where ``pmax``, the CTA's 32 warps or its shared memory hold
+    fewer.  At both serve layouts, on bf16 and int8 pools, at the end of
+    a serve and on a full pool, that was the fastest plan
+    (``scripts/k2_sweep.py``, PERF.md)."""
+    heads = n_heads // n_kv
+
+    def fits(pages):
+        return (pages * heads * 32 <= 1024
+                and k2_smem_bytes(heads, psz, pages, hd, pool_itemsize,
+                                  quant) <= K2_MAX_SMEM)
+
+    pps = pages_per_split
+    if not pps:
+        pps = min(K2_PPS, pmax)
+        while pps > 1 and not fits(pps):
+            pps -= 1
+    if not 1 <= pps <= K2_MAX_PPS or not fits(pps):
+        raise ValueError(f"k2_plan: {pps} pages a split of {heads} query "
+                         f"heads do not fit a CTA")
+    return K2Plan(pps, -(-pmax // pps))
+
+
+def _page_step(qf, k, v, j, psz, pos, offs, scale, m, l, acc):
+    """Fold logical page ``j`` (K/V ``(B, psz, H, hd)`` in f32) into the
+    online softmax ``(m, l, acc)``: the reference's page step."""
+    logits = torch.einsum("bhd,bkhd->bhk", qf, k) / scale
+    idx = j * psz + offs
+    logits = torch.where(idx[None, None, :] <= pos[:, None, None],
+                         logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    probs = torch.exp(logits - m_new)
+    l = alpha * l + probs.sum(dim=-1, keepdim=True)
+    acc = alpha * acc + torch.einsum("bhk,bkhd->bhd", probs, v)
+    return m_new, l, acc
+
+
+def _page_kv(pk, pv, pk_scale, pv_scale, phys, n_rep):
+    """One physical page a row as f32 ``(B, psz, H, hd)`` K and V,
+    dequantized with the scale planes for int8 pools."""
+    k = pk[phys].float()                                  # (B,psz,Hkv,hd)
+    v = pv[phys].float()
+    if pk_scale is not None:
+        k = k * pk_scale[phys].float()
+        v = v * pv_scale[phys].float()
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)             # (B,psz,H,hd)
+        v = v.repeat_interleave(n_rep, dim=2)
+    return k, v
+
+
+def _softmax_state(b, n_heads, hd, device):
+    return (torch.full((b, n_heads, 1), NEG_INF, device=device),
+            torch.zeros((b, n_heads, 1), device=device),
+            torch.zeros((b, n_heads, hd), device=device))
+
+
 def paged_attention_plain(q, pk, pv, table, pos, pk_scale=None,
                           pv_scale=None):
     """Plain version of K2: scans logical pages, gathers one physical
@@ -68,35 +167,76 @@ def paged_attention_plain(q, pk, pv, table, pos, pk_scale=None,
     op for op the reference's ``_paged_attention_xla``."""
     b, n_heads, hd = q.shape
     _, psz, n_kv, _ = pk.shape
-    n_rep = n_heads // n_kv
     qf = q.float()
     scale = torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
     offs = torch.arange(psz, device=q.device)
     table = table.long()
     pos = pos.long()
-    m = torch.full((b, n_heads, 1), NEG_INF, device=q.device)
-    l = torch.zeros((b, n_heads, 1), device=q.device)
-    acc = torch.zeros((b, n_heads, hd), device=q.device)
+    m, l, acc = _softmax_state(b, n_heads, hd, q.device)
     for j in range(table.shape[1]):
-        phys = table[:, j]
-        k = pk[phys].float()                                  # (B,psz,Hkv,hd)
-        v = pv[phys].float()
-        if pk_scale is not None:
-            k = k * pk_scale[phys].float()
-            v = v * pv_scale[phys].float()
-        if n_rep > 1:
-            k = k.repeat_interleave(n_rep, dim=2)             # (B,psz,H,hd)
-            v = v.repeat_interleave(n_rep, dim=2)
-        logits = torch.einsum("bhd,bkhd->bhk", qf, k) / scale
-        idx = j * psz + offs
-        logits = torch.where(idx[None, None, :] <= pos[:, None, None],
-                             logits, NEG_INF)
-        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        probs = torch.exp(logits - m_new)
-        l = alpha * l + probs.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + torch.einsum("bhk,bkhd->bhd", probs, v)
-        m = m_new
+        k, v = _page_kv(pk, pv, pk_scale, pv_scale, table[:, j],
+                        n_heads // n_kv)
+        m, l, acc = _page_step(qf, k, v, j, psz, pos, offs, scale, m, l, acc)
+    return (acc / l).to(q.dtype)
+
+
+def _merge(states, live=None):
+    """The combine of online-softmax states ``(m, l, acc)`` in list order
+    (``live``: a ``(B, 1, 1)`` mask a state; a dead one is ``(finfo.min,
+    0, 0)``): ``w_i = exp(m_i - max m)``, ``l = sum w_i l_i``, ``acc =
+    sum w_i acc_i``, as the kernel merges a split's pages and then the
+    splits."""
+    if live is not None:
+        states = [(torch.where(lv, m, NEG_INF), torch.where(lv, l, 0.0),
+                   torch.where(lv, acc, 0.0))
+                  for (m, l, acc), lv in zip(states, live)]
+    m_max = states[0][0]
+    for m, _, _ in states[1:]:
+        m_max = torch.maximum(m_max, m)
+    l_sum = torch.zeros_like(states[0][1])
+    acc_sum = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        w = torch.exp(m - m_max)
+        l_sum = l_sum + w * l
+        acc_sum = acc_sum + w * acc
+    return m_max, l_sum, acc_sum
+
+
+def paged_attention_split_plain(q, pk, pv, table, pos, pk_scale=None,
+                                pv_scale=None, *, plan: K2Plan):
+    """Plain version of K2 under ``plan``: each live page's own
+    online-softmax state (the page step of :func:`paged_attention_plain`
+    from an empty state), merged in page order into its split's, then the
+    kernel's combine over the splits that hold a live page (``split *
+    pages_per_split <= pos // psz``).  A page or split with nothing live
+    contributes nothing (``m`` = finfo.min, ``l`` = 0), as the kernel's
+    warps and CTAs with nothing to attend."""
+    b, n_heads, hd = q.shape
+    _, psz, n_kv, _ = pk.shape
+    pmax = table.shape[1]
+    pps = plan.pages_per_split
+    if plan.n_splits != -(-pmax // pps):
+        raise ValueError(f"plan of {plan.n_splits} splits of {pps} pages "
+                         f"does not cover {pmax} pages")
+    qf = q.float()
+    scale = torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
+    offs = torch.arange(psz, device=q.device)
+    table = table.long()
+    pos = pos.long()
+    n_live = torch.clamp(pos // psz + 1, max=pmax)
+    splits, split_live = [], []
+    for s in range(plan.n_splits):
+        pages, page_live = [], []
+        for j in range(s * pps, min((s + 1) * pps, pmax)):
+            k, v = _page_kv(pk, pv, pk_scale, pv_scale, table[:, j],
+                            n_heads // n_kv)
+            pages.append(_page_step(qf, k, v, j, psz, pos, offs, scale,
+                                    *_softmax_state(b, n_heads, hd,
+                                                    q.device)))
+            page_live.append((j < n_live)[:, None, None])
+        splits.append(_merge(pages, page_live))
+        split_live.append((s * pps < n_live)[:, None, None])
+    _, l, acc = _merge(splits, split_live)
     return (acc / l).to(q.dtype)
 
 
@@ -104,13 +244,34 @@ def _lib():
     fn = _build.load("paged_attn").paged_attn
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       p]
+        fn.argtypes = [p] * 10 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _paged_attention_kernel(q, pk, pv, table, pos, pk_scale, pv_scale):
+# One workspace a device, reused by every launch of more than one split:
+# the f32 partials and the int32 arrival counters, which each launch
+# leaves at 0 (the combining CTA resets its own).  The port issues K2 on
+# one stream, so no two launches use it at once; a second stream would
+# need its own.
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev, n_floats: int, n_counters: int):
+    ws = _WORKSPACE.get(dev)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        old = ws or (torch.empty(0), torch.empty(0))
+        ws = (torch.empty(max(n_floats, old[0].numel()),
+                          dtype=torch.float32, device=dev),
+              torch.zeros(max(n_counters, old[1].numel()),
+                          dtype=torch.int32, device=dev))
+        _WORKSPACE[dev] = ws
+    return ws
+
+
+def _paged_attention_kernel(q, pk, pv, table, pos, pk_scale, pv_scale,
+                            plan=None):
+    """One launch of K2, under ``plan`` (default: :func:`k2_plan`'s)."""
     b, n_heads, hd = q.shape
     n_pages, psz, n_kv, hd_k = pk.shape
     dev = q.device
@@ -147,6 +308,12 @@ def _paged_attention_kernel(q, pk, pv, table, pos, pk_scale, pv_scale):
             f"hd={hd}, psz={psz}, group={n_heads // n_kv}")
     q = q.contiguous()
     pk, pv = pk.contiguous(), pv.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    if pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("paged_attention: K2 reads the pools in 16-byte "
+                         "pieces; their base addresses are not 16-byte "
+                         "aligned")
     if quant:
         pk_scale, pv_scale = pk_scale.contiguous(), pv_scale.contiguous()
         scales = (pk_scale.data_ptr(), pv_scale.data_ptr())
@@ -154,10 +321,20 @@ def _paged_attention_kernel(q, pk, pv, table, pos, pk_scale, pv_scale):
         scales = (None, None)
     table = table.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
+    pmax = table.shape[1]
+    if plan is None:
+        plan = k2_plan(b, n_heads, n_kv, hd, psz, pmax, pk.element_size(),
+                       quant)
+    scratch = (None, None)
+    if plan.n_splits > 1:
+        part, counters = _workspace(
+            dev, b * n_heads * plan.n_splits * (hd + 2), b * n_kv)
+        scratch = (part.data_ptr(), counters.data_ptr())
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), *scales,
-                 table.data_ptr(), pos.data_ptr(), out.data_ptr(), b,
-                 n_heads, n_kv, hd, psz, table.shape[1], n_pages,
+                 table.data_ptr(), pos.data_ptr(), out.data_ptr(), *scratch,
+                 b, n_heads, n_kv, hd, psz, pmax, n_pages,
+                 plan.pages_per_split, plan.n_splits,
                  _DTYPES[q.dtype], int(quant),
                  torch.cuda.current_stream(dev).cuda_stream)
     (LAUNCHES_INT8 if quant else LAUNCHES).n += 1

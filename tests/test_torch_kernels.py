@@ -237,11 +237,15 @@ def test_k3_ragged_edges_partials_and_errors():
     assert choose_block_config(8, 896, 896) == BlockConfig(16)
 
 
-# K7 at the reference test's shapes (tests/test_kernels.py:127-135) and
-# ragged C, d and f (the reference pads them up to its block grid).
+# K7 at the reference test's shapes (tests/test_kernels.py:127-135),
+# ragged C, d and f (the reference pads them up to its block grid), and
+# k7_plan's capacities (2, 37, 320: decode, ragged, training) on narrow
+# widths.
 @pytest.mark.parametrize("e,c,d,f", [(4, 20, 64, 96), (16, 96, 128, 256),
                                      (2, 8, 8, 8), (3, 5, 40, 72),
-                                     (2, 130, 36, 70)])
+                                     (2, 130, 36, 70), (3, 5, 36, 70),
+                                     (4, 2, 64, 96), (4, 37, 64, 96),
+                                     (2, 320, 64, 48)])
 def test_k7_moe_gemm_matches_pallas_and_ref(e, c, d, f):
     x, w = _rand(c, e, c, d), _rand(f, e, d, f, scale=d ** -0.5)
     got = moe_grouped_gemm(torch.from_numpy(x), torch.from_numpy(w)).numpy()
