@@ -9,9 +9,10 @@ Phases (any failure exits non-zero before the last line is printed):
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the six CUDA sources from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a (one process per source, in parallel);
-3. the wgmma libraries of K1 (SISA GEMM), K4 and K5 (the grouped GEMMs)
-   and K7 (the capacity MoE GEMM): each one's ``ptxas -v`` report per
-   wgmma instantiation and its count of
+3. the wgmma libraries of K1 and K3 (SISA GEMM and split-K, one
+   library), K4 and K5 (the grouped GEMMs), K6 (co-execution) and K7 (the
+   capacity MoE GEMM): each one's ``ptxas -v`` report per wgmma kernel and
+   its count of
    ``HGMMA`` and ``UTMALDG`` instructions (``cuobjdump -sass``), which must
    be > 0; then K1 against its plain version at the main
    path's shapes (qwen's, and phi3.5-moe's 4096-wide projections at 8 and
@@ -41,8 +42,10 @@ Phases (any failure exits non-zero before the last line is printed):
    ``k5_plan``: swap-AB width, warpgroups, stages) of phi3.5-moe's
    decode, 208-token prefill and 2048-token training step.  Then K2 on
    int8 pools (``quantize_page_pool``) at the cases of phase 4; K3 (split-K)
-   at qwen's decode GEMV shapes, two slab depths each, and ragged
-   edges; K7 (the capacity MoE GEMM) at phi3.5-moe's expert shapes with
+   at qwen's decode GEMV shapes, two slab depths each (clusters of 2, 4,
+   7 and 8), two taller passes, and ragged edges (bf16 of whole-stage
+   slabs one launch of the wgmma body, the rest on the CUDA-core route);
+   K7 (the capacity MoE GEMM) at phi3.5-moe's expert shapes with
    capacities 2, 37 and 320; and K6 (co-execution) on the four
    scenarios of ``benchmarks/multi_tenant_bench.py`` at Qwen2.5-0.5B's
    Table 2 widths, tasks in the packer's order: each against its plain
@@ -79,9 +82,12 @@ Phases (any failure exits non-zero before the last line is printed):
    one step's calls, and K2's (``host_us``) the host time a
    ``paged_attention`` call.  K2 on bf16 and int8 pools is timed at the
    qwen decode step (24 layers) and at phi3.5-moe's layout (8 layers), K3
-   at the qwen decode step; K6 on each scenario (one fused launch on
+   at the qwen decode step (168 launches, every one on the wgmma route);
+   K6 on each
+   scenario (one fused launch on
    pre-packed operands against ``sequential_matmul``'s launches, with
-   ``torch._grouped_mm`` as the yardstick), each path first run once
+   the plain version and ``torch._grouped_mm`` as the yardstick in
+   bf16), each path first run once
    with the counters zeroed; K7 at phi3.5-moe's expert shapes at
    capacities 2, 37 and 320 (``torch.bmm`` as the yardstick);
 10. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
@@ -342,16 +348,19 @@ def check_k1(torch, kernels, gen) -> float:
 
 
 # The libraries whose bf16 bodies run on hopper_gemm.cuh's TMA + wgmma
-# mainloop, with the template parameters of their wgmma kernels.
+# mainloop, with the template parameters of their wgmma kernels (K3 runs
+# K1's instantiations, in sisa_gemm's library; K6's one kernel switches
+# over its group widths at run time).
 WGMMA_LIBS = {"sisa_gemm": "NWG, BQ, STAGES, X_MN, Y_MN, SWAP",
               "grouped_gemm": "NWG, BQ, STAGES, X_MN",
               "grouped_dw": "NWG, BQ, STAGES",
-              "moe_gemm": "NWG, BQ, STAGES"}
+              "moe_gemm": "NWG, BQ, STAGES",
+              "coexec": ""}
 
 
 def wgmma_build_report(build) -> None:
-    """K1's, K4's, K5's and K7's libraries as built: ``ptxas -v`` (registers,
-    shared memory, spills) of each wgmma instantiation, and the count of
+    """The libraries of K1 and K3, K4, K5, K6 and K7 as built: ``ptxas -v``
+    (registers, shared memory, spills) of each wgmma kernel, and the count of
     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
     library's SASS, which must be > 0; then K2's registers and spills."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
@@ -366,8 +375,9 @@ def wgmma_build_report(build) -> None:
                                  for x in lines[i + 1:i + 4]
                                  if "registers" in x or "spill" in x)
                 n = params.count(",") + 1
-                _say(f"{name} ptxas <{params}> = <{', '.join(args[:n])}>: "
-                     f"{stats}")
+                what = (f"<{params}> = <{', '.join(args[:n])}>" if params
+                        else "wgmma kernel")
+                _say(f"{name} ptxas {what}: {stats}")
         if not tool.exists():
             _say(f"{name} sass: cuobjdump not in the toolkit; HGMMA/UTMALDG "
                  "not counted")
@@ -1541,36 +1551,72 @@ def check_k2_int8(torch, kernels, gen) -> float:
     return worst
 
 
-# K3 at qwen2.5-0.5b's decode GEMV shapes, (K, N), each at two slab
-# depths; then ragged edges on both bodies.
+# K3 at qwen's decode GEMV shapes (M 8 and 16; K x N) at the slab depths
+# of K3_SLABS (clusters of 7, 4 and 2 at K 896, 8 and 4 at K 4864); K 896
+# in slabs of 256 is the timed decode step's setup, 3.5 slabs, the last
+# rank's run cut at K.  Then one-stage slabs, a cut last slab at K 4864
+# (slabs of 384), three taller passes on K1's normal tiles; then ragged
+# edges and slabs that are not whole stages, which take the CUDA-core
+# route.
 K3_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
-K3_SLABS = {896: (128, 448), 4864: (256, 1216)}
+K3_SLABS = {896: (128, 256, 448), 4864: (256, 1216)}
 K3_BK = 256                     # slab depth of the timed decode step
 
 
 def check_k3(torch, kernels, gen) -> float:
-    worst, n_cases = 0.0, 0
+    sg = sys.modules["repro_torch.kernels.sisa_gemm"]
+    worst, n_cases, timed_setup = 0.0, 0, 0
+    clusters = set()
     for dtype in (torch.float32, torch.bfloat16):
         rel = 0.0 if dtype == torch.float32 else BF16_REL
         cases = [(m, k, n, bk) for m in (8, 16) for k, n in K3_SHAPES
                  for bk in K3_SLABS[k]]
-        cases += [(13, 904, 1000, 200), (13, 900, 1000, 256)]
-        for m, k, n, bk in cases:
+        cases += [(8, 896, 896, 64), (8, 4864, 896, 384),
+                  (40, 896, 896, 128), (40, 896, 4864, 256),
+                  (130, 4864, 896, 256)]
+        ragged = [(13, 904, 1000, 200), (13, 900, 1000, 256)]
+        for m, k, n, bk in cases + ragged:
             a = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
             b = (torch.randn(k, n, device="cuda", generator=gen)
                  / k ** 0.5).to(dtype)
             cfg = kernels.BlockConfig(
                 kernels.choose_block_config(m, n, k).bm, bk=bk)
             ref = kernels.sisa_gemm_splitk_plain(a, b, bk).sum(0).to(dtype)
+            before = (sg.SPLITK_LAUNCHES.n, sg.SPLITK_CORE_LAUNCHES.n)
+            got = kernels.sisa_gemm_splitk(a, b, cfg)
+            wgmma = sg.SPLITK_LAUNCHES.n - before[0]
+            core = sg.SPLITK_CORE_LAUNCHES.n - before[1]
+            want = dtype == torch.bfloat16 and (m, k, n, bk) in cases
+            if (wgmma, core) != (int(want), int(not want)):
+                raise AssertionError(f"K3 {dtype} M={m} K={k} N={n} bk={bk}: "
+                                     f"{wgmma} wgmma and {core} CUDA-core "
+                                     f"launches")
+            if wgmma:
+                plan = kernels.k3_plan(m, n, k, bk)
+                clusters.add(plan.cluster)
+                slices = sg.plan_k_slices(plan, k)
+                if (k, bk) == (896, K3_BK) and m <= 16:
+                    # The timed step's setup: 4 ranks, the last one's run
+                    # cut to K's last 2 of its 4 stages.
+                    if plan.cluster != 4 or slices[-1] != (768, 896):
+                        raise AssertionError(f"K3 M={m} N={n}: plan {plan}")
+                    timed_setup += 1
             worst = max(worst, _max_err(
-                f"K3 {dtype} M={m} K={k} N={n} bk={bk}",
-                kernels.sisa_gemm_splitk(a, b, cfg), ref, rel,
+                f"K3 {dtype} M={m} K={k} N={n} bk={bk}", got, ref, rel,
                 _f32_atol(ref)))
             n_cases += 1
-    _say(f"k3: {n_cases} cases (M 8 and 16 at qwen's decode GEMV shapes, "
-         f"two slab depths each; ragged M/N/K and slab tails; f32 and bf16) "
-         f"agree with the plain version (max abs err {worst}; elementwise "
-         f"tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + 2e-5*max|ref|)")
+    if timed_setup != 6:
+        raise AssertionError(f"K3: {timed_setup} wgmma cases at K 896 in "
+                             f"slabs of {K3_BK}, not 6")
+    _say(f"k3: {n_cases} cases (M 8 and 16 at qwen's decode GEMV shapes at "
+         f"the slab depths {K3_SLABS}, among them the timed step's K 896 in "
+         f"slabs of {K3_BK} on clusters of 4 with the last run cut at K; "
+         f"one-stage slabs, a cut last slab at K 4864, M 40 and 130 on "
+         f"normal tiles; ragged M/N/K and slab tails on the CUDA-core route; "
+         f"f32 and bf16) agree with the plain version (max abs err {worst}; "
+         f"elementwise tol f32 2e-5*max|ref|, bf16 2^-7*|ref| + "
+         f"2e-5*max|ref|); bf16 wgmma launches at clusters "
+         f"{sorted(clusters)}")
     return worst
 
 
@@ -1645,6 +1691,22 @@ def _k6_case(torch, kernels, gen, shapes, dtype):
     return xs, ws, plan, order
 
 
+def _k6_column(plan, field: str):
+    """One field of a bf16 plan's CTA rows (``k6_plan``)."""
+    co = sys.modules["repro_torch.kernels.coexec"]
+    return plan.groups[:, co.K6_FIELDS.index(field)]
+
+
+def _k6_groups(plan) -> int:
+    """Tile groups of a plan's bf16 CTA rows: rank-0 rows."""
+    return int((_k6_column(plan, "rank") == 0).sum())
+
+
+def _k6_widths(plan):
+    """The wgmma widths of a plan's bf16 CTA rows."""
+    return sorted(set(_k6_column(plan, "width").tolist()))
+
+
 def check_k6(torch, kernels, gen) -> float:
     """K6 on each scenario in f32 and bf16: the fused launch against its
     plain version, the rows past each tenant's m (inside its blocks)
@@ -1673,8 +1735,12 @@ def check_k6(torch, kernels, gen) -> float:
             if bad:
                 raise AssertionError(f"K6 {name} {dtype}: fused differs from "
                                      f"sequential for tenants {bad}")
+            where = (f"{_k6_groups(plan)} tile groups of widths "
+                     f"{_k6_widths(plan)} on {len(plan.groups)} CTAs "
+                     f"(clusters of {plan.k6_cluster})"
+                     if plan.groups is not None else "one block a task")
             _say(f"k6 {name} {dtype}: {len(shapes)} tenants, "
-                 f"{plan.n_tasks} tasks (bm {plan.bm}); fused == "
+                 f"{plan.n_tasks} tasks (bm {plan.bm}), {where}; fused == "
                  f"sequential bit for bit")
             del xs, ws, out, fused, serial
     _say(f"k6: 4 scenarios x f32/bf16 agree with the plain version (max abs "
@@ -1759,7 +1825,10 @@ def time_k2_int8(torch, kernels, heads=K2_HEADS[0], layers=24):
 
 def time_k3(torch, kernels, params, cfg, rows: int = 8):
     """K3 on one qwen2.5-0.5b decode step's projections (7 a layer x 24,
-    rung 8), slabs of ``K3_BK``; its path run is one such step."""
+    rung 8), slabs of ``K3_BK``; its path run is one such step, which
+    must take the wgmma route only: one launch a GEMM (the partials'
+    route added a sum and a cast to each)."""
+    sg = sys.modules["repro_torch.kernels.sisa_gemm"]
     gen = torch.Generator(device="cuda").manual_seed(10)
     xs = {}                                     # one activation per K
 
@@ -1782,17 +1851,23 @@ def time_k3(torch, kernels, params, cfg, rows: int = 8):
     def plain(a, b):
         return kernels.sisa_gemm_splitk_plain(a, b, K3_BK).sum(0).to(a.dtype)
 
-    launches = _drive(torch, "sisa_gemm_splitk",
-                      run(lambda a, b: kernels.sisa_gemm_splitk(a, b, cfg)))
-    out = _times(torch, {
-        "ms": run(lambda a, b: kernels.sisa_gemm_splitk(a, b, cfg)),
-        "plain_ms": run(plain), "library_ms": run(torch.matmul)})
+    step = run(lambda a, b: kernels.sisa_gemm_splitk(a, b, cfg))
+    launches = _drive(torch, "sisa_gemm_splitk", step)
+    if launches != len(gemms) or sg.SPLITK_CORE_LAUNCHES.n:
+        raise AssertionError(f"K3's decode step: {launches} wgmma and "
+                             f"{sg.SPLITK_CORE_LAUNCHES.n} CUDA-core launches "
+                             f"for {len(gemms)} GEMMs")
+    out = _times(torch, {"ms": step, "plain_ms": run(plain),
+                         "library_ms": run(torch.matmul)})
     nbytes = sum(2 * (a.numel() + b.numel() + a.shape[0] * b.shape[1])
                  for a, b in gemms)
     flops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in gemms)
     bound, by = _bound_ms(nbytes, flops)
     return {**out, "bound_ms": bound, "bound_by": by, "gemms": len(gemms),
-            "bk": K3_BK, "launches": launches}
+            "bk": K3_BK, "launches": launches,
+            "clusters": sorted({kernels.k3_plan(a.shape[0], b.shape[1],
+                                                a.shape[1], K3_BK).cluster
+                                for a, b in gemms})}
 
 
 def time_k7(torch, kernels, cap: int):
@@ -1884,7 +1959,9 @@ def time_k6(torch, kernels, name: str, dtype, plain: bool):
             "bound_by": by, "scenario": name,
             "dtype": str(dtype).replace("torch.", ""),
             "tenants": len(shapes), "tasks": plan.n_tasks, "bm": plan.bm,
-            "live_bytes": nbytes, "flops": flops}
+            "live_bytes": nbytes, "flops": flops,
+            **({"groups": _k6_groups(plan), "ctas": len(plan.groups)}
+               if plan.groups is not None else {})}
 
 
 def drive_k6(torch, kernels):
@@ -1984,7 +2061,7 @@ def main() -> int:
     for name in _k6_scenarios():
         for dtype in (torch.bfloat16, torch.float32):
             t = time_k6(torch, kernels, name, dtype,
-                        plain=name == "mixed_serving")
+                        plain=dtype == torch.bfloat16)
             k6[(name, t["dtype"])] = t
             _say(f"k6 {name} {t['dtype']} (fused vs {t['tenants']} "
                  f"sequential launches): {json.dumps(t)}")
@@ -2081,14 +2158,20 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/coexec.cu",
          "replaces": "src/repro/kernels/coexec.py:209",
          "note": "launches: coexec_matmul on the packer's placement of the "
-                 "four scenarios (bf16); times: mixed_serving, bf16",
+                 "four scenarios (bf16); times: mixed_serving, bf16; "
+                 "<scenario>_* the other three, bf16",
          "launches": k6_launches, "max_abs_err": k6_err,
-         **{k: k6[("mixed_serving", "bfloat16")][k] for k in keys}},
+         **{k: k6[("mixed_serving", "bfloat16")][k] for k in keys},
+         **{f"{name}_{k}": k6[(name, "bfloat16")][k]
+            for name in ("decode_batch", "narrow_proj", "moe_dispatch")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "sisa_gemm_splitk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sisa_gemm.cu",
          "replaces": "src/repro/kernels/sisa_gemm.py:111",
-         "note": "launches and times: one qwen2.5-0.5b decode step's "
-                 "projections through sisa_gemm_splitk",
+         "note": "launches and times: one qwen2.5-0.5b decode step's 168 "
+                 "projections through sisa_gemm_splitk, one wgmma launch "
+                 "each (no partials, no sum; the partials' route issued "
+                 "three kernels a GEMM, 504), slabs of 256",
          "launches": k3["launches"], "max_abs_err": k3_err,
          **{k: k3[k] for k in keys}},
         {"name": "moe_gemm", "route": "cuda",

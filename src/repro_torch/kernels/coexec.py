@@ -33,16 +33,30 @@ coexec_tile_sequence``.
 
 Block shapes: ``bm`` is the port's §3.2 slab height for the smallest
 co-resident M (:func:`~repro_torch.kernels.sisa_gemm.
-choose_block_config`); ``bn`` and ``bk`` are the kernel's fixed tile
-width and K step (``TILE_COLS``, ``TILE_K``).  All three may be pinned
-(``block_rows`` / ``block_cols`` / ``block_k``); the card runs
+choose_block_config`); ``bn`` and ``bk`` are the CUDA-core body's fixed
+tile width and K step (``TILE_COLS``, ``TILE_K``).  All three may be
+pinned (``block_rows`` / ``block_cols`` / ``block_k``); the card runs
 ``bm`` in (16, 32, 64, 128) with the fixed ``bn``/``bk``, the plain
 version any shape.
+
+On the card, float32 runs one CUDA-core block per task of the table.
+bf16 runs the **tile groups** of the table :func:`k6_plan` derives when a
+bf16 plan for the card is built (``CoexecPlan.groups``, one row a CTA,
+with its device copy beside ``meta_device``): a run of one tenant's row blocks, up to
+128 rows, by one or two of its column blocks (64-128 weight columns),
+ordered by each group's first task.  The group reads its weight tile
+once for all its rows, on the TMA + ``wgmma`` mainloop of
+``csrc/hopper_gemm.cuh`` (swap-AB at the width 8-128 that holds its live
+rows); a group with a long K, or of a narrow tenant, is shared by the
+two CTAs of a cluster, each summing half of its K steps.
 
 Numerics contract (``coexec.py:41-45``): each output tile accumulates
 in f32 over the same K steps whether its tenant runs fused or alone, so
 :func:`coexec_matmul` and :func:`sequential_matmul` built from the same
-plan's block shapes agree bit for bit, on the card and on the CPU.
+plan's block shapes agree bit for bit, on the card and on the CPU.  On
+the card a group's width, column blocks and cluster split are functions
+of its tenant's own (m, n, k) and the plan's blocks only, so a tenant's
+groups are the same in a fused plan and in its single-tenant plan.
 """
 from __future__ import annotations
 
@@ -57,9 +71,28 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sisa_gemm import (choose_block_config, TILE_COLS,
                                            TILE_HEIGHTS, TILE_K)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 LAUNCHES = _build.LaunchCounter("coexec")
+
+# K6's bf16 body (csrc/coexec.cu): the wgmma widths a group runs at, the
+# rows a group covers at most, the consumer warpgroups of a CTA (two CTAs
+# share an SM), one a column block of the group, and the weight bytes past
+# which a group takes no second column block (a long group left to the
+# last wave holds the launch up).  scripts/k6_sweep.py times other values
+# of these constants.
+K6_WIDTHS = (8, 16, 32, 64, 128)
+K6_ROWS = 128
+K6_WARPGROUPS = 2
+K6_GROUP_BYTES = 256 * 1024
+# When a group's K is shared by the two CTAs of a cluster pair (each sums
+# a contiguous half; their tiles meet in distributed shared memory and are
+# added in rank order): from this many K steps, or for a tenant of at most
+# this many column blocks (a narrow tenant's few CTAs are latency-bound).
+K6_PAIR_STEPS = 24
+K6_PAIR_BLOCKS = 2
+K6_STEP = 64                          # K per stage of the wgmma body
+# The columns of a group's row in the table k6_plan returns.
+K6_FIELDS = ("tenant", "row0", "rows", "live", "col0", "chunks", "k_steps",
+             "width", "zero_col", "zero_idx", "zero_n", "ranks", "rank")
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -89,7 +122,9 @@ class CoexecPlan:
     ``t``'s first row in the flat A/C buffers (a multiple of ``bm``);
     ``m_flat/kp/np_pad`` are the padded fused buffer extents.
     ``meta_device`` is the table's one device copy (None for a plan
-    built for the CPU).
+    built for the CPU); a bf16 plan built for the card also holds
+    :func:`k6_plan`'s tile-group table ``groups`` and its one device copy
+    ``groups_device`` (None otherwise: no other plan reads them).
     """
 
     tenants: Tuple[CoexecTenant, ...]
@@ -103,6 +138,10 @@ class CoexecPlan:
     meta: np.ndarray                      # (5, n_tasks) int32
     meta_device: Optional[torch.Tensor] = dataclasses.field(
         default=None, compare=False, repr=False)
+    groups: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)   # k6_plan's table
+    groups_device: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def n_tasks(self) -> int:
@@ -111,6 +150,14 @@ class CoexecPlan:
     @property
     def n_k(self) -> int:
         return self.kp // self.bk
+
+    @property
+    def k6_cluster(self) -> int:
+        """CTAs a cluster of K6's bf16 launch: 2 where a group is shared
+        by a pair (``k6_plan``), else 1.  Only a bf16 plan built for the
+        card has groups."""
+        return 2 if (self.groups[:, K6_FIELDS.index("ranks")] == 2).any() \
+            else 1
 
     def tenant_tasks(self, idx: int) -> int:
         """Number of grid tasks owned by tenant ``idx``."""
@@ -148,6 +195,85 @@ def interleave_order(task_counts: Sequence[int],
     return order
 
 
+def _runs(blocks: np.ndarray, size: int) -> List[np.ndarray]:
+    """A sorted block list cut into runs of consecutive blocks, each at
+    most ``size`` long."""
+    out = []
+    for run in np.split(blocks, np.flatnonzero(np.diff(blocks) != 1) + 1):
+        out.extend(run[i:i + size] for i in range(0, len(run), size))
+    return out
+
+
+def k6_plan(meta: np.ndarray, bm: int, bn: int) -> np.ndarray:
+    """K6's tile groups for the bf16 body, from a plan's task table, laid
+    out one row (``K6_FIELDS``, int32) a CTA: the groups in the order of
+    each group's first task in ``meta`` (so the packer's placement order
+    still decides which tenants share the first wave), a group whose K a
+    cluster pair shares (``ranks`` 2) as two rows ``rank`` 0 and 1 that
+    start at an even row (the launch then runs clusters of two CTAs; a
+    row left before a pair is a hole, ``rank`` 1 of ``ranks`` 1, whose
+    CTA exits).
+
+    A group is a run of one tenant's consecutive row blocks, up to
+    ``K6_ROWS`` rows (``rows``, from flat row ``row0``; ``live`` of them
+    below the tenant's ``row_hi``), by a run of its consecutive column
+    blocks (``chunks`` of ``bn`` columns from ``col0``).  Its ``width``
+    is the least of ``K6_WIDTHS`` that holds ``live``.  A group takes
+    up to ``K6_WARPGROUPS`` column blocks (one a consumer warpgroup)
+    while their weights stay within ``K6_GROUP_BYTES`` and the tenant keeps
+    two groups a row run (a narrow tenant still spreads over two SMs);
+    ``k_steps`` 64-deep steps reach ``k_hi``; two CTAs share them
+    (``ranks`` 2, each a contiguous half) from ``K6_PAIR_STEPS`` steps or
+    for a tenant of at most ``K6_PAIR_BLOCKS`` column blocks.  Every one of
+    these is a function of the tenant's own (m, n, k) and (``bm``,
+    ``bn``) alone, so a tenant's groups are the same in a fused plan and
+    in its single-tenant plan.  ``zero_col`` is the first column past the
+    tenant's column blocks; the 64-wide chunks from there to the buffer's
+    width are written as zeros by the row run's ``zero_n`` groups in
+    turn, this one taking those ``zero_idx`` (mod ``zero_n``)."""
+    rows_max = max(1, K6_ROWS // bm)
+    groups = []                     # (first task, fields)
+    for t in np.unique(meta[0]):
+        own = np.flatnonzero(meta[0] == t)
+        rblocks = np.unique(meta[1, own])
+        cblocks = np.unique(meta[2, own])
+        if len(own) != len(rblocks) * len(cblocks):
+            raise ValueError(f"k6_plan: tenant {t}'s tasks are not a grid "
+                             "of row and column blocks")
+        row_hi, k_hi = int(meta[3, own[0]]), int(meta[4, own[0]])
+        k_steps = -(-k_hi // K6_STEP)
+        chunks = max(1, min(K6_WARPGROUPS, len(cblocks) // 2,
+                            K6_GROUP_BYTES // (bn * k_steps * K6_STEP * 2)))
+        ranks = 2 if (k_steps >= K6_PAIR_STEPS
+                      or len(cblocks) <= K6_PAIR_BLOCKS) else 1
+        first = {(int(meta[1, i]), int(meta[2, i])): int(i) for i in own}
+        zero_col = (int(cblocks[-1]) + 1) * bn
+        for rrun in _runs(rblocks, rows_max):
+            row0 = int(rrun[0]) * bm
+            live = max(0, min(len(rrun) * bm, row_hi - row0))
+            width = next((w for w in K6_WIDTHS if w >= live), K6_WIDTHS[-1])
+            cruns = _runs(cblocks, chunks)
+            for idx, crun in enumerate(cruns):
+                groups.append((min(first[(int(r), int(c))] for r in rrun
+                                   for c in crun),
+                               (int(t), row0, len(rrun) * bm, live,
+                                int(crun[0]) * bn, len(crun), k_steps, width,
+                                zero_col, idx, len(cruns), ranks)))
+    groups.sort(key=lambda g: g[0])
+    # One row a CTA: a pair's two CTAs at (2c, 2c + 1), the c-th cluster;
+    # where a pair would start at an odd row, that row is a hole (rank 1
+    # of 1: the CTA exits).  Without pairs the launch has no clusters.
+    rows: List[Tuple[int, ...]] = []
+    paired = any(f[-1] == 2 for _, f in groups)
+    for _, f in groups:
+        if f[-1] == 2 and len(rows) % 2:
+            rows.append(f[:-1] + (1, 1))
+        rows.extend([f + (r,) for r in range(f[-1])])
+    if paired and len(rows) % 2:
+        rows.append(rows[-1][:-2] + (1, 1))
+    return np.asarray(rows, np.int32).reshape(-1, len(K6_FIELDS))
+
+
 def build_coexec_plan(tenants: Sequence[CoexecTenant],
                       dtype: torch.dtype = torch.float32, *,
                       order: Optional[Sequence[int]] = None,
@@ -163,7 +289,8 @@ def build_coexec_plan(tenants: Sequence[CoexecTenant],
     many), ``bn``/``bk`` to the kernel's tile width and K step; all
     three can be pinned.  ``order`` is a tenant-index sequence (see
     :func:`interleave_order`).  With a CUDA ``device`` the plan also
-    holds the table's device copy."""
+    holds the task table's device copy, and a bf16 plan there
+    :func:`k6_plan`'s group table and its device copy."""
     tens = tuple(tenants)
     if not tens:
         raise ValueError("build_coexec_plan needs at least one tenant")
@@ -196,12 +323,16 @@ def build_coexec_plan(tenants: Sequence[CoexecTenant],
     for idx in interleave_order([len(q) for q in queues], order):
         cols_meta.append(queues[idx].pop(0))
     meta = np.asarray(cols_meta, np.int32).T.copy()
-    meta_device = None
+    meta_device = groups = groups_device = None
     if device is not None and torch.device(device).type != "cpu":
         meta_device = torch.as_tensor(meta, device=device)
+        if dtype == torch.bfloat16:
+            groups = k6_plan(meta, bm, bn)
+            groups_device = torch.as_tensor(groups, device=device)
     return CoexecPlan(tenants=tens, bm=bm, bn=bn, bk=bk, m_flat=m_flat,
                       kp=kp, np_pad=np_pad, row_offsets=tuple(row_offsets),
-                      meta=meta, meta_device=meta_device)
+                      meta=meta, meta_device=meta_device, groups=groups,
+                      groups_device=groups_device)
 
 
 def pack_operands(plan: CoexecPlan, xs: Sequence[torch.Tensor],
@@ -255,11 +386,17 @@ def run_plan_plain(plan: CoexecPlan, a_flat: torch.Tensor,
     return out
 
 
-def _lib():
-    fn = _build.load("coexec").coexec
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C signatures of the CUDA-core body (float32, one block a task) and
+# the wgmma body (bf16, one CTA a tile group).
+_FP_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_WGMMA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def _lib(name: str, argtypes: list):
+    fn = getattr(_build.load("coexec"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -272,7 +409,8 @@ def _run_plan_kernel(plan: CoexecPlan, a_flat: torch.Tensor,
             or tuple(b_stack.shape) != (n_t, plan.kp, plan.np_pad)):
         raise ValueError(f"run_plan: A {tuple(a_flat.shape)} / B "
                          f"{tuple(b_stack.shape)} do not fit the plan")
-    if a_flat.dtype not in _DTYPES or b_stack.dtype != a_flat.dtype:
+    if (a_flat.dtype not in (torch.float32, torch.bfloat16)
+            or b_stack.dtype != a_flat.dtype):
         raise ValueError(f"run_plan takes float32 or bfloat16 buffers of one "
                          f"dtype, got {a_flat.dtype}/{b_stack.dtype}")
     if b_stack.device != dev:
@@ -286,13 +424,29 @@ def _run_plan_kernel(plan: CoexecPlan, a_flat: torch.Tensor,
             f"K6 runs bm in {TILE_HEIGHTS} with bn={TILE_COLS}, "
             f"bk={TILE_K}; the plan has ({plan.bm}, {plan.bn}, {plan.bk})")
     a_flat, b_stack = a_flat.contiguous(), b_stack.contiguous()
-    out = torch.zeros((plan.m_flat, plan.np_pad), dtype=a_flat.dtype,
-                      device=dev)
-    err = _lib()(a_flat.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
-                 plan.meta_device.data_ptr(), plan.n_tasks, n_t, plan.kp,
-                 plan.np_pad, plan.bm, plan.bn, plan.bk,
-                 _DTYPES[a_flat.dtype],
-                 torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if a_flat.dtype == torch.float32:
+        out = torch.zeros((plan.m_flat, plan.np_pad), dtype=a_flat.dtype,
+                          device=dev)
+        err = _lib("coexec", _FP_ARGS)(
+            a_flat.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
+            plan.meta_device.data_ptr(), plan.n_tasks, n_t, plan.kp,
+            plan.np_pad, plan.bm, plan.bn, plan.bk, stream)
+    else:
+        if a_flat.data_ptr() % 16 or b_stack.data_ptr() % 16:
+            raise ValueError("run_plan: bf16 buffers must start 16-byte "
+                             "aligned (TMA)")
+        if plan.groups_device is None:
+            raise ValueError("run_plan: the plan holds no tile groups; "
+                             "build it for bfloat16 on the card")
+        # Every element lies in some group's rows, and the groups write all
+        # of them (zeros past each tenant's m and its column blocks).
+        out = torch.empty((plan.m_flat, plan.np_pad), dtype=a_flat.dtype,
+                          device=dev)
+        err = _lib("coexec_wgmma", _WGMMA_ARGS)(
+            a_flat.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
+            plan.groups_device.data_ptr(), len(plan.groups), n_t,
+            plan.m_flat, plan.kp, plan.np_pad, plan.k6_cluster, stream)
     LAUNCHES.n += 1
     _build.check("coexec", err)
     return out

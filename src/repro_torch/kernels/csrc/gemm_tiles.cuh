@@ -1,9 +1,7 @@
 // Device helpers shared by the GEMM kernels: f32 <-> element conversions
-// (the CUDA-core bodies of K1, K4 and K5), and for tile_gemm.cuh's
-// tensor-core body (K3, K6, K7) cp.async copies into shared memory,
-// ldmatrix fragment loads, the bf16 mma.sync m16n8k16 with an f32
-// accumulator, and the shared-memory layout of one pipeline stage.
-// Included inside each source's anonymous namespace.
+// for the CUDA-core bodies (K1's, K4's and K5's in their sources, and
+// tile_gemm.cuh's for K3, K6 and K7).  Included inside each source's
+// anonymous namespace.
 #pragma once
 
 template <typename T>
@@ -23,61 +21,3 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
-
-constexpr int kPad = 8;  // bf16 elements: keeps ldmatrix rows conflict-free
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes past `src_bytes` are zero-filled, so a
-// ragged edge reads zeros without touching memory outside the operand.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Shared-memory elements of one pipeline stage.
-template <int BM, int BN, int BK, bool TRANS_B>
-struct TcStage {
-  static constexpr int kA = BM * (BK + kPad);  // A tile, [BM][BK] row-major
-  // B tile: [BN][BK] (k contiguous) when transposed, else [BK][BN].
-  static constexpr int kB = TRANS_B ? BN * (BK + kPad) : BK * (BN + kPad);
-  static constexpr int kElems = kA + kB;
-};

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma GEMM mainloop, shared by
-// the kernels that multiply bf16 tiles on the tensor cores at the card's
-// full rate (K1 in sisa_gemm.cu, K4 in grouped_gemm.cu, K5 in
-// grouped_dw.cu, K7 in moe_gemm.cu; K2 in paged_attn.cu takes only its
+// every kernel that multiplies bf16 tiles on the tensor cores (K1 and K3 in
+// sisa_gemm.cu, K4 in grouped_gemm.cu, K5 in grouped_dw.cu, K6 in
+// coexec.cu, K7 in moe_gemm.cu; K2 in paged_attn.cu takes only its
 // programmatic-dependent-launch and shared-memory helpers): mbarrier and
 // TMA (cp.async.bulk.tensor.2d / .3d loads, the 3-D store) wrappers, the
 // shared-memory matrix descriptors of wgmma for the
 // 128-byte swizzle, wgmma.mma_async m64nNk16 (f32 += bf16 * bf16) with its
 // fence, commit and wait, the producer and consumer loops of a
-// warp-specialised pipeline, and the host-side encoding of tensor maps.
+// warp-specialised pipeline (a ring fixed at compile time for K1, K3, K4,
+// K5 and K7; one whose slots a table sizes at run time for K6), and the
+// host-side encoding of tensor maps.
 // Included inside a source's anonymous namespace; the source includes
 // <cuda.h> (CUtensorMap) and <mutex> before it.
 //
@@ -523,6 +525,64 @@ __device__ __forceinline__ void hg_consume_prep(uint8_t* ring, uint64_t* full,
   wgmma_wait<0>();
   wgmma_fence_acc(acc);
   if (n_k > 0 && signaller) mbar_arrive(&empty[(it0 + n_k - 1) % STAGES]);
+}
+
+// ---- a ring of runtime geometry (K6) ---------------------------------------
+// One CTA a tile group (or its share of one) whose shape is read from a
+// table: K steps k0 + [0, n_k) of 64 through `stages` slots of `sbytes`
+// bytes.  A slot holds X as `chunks` MN-major 64 x 64 tiles (chunk j: the
+// 64 columns from x0 + 64 j of plane xz of a 3-D map; K6's weight stack),
+// then Y as one box of BQ K-major rows from y0 of a 2-D map whose boxes
+// are BQ rows (K6's flat activations): 1 + chunks loads a slot.  A slot is
+// a 1024-byte multiple, so every tile stays on its swizzle atoms.  The
+// caller has prefetched both maps.
+template <int BQ>
+__device__ __forceinline__ void hg_produce_ring(
+    uint8_t* ring, uint64_t* full, uint64_t* empty, const CUtensorMap* tx,
+    const CUtensorMap* ty, int sbytes, int stages, int chunks, int x0,
+    int xz, int y0, int k0, int n_k) {
+  for (int i = 0; i < n_k; ++i) {
+    const int st = i % stages, use = i / stages;
+    if (use > 0) mbar_wait(&empty[st], (use + 1) & 1);
+    mbar_expect_tx(&full[st], sbytes);
+    uint8_t* xs = ring + st * sbytes;
+    const int kc = (k0 + i) * kHgBK;
+    for (int j = 0; j < chunks; ++j)
+      tma_load_3d(xs + j * kHgChunk, tx, x0 + 64 * j, kc, xz, &full[st]);
+    tma_load_2d(xs + chunks * kHgChunk, ty, kc, y0, &full[st]);
+  }
+}
+
+// The consumer warpgroup of X chunk `chunk`: every step into acc (D = the
+// chunk's 64 columns by BQ rows of Y).  A slot is handed back (one arrival
+// a warp; empty[] counts the 4 * chunks consumer warps) as soon as the
+// step's wgmma group has completed, so the consumers hold one slot and the
+// rest stream: the groups are bound by bytes in flight, not by the tensor
+// cores.
+template <int BQ>
+__device__ __forceinline__ void hg_consume_ring(uint8_t* ring, uint64_t* full,
+                                                uint64_t* empty, int sbytes,
+                                                int stages, int chunks,
+                                                int chunk, int n_k,
+                                                float (&acc)[BQ / 2]) {
+  const bool signaller = threadIdx.x % 32 == 0;
+  for (int i = 0; i < n_k; ++i) {
+    const int st = i % stages;
+    mbar_wait(&full[st], (i / stages) & 1);
+    const uint32_t base = hg_smem(ring + st * sbytes);
+    const uint32_t xs = base + chunk * kHgChunk;
+    const uint32_t ys = base + chunks * kHgChunk;
+    wgmma_fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHgBK / 16; ++kk)
+      wgmma_k16<BQ, 1, 0>(acc, hg_tile_desc<true>(xs, kk),
+                          hg_tile_desc<false>(ys, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_acc(acc);
+    if (signaller) mbar_arrive(&empty[st]);
+  }
 }
 
 // ---- tensor maps (host) -----------------------------------------------------

@@ -43,11 +43,16 @@
 // TN register tile) at the same tile heights.
 //
 // K3, the split-K variant (repro/kernels/sisa_gemm.py::_splitk_kernel,
-// launched by sisa_gemm_splitk), is the last kernel of this file: K is cut
-// into slabs of bk columns, and each slab's block writes its own f32
-// partial C into (n_k, M, N); the wrapper sums the partials.  Its tile
-// bodies are tile_gemm.cuh's, shared with K6 and K7; K1's own bodies above
-// are not touched by it.
+// launched by sisa_gemm_splitk), runs on the same wgmma body for bf16 with
+// slabs a whole number of 64-deep stages: the n_k = ceil(K / bk) slabs are
+// dealt to a cluster of s = min(n_k, 8) CTAs as runs of whole slabs, rank r
+// summing slabs [r n_k / s, (r + 1) n_k / s), and the cluster adds the
+// ranks' f32 tiles in rank order through distributed shared memory before C
+// is stored in A's dtype: one launch a call, no (n_k, M, N) partials and no
+// summation kernel after it.  A decode GEMV is bound by its weight bytes, as
+// K1's slab is; the slab runs multiply the CTAs that stream them.  float32,
+// and bf16 shapes TMA cannot read, write f32 partials per slab on the CUDA
+// cores (tile_gemm.cuh's fp_tile) and the wrapper sums them.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -164,16 +169,18 @@ cudaError_t launch(const void* a, const void* b, void* c, int m, int n, int k,
 // * swap-AB (decode slabs): X = B^T (64 weight columns as wgmma's 64 rows),
 //   Y = A^T (the 8 or 16 tokens as its n8 / n16 side); D is C^T.
 // Grid (s, P tiles, Q tiles) with clusters of s CTAs along x.  With s > 1
-// the cluster's CTAs split K evenly, park their f32 tiles in shared memory,
-// and rank r sums rows [r BP/s, (r+1) BP/s) of the tile over ranks 0..s-1
-// in order through distributed shared memory, then stores them: one
-// launch, no workspace, no atomics, a fixed summation order.
+// the cluster's CTAs split K (K1: the steps evenly; K3: runs of whole
+// slabs of slab_steps steps), park their f32 tiles in shared memory, and
+// rank r sums rows [r BP/s, (r+1) BP/s) of the tile over ranks 0..s-1 in
+// order through distributed shared memory, then stores them: one launch,
+// no workspace, no atomics, a fixed summation order.
 template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool SWAP>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     sisa_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                            const __grid_constant__ CUtensorMap ty,
                            __nv_bfloat16* __restrict__ c, int p_total,
-                           int q_total, int ksteps, long long ldc) {
+                           int q_total, int ksteps, int slab_steps,
+                           int n_slabs, long long ldc) {
   using S = HgStage<NWG, BQ, X_MN, Y_MN>;
   constexpr int BP = S::kBP;
   constexpr int kConsumers = NWG * 128;
@@ -187,8 +194,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   const int s = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int p0 = blockIdx.y * BP, q0 = blockIdx.z * BQ;
-  const int kb = static_cast<int>((long long)rank * ksteps / s);
-  const int ke = static_cast<int>((long long)(rank + 1) * ksteps / s);
+  // Rank r's run of whole slabs (K1: slabs of one step, n_slabs = ksteps,
+  // so the steps split evenly).
+  const int kb = static_cast<int>((long long)rank * n_slabs / s) * slab_steps;
+  const int ke = min(
+      static_cast<int>((long long)(rank + 1) * n_slabs / s) * slab_steps,
+      ksteps);
   const int warp = threadIdx.x / 32;
 
   if (threadIdx.x == 0) {
@@ -274,12 +285,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
   for (int r = 0; r < 8; ++r)
     src[r] = reinterpret_cast<const float4*>(
         cluster.map_shared_rank(red, r < s ? r : 0));
-  const int rows = BP / s;
+  const int p_lo = rank * BP / s, rows = (rank + 1) * BP / s - p_lo;
   for (int e = threadIdx.x; e < rows * (BQ / 4); e += kConsumers + 32) {
     // Neighbouring threads on neighbouring addresses of C.
     const int pr = SWAP ? e % rows : e / (BQ / 4);
     const int q = 4 * (SWAP ? e / rows : e % (BQ / 4));
-    const int p = rank * rows + pr;
+    const int p = p_lo + pr;
     float4 v[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r)
@@ -304,7 +315,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 template <int NWG, int BQ, int STAGES, bool X_MN, bool Y_MN, bool SWAP>
 cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
                          void* c, int p_total, int q_total, int ksteps,
-                         long long ldc, int cluster, cudaStream_t stream) {
+                         int slab_steps, int n_slabs, long long ldc,
+                         int cluster, cudaStream_t stream) {
   using S = HgStage<NWG, BQ, X_MN, Y_MN>;
   constexpr int kSmem = STAGES * S::kBytes + 2 * STAGES * 8 + 1024;
   auto kernel = sisa_gemm_wgmma_kernel<NWG, BQ, STAGES, X_MN, Y_MN, SWAP>;
@@ -330,38 +342,38 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
   cfg.numAttrs = cluster > 1 ? 2 : 1;  // s = 1: no cluster
   err = cudaLaunchKernelEx(&cfg, kernel, tx, ty,
                            static_cast<__nv_bfloat16*>(c), p_total, q_total,
-                           ksteps, ldc);
+                           ksteps, slab_steps, n_slabs, ldc);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The plans K1's launch plan (repro_torch/kernels/sisa_gemm.py::k1_plan)
-// can name; any other is refused.  Normal tiles: (bm, bn, stages) with
-// bm / 64 consumer warpgroups; swap-AB: 64 weight columns by bm = 8 or 16
-// tokens, 8 stages.
+// The plans K1's and K3's launch plans (repro_torch/kernels/sisa_gemm.py::
+// k1_plan, k3_plan) can name; any other is refused.  Normal tiles: (bm, bn,
+// stages) with bm / 64 consumer warpgroups; swap-AB: 64 weight columns by
+// bm = 8 or 16 tokens, 8 stages.  A cluster rank sums the steps of slabs
+// [r n_slabs / s, (r + 1) n_slabs / s), slab_steps steps a slab.
 cudaError_t dispatch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
-                           void* c, int m, int n, int ksteps, long long ldc,
-                           int a_mn, int b_kmajor, int swap_ab, int bm, int bn,
-                           int stages, int cluster, cudaStream_t s) {
+                           void* c, int m, int n, int ksteps, int slab_steps,
+                           int n_slabs, long long ldc, int a_mn, int b_kmajor,
+                           int swap_ab, int bm, int bn, int stages,
+                           int cluster, cudaStream_t s) {
 #define K1_NORMAL(BM, BN, ST)                                                 \
   if (bm == BM && bn == BN && stages == ST) {                                 \
     if (a_mn)                                                                 \
       return launch_wgmma<BM / 64, BN, ST, true, true, false>(                \
-          tx, ty, c, m, n, ksteps, ldc, cluster, s);                          \
+          tx, ty, c, m, n, ksteps, slab_steps, n_slabs, ldc, cluster, s);     \
     if (b_kmajor)                                                             \
       return launch_wgmma<BM / 64, BN, ST, false, false, false>(              \
-          tx, ty, c, m, n, ksteps, ldc, cluster, s);                          \
+          tx, ty, c, m, n, ksteps, slab_steps, n_slabs, ldc, cluster, s);     \
     return launch_wgmma<BM / 64, BN, ST, false, true, false>(                 \
-        tx, ty, c, m, n, ksteps, ldc, cluster, s);                            \
+        tx, ty, c, m, n, ksteps, slab_steps, n_slabs, ldc, cluster, s);       \
   }
 #define K1_SWAP(BM, ST)                                                       \
   if (bm == BM && bn == 64 && stages == ST) {                                 \
     if (b_kmajor)                                                             \
-      return launch_wgmma<1, BM, ST, false, false, true>(tx, ty, c, n, m,     \
-                                                         ksteps, ldc,         \
-                                                         cluster, s);         \
-    return launch_wgmma<1, BM, ST, true, false, true>(tx, ty, c, n, m,        \
-                                                      ksteps, ldc, cluster,   \
-                                                      s);                     \
+      return launch_wgmma<1, BM, ST, false, false, true>(                     \
+          tx, ty, c, n, m, ksteps, slab_steps, n_slabs, ldc, cluster, s);     \
+    return launch_wgmma<1, BM, ST, true, false, true>(                        \
+        tx, ty, c, n, m, ksteps, slab_steps, n_slabs, ldc, cluster, s);       \
   }
   if (swap_ab) {
     K1_SWAP(8, 8)
@@ -375,6 +387,34 @@ cudaError_t dispatch_wgmma(const CUtensorMap& tx, const CUtensorMap& ty,
 #undef K1_NORMAL
 #undef K1_SWAP
   return cudaErrorInvalidValue;
+}
+
+// Tensor maps of a planned wgmma launch, then the launch: A K-major (row
+// stride lda) or, with a_mn, M-major; B N-major (row stride ldb) or, with
+// b_kmajor, K-major.
+cudaError_t run_wgmma(const void* a, const void* b, void* c, int m, int n,
+                      int k, long long lda, long long ldb, long long ldc,
+                      int a_mn, int b_kmajor, int swap_ab, int bm, int bn,
+                      int stages, int cluster, int slab_steps, int n_slabs,
+                      cudaStream_t stream) {
+  const int ksteps = (k + kHgBK - 1) / kHgBK;
+  CUtensorMap tx, ty;
+  cudaError_t err;
+  if (swap_ab) {  // X = B^T (64-row boxes of weight columns), Y = A^T
+    err = b_kmajor ? tensor_map(&tx, b, k, n, ldb, 64)
+                   : tensor_map(&tx, b, n, k, ldb, 64);
+    if (err == cudaSuccess) err = tensor_map(&ty, a, k, m, lda, bm);
+  } else {  // X = A, Y = B
+    err = a_mn ? tensor_map(&tx, a, m, k, lda, 64)
+               : tensor_map(&tx, a, k, m, lda, bm);
+    if (err == cudaSuccess)
+      err = b_kmajor ? tensor_map(&ty, b, k, n, ldb, bn)
+                     : tensor_map(&ty, b, n, k, ldb, 64);
+  }
+  if (err != cudaSuccess) return err;
+  return dispatch_wgmma(tx, ty, c, m, n, ksteps, slab_steps, n_slabs, ldc,
+                        a_mn, b_kmajor, swap_ab, bm, bn, stages, cluster,
+                        stream);
 }
 
 // CUDA-core tile table: bm as above; width and depth are set only here.
@@ -401,28 +441,11 @@ cudaError_t dispatch(int bm, const void* a, const void* b, void* c, int m,
 }
 
 // ---------------------------------------------------------------------------
-// K3: split-K partials.  Block (column tile, row tile, slab kk) computes
-// A[rows, kk*bk : kk*bk + bk] @ B[kk*bk : kk*bk + bk, cols] into
-// part[kk] (f32, M x N); the slab's K tail, ragged rows and ragged columns
-// are zero-filled.
+// K3's CUDA-core route: split-K partials.  Block (column tile, row tile,
+// slab kk) computes A[rows, kk*bk : kk*bk + bk] @ B[kk*bk : kk*bk + bk, cols]
+// into part[kk] (f32, M x N); the slab's K tail, ragged rows and ragged
+// columns are zero-filled.
 // ---------------------------------------------------------------------------
-template <int BM>
-__global__ void __launch_bounds__(TcTile<BM>::kThreads)
-    splitk_tc_kernel(const __nv_bfloat16* __restrict__ a,
-                     const __nv_bfloat16* __restrict__ b,
-                     float* __restrict__ part, int m, int n, int k, int bk,
-                     long long lda, long long ldb) {
-  extern __shared__ uint4 smem_raw[];
-  const int kk = blockIdx.z, row0 = blockIdx.y * BM, n0 = blockIdx.x * kTileN;
-  const int k0 = kk * bk;
-  const int rows = min(BM, m - row0), cols = min(kTileN, n - n0);
-  const StoreTile<float> epi{part + ((long long)kk * m + row0) * n + n0, n,
-                             rows, cols};
-  tc_tile<BM>(a + (long long)row0 * lda + k0, lda, rows,
-              b + (long long)k0 * ldb + n0, ldb, cols, min(bk, k - k0),
-              smem_raw, epi);
-}
-
 template <typename T, int BM>
 __global__ void __launch_bounds__(kFpThreads)
     splitk_fp_kernel(const T* __restrict__ a, const T* __restrict__ b,
@@ -441,15 +464,10 @@ __global__ void __launch_bounds__(kFpThreads)
 template <int BM>
 cudaError_t splitk_launch(const void* a, const void* b, float* part, int m,
                           int n, int k, int bk, long long lda, long long ldb,
-                          int dtype, int tensor_cores, cudaStream_t s) {
+                          int dtype, cudaStream_t s) {
   const dim3 grid((n + kTileN - 1) / kTileN, (m + BM - 1) / BM,
                   (k + bk - 1) / bk);
-  if (dtype == 1 && tensor_cores)
-    splitk_tc_kernel<BM><<<grid, TcTile<BM>::kThreads,
-                           TcTile<BM>::kSmemBytes, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), part, m, n, k, bk, lda, ldb);
-  else if (dtype == 1)
+  if (dtype == 1)
     splitk_fp_kernel<__nv_bfloat16, BM><<<grid, kFpThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(a),
         static_cast<const __nv_bfloat16*>(b), part, m, n, k, bk, lda, ldb);
@@ -479,66 +497,51 @@ extern "C" int sisa_gemm(const void* a, const void* b, void* c, int m, int n,
 }
 
 // The wgmma body for bf16 C[m, n] = A[m, k] @ B[k, n] with 16-byte aligned
-// rows (checked by the caller), following a plan of k1_plan: A is K-major
-// (row stride lda) or, with a_mn, M-major (A^T stored row-major, column
-// stride lda); B is N-major (row stride ldb) or, with b_kmajor, K-major (B^T
-// stored row-major, as the LM head's table.T).  C is row-major with row
-// stride ldc.  Any plan that was not instantiated returns
-// cudaErrorInvalidValue.
+// rows (checked by the caller), following a plan of k1_plan or k3_plan: A is
+// K-major (row stride lda) or, with a_mn, M-major (A^T stored row-major,
+// column stride lda); B is N-major (row stride ldb) or, with b_kmajor,
+// K-major (B^T stored row-major, as the LM head's table.T).  C is row-major
+// with row stride ldc.  A cluster of 1-8 CTAs deals K's slabs of slab_steps
+// 64-deep steps as runs of whole slabs (K1: one-step slabs, its even split;
+// K3: its bk / 64), at most one rank a slab, and sums the ranks in rank
+// order.  Any plan that was not instantiated returns cudaErrorInvalidValue.
 extern "C" int sisa_gemm_wgmma(const void* a, const void* b, void* c, int m,
                                int n, int k, long long lda, long long ldb,
                                long long ldc, int a_mn, int b_kmajor,
                                int swap_ab, int bm, int bn, int stages,
-                               int cluster, void* stream) {
+                               int cluster, int slab_steps, void* stream) {
   const int ksteps = (k + kHgBK - 1) / kHgBK;
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
+  if (m <= 0 || n <= 0 || ksteps <= 0 || slab_steps <= 0 ||
+      (a_mn && (swap_ab || b_kmajor)))
     return cudaErrorInvalidValue;
-  if (m <= 0 || n <= 0 || ksteps <= 0 ||
-      (cluster > 1 && ksteps < 2 * cluster) || (a_mn && (swap_ab || b_kmajor)))
+  const int n_slabs = (ksteps + slab_steps - 1) / slab_steps;
+  if (cluster < 1 || cluster > 8 || cluster > n_slabs)
     return cudaErrorInvalidValue;
-  CUtensorMap tx, ty;
-  cudaError_t err;
-  if (swap_ab) {  // X = B^T (64-row boxes of weight columns), Y = A^T
-    err = b_kmajor ? tensor_map(&tx, b, k, n, ldb, 64)
-                   : tensor_map(&tx, b, n, k, ldb, 64);
-    if (err == cudaSuccess) err = tensor_map(&ty, a, k, m, lda, bm);
-  } else {  // X = A, Y = B
-    err = a_mn ? tensor_map(&tx, a, m, k, lda, 64)
-               : tensor_map(&tx, a, k, m, lda, bm);
-    if (err == cudaSuccess)
-      err = b_kmajor ? tensor_map(&ty, b, k, n, ldb, bn)
-                     : tensor_map(&ty, b, n, k, ldb, 64);
-  }
-  if (err != cudaSuccess) return err;
-  return dispatch_wgmma(tx, ty, c, m, n, ksteps, ldc, a_mn, b_kmajor, swap_ab,
-                        bm, bn, stages, cluster,
-                        static_cast<cudaStream_t>(stream));
+  return run_wgmma(a, b, c, m, n, k, lda, ldb, ldc, a_mn, b_kmajor, swap_ab,
+                   bm, bn, stages, cluster, slab_steps, n_slabs,
+                   static_cast<cudaStream_t>(stream));
 }
 
-// K3: part (n_k, m, n) f32 partials of a (m, k) @ b (k, n), slabs of bk
-// columns of K, n_k = ceil(k / bk); a and b row-major with row strides lda
-// and ldb.  bm: 16, 32, 64 or 128; tensor_cores: bf16 with 16-byte aligned
-// rows and bk a multiple of 8 (checked by the caller).
+// K3's CUDA-core route: part (n_k, m, n) f32 partials of a (m, k) @ b (k,
+// n), slabs of bk columns of K, n_k = ceil(k / bk); a and b row-major with
+// row strides lda and ldb; dtype 0 = float32, 1 = bfloat16; bm: 16, 32, 64
+// or 128.
 extern "C" int sisa_gemm_splitk(const void* a, const void* b, void* part,
                                 int m, int n, int k, int bk, long long lda,
                                 long long ldb, int dtype, int bm,
-                                int tensor_cores, void* stream) {
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if ((dtype != 0 && dtype != 1) || bk <= 0) return cudaErrorInvalidValue;
   switch (bm) {
     case 16:
-      return splitk_launch<16>(a, b, p, m, n, k, bk, lda, ldb, dtype,
-                               tensor_cores, s);
+      return splitk_launch<16>(a, b, p, m, n, k, bk, lda, ldb, dtype, s);
     case 32:
-      return splitk_launch<32>(a, b, p, m, n, k, bk, lda, ldb, dtype,
-                               tensor_cores, s);
+      return splitk_launch<32>(a, b, p, m, n, k, bk, lda, ldb, dtype, s);
     case 64:
-      return splitk_launch<64>(a, b, p, m, n, k, bk, lda, ldb, dtype,
-                               tensor_cores, s);
+      return splitk_launch<64>(a, b, p, m, n, k, bk, lda, ldb, dtype, s);
     case 128:
-      return splitk_launch<128>(a, b, p, m, n, k, bk, lda, ldb, dtype,
-                                tensor_cores, s);
+      return splitk_launch<128>(a, b, p, m, n, k, bk, lda, ldb, dtype, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -43,14 +43,21 @@ kernel, so operands are never padded.
 :func:`sisa_gemm` launches the kernel the plan names for CUDA tensors,
 or raises; it takes its plain version, :func:`sisa_gemm_plain`, only
 for CPU tensors.  :func:`sisa_gemm_plan_plain` follows a plan's K
-slices and rank-order sum on the CPU.
+slices (:func:`plan_k_slices`) and rank-order sum on the CPU.
 
 K3, the split-K variant (``repro/kernels/sisa_gemm.py::_splitk_kernel``,
-``pallas_call`` at line 132), is :func:`sisa_gemm_splitk`: each slab of
-``cfg.bk`` columns of K writes its own f32 partial C, and the partials
-are summed outside the kernel.  Its tiles (and K6's and K7's) are
-``csrc/tile_gemm.cuh``'s, ``TILE_COLS`` wide with ``TILE_K``-deep K
-steps; K1 does not dispatch to it.
+``pallas_call`` at line 132), is :func:`sisa_gemm_splitk`: C summed over
+slabs of ``cfg.bk`` columns of K.  In bf16 with slabs of whole 64-deep
+stages it runs K1's wgmma body in one launch, laid out by
+:func:`k3_plan`: K1's tile pick with a cluster of ``s = min(n_k, 8)``
+CTAs that deals the ``n_k`` slabs as runs of whole slabs
+(``K1Plan.slab_steps`` stages a slab; K1's own plans take one-stage
+slabs, its even split) and adds the ranks' f32 tiles in rank order in
+distributed shared memory, so no ``(n_k, M, N)`` partials and no sum
+follow it.  float32, and bf16 shapes TMA cannot read, write the
+partials on the CUDA cores (``csrc/tile_gemm.cuh``'s ``fp_tile``,
+``TILE_COLS`` wide, ``TILE_K`` deep, shared with K6 and K7) and sum
+them with ``torch.sum``.
 """
 from __future__ import annotations
 
@@ -65,8 +72,8 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_HEIGHTS = (16, 32, 64, 128)
-# Tile width and K step of csrc/tile_gemm.cuh (K3, K6, K7); the CUDA side
-# refuses any other.
+# Tile width and K step of csrc/tile_gemm.cuh's CUDA-core body (K3, K6, K7);
+# the CUDA side refuses any other.
 TILE_COLS = 64
 TILE_K = 32
 
@@ -80,9 +87,13 @@ K1_STAGES = {(128, 256): 4, (128, 128): 4, (128, 64): 4, (64, 64): 6}
 K1_SWAP_STAGES = 8
 K1_CLUSTERS = (1, 2, 4, 8)
 K1_MIN_CTAS = SMS // 2     # CTAs a plan splits K to reach
+K3_MAX_CLUSTER = 8         # CTAs a K3 cluster deals its slabs to
 
 LAUNCHES = _build.LaunchCounter("sisa_gemm")
+# K3's two routes: one wgmma launch a call (the slab sum inside), or the
+# CUDA-core partials that torch.sum adds.
 SPLITK_LAUNCHES = _build.LaunchCounter("sisa_gemm_splitk")
+SPLITK_CORE_LAUNCHES = _build.LaunchCounter("sisa_gemm_splitk_core")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,16 +133,20 @@ def choose_block_config(m: int, n: int, k: int,
 
 @dataclasses.dataclass(frozen=True)
 class K1Plan:
-    """How one K1 launch is laid out on the card (:func:`k1_plan`).
-    ``bm`` x ``bn`` is the tile of C one CTA covers (for swap-AB: ``bm``
-    tokens by ``bn`` = 64 weight columns), in ``stages`` pipeline stages
-    of ``K1_BK``; ``cluster`` CTAs split K."""
+    """How one launch of K1's wgmma body is laid out on the card
+    (:func:`k1_plan`, :func:`k3_plan`).  ``bm`` x ``bn`` is the tile of C
+    one CTA covers (for swap-AB: ``bm`` tokens by ``bn`` = 64 weight
+    columns), in ``stages`` pipeline stages of ``K1_BK``; ``cluster``
+    CTAs split K's slabs of ``slab_steps`` stages, rank r summing slabs
+    ``[r n / s, (r + 1) n / s)`` of the n (K1: one-stage slabs, so the
+    steps split evenly)."""
 
     bm: int
     bn: int
     stages: int
     cluster: int
     swap_ab: bool
+    slab_steps: int = 1
 
 
 def _k_splits(ksteps: int) -> List[int]:
@@ -139,45 +154,63 @@ def _k_splits(ksteps: int) -> List[int]:
     return [s for s in K1_CLUSTERS if s == 1 or ksteps >= 2 * s]
 
 
-@functools.lru_cache(maxsize=4096)
-def k1_plan(m: int, n: int, k: int) -> K1Plan:
-    """K1's launch plan for a bf16 pass of ``m`` rows (aligned rows; see
-    module doc).  The mode is ``choose_block_config(m, n, k).bm``'s.
-
-    The plan takes the tallest tile (every row tile reads all of B
-    again), then the least K split, then the widest tile, that puts
-    ``K1_MIN_CTAS`` CTAs on the card; where none does, the most CTAs K
-    allows.  A split costs a cluster launch, two cluster barriers and
-    the reduction, so it pays only where more than half the SMs would
-    idle without it (``scripts/k1_sweep.py``, PERF.md)."""
-    bm = choose_block_config(m, n, k).bm
-    splits = _k_splits(-(-k // K1_BK))
+def _tile_plan(m: int, n: int, splits: List[int],
+               slab_steps: int) -> K1Plan:
+    """The tallest tile (every row tile reads all of B again), then the
+    least of ``splits``, then the widest tile, that puts ``K1_MIN_CTAS``
+    CTAs on the card; where none does, the most CTAs.  The mode is
+    ``choose_block_config``'s: swap-AB for M <= 16."""
+    bm = choose_block_config(m, n, 0).bm
     if bm == 16:
         tiles = -(-n // 64)
         s = next((s for s in splits if tiles * s >= K1_MIN_CTAS), splits[-1])
-        return K1Plan(8 if m <= 8 else 16, 64, K1_SWAP_STAGES, s, True)
+        return K1Plan(8 if m <= 8 else 16, 64, K1_SWAP_STAGES, s, True,
+                      slab_steps)
     heights = (128, 64) if bm == 128 else (64,)
     cands = [(s, -(-m // tm) * -(-n // tn), tm, tn) for h in heights
              for s in splits for tm, tn in K1_TILES if tm == h]
     s, _, tm, tn = next(
         (c for c in cands if c[0] * c[1] >= K1_MIN_CTAS),
         max(cands, key=lambda c: c[0] * c[1]))
-    return K1Plan(tm, tn, K1_STAGES[(tm, tn)], s, False)
+    return K1Plan(tm, tn, K1_STAGES[(tm, tn)], s, False, slab_steps)
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_plan(m: int, n: int, k: int) -> K1Plan:
+    """K1's launch plan for a bf16 pass of ``m`` rows (aligned rows; see
+    module doc): :func:`_tile_plan` over the cluster sizes that leave
+    every rank two K steps.  A split costs a cluster launch, two cluster
+    barriers and the reduction, so it pays only where more than half the
+    SMs would idle without it (``scripts/k1_sweep.py``, PERF.md)."""
+    return _tile_plan(m, n, _k_splits(-(-k // K1_BK)), 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def k3_plan(m: int, n: int, k: int, bk: int) -> K1Plan:
+    """K3's launch plan for a bf16 pass of ``m`` rows in slabs of ``bk``
+    (a multiple of ``K1_BK``): K1's tile pick with the cluster fixed by
+    the slabs, ``s = min(n_k, 8)`` CTAs for the n_k = ceil(k / bk) slabs,
+    each rank summing a run of whole slabs."""
+    if bk <= 0 or bk % K1_BK:
+        raise ValueError(f"k3_plan: bk={bk} is not a whole number of "
+                         f"{K1_BK}-deep stages")
+    return _tile_plan(m, n, [min(-(-k // bk), K3_MAX_CLUSTER)], bk // K1_BK)
 
 
 def plan_k_slices(plan: K1Plan, k: int) -> List[Tuple[int, int]]:
-    """Column ranges of K each CTA of a cluster sums, by rank: the K steps
-    split evenly, as the kernel splits them."""
-    ksteps = -(-k // K1_BK)
-    s = plan.cluster
-    return [(r * ksteps // s * K1_BK, min(k, (r + 1) * ksteps // s * K1_BK))
+    """Columns of K each CTA of a cluster sums, by rank: runs of whole
+    slabs, as the kernel deals them."""
+    bk = plan.slab_steps * K1_BK
+    n_slabs, s = -(-k // bk), plan.cluster
+    return [(r * n_slabs // s * bk, min(k, (r + 1) * n_slabs // s * bk))
             for r in range(s)]
 
 
 def sisa_gemm_plan_plain(a: torch.Tensor, b: torch.Tensor,
                          plan: K1Plan) -> torch.Tensor:
-    """Plain version of a planned launch: each rank's f32 product over its
-    K slice, summed in rank order as the cluster sums them; f32 result."""
+    """Plain version of a planned launch (K1's or K3's): each rank's f32
+    product over its K slice, summed in rank order as the cluster sums
+    them; f32 result."""
     out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
                       device=a.device)
     for lo, hi in plan_k_slices(plan, a.shape[1]):
@@ -192,11 +225,12 @@ def sisa_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The C signatures of K1's CUDA-core body, its wgmma body and K3.
+# The C signatures of K1's CUDA-core body, the wgmma body (K1 and K3),
+# and K3's CUDA-core route.
 _CORE_ARGS = [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I, _I, _P]
 _WGMMA_ARGS = [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I,
-               _I, _P]
-_SPLITK_ARGS = [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _I, _P]
+               _I, _I, _P]
+_SPLITK_ARGS = [_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P]
 
 
 def _lib(name: str, argtypes: list):
@@ -266,7 +300,7 @@ def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
         err = _lib("sisa_gemm_wgmma", _WGMMA_ARGS)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, ldb, n,
             int(a_mn), trans_b, int(plan.swap_ab), plan.bm, plan.bn,
-            plan.stages, plan.cluster, stream)
+            plan.stages, plan.cluster, plan.slab_steps, stream)
     else:
         if a_mn:
             a, lda = a.contiguous(), k
@@ -281,49 +315,58 @@ def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
 
 def sisa_gemm_splitk_plain(a: torch.Tensor, b: torch.Tensor,
                            bk: int) -> torch.Tensor:
-    """Plain version of K3's launch: the ``(n_k, M, N)`` f32 partial
-    products of ``a @ b`` over slabs of ``bk`` columns of K."""
+    """Plain version of K3's partials: the ``(n_k, M, N)`` f32 partial
+    products of ``a @ b`` over slabs of ``bk`` columns of K (the
+    reference's kernel output, summed outside it)."""
     return torch.stack([a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
                         for k0 in range(0, a.shape[1], bk)])
+
+
+def _splitk_wgmma(a: torch.Tensor, b: torch.Tensor, bk: int) -> bool:
+    """K3's wgmma route takes bf16 with slabs of whole 64-deep stages, K
+    and N multiples of 8 and 16-byte aligned bases (TMA's strides)."""
+    return (a.dtype == torch.bfloat16 and bk % K1_BK == 0
+            and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
 def _splitk_partials(a: torch.Tensor, b: torch.Tensor,
                      cfg: BlockConfig) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
-    if a.dtype not in _DTYPES:
-        raise ValueError(f"sisa_gemm_splitk takes float32 or bfloat16, not "
-                         f"{a.dtype}")
     if cfg.bm not in TILE_HEIGHTS:
-        raise NotImplementedError(f"K3 takes tile heights {TILE_HEIGHTS}, "
-                                  f"not bm={cfg.bm}")
-    a, b = a.contiguous(), b.contiguous()
+        raise NotImplementedError(f"K3's CUDA-core route takes tile heights "
+                                  f"{TILE_HEIGHTS}, not bm={cfg.bm}")
     part = torch.empty((-(-k // cfg.bk), m, n), dtype=torch.float32,
                        device=a.device)
-    tensor_cores = (a.dtype == torch.bfloat16 and cfg.bk % 8 == 0
-                    and k % 8 == 0 and n % 8 == 0
-                    and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     err = _lib("sisa_gemm_splitk", _SPLITK_ARGS)(
         a.data_ptr(), b.data_ptr(), part.data_ptr(), m, n, k, cfg.bk, k, n,
-        _DTYPES[a.dtype], cfg.bm, int(tensor_cores),
+        _DTYPES[a.dtype], cfg.bm,
         torch.cuda.current_stream(a.device).cuda_stream)
-    SPLITK_LAUNCHES.n += 1
+    SPLITK_CORE_LAUNCHES.n += 1
     _build.check("sisa_gemm", err)
     return part
 
 
 def sisa_gemm_splitk(a: torch.Tensor, b: torch.Tensor,
                      cfg: BlockConfig) -> torch.Tensor:
-    """K3: C[M,N] = A[M,K] @ B[K,N] by K slabs.  One launch writes the
-    f32 partial product of every slab of ``cfg.bk`` columns of K into
-    ``(n_k, M, N)``; ``torch.sum`` over the slabs, outside the kernel,
-    gives C in A's dtype (the reference sums with ``jnp.sum``).
+    """K3: C[M,N] = A[M,K] @ B[K,N] summed over slabs of ``cfg.bk``
+    columns of K, f32 accumulation, C in A's dtype (the reference sums
+    its per-slab partials with ``jnp.sum``).
 
-    ``cfg.bm`` is the tile height (16, 32, 64 or 128 on the card),
-    ``cfg.bk`` the slab depth (> 0) and ``cfg.bn``, if given, a multiple
-    of the kernel's ``TILE_COLS``-wide column tile.  Unlike the
-    reference, M, N and K need not be multiples of the blocks: ragged
-    edges are masked in the kernel."""
+    On the card the route is chosen by shape, never by a failure:
+    * bf16 with ``cfg.bk`` a multiple of 64, K and N multiples of 8 and
+      16-byte aligned bases: one launch of K1's wgmma body laid out by
+      :func:`k3_plan`, the slab runs summed in rank order inside it;
+    * otherwise (float32, or a bf16 shape TMA cannot read): the CUDA-core
+      body writes the ``(n_k, M, N)`` f32 partials at the tile height
+      ``cfg.bm`` (16, 32, 64 or 128), and ``torch.sum`` adds them.
+    CPU tensors take the plain version, the partials' sum.
+
+    ``cfg.bk`` is the slab depth (> 0) and ``cfg.bn``, if given, a
+    multiple of ``TILE_COLS``.  Unlike the reference, M, N and K need
+    not be multiples of the blocks: ragged edges are masked in the
+    kernel."""
     if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]
             or 0 in a.shape + b.shape):
         raise ValueError(f"sisa_gemm_splitk needs non-empty (M,K) @ (K,N), got "
@@ -335,9 +378,23 @@ def sisa_gemm_splitk(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"sisa_gemm_splitk needs bk > 0 and bn a multiple "
                          f"of {TILE_COLS} (or 0), got {cfg}")
     if a.device.type == "cpu":
-        part = sisa_gemm_splitk_plain(a, b, cfg.bk)
-    elif a.device.type == "cuda":
-        part = _splitk_partials(a, b, cfg)
-    else:
+        return sisa_gemm_splitk_plain(a, b, cfg.bk).sum(0).to(a.dtype)
+    if a.device.type != "cuda":
         raise ValueError(f"sisa_gemm_splitk: no kernel for {a.device}")
-    return torch.sum(part, dim=0).to(a.dtype)
+    if a.dtype not in _DTYPES:
+        raise ValueError(f"sisa_gemm_splitk takes float32 or bfloat16, not "
+                         f"{a.dtype}")
+    a, b = a.contiguous(), b.contiguous()
+    if not _splitk_wgmma(a, b, cfg.bk):
+        return torch.sum(_splitk_partials(a, b, cfg), dim=0).to(a.dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    plan = k3_plan(m, n, k, cfg.bk)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    err = _lib("sisa_gemm_wgmma", _WGMMA_ARGS)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, k, n, n, 0, 0,
+        int(plan.swap_ab), plan.bm, plan.bn, plan.stages, plan.cluster,
+        plan.slab_steps, torch.cuda.current_stream(a.device).cuda_stream)
+    SPLITK_LAUNCHES.n += 1
+    _build.check("sisa_gemm", err)
+    return out
