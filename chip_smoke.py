@@ -53,22 +53,31 @@ Phases (any failure exits non-zero before the last line is printed):
    ``sequential_matmul`` bit for bit;
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
    structure at narrow widths with 8 experts, each 2 layers) served on
-   the card (kernels) and on the CPU (plain versions): identical greedy
-   tokens; and one train step of each on both: the loss, every gradient
-   and the parameters after AdamW;
+   the card (kernels) and on the CPU (plain versions) through each
+   engine kind (``"paged"``, ``"slot"``, ``"sequential"``): identical
+   greedy tokens per kind, and on the card the slot engine's equal to
+   the paged engine's; and one train step of each on both: the loss,
+   every gradient and the parameters after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
    the launch counters are zeroed just before and K1's and K2's must be
-   > 0 just after, every request prefilled once; then the same serve on
+   > 0 just after, every request prefilled once; the same 8 requests
+   through ``kind="slot"`` (after ``warmup()``, ``decode_compiles`` 0)
+   and ``kind="sequential"`` on the dense KV cache: K1's counter > 0 and
+   K2's 0, every slot drained, and how many completions equal the paged
+   serve's (printed, not asserted: bf16 sums at other M may flip a
+   greedy token); one ``prefill_batch`` of the 8 prompts on the slot
+   engine, its first tokens and parked caches against single prefills
+   (``COALESCED_REL``); then the same serve on
    int8 page pools (``kv_quant="int8"``: K2's int8 variant > 0 and its
    float one 0, pool bytes (hd + 2) / (2 hd) of the bf16 pools', one K2
    launch on the serve's own pools against the plain version), and 16
    requests on the 8 slots with and without ``coexec_backend="kernel"``
    (identical tokens, backfilled prefills > 0);
-8. where one decode window's time goes (``torch.profiler``): device time
-   per kernel family against the window's wall time, and the top host
-   ops;
+8. where one decode window's time goes (``torch.profiler``), on the
+   paged and on the slot engine: device time per kernel family against
+   the window's wall time, and the top host ops;
 9. kernel times at the main path's shapes, beside the plain versions',
    one PyTorch library call's where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or
@@ -241,6 +250,13 @@ KERNEL_NAMES = ("sisa_gemm", "paged_attn", "grouped_gemm")
 K1_ROWS = (1, 8, 16, 32, 64, 128, 200, 208, 256)
 K1_PHI_ROWS = (8, 208)      # phi3.5-moe's 4096-wide projections
 BF16_REL = 2.0 ** -7        # one bf16 ulp, relative to the value
+# A coalesced prefill runs K1 at M = rung x bucket, a single one at M =
+# bucket: other plans, other summation orders, and the difference passes
+# through 24 layers.  A parked cache tensor must lie within 2^-4 of its
+# largest magnitude (8 bf16 ulps there) of the single prefill's, and a
+# first token must equal the single prefill's wherever that prefill's
+# top-2 logit margin exceeds 2^-4 of its top logit's magnitude.
+COALESCED_REL = 2.0 ** -4
 
 
 def _f32_atol(ref) -> float:
@@ -752,27 +768,36 @@ def _small_configs():
 
 def check_small_model(torch, np, label, cfg) -> None:
     """``cfg`` served on the card (kernels) and on the CPU (plain
-    versions): same weights, same requests, same greedy tokens."""
+    versions) through each engine kind: same weights, same requests,
+    same greedy tokens per kind; on the card the slot engine's tokens
+    equal the paged engine's (rows are independent in both)."""
     from repro_torch.models import init_params
     from repro_torch.serve import make_engine, Request
 
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
-    outs = []
-    for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        eng = make_engine(cfg, params, kind="paged", device=dev,
-                          max_slots=4, max_seq=64, page_size=16, window=4)
-        rng = np.random.default_rng(1)
-        for req in _requests(Request, rng, cfg.vocab_size,
-                             (33, 40, 50, 7, 16)):
-            req.max_new_tokens = 12
-            eng.submit(req)
-        outs.append(sorted((c.rid, c.tokens) for c in eng.run()))
-    if outs[0] != outs[1]:
-        raise AssertionError(f"small model: card tokens {outs[1]} differ "
-                             f"from the CPU's {outs[0]}")
-    _say(f"small model ({label}, 2 layers, f32): {len(outs[0])} requests, "
-         "tokens on the card identical to the CPU plain path")
+    outs = {}
+    for kind in ("paged", "slot", "sequential"):
+        for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            eng = make_engine(cfg, params, kind=kind, device=dev,
+                              max_slots=4, max_seq=64, page_size=16,
+                              window=4)
+            rng = np.random.default_rng(1)
+            for req in _requests(Request, rng, cfg.vocab_size,
+                                 (33, 40, 50, 7, 16)):
+                req.max_new_tokens = 12
+                eng.submit(req)
+            outs[kind, dev] = sorted((c.rid, c.tokens) for c in eng.run())
+        if outs[kind, "cpu"] != outs[kind, "cuda"]:
+            raise AssertionError(
+                f"small model, kind={kind}: card tokens {outs[kind, 'cuda']}"
+                f" differ from the CPU's {outs[kind, 'cpu']}")
+    if outs["slot", "cuda"] != outs["paged", "cuda"]:
+        raise AssertionError("small model: slot tokens on the card differ "
+                             "from the paged engine's")
+    _say(f"small model ({label}, 2 layers, f32): {len(outs['paged', 'cpu'])}"
+         " requests through the paged, slot and sequential engines, tokens "
+         "on the card identical to the CPU plain path, slot == paged")
 
 
 def check_small_train(torch, np, label, cfg) -> None:
@@ -874,13 +899,14 @@ def check_small_train(torch, np, label, cfg) -> None:
 
 
 def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
-                     **engine_kw):
+                     kind="paged", absent=(), **engine_kw):
     """Serve the workload of ``lens`` prompts (8 by default) through
-    ``make_engine(kind="paged", **engine_kw)`` at ``cfg``'s widths with
+    ``make_engine(kind=kind, **engine_kw)`` at ``cfg``'s widths with
     seeded random bf16 weights (``params``, or made here).  Every launch
     counter is zeroed just before the serve; those of ``need`` must be
-    > 0 just after, and every request must be prefilled once.  Returns
-    the engine, the weights, the launch counts and the completions."""
+    > 0 just after and those of ``absent`` 0, every request must be
+    prefilled once, and the storage must drain.  Returns the engine, the
+    weights, the launch counts and the completions."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
@@ -895,9 +921,10 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G "
              f"weights ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
              f"allocated), init {time.perf_counter() - t0:.2f} s")
-    eng = make_engine(cfg, params, kind="paged", max_slots=8, max_seq=256,
+    eng = make_engine(cfg, params, kind=kind, max_slots=8, max_seq=256,
                       page_size=16, window=8, **engine_kw)
-    eng.warmup()
+    if kind != "sequential":            # it has no warmup, as in the JAX one
+        eng.warmup()
     prefill, prefills = eng.prefill_fn, []
 
     def counted_prefill(p, batch):
@@ -935,14 +962,20 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
         raise AssertionError("token outside the vocabulary")
     if any(launches[name] <= 0 for name in need):
         raise AssertionError(f"main path skipped a kernel: {launches}")
-    if eng.stats["decode_compiles"] != 0:
+    if any(launches[name] for name in absent):
+        raise AssertionError(f"{kind} serve launched one of {absent}: "
+                             f"{launches}")
+    if kind != "sequential" and eng.stats["decode_compiles"] != 0:
         raise AssertionError(f"decode_compiles "
                              f"{eng.stats['decode_compiles']} after warmup")
     ext = eng.stats["engine"]
-    if ext["pages_shared"] < SHARED_PREFIX // 16:
+    if kind == "paged" and ext["pages_shared"] < SHARED_PREFIX // 16:
         raise AssertionError(f"prefix not shared: {ext['pages_shared']}")
-    if eng.cache.n_free_pages != eng.cache.num_pages:
+    if kind == "paged" and eng.cache.n_free_pages != eng.cache.num_pages:
         raise AssertionError("page pool did not drain")
+    if kind != "sequential" and eng.cache.n_free != eng.max_batch:
+        raise AssertionError(f"{eng.max_batch - eng.cache.n_free} slots "
+                             "did not drain")
     # Finite f32 logits of the expected shape from the same weights.
     logits, _ = eng.prefill_fn(params, {
         "tokens": torch.as_tensor(reqs[0].prompt[None], device="cuda"),
@@ -952,16 +985,17 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
             or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
         raise AssertionError(f"bad logits {logits.shape} {logits.dtype}")
     n_tok = sum(c.n_tokens for c in outs)
-    summary = {"model": cfg.name, "layers": cfg.n_layers, "requests":
-               len(outs), "tokens": n_tok, "wall_s": wall,
+    summary = {"model": cfg.name, "kind": kind, "layers": cfg.n_layers,
+               "requests": len(outs), "tokens": n_tok, "wall_s": wall,
                "tok_per_s": n_tok / wall,
                "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
                "peak_memory_gb": peak / 1e9,
                "decode_compiles": eng.stats["decode_compiles"],
                "decode_steps": eng.stats["decode_steps"],
-               "rungs": ext["rungs"], "pages_shared": ext["pages_shared"],
+               "batches": eng.stats["batches"], "rungs": ext.get("rungs"),
+               "pages_shared": ext.get("pages_shared"),
                "expert_backend": eng.stats["expert_backend"],
-               "kv_pool": ext["kv_pool"],
+               "kv_pool": ext.get("kv_pool"),
                "coexec_backend": eng.stats["coexec_backend"],
                "backfilled": eng.stats["backfilled"],
                "coexec_steps": len(eng.stats["coexec_tiles"]),
@@ -969,6 +1003,73 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
                "wgmma_routes": routes}
     _say(f"serve: {json.dumps(summary)}")
     return eng, params, launches, sorted(outs, key=lambda c: c.rid)
+
+
+def serve_dense(torch, np, cfg, params, paged_outs):
+    """Phase 7's dense serves: the 8 requests through ``kind="slot"`` and
+    ``kind="sequential"`` on the paged serve's weights (K1 > 0, K2 0,
+    slots drained), each one's completions compared with the paged
+    serve's (printed); then one ``prefill_batch`` on the slot engine and
+    one profiled slot window."""
+    for kind in ("sequential", "slot"):        # the slot engine stays
+        eng, _, _, outs = serve_full_width(
+            torch, np, cfg, ("sisa_gemm",), params=params, kind=kind,
+            absent=("paged_attn", "paged_attn_int8"))
+        same = sum(a.tokens == b.tokens for a, b in zip(outs, paged_outs))
+        _say(f"{kind} serve: {same} of {len(outs)} completions equal the "
+             "paged serve's")
+    check_prefill_batch(torch, np, eng, cfg)
+    profile_window(torch, np, eng, cfg)
+
+
+def check_prefill_batch(torch, np, eng, cfg) -> None:
+    """One ``prefill_batch`` of the 8 prompts on the slot engine (runs of
+    one bucket coalesce at a ladder rung): every parked cache and first
+    token against the request's single prefill at ``COALESCED_REL``;
+    then the parked requests are served and the slots drain."""
+    from repro_torch.serve import Request
+
+    eng.reset()
+    reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                     PROMPT_LENS)
+    eng.prefill_batch(reqs)
+    torch.cuda.synchronize()
+    ext = eng.stats["engine"]
+    if ext["prefill_batches"] < 1 or len(eng._backfilled) != len(reqs):
+        raise AssertionError(f"prefill_batch: {ext['prefill_batches']} "
+                             f"batches, {len(eng._backfilled)} parked")
+    parked = {r.rid: c for r, c, _ in eng._backfilled}
+    worst, same = 0.0, 0
+    for req in reqs:
+        s = len(req.prompt)
+        toks = np.zeros(eng._bucket_len(s), np.int32)
+        toks[:s] = req.prompt
+        logits, cache = eng.prefill_fn(eng.params, {
+            "tokens": torch.as_tensor(toks[None], device="cuda"),
+            "last_index": s - 1})
+        top = torch.topk(logits[0, -1, :cfg.vocab_size], 2).values
+        single = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        same += req.generated[0] == single
+        if req.generated[0] != single and \
+                (top[0] - top[1]).item() > COALESCED_REL * top[0].abs().item():
+            raise AssertionError(f"prefill_batch rid {req.rid}: first token "
+                                 f"{req.generated[0]}, single prefill's "
+                                 f"{single} by margin {top.tolist()}")
+        for name, t in cache.items():
+            ref = t.float().abs().max().item()
+            err = (parked[req.rid][name].float() - t.float()).abs().max()
+            worst = max(worst, err.item() / ref)
+            if err > COALESCED_REL * ref:
+                raise AssertionError(f"prefill_batch rid {req.rid} {name}: "
+                                     f"max abs err {err.item()} of {ref}")
+    outs = eng.run()
+    if len(outs) != len(reqs) or eng.cache.n_free != eng.max_batch:
+        raise AssertionError("parked requests did not serve and drain")
+    _say(f"prefill_batch (slot engine, bf16): {ext['prefill_batches']} "
+         f"coalesced prefills of {ext['prefill_batched_reqs']} of "
+         f"{len(reqs)} prompts; parked caches within {worst} of their "
+         f"largest magnitude of the single prefills' (tol {COALESCED_REL}); "
+         f"{same} of {len(reqs)} first tokens equal")
 
 
 def _only_wgmma_routes(launches) -> dict:
@@ -1020,7 +1121,8 @@ def profile_window(torch, np, eng, cfg) -> dict:
         name = next((k for k in KERNEL_NAMES if k in evt.key), "other")
         fam[name] += dev_us / 1e3
     busy = sum(fam.values())
-    out = {"model": cfg.name, "kv_pool": eng.stats["engine"]["kv_pool"],
+    out = {"model": cfg.name, "engine": type(eng).__name__,
+           "kv_pool": eng.stats["engine"].get("kv_pool"),
            "window_wall_ms": wall_ms, "steps": eng.window,
            "device_ms": fam, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
@@ -2028,6 +2130,7 @@ def main() -> int:
     eng, params, launches, flt_outs = serve_full_width(
         torch, np, cfg, ("sisa_gemm", "paged_attn"))
     profile_window(torch, np, eng, cfg)
+    serve_dense(torch, np, cfg, params, flt_outs)
     eng8, int8_launches, k2_pool_err = serve_int8(torch, np, kernels, cfg,
                                                   params, eng, flt_outs)
     del eng8

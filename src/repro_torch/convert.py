@@ -6,7 +6,10 @@ params)`` on the caller's side — this module imports no JAX) and
 returns the port's tree: the scanned layer groups
 (``repro/models/transformer.py:59-98``) unstacked into one dict per
 layer, in the order the reference's scan runs them, so both packages
-compute the same function on the same weights.
+compute the same function on the same weights.  :func:`cache_from_jax`
+does the same for a dense KV cache: the reference's per-group cache
+pytrees (``repro/models/transformer.py:init_cache``) become the port's
+stacked ``{"k","v"[,"k_s","v_s"]}: (L, B, cap, Hkv, hd)``.
 """
 from __future__ import annotations
 
@@ -35,18 +38,33 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack_layers(groups, cfg: ModelConfig):
+    """One entry per layer, in the order the reference's scan runs
+    them: ``(group pytree, block name, repeat index)``."""
+    return [(group, f"b{i}", r)
+            for group, (pattern, n_reps) in zip(groups, cfg.layer_groups())
+            for r in range(n_reps) for i in range(len(pattern))]
+
+
+def cache_from_jax(caches, cfg: ModelConfig, device=None
+                   ) -> Dict[str, torch.Tensor]:
+    """The reference's dense cache (a list of per-group pytrees, leaves
+    already numpy) as the port's layer-stacked cache."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layers = [{name: np.asarray(x)[r] for name, x in group[b].items()}
+              for group, b, r in _unstack_layers(caches, cfg)]
+    return {name: _tensor(np.stack([layer[name] for layer in layers]), dev)
+            for name in layers[0]}
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     """The reference's (numpy-leaved) params as the port's tree."""
     check_supported(cfg)
     dev = resolve_device(device)
-    layers = []
-    for group, (pattern, n_reps) in zip(tree["groups"], cfg.layer_groups()):
-        for r in range(n_reps):
-            for i in range(len(pattern)):
-                layers.append(_map(group[f"b{i}"],
-                                   lambda x, r=r: _tensor(np.asarray(x)[r],
-                                                          dev)))
+    layers = [_map(group[b], lambda x, r=r: _tensor(np.asarray(x)[r], dev))
+              for group, b, r in _unstack_layers(tree["groups"], cfg)]
     out = {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
            "final_norm": _map(tree["final_norm"], lambda x: _tensor(x, dev)),
            "layers": layers}

@@ -1,15 +1,19 @@
-"""GQA global causal attention with paged-KV decode (the port of the
-global ``ATTN`` part of ``repro/models/attention.py``).
+"""GQA global causal attention with dense and paged KV decode (the port
+of the global ``ATTN`` part of ``repro/models/attention.py``).
 
 Prefill attention is plain PyTorch (the reference's is plain XLA, not
 Pallas): einsum logits with f32 accumulation, softmax in f32, the
 probabilities cast to ``q.dtype`` before the PV product.  Decode reads
-the shared page pool through K2 (:func:`repro_torch.kernels.
-paged_attention`).  Sliding-window, bidirectional and cross attention
-are later slices.
+either a dense per-row cache ``{"k","v": (B, cap, Hkv, hd)}`` in plain
+PyTorch (:func:`attn_decode_step`; the reference's is plain XLA too) or
+the shared page pool through K2 (:func:`paged_attn_decode_step`).
+Dense caches are int8 with bf16 scale planes ``"k_s","v_s"`` while
+:func:`set_kv_cache_quant` is on.  Sliding-window, bidirectional and
+cross attention are later slices.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,7 +50,10 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Skv,H,hd), mask: (1|B, 1, Sq, Skv) bool."""
     hd = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits = logits / torch.sqrt(torch.tensor(float(hd), device=q.device))
+    # sqrt in f64 rounded to f32 is the f32 sqrt (correct rounding), so
+    # this equals the reference's jnp.sqrt(float32(hd)) with no tensor
+    # made on the device.
+    logits = logits / math.sqrt(hd)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -80,10 +87,51 @@ def attn_apply(p, x: Tensor, cfg, *, positions: Optional[Tensor] = None
     return linear_apply(p["o"], out), k, v
 
 
+# int8 dense KV caches (per-position, per-head symmetric scales), the
+# reference's CACHE_QUANT flag.  Paged engines quantize at the pool
+# boundary instead (kv_quant="int8") and refuse the flag.
+CACHE_QUANT = {"enabled": False}
+
+
+def set_kv_cache_quant(enabled: bool) -> None:
+    CACHE_QUANT["enabled"] = enabled
+
+
+# The reference's _quant_kv: the numerics of quantize_page_pool.
+_quant_kv = quantize_page_pool
+
+
+def _dequant_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
+def cache_capacity(kind: str, seq_len: int, window: int) -> int:
+    return min(seq_len, window) if kind == "local" else seq_len
+
+
+def init_cache(batch: int, cap: int, n_kv_heads: int, head_dim: int,
+               dtype, device) -> Dict[str, Tensor]:
+    """A zero dense cache ``{"k","v": (batch, cap, Hkv, hd)}``; int8
+    values and bf16 ``"k_s","v_s": (batch, cap, Hkv, 1)`` scale planes
+    while :data:`CACHE_QUANT` is on."""
+    shape = (batch, cap, n_kv_heads, head_dim)
+    if CACHE_QUANT["enabled"]:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device),
+                "v_s": torch.zeros(sshape, dtype=torch.bfloat16,
+                                   device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def prefill_into_cache(k: Tensor, v: Tensor, cap: int) -> Dict[str, Tensor]:
     """Lay a prompt's post-RoPE K/V ``(B, S, Hkv, hd)`` into a cache of
-    capacity ``cap >= S`` (zero tail).  Global layers only: the rolled
-    ring layout for ``S > cap`` belongs to sliding-window layers."""
+    capacity ``cap >= S`` (zero tail), quantized while
+    :data:`CACHE_QUANT` is on.  Global layers only: the rolled ring
+    layout for ``S > cap`` belongs to sliding-window layers."""
     s = k.shape[1]
     if s > cap:
         raise NotImplementedError(
@@ -92,7 +140,69 @@ def prefill_into_cache(k: Tensor, v: Tensor, cap: int) -> Dict[str, Tensor]:
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    if CACHE_QUANT["enabled"]:
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        return {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
     return {"k": k, "v": v}
+
+
+def attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor], pos, cfg
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token step against a dense cache ``{"k","v": (B, cap, Hkv,
+    hd)}`` (int8 caches add their ``"k_s","v_s"`` scale planes).  ``pos``
+    is a scalar (the whole batch at one position: the sequential engine)
+    or a ``(B,)`` vector (per-row positions: the slot engine).
+
+    Each row writes its new K/V (quantized, with its scales, into int8
+    caches) at ring cell ``pos % cap`` and attends the cells whose ring
+    position ``pos - ((pos - j) mod cap)`` is >= 0, as the reference
+    does: under a scalar ``pos`` a short row also attends the zero cells
+    between its own length and ``pos``.  The cache is written in place
+    (the reference's update is functional), so a caller's view of a
+    larger buffer receives the writes.
+    """
+    b = x.shape[0]
+    cap = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, device=x.device).long()
+    per_row = pos.dim() == 1
+    positions = pos[:, None] if per_row else pos.reshape(1, 1)
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    slot = pos % cap
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+
+        def upd(name, new):
+            cache[name][rows, slot] = new[:, 0]
+    else:
+        def upd(name, new):
+            cache[name].index_copy_(1, slot.reshape(1), new)
+
+    if "k_s" in cache:
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        for name, new in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+            upd(name, new)
+        kd = _dequant_kv(cache["k"], cache["k_s"], x.dtype)
+        vd = _dequant_kv(cache["v"], cache["v_s"], x.dtype)
+    else:
+        upd("k", k)
+        upd("v", v)
+        kd, vd = cache["k"], cache["v"]
+    j = torch.arange(cap, device=x.device)
+    if per_row:
+        logical = pos[:, None] - torch.remainder(pos[:, None] - j[None, :],
+                                                 cap)
+        mask = (logical >= 0)[:, None, None, :]     # (B,1,1,cap)
+    else:
+        logical = pos - torch.remainder(pos - j, cap)
+        mask = (logical >= 0)[None, None, None, :]  # (1,1,1,cap)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), mask)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
+    return linear_apply(p["o"], out), cache
 
 
 def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
@@ -118,15 +228,18 @@ def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     pos_l = pos.long()
-    phys = page_table[torch.arange(b, device=x.device), pos_l // psz].long()
+    # A row frozen past its last page (admitted at max_seq - 1, then
+    # stepped) writes where the reference's clamped gather puts it: its
+    # last mapped column.  Its output is discarded.
+    col = torch.clamp(pos_l // psz, max=page_table.shape[1] - 1)
+    phys = page_table[torch.arange(b, device=x.device), col].long()
     off = pos_l % psz
     # The pool is written in place (the reference's .at[].set is
     # functional): the new K/V lands before K2 launches on the same
     # stream, so the kernel sees it, as the reference's does.
     scales = ()
     if "pk_s" in cache:
-        # The reference's _quant_kv, the numerics of quantize_page_pool.
-        (k, ks), (v, vs) = quantize_page_pool(k), quantize_page_pool(v)
+        (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
         cache["pk_s"][phys, off] = ks[:, 0]
         cache["pv_s"][phys, off] = vs[:, 0]
         scales = (cache["pk_s"], cache["pv_s"])

@@ -12,8 +12,10 @@ groups unstacked into one dict per layer::
 
 Layers run in a Python loop (the reference scans them).  Prefill emits
 the filled KV cache stacked over layers, ``{"k","v": (L, B, cap, Hkv,
-hd)}``; decode reads and writes page pools ``{"pk","pv": (L, pages +
-sink, page_size, Hkv, hd)}`` through a ``(B, max_pages)`` page table.
+hd)}`` (int8 with ``"k_s","v_s"`` scale planes while
+``attention.CACHE_QUANT`` is on); decode reads and writes either such
+dense caches or page pools ``{"pk","pv": (L, pages + sink, page_size,
+Hkv, hd)}`` through a ``(B, max_pages)`` page table.
 MoE layers (``cfg.moe``) replace the MLP with
 :func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train` returns
 the next-token loss and its metrics for training (``repro/models/
@@ -196,13 +198,15 @@ def _next_token_loss(logits: Tensor, labels: Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
                device=None) -> Dict[str, Tensor]:
-    """Zero KV cache ``{"k","v": (L, batch, seq_len, Hkv, hd)}``."""
+    """Zero dense KV cache ``{"k","v": (L, batch, seq_len, Hkv, hd)}``,
+    int8 with bf16 ``"k_s","v_s"`` scale planes while
+    ``attention.CACHE_QUANT`` is on."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cap = attn.cache_capacity("attn", seq_len, cfg.sliding_window)
+    one = attn.init_cache(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
+                          dtype, resolve_device(device))
+    return {name: t.new_zeros((cfg.n_layers,) + t.shape)
+            for name, t in one.items()}
 
 
 def forward_prefill(params: Params, cfg: ModelConfig,
@@ -227,14 +231,11 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         last = torch.as_tensor(logits_index, device=x.device).reshape(-1)
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  <= last.expand(x.shape[0])[:, None])
-    ks: List[Tensor] = []
-    vs: List[Tensor] = []
+    caches: List[Dict[str, Tensor]] = []
     for p in params["layers"]:
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         mix, k, v = attn.attn_apply(p["mixer"], h, cfg)
-        cache = attn.prefill_into_cache(k, v, cap)
-        ks.append(cache["k"])
-        vs.append(cache["v"])
+        caches.append(attn.prefill_into_cache(k, v, cap))
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h, valid)
@@ -249,30 +250,43 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         else:
             i = int(idx)
             x_last = x[:, i:i + 1]
-    return _logits(params, cfg, x_last), {"k": torch.stack(ks),
-                                          "v": torch.stack(vs)}
+    return _logits(params, cfg, x_last), {
+        name: torch.stack([c[name] for c in caches]) for name in caches[0]}
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
-                   pools: Dict[str, Tensor], pos: Tensor, *,
-                   page_table) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One decode step.  tokens: (B, 1); pos: (B,) per-row positions;
-    ``pools`` ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}``
-    (int8 pools add their ``"pk_s","pv_s"`` scale planes) are updated in
-    place; ``page_table`` is a ``(B, max_pages)`` int32
-    tensor or ``{"global": ...}``.  Returns the f32 logits
-    ``(B, 1, vocab_padded)`` and the pools."""
+                   caches: Dict[str, Tensor], pos, *,
+                   page_table=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One decode step.  tokens: (B, 1).
+
+    With ``page_table`` None, ``caches`` are dense ``{"k","v": (L, B,
+    cap, Hkv, hd)}`` (int8 caches add their ``"k_s","v_s"`` scale
+    planes) and ``pos`` is a scalar (every row at one position: the
+    sequential engine) or a ``(B,)`` vector of per-row positions (the
+    slot engine).  Otherwise ``caches`` are page pools ``{"pk","pv":
+    (L, pages + sink, page_size, Hkv, hd)}`` (int8 pools add
+    ``"pk_s","pv_s"``), ``page_table`` is a ``(B, max_pages)`` int32
+    tensor or ``{"global": ...}``, and ``pos`` is ``(B,)``.  Either way
+    the caches are updated in place, so a view of a larger buffer
+    receives the writes.  Returns the f32 logits ``(B, 1,
+    vocab_padded)`` and the caches."""
     check_supported(cfg)
     if isinstance(page_table, dict):
         page_table = page_table["global"]
     x = _embed(params, cfg, tokens)
+    pos = torch.as_tensor(pos, device=x.device)
+    if page_table is None:
+        pos = pos.long()
     for layer, p in enumerate(params["layers"]):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        cache = {name: pool[layer] for name, pool in pools.items()}
-        mix, _ = attn.paged_attn_decode_step(p["mixer"], h, cache,
-                                             page_table, pos, cfg)
+        cache = {name: t[layer] for name, t in caches.items()}
+        if page_table is None:
+            mix, _ = attn.attn_decode_step(p["mixer"], h, cache, pos, cfg)
+        else:
+            mix, _ = attn.paged_attn_decode_step(p["mixer"], h, cache,
+                                                 page_table, pos, cfg)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), pools
+    return _logits(params, cfg, x), caches

@@ -1,9 +1,10 @@
 """Serving API: one factory, one options record, one result contract,
 one stats schema (the port of ``repro/serve/api.py``).
 
-* :func:`make_engine` — the construction path.  Only ``kind="paged"``
-  is ported so far; ``"slot"`` and ``"sequential"`` raise
-  ``NotImplementedError`` (ROADMAP.md, queue A).
+* :func:`make_engine` — the construction path.  ``kind`` selects the
+  engine: ``"slot"`` (the default, dense slot cache), ``"paged"`` (page
+  pools) or ``"sequential"`` (the baseline that decodes each admitted
+  batch to completion).
 * :class:`EngineOptions` — a frozen dataclass of engine knobs, the same
   fields as the reference's.
 * :class:`Completion` — the result of serving one request.
@@ -131,25 +132,26 @@ class EngineOptions:
             object.__setattr__(self, "ladder", rungs)
 
 
-def make_engine(cfg, params, kind: str = "paged",
+def make_engine(cfg, params, kind: str = "slot",
                 options: Optional[EngineOptions] = None, *,
                 device=None, **overrides):
     """Build a serving engine on ``device`` (None: the CUDA card; raises
     when there is none).  ``options`` plus keyword ``overrides`` of its
     fields carry the knobs; ``params`` must already live on ``device``.
+    Paged-only knobs (``page_size``, ``num_pages``, ``kv_quant``,
+    ``prefix_sharing``) are ignored by the dense kinds, and ``window``,
+    ``ladder`` and ``buckets`` by the sequential one.
 
         eng = make_engine(cfg, params, kind="paged",
                           options=EngineOptions(max_slots=8))
     """
     from repro_torch.models.transformer import param_device
+    from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.paged_engine import PagedServeEngine
+    from repro_torch.serve.slot_engine import SlotServeEngine
 
     if kind not in ENGINE_KINDS:
         raise ValueError(f"kind={kind!r} not in {ENGINE_KINDS}")
-    if kind != "paged":
-        raise NotImplementedError(
-            f"kind={kind!r} is not ported yet (ROADMAP.md, queue A); "
-            "use kind='paged'")
     opts = dataclasses.replace(options or EngineOptions(), **overrides)
     dev = resolve_device(device)
     if param_device(params) != dev and not (
@@ -157,15 +159,20 @@ def make_engine(cfg, params, kind: str = "paged",
             and dev.index is None):
         raise ValueError(f"params live on {param_device(params)}, "
                          f"engine device is {dev}")
+    common = dict(device=param_device(params), max_batch=opts.max_slots,
+                  max_seq=opts.max_seq, multi_tenant=opts.multi_tenant,
+                  coexec_backend=opts.coexec_backend, policy=opts.policy,
+                  default_klass=opts.default_klass)
+    if kind == "sequential":
+        return ServeEngine(cfg, params, **common)  # api-ok
+    common.update(window=opts.window, ladder=opts.ladder,
+                  prefill_bucketing=opts.buckets != "off")
+    if kind == "slot":
+        return SlotServeEngine(cfg, params, **common)  # api-ok
     return PagedServeEngine(  # api-ok
-        cfg, params, device=param_device(params),
-        page_size=opts.page_size, num_pages=opts.num_pages,
+        cfg, params, page_size=opts.page_size, num_pages=opts.num_pages,
         kv_quant=opts.kv_quant, prefix_sharing=opts.prefix_sharing,
-        max_batch=opts.max_slots, max_seq=opts.max_seq, window=opts.window,
-        ladder=opts.ladder, multi_tenant=opts.multi_tenant,
-        coexec_backend=opts.coexec_backend,
-        prefill_bucketing=opts.buckets != "off", policy=opts.policy,
-        default_klass=opts.default_klass)
+        **common)
 
 
 def validate_stats(stats: Dict[str, Any]) -> None:

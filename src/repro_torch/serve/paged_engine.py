@@ -28,7 +28,8 @@
   writes it, with the same numerics (:func:`repro_torch.kernels.
   paged_attn.quantize_page_pool`), so admitted and decoded cells
   dequantize identically.  A prefill parked by co-execution backfill
-  stays at model precision until its admission copies it in.
+  stays at model precision until its admission copies it in.  The dense
+  engines' ``CACHE_QUANT`` flag is refused, as the reference does.
 
 Decode writes the new K/V into the pool in place and attends through K2
 (:func:`repro_torch.models.attention.paged_attn_decode_step`).  The
@@ -43,7 +44,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attn import quantize_page_pool
-from repro_torch.models.transformer import check_supported, param_dtype
+from repro_torch.models.attention import CACHE_QUANT
+from repro_torch.models.transformer import param_dtype
 from repro_torch.serve.engine import effective_tokens, Request
 from repro_torch.serve.serve_step import make_paged_decode_step
 from repro_torch.serve.slot_engine import SlotServeEngine
@@ -305,7 +307,10 @@ class PagedServeEngine(SlotServeEngine):
                  max_batch: int = 8, max_seq: int = 256,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = True, **kw):
-        check_supported(cfg)
+        if CACHE_QUANT["enabled"]:
+            raise NotImplementedError(
+                "paged storage quantizes at the pool boundary "
+                "(kv_quant='int8'), not via the dense CACHE_QUANT flag")
         if kv_quant not in POOL_QUANTS:
             raise ValueError(f"kv_quant={kv_quant!r} not in {POOL_QUANTS}")
         if page_size < 1 or page_size > max_seq:
@@ -476,7 +481,7 @@ class PagedServeEngine(SlotServeEngine):
             ext["page_cows"] += self.cache.ensure_writable(slot, first, last)
         self._note_pages_peak()
         tables = {k: t[:rung] for k, t in self.cache.tables().items()}
-        _, toks, pos, budget, out = self._decode_window(
-            self.params, self.cache.pools, tables, toks, pos, budget,
-            rung=rung)
-        return toks, pos, budget, out
+        return self._decode_window(
+            lambda t, p: self.decode_fn(self.params, self.cache.pools,
+                                        tables, t, p)[0],
+            toks, pos, budget, rung=rung)

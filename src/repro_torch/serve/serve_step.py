@@ -1,7 +1,8 @@
-"""Serving steps: bucketed prefill (prompt -> cache) and paged decode
-(one token), the port of ``repro/serve/serve_step.py``'s single-device
-paths.  PyTorch runs eagerly, so a step is a plain closure over the
-config; nothing is compiled per shape."""
+"""Serving steps: exact-length and bucketed prefill (prompt -> cache),
+and dense and paged decode (one token), the port of
+``repro/serve/serve_step.py``'s single-device paths.  PyTorch runs
+eagerly, so a step is a plain closure over the config; nothing is
+compiled per shape."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,6 +11,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward_decode, forward_prefill
+
+
+def make_prefill_step(cfg: ModelConfig, *, cache_len: Optional[int] = None):
+    """Exact-length prefill: ``batch = {"tokens": (B, S)}`` -> the last
+    position's logits and the cache filled to ``cache_len`` (default
+    S)."""
+
+    def prefill_step(params, batch: Dict[str, torch.Tensor]):
+        return forward_prefill(params, cfg, batch, cache_len=cache_len)
+
+    return prefill_step
 
 
 def make_bucketed_prefill_step(cfg: ModelConfig, *,
@@ -24,6 +36,17 @@ def make_bucketed_prefill_step(cfg: ModelConfig, *,
                                logits_index=batch["last_index"])
 
     return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """Decode step over dense caches: ``(params, caches, tokens (B, 1),
+    pos)`` -> ``(logits, caches)``, ``pos`` a scalar or ``(B,)``, the
+    caches updated in place."""
+
+    def decode_step(params, caches, tokens: torch.Tensor, pos):
+        return forward_decode(params, cfg, tokens, caches, pos)
+
+    return decode_step
 
 
 def make_paged_decode_step(cfg: ModelConfig):

@@ -1,18 +1,28 @@
-"""Ladder-locked continuous batching: the machinery the paged engine
-inherits (the port of ``repro/serve/slot_engine.py:172-894``).
+"""Ladder-locked continuous batching over a persistent slot cache (the
+port of ``repro/serve/slot_engine.py``).
 
+* **Persistent slot cache** (:class:`SlotKVCache`): KV caches live in
+  fixed ``(layers, max_batch, max_seq, ...)`` buffers.  A request is
+  assigned a slot at admission (one in-place copy writes its prefilled
+  cache in) and releases it when done; admission overwrites the slot's
+  full sequence capacity, so slot reuse is safe.
 * **Fixed-shape ladder decode**: a decode window always runs at a
   ``SLAB_LADDER`` rung (the smallest rung covering the highest live
   slot), with per-slot budgets masking holes and finished rows.
 * **Multi-token window**: ``window`` decode steps with the greedy argmax
   on the device, per-slot positions and done flags, and one host sync
-  per window.  The reference scans the window inside one jit; here it
-  is a Python loop of eager steps (a CUDA graph per rung is the natural
-  next step).  ``stats["decode_compiles"]`` counts the first window run
-  at each rung — where the reference traces — and reads 0 after
-  :meth:`warmup`.
-* **Bucketed prefill**: prompts pad to a storage-defined bucket with
-  the last real token's logits read back (causal masking hides pads).
+  per window.  The reference scans the window inside one jit over a
+  slice of the buffers and writes the slice back; here it is a Python
+  loop of eager steps over a view of the buffers, written in place.
+  ``stats["decode_compiles"]`` counts the first window run at each
+  rung — where the reference traces — and reads 0 after :meth:`warmup`.
+* **Bucketed prefill**: prompts pad to a bucket (powers of two here,
+  page multiples on the paged engine) with the last real token's logits
+  read back (causal masking hides pads).
+* **Coalesced prefill** (:meth:`SlotServeEngine.prefill_batch`): one
+  batched prefill for a group of same-bucket prompts, each row parked
+  decode-ready (off for MoE, whose routing capacity couples rows, and
+  for ``buckets="off"``).
 * **Co-execution backfill** (``coexec_backend="kernel"``): the
   prefills the packer co-schedules with a window run at its boundary
   and park decode-ready, admitted next step without a second prefill.
@@ -20,34 +30,89 @@ inherits (the port of ``repro/serve/slot_engine.py:172-894``).
   :class:`~repro_torch.serve.policy.SchedulingPolicy`, with a
   token-identical resume of preempted requests.
 
-Storage lives in subclasses (:class:`~repro_torch.serve.paged_engine.
-PagedServeEngine`); the dense slot storage of the reference's
-``SlotServeEngine`` is a later slice.  Rows are independent, so a
-request's tokens do not depend on what it is batched with.
+Storage lives behind four hooks (``_default_decode_fn``,
+``_make_cache``, ``_store_cache``, ``_window_call``), which
+:class:`~repro_torch.serve.paged_engine.PagedServeEngine` overrides for
+its page pool.  Rows are independent, so a request's tokens do not
+depend on what it is batched with.
 """
 from __future__ import annotations
 
 from collections import deque
 import time
-from typing import Any, Deque, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_supported
 from repro_torch.serve.api import completion_of, Completion, FINISH_CANCELLED
 from repro_torch.serve.engine import (effective_tokens, init_serve_stats,
                                       note_first_token, record_step_packing,
                                       Request, SLAB_LADDER)
 from repro_torch.serve.policy import KLASS_BATCH, SchedulingPolicy
-from repro_torch.serve.serve_step import make_bucketed_prefill_step
+from repro_torch.serve.serve_step import (make_bucketed_prefill_step,
+                                          make_decode_step)
 
 _MIN_BUCKET = 8
+Cache = Dict[str, torch.Tensor]
+
+
+class SlotKVCache:
+    """Fixed slot buffers and a free list for the persistent serving
+    cache.  Buffers are allocated at the first :meth:`write`, shaped
+    from the prefilled cache (float or int8 with scale planes) with the
+    batch axis widened to ``max_slots``."""
+
+    def __init__(self, max_slots: int):
+        self.max_slots = max_slots
+        self.buffers: Optional[Cache] = None
+        self._free = list(range(max_slots - 1, -1, -1))  # pop() -> lowest
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def acquire(self) -> int:
+        """Claim the lowest free slot (keeps live slots packed at the
+        front, so the ladder rung stays minimal)."""
+        return self._free.pop()
+
+    def release(self, slot: int) -> None:
+        """Return a slot to the free list; its stale content stays and
+        is overwritten in full at the next admission."""
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+
+    def reset(self) -> None:
+        """Free every slot; the buffers (and their stale content) are
+        kept."""
+        self._free = list(range(self.max_slots - 1, -1, -1))
+
+    def resident_bytes(self) -> int:
+        """Bytes of the slot buffers (0 until the first admission)."""
+        if self.buffers is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in self.buffers.values())
+
+    def write(self, prefill_cache: Cache, slot: int) -> None:
+        """Store a single-request prefilled cache ``(L, 1, max_seq,
+        ...)`` into ``slot``."""
+        if self.buffers is None:
+            self.buffers = {
+                name: t.new_zeros(t.shape[:1] + (self.max_slots,)
+                                  + t.shape[2:])
+                for name, t in prefill_cache.items()}
+        for name, buf in self.buffers.items():
+            buf[:, slot] = prefill_cache[name][:, 0]
 
 
 class SlotServeEngine:
-    """Ladder-locked continuous batching over storage that a subclass
-    provides (``_make_cache``, ``_store_cache``, ``_window_call``)."""
+    """Ladder-locked continuous batching over a persistent slot cache;
+    subclasses swap the storage through ``_default_decode_fn``,
+    ``_make_cache``, ``_store_cache`` and ``_window_call``."""
 
     def __init__(self, cfg: ModelConfig, params, *, device: torch.device,
                  max_batch: int = 8, max_seq: int = 256, window: int = 8,
@@ -57,6 +122,7 @@ class SlotServeEngine:
                  prefill_bucketing: bool = True,
                  policy: Optional[SchedulingPolicy] = None,
                  default_klass: str = KLASS_BATCH):
+        check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.params = params
@@ -83,6 +149,10 @@ class SlotServeEngine:
             cfg, cache_len=self._prefill_cache_len())
         self._bucket_cap = max_seq
         self._seen_buckets: set = set()
+        # Coalesced prefill is off for MoE: routing capacity couples the
+        # rows of a batch, so a group would not be row-identical to
+        # single prefills.
+        self._batch_prefill = self._bucket_enabled and cfg.moe is None
 
         self.decode_fn = self._default_decode_fn()
         self._window_rungs: set = set()   # rungs whose first window ran
@@ -106,6 +176,7 @@ class SlotServeEngine:
             "windows": 0, "rungs": [],
             "prefill_bucket_hits": 0, "prefill_bucket_misses": 0,
             "prefill_bucket_fallbacks": 0,
+            "prefill_batches": 0, "prefill_batched_reqs": 0,
             "slot_admits": 0, "slot_releases": 0,
             "preemptions": 0, "cancelled": 0,
         }
@@ -114,20 +185,22 @@ class SlotServeEngine:
         return self.max_seq
 
     def _default_decode_fn(self):
-        raise NotImplementedError(
-            "dense slot storage is not ported yet (ROADMAP.md); use "
-            "make_engine(kind='paged')")
+        return make_decode_step(self.cfg)
 
     def _make_cache(self):
-        raise NotImplementedError(
-            "dense slot storage is not ported yet (ROADMAP.md); use "
-            "make_engine(kind='paged')")
+        return SlotKVCache(self.max_batch)
 
     def _store_cache(self, req: Request, cache, slot: int) -> None:
-        raise NotImplementedError
+        """Move a single-request prefilled cache into ``slot``."""
+        self.cache.write(cache, slot)
 
     def _window_call(self, rung: int, toks, pos, budget):
-        raise NotImplementedError
+        # The window runs on a view of the first ``rung`` slots, so its
+        # in-place writes land in the full buffers (no copy back).
+        bufs = {name: t[:, :rung] for name, t in self.cache.buffers.items()}
+        return self._decode_window(
+            lambda t, p: self.decode_fn(self.params, bufs, t, p)[0],
+            toks, pos, budget, rung=rung)
 
     def _admit_cap(self) -> Optional[int]:
         """Upper bound on resident requests (None = slots only)."""
@@ -155,20 +228,19 @@ class SlotServeEngine:
         self.stats["engine"].update(self._stats_extras())
 
     # Multi-token decode window -------------------------------------------
-    def _decode_window(self, params, pools, tables, toks, pos, budget, *,
-                       rung: int):
-        """``window`` greedy tokens at batch shape ``rung``; one host
-        sync.  toks/pos/budget: (rung,) int32 device tensors — last
-        emitted token, next write position, remaining budget per slot.
-        Rows with budget <= 0 (holes, finished requests) stay frozen and
-        emit -1; their writes land in storage that is released or
-        overwritten at the next admission."""
+    def _decode_window(self, step, toks, pos, budget, *, rung: int):
+        """``window`` greedy tokens at batch shape ``rung``, ``step(tokens
+        (rung, 1), pos) -> logits`` one decode step over the storage;
+        one host sync.  toks/pos/budget: (rung,) int32 device tensors —
+        last emitted token, next write position, remaining budget per
+        slot.  Rows with budget <= 0 (holes, finished requests) stay
+        frozen and emit -1; their writes land in storage that is
+        released or overwritten at the next admission."""
         self._window_rungs.add(rung)
         vocab = self.cfg.vocab_size
         emits = []
         for _ in range(self.window):
-            logits, pools = self.decode_fn(params, pools, tables,
-                                           toks[:, None], pos)
+            logits = step(toks[:, None], pos)
             nxt = torch.argmax(logits[:, -1, :vocab], dim=-1).to(torch.int32)
             live = budget > 0
             emits.append(torch.where(live, nxt, -1))
@@ -176,7 +248,7 @@ class SlotServeEngine:
             pos = torch.where(live, pos + 1, pos)
             budget = torch.where(live, budget - 1, budget)
             budget = torch.where(pos >= self.max_seq - 1, 0, budget)
-        return pools, toks, pos, budget, torch.stack(emits)
+        return toks, pos, budget, torch.stack(emits)
 
     # Prefill (bucketed) + admission --------------------------------------
     def submit(self, req: Request) -> None:
@@ -455,17 +527,88 @@ class SlotServeEngine:
         self._cancelled.clear()
         return [completion_of(r) for r in finished]
 
+    # Coalesced prefill + warmup -------------------------------------------
     @torch.no_grad()
-    def warmup(self, rungs: Optional[Sequence[int]] = None) -> None:
-        """Run one window at every rung against allocated storage, then
-        reset all serving state, so ``stats["decode_compiles"]`` counts
-        from 0.  (Eager prefill has nothing to compile per bucket; the
-        reference's warmup also compiles the prefill buckets.)"""
-        warm = tuple(r for r in self.rungs
-                     if rungs is None or r in set(rungs))
+    def prefill_batch(self, reqs: List[Request]) -> None:
+        """Coalesced multi-prompt prefill: one batched call for each run
+        of consecutive same-bucket prompts, each row parked decode-ready
+        in the backfill queue (admitted FIFO by the next ``step``, never
+        re-prefilled).  The batch pads to the smallest ladder rung
+        covering the group with copies of row 0, which are discarded.
+        Rows are independent, so each row's first token and cache are
+        those of its single prefill (bitwise on the CPU; on the card K1
+        may sum in another order at another M).  MoE and exact-length
+        engines prefill the group one request at a time."""
+        groups: List[Tuple[Optional[int], List[Request]]] = []
+        for req in reqs:
+            b = self._bucket_len(len(req.prompt))
+            if groups and groups[-1][0] == b and b is not None:
+                groups[-1][1].append(req)
+            else:
+                groups.append((b, [req]))
+        for b, group in groups:
+            if not self._batch_prefill or b is None or len(group) == 1:
+                for req in group:
+                    self._backfill_one(req)
+                continue
+            for i in range(0, len(group), self.rungs[-1]):
+                self._prefill_group(group[i:i + self.rungs[-1]], b)
+
+    def _prefill_group(self, group: List[Request], b: int) -> None:
+        k = len(group)
+        rung = next(r for r in self.rungs if r >= k)
+        sig = (rung, b)
+        if sig in self._seen_buckets:
+            self.stats["engine"]["prefill_bucket_hits"] += 1
+        else:
+            self._seen_buckets.add(sig)
+            self.stats["engine"]["prefill_bucket_misses"] += 1
+        toks = np.zeros((rung, b), np.int32)
+        last = np.zeros(rung, np.int32)
+        for i in range(rung):
+            src = group[i] if i < k else group[0]
+            toks[i, :len(src.prompt)] = src.prompt
+            last[i] = len(src.prompt) - 1
+        logits, cache = self.prefill_fn(self.params, {
+            "tokens": torch.as_tensor(toks, device=self.device),
+            "last_index": torch.as_tensor(last, device=self.device)})
+        for i, req in enumerate(group):
+            note_first_token(req, logits[i:i + 1], self.cfg.vocab_size,
+                             self.stats)
+            row = {name: t[:, i:i + 1] for name, t in cache.items()}
+            self._backfilled.append((req, row, len(req.prompt)))
+        self.stats["engine"]["prefill_batches"] += 1
+        self.stats["engine"]["prefill_batched_reqs"] += k
+
+    def _warm_storage(self) -> None:
+        """Admit (and keep) one dummy request so the window warmup runs
+        against allocated storage: slot buffers for the dense engine,
+        pools and a valid table row for the paged one."""
         self.submit(Request(rid=-1, prompt=np.zeros(1, np.int32),
                             max_new_tokens=1))
         self._admit()
+
+    @torch.no_grad()
+    def warmup(self, max_prompt_len: Optional[int] = None,
+               rungs: Optional[Sequence[int]] = None) -> None:
+        """Run one window at every rung (``rungs``, default all) against
+        allocated storage, then reset all serving state, so
+        ``stats["decode_compiles"]`` counts from 0.  Eager prefill has
+        nothing to compile; the prefill buckets the reference's warmup
+        traces for prompts up to ``max_prompt_len`` (default: the bucket
+        capacity), single and coalesced, are marked seen, so bucket hits
+        and misses count as the reference's do after its warmup."""
+        max_len = min(max_prompt_len or self._bucket_cap, self._bucket_cap)
+        warm = tuple(r for r in self.rungs
+                     if rungs is None or r in set(rungs))
+        buckets = sorted({self._bucket_len(s)
+                          for s in range(1, max_len + 1)} - {None})
+        if self._bucket_enabled:
+            self._seen_buckets.update(buckets)
+        if self._batch_prefill:
+            self._seen_buckets.update((r, b) for r in warm if r >= 2
+                                      for b in buckets)
+        self._warm_storage()
         for rung in warm:
             # Budget-0 rows are frozen: the window computes and discards
             # their logits; they write only their own slot or the sink.

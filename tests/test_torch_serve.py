@@ -24,6 +24,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import validate_stats as jax_validate_stats
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.convert import params_from_jax
+from repro_torch.models import attention as tattn
 from repro_torch.models import moe as torch_moe
 from repro_torch.serve import (completion_of, make_engine, Request,
                                validate_stats)
@@ -188,8 +189,6 @@ def test_warmup_leaves_no_decode_compiles(setup):
 
 
 @pytest.mark.parametrize("kind,kw,exc", [
-    ("slot", {}, NotImplementedError),
-    ("sequential", {}, NotImplementedError),
     ("dense", {}, ValueError),
     ("paged", {"kv_quant": "fp8"}, ValueError),
     ("paged", {"coexec_backend": "xla"}, ValueError),
@@ -201,6 +200,22 @@ def test_unported_engine_options_raise(setup, kind, kw, exc):
     with pytest.raises(exc):
         make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams, kind=kind,
                     device="cpu", **kw)
+
+
+def test_paged_engine_refuses_the_dense_quant_flag(setup):
+    """Paged storage quantizes at the pool boundary (``kv_quant="int8"``);
+    under the dense engines' ``set_kv_cache_quant(True)`` its
+    constructor raises, as the reference's does."""
+    _, _, tparams, _ = setup
+    tattn.set_kv_cache_quant(True)
+    try:
+        with pytest.raises(NotImplementedError, match="CACHE_QUANT"):
+            make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams,
+                        kind="paged", device="cpu", **OPTS)
+    finally:
+        tattn.set_kv_cache_quant(False)
+    make_engine(torch_smoke_config("qwen2.5-0.5b"), tparams, kind="paged",
+                device="cpu", **OPTS)
 
 
 def test_unported_architectures_raise(setup):
