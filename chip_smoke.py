@@ -56,8 +56,11 @@ Phases (any failure exits non-zero before the last line is printed):
    the card (kernels) and on the CPU (plain versions) through each
    engine kind (``"paged"``, ``"slot"``, ``"sequential"``): identical
    greedy tokens per kind, and on the card the slot engine's equal to
-   the paged engine's; and one train step of each on both: the loss,
-   every gradient and the parameters after AdamW;
+   the paged engine's; the same requests through ``ServeFrontend`` over
+   the slot and paged engines on the card, submitted out of order from
+   two threads, equal to the CPU offline ``run()``'s; and one train step
+   of each on both: the loss, every gradient and the parameters after
+   AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -75,10 +78,32 @@ Phases (any failure exits non-zero before the last line is printed):
    launch on the serve's own pools against the plain version), and 16
    requests on the 8 slots with and without ``coexec_backend="kernel"``
    (identical tokens, backfilled prefills > 0);
-8. where one decode window's time goes (``torch.profiler``), on the
+8. the online frontend, after the coalesced-prefill check of phase 7,
+   on the same weights: the 8 requests through ``ServeFrontend`` over
+   ``make_engine(kind="paged")`` (``warmup()`` first), submitted by a
+   separate thread at seeded exponential gaps (mean 100 ms), one with
+   an ``on_token`` callback, then ``drain``: every handle at
+   ``length``, the callback's stream its handle's tokens, K1 and K2 > 0
+   (counters zeroed just before), ``decode_compiles`` 0, the pool
+   drained; printed: completions equal to the offline paged serve's,
+   user-observed TTFT and TPOT p50/p99 and tok/s beside the offline
+   serve's in the same call, and the card's idle share over a second,
+   profiled online serve.  Then a seeded fault storm
+   (``FaultPlan.random(0, n_events=10, horizon=24)``, a straggler
+   watchdog) on a pool of half the pages the 8 requests reserve: every
+   handle resolved (``length``, ``cancelled`` or ``deadline``), no
+   slot, page, reservation, orphan or prefix entry leaked, faults
+   logged, K1 and K2 > 0; printed: the ``length`` survivors equal to
+   the online serve's.  Then ``repro_torch.launch.serve.main`` at full
+   width on the paged engine (returns 0, K1 and K2 > 0) and
+   ``repro_torch.launch.train.main`` on the smoke config (returns 0,
+   finite losses).  An exception in a frontend thread is recorded by
+   ``threading.excepthook`` and fails the run at the next drain wait;
+   both frontend threads must be gone after ``shutdown``;
+9. where one decode window's time goes (``torch.profiler``), on the
    paged and on the slot engine: device time per kernel family against
    the window's wall time, and the top host ops;
-9. kernel times at the main path's shapes, beside the plain versions',
+10. kernel times at the main path's shapes, beside the plain versions',
    one PyTorch library call's where one computes the same function, and
    the least time the card could take (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, H100 SXM data sheet).  A time is the
@@ -99,14 +124,14 @@ Phases (any failure exits non-zero before the last line is printed):
    bf16), each path first run once
    with the counters zeroed; K7 at phi3.5-moe's expert shapes at
    capacities 2, 37 and 320 (``torch.bmm`` as the yardstick);
-10. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
+11. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
     "paged")``, with K1's, K2's and K4's counters zeroed before and > 0
     after, finite logits, ``decode_compiles`` 0, a drained pool, peak
     memory, one profiled decode window, and K4's times at the decode
     (rung 8) and 208-row prefill shapes;
-11. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
+12. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
     most that fit with AdamW's state), once the serve's model is freed:
     ``Trainer(cfg, TrainerConfig(...)).run()`` for 6 steps of 8 x 256
     synthetic tokens, ``remat="none"``, with K1's, K4's (forward and dX)
@@ -127,11 +152,15 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from contextlib import redirect_stdout
+from io import StringIO
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -770,9 +799,13 @@ def check_small_model(torch, np, label, cfg) -> None:
     """``cfg`` served on the card (kernels) and on the CPU (plain
     versions) through each engine kind: same weights, same requests,
     same greedy tokens per kind; on the card the slot engine's tokens
-    equal the paged engine's (rows are independent in both)."""
+    equal the paged engine's (rows are independent in both).  Then the
+    same requests through ``ServeFrontend`` over the slot and paged
+    engines on the card, submitted out of order from two threads: the
+    tokens must equal the CPU offline ``run()``'s (the coalesced
+    prefill is bitwise the single one in float32)."""
     from repro_torch.models import init_params
-    from repro_torch.serve import make_engine, Request
+    from repro_torch.serve import make_engine, Request, ServeFrontend
 
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
@@ -795,9 +828,38 @@ def check_small_model(torch, np, label, cfg) -> None:
     if outs["slot", "cuda"] != outs["paged", "cuda"]:
         raise AssertionError("small model: slot tokens on the card differ "
                              "from the paged engine's")
+    for kind in ("slot", "paged"):
+        eng = make_engine(cfg, gpu, kind=kind, device="cuda", max_slots=4,
+                          max_seq=64, page_size=16, window=4)
+        reqs = _requests(Request, np.random.default_rng(1), cfg.vocab_size,
+                         (33, 40, 50, 7, 16))
+        fe = ServeFrontend(eng)
+        handles = {}
+        start = threading.Barrier(2, timeout=60)
+
+        def submitter(rids):
+            start.wait()
+            for rid in rids:
+                handles[rid] = fe.submit(reqs[rid].prompt, 12, rid=rid)
+
+        threads = [threading.Thread(target=submitter, args=(rids,))
+                   for rids in ((4, 2, 0), (3, 1))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        online = sorted((c.rid, c.tokens) for c in _drain(fe, 300))
+        _shutdown(fe)
+        if online != outs[kind, "cpu"]:
+            raise AssertionError(
+                f"small model, ServeFrontend over kind={kind}: card tokens "
+                f"{online} differ from the CPU offline run's "
+                f"{outs[kind, 'cpu']}")
     _say(f"small model ({label}, 2 layers, f32): {len(outs['paged', 'cpu'])}"
          " requests through the paged, slot and sequential engines, tokens "
-         "on the card identical to the CPU plain path, slot == paged")
+         "on the card identical to the CPU plain path, slot == paged; "
+         "through ServeFrontend over slot and paged (submitted out of "
+         "order from two threads) identical to the CPU offline run")
 
 
 def check_small_train(torch, np, label, cfg) -> None:
@@ -1070,6 +1132,253 @@ def check_prefill_batch(torch, np, eng, cfg) -> None:
          f"{len(reqs)} prompts; parked caches within {worst} of their "
          f"largest magnitude of the single prefills' (tol {COALESCED_REL}); "
          f"{same} of {len(reqs)} first tokens equal")
+
+
+# An exception in a frontend thread ends that thread (the scheduler's
+# ends the serve): each one is recorded here and re-raised in the main
+# thread by _drain.
+THREAD_ERRORS = []
+
+
+def _record_thread_error(args) -> None:
+    THREAD_ERRORS.append(args)
+    _say(f"thread {args.thread.name if args.thread else '?'} raised "
+         f"{args.exc_type.__name__}: {args.exc_value}")
+
+
+def _drain(fe, timeout: float):
+    """``fe.drain`` in 5-second waits, failing at once on an exception
+    recorded from a frontend thread (or at ``timeout``)."""
+    end = time.perf_counter() + timeout
+    while True:
+        if THREAD_ERRORS:
+            err = THREAD_ERRORS[0]
+            raise RuntimeError(f"frontend thread {err.thread.name} died: "
+                               f"{err.exc_type.__name__}") from err.exc_value
+        try:
+            return fe.drain(timeout=min(5.0, end - time.perf_counter()))
+        except TimeoutError:
+            if time.perf_counter() >= end:
+                raise
+
+
+def _shutdown(fe) -> None:
+    """Stop the frontend; both of its threads must be gone."""
+    fe.shutdown(timeout=60)
+    alive = [t.name for t in (fe._scheduler_t, fe._emitter_t)
+             if t is not None and t.is_alive()]
+    if alive or THREAD_ERRORS:
+        raise AssertionError(f"frontend threads alive after shutdown: "
+                             f"{alive}; thread errors: {THREAD_ERRORS}")
+
+
+ONLINE_GAP_S = 0.1     # mean inter-arrival gap of the online serve
+
+
+def _online(torch, fe, prompts, gaps, on_token=None):
+    """Submit ``prompts`` (NEW_TOKENS each) from a separate thread at
+    ``gaps`` (request 3 carries ``on_token``) and drain.  Returns the
+    handles by rid, the completions and the wall from the first submit
+    to the drain's end."""
+    handles = {}
+
+    def submitter():
+        for rid, (p, gap) in enumerate(zip(prompts, gaps)):
+            if rid:
+                time.sleep(gap)
+            handles[rid] = fe.submit(p, NEW_TOKENS, rid=rid,
+                                     on_token=on_token if rid == 3
+                                     else None)
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=submitter, name="submitter")
+    thread.start()
+    thread.join(60)
+    done = _drain(fe, 600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(handles) != len(prompts):
+        raise AssertionError(f"{len(handles)} of {len(prompts)} submitted")
+    return handles, sorted(done, key=lambda c: c.rid), wall
+
+
+def serve_online(torch, np, cfg, params):
+    """The online serve of full-width qwen2.5-0.5b (bf16): the 8 requests
+    through ``ServeFrontend`` over the paged engine of phase 7, submitted
+    by a separate thread at seeded exponential gaps (mean 100 ms), one
+    with an ``on_token`` callback; then a seeded fault storm on a pool of
+    half the pages 8 residents reserve.  Each is checked for K1 and K2
+    launches, finish reasons and a drained pool; the offline serve of the
+    same requests on the same engine runs first, and the online metrics
+    are printed beside it."""
+    from torch.profiler import profile, ProfilerActivity
+
+    from repro_torch.distributed.fault import StragglerWatchdog
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.serve import (FaultPlan, make_engine, Request,
+                                   ServeFrontend)
+
+    opts = dict(kind="paged", max_slots=8, max_seq=256, page_size=16,
+                window=8)
+
+    def reqs():
+        return _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                         PROMPT_LENS)
+
+    prompts = [r.prompt for r in reqs()]
+    gaps = np.random.default_rng(0).exponential(ONLINE_GAP_S,
+                                                size=len(prompts))
+    eng = make_engine(cfg, params, **opts)
+    eng.warmup()
+    for req in reqs():
+        eng.submit(req)
+    t0 = time.perf_counter()
+    offline = sorted(eng.run(), key=lambda c: c.rid)
+    torch.cuda.synchronize()
+    offline_wall = time.perf_counter() - t0
+
+    fe = ServeFrontend(eng)
+    fe.warmup()
+    stream = []
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    handles, online, wall = _online(torch, fe, prompts, gaps,
+                                    on_token=stream.append)
+    launches = {k: c.n for k, c in LAUNCH_COUNTERS.items() if c.n}
+    stats, metrics = fe.stats, fe.metrics()
+    _shutdown(fe)
+    if any(not h.done for h in handles.values()) or any(
+            c.finish_reason != "length" or c.n_tokens != NEW_TOKENS
+            for c in online):
+        raise AssertionError("online serve: " + str(
+            [(c.rid, c.n_tokens, c.finish_reason) for c in online]))
+    if tuple(stream) != handles[3].result(timeout=1).tokens \
+            or tuple(handles[3].tokens) != online[3].tokens:
+        raise AssertionError(f"on_token stream {stream} differs from its "
+                             f"handle's {handles[3].tokens}")
+    if launches.get("sisa_gemm", 0) <= 0 or launches.get("paged_attn", 0) <= 0:
+        raise AssertionError(f"online serve skipped a kernel: {launches}")
+    if stats["decode_compiles"] != 0:
+        raise AssertionError(f"online decode_compiles "
+                             f"{stats['decode_compiles']} after warmup")
+    # PROMPT_LENS fall in 8 different page-multiple buckets, so the
+    # paged engine batches no group (prefill_batches stays 0); every
+    # admission still goes through the frontend's coalesced prefill.
+    if fe.coalesced_prefills <= 0:
+        raise AssertionError("no admission through prefill_batch")
+    if eng.cache.n_free_pages != eng.cache.num_pages \
+            or eng.cache.reserved_total != 0:
+        raise AssertionError("online serve: page pool did not drain")
+    n_tok = sum(c.n_tokens for c in online)
+    pct = lambda xs, q: float(np.percentile(xs, q)) * 1e3  # noqa: E731
+    out = {"requests": len(online), "tokens": n_tok,
+           "arrival_gaps_s": float(gaps[1:].sum()), "wall_s": wall,
+           "tok_per_s": n_tok / wall,
+           "ttft_p50_ms": pct(metrics["ttft"], 50),
+           "ttft_p99_ms": pct(metrics["ttft"], 99),
+           "tpot_p50_ms": pct(metrics["tpot"], 50),
+           "tpot_p99_ms": pct(metrics["tpot"], 99),
+           "offline_wall_s": offline_wall,
+           "offline_tok_per_s": sum(c.n_tokens for c in offline)
+           / offline_wall,
+           "offline_ttft_p50_ms": statistics.median(
+               [c.ttft for c in offline]) * 1e3,
+           "equal_to_offline": sum(a.tokens == b.tokens
+                                   for a, b in zip(online, offline)),
+           "coalesced_prefills": fe.coalesced_prefills,
+           "prefill_batches": stats["engine"]["prefill_batches"],
+           "decode_compiles": stats["decode_compiles"],
+           "decode_steps": stats["decode_steps"],
+           "launches": launches}
+    _say(f"online serve (ServeFrontend over paged, seeded arrivals): "
+         f"{json.dumps(out)}")
+
+    # The same online serve again, under torch.profiler's device trace
+    # only: the card's idle share over the serve's wall.
+    fe = ServeFrontend(eng)
+    fe.warmup()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, pwall = _online(torch, fe, prompts, gaps)
+    _shutdown(fe)
+    busy = sum(_self_device_us(e) for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))) / 1e3
+    _say(f"online serve profile: wall {pwall * 1e3:.1f} ms, device busy "
+         f"{busy:.2f} ms, idle share "
+         f"{(1 - busy / (pwall * 1e3)) if busy else None}")
+
+    need = sum(eng._pages_for(r) for r in reqs())
+    storm = make_engine(cfg, params, num_pages=need // 2, **opts)
+    storm.warmup()
+    plan = FaultPlan.random(0, n_events=10, horizon=24)
+    fe = ServeFrontend(storm, fault_plan=plan, watchdog=StragglerWatchdog())
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    _, faulted, swall = _online(torch, fe, prompts, np.zeros(len(prompts)))
+    launches = {k: c.n for k, c in LAUNCH_COUNTERS.items() if c.n}
+    _shutdown(fe)
+    reasons = [c.finish_reason for c in faulted]
+    c = storm.cache
+    leaks = {"free_slots": c.n_free - storm.max_batch,
+             "free_pages": c.n_free_pages - c.num_pages,
+             "reserved": c.reserved_total, "orphaned": c.orphaned_pages,
+             "prefix_entries": len(storm._prefix_registry)
+             + len(storm._page_key)}
+    if len(faulted) != len(prompts) or any(
+            r not in ("length", "cancelled", "deadline") for r in reasons):
+        raise AssertionError(f"fault storm: reasons {reasons}")
+    if any(leaks.values()):
+        raise AssertionError(f"fault storm leaked: {leaks}")
+    if not fe.fault_log:
+        raise AssertionError("fault storm: no fault fired")
+    if launches.get("sisa_gemm", 0) <= 0 or launches.get("paged_attn", 0) <= 0:
+        raise AssertionError(f"fault storm skipped a kernel: {launches}")
+    survivors = [f for f in faulted if f.finish_reason == "length"]
+    out = {"num_pages": c.num_pages, "reserve_of_8": need,
+           "fault_log": fe.fault_log,
+           "finish_reasons": {r: reasons.count(r) for r in set(reasons)},
+           "length_survivors": len(survivors),
+           "survivors_equal_to_online": sum(
+               f.tokens == online[f.rid].tokens for f in survivors),
+           "truncated_prefix_of_online": sum(
+               f.tokens == online[f.rid].tokens[:f.n_tokens]
+               for f in faulted if f.finish_reason != "length"),
+           "preemptions": storm.stats["engine"]["preemptions"],
+           "wall_s": swall, "leaks": leaks, "launches": launches}
+    _say(f"fault storm (FaultPlan.random(0, n_events=10, horizon=24)): "
+         f"{json.dumps(out)}")
+    del storm, eng
+
+
+def run_launchers(torch) -> None:
+    """Both launchers in-process on the card: ``launch.serve`` at full
+    width on the paged engine (returns 0, K1 and K2 launched), then
+    ``launch.train`` on the smoke config (returns 0, finite losses)."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.launch import serve, train
+
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    buf = StringIO()
+    with redirect_stdout(buf):
+        rc = serve.main(["--arch", "qwen2.5-0.5b", "--engine", "paged",
+                         "--requests", "8"])
+    launches = {k: c.n for k, c in LAUNCH_COUNTERS.items() if c.n}
+    _say(buf.getvalue().rstrip())
+    if rc != 0 or launches.get("sisa_gemm", 0) <= 0 \
+            or launches.get("paged_attn", 0) <= 0:
+        raise AssertionError(f"launch.serve returned {rc}, launches "
+                             f"{launches}")
+    buf = StringIO()
+    with redirect_stdout(buf):
+        rc = train.main(["--arch", "qwen2.5-0.5b", "--smoke", "--steps",
+                         "2"])
+    _say(buf.getvalue().rstrip())
+    m = re.search(r"done: loss (\S+) -> (\S+);", buf.getvalue())
+    if rc != 0 or not m or not all(math.isfinite(float(x))
+                                   for x in m.groups()):
+        raise AssertionError(f"launch.train returned {rc}")
+    _say(f"launchers: launch.serve rc 0 with launches {json.dumps(launches)};"
+         f" launch.train rc 0, loss {m.group(1)} -> {m.group(2)}")
 
 
 def _only_wgmma_routes(launches) -> dict:
@@ -2100,6 +2409,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    threading.excepthook = _record_thread_error
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2131,6 +2441,8 @@ def main() -> int:
         torch, np, cfg, ("sisa_gemm", "paged_attn"))
     profile_window(torch, np, eng, cfg)
     serve_dense(torch, np, cfg, params, flt_outs)
+    serve_online(torch, np, cfg, params)
+    run_launchers(torch)
     eng8, int8_launches, k2_pool_err = serve_int8(torch, np, kernels, cfg,
                                                   params, eng, flt_outs)
     del eng8

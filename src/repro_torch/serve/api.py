@@ -48,7 +48,9 @@ STATS_KEYS = frozenset({
 
 FINISH_LENGTH = "length"        # max_new_tokens budget exhausted
 FINISH_MAX_SEQ = "max_seq"      # hit the engine's sequence capacity
-FINISH_CANCELLED = "cancelled"  # engine.cancel()
+FINISH_ABORTED = "aborted"      # shutdown(drain=False) tore it down
+FINISH_CANCELLED = "cancelled"  # RequestHandle.cancel()/engine.cancel()
+FINISH_DEADLINE = "deadline"    # per-request deadline expired
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +60,10 @@ class Completion:
     ``tokens`` is the full greedy stream (prefill's first token
     included); ``ttft`` is seconds from submission to the first token;
     ``tpot`` is mean seconds per subsequent token (window-granular: the
-    host observes tokens once per window); ``finish_reason`` is
-    ``"length"``, ``"max_seq"`` or ``"cancelled"``.
+    host observes tokens once per window); ``finish_reason`` is one of
+    ``"length"`` (budget exhausted), ``"max_seq"`` (sequence capacity),
+    ``"aborted"`` (abortive shutdown), ``"cancelled"`` or ``"deadline"``
+    (the frontend's lifecycle exits).
     """
     rid: int
     tokens: Tuple[int, ...]

@@ -65,8 +65,10 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     # SLO scheduling (repro_torch.serve.policy): admission class (None ->
-    # batch), absolute deadline stamp, times evicted under pool pressure,
-    # and an explicit finish reason for lifecycle exits (cancel).
+    # batch), absolute deadline stamp enforced by the frontend, times
+    # evicted under pool pressure, and an explicit finish reason for
+    # lifecycle exits (cancel/deadline) that budget accounting alone
+    # cannot express.
     klass: Optional[str] = None
     deadline: Optional[float] = None
     preemptions: int = 0

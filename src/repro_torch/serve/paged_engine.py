@@ -282,6 +282,26 @@ class PagedKVCache:
     def tables(self) -> Dict[str, torch.Tensor]:
         return {"global": self.table}
 
+    def seize_pages(self, n: int) -> List[int]:
+        """Fault injection: pull up to ``n`` free pages out of
+        circulation under a ghost reservation, so ``can_reserve`` and
+        the engine's ``_admit_cap`` see real pool pressure and the free
+        list cannot underflow (the seizure is bounded by the unreserved
+        headroom, never by the free count alone).  Returns the seized
+        pages; :meth:`restore_pages` reverses the fault."""
+        headroom = self.num_pages - self.reserved_total - self._orphaned
+        take = max(0, min(n, headroom, len(self._free_pages)))
+        seized = [self._free_pages.pop() for _ in range(take)]
+        self.reserved_total += take
+        return seized
+
+    def restore_pages(self, pages: Sequence[int]) -> None:
+        """Heal a :meth:`seize_pages` fault: drop the ghost reservation
+        and return the pages to the free list (lowest popped next)."""
+        self._free_pages.extend(pages)
+        self._free_pages.sort(reverse=True)
+        self.reserved_total -= len(pages)
+
     def reset(self) -> None:
         """Free every slot and page; the pools (and their stale content,
         never attended) are kept."""
