@@ -52,15 +52,18 @@ Phases (any failure exits non-zero before the last line is printed):
    version in f32 and bf16, padding rows exactly 0, and fused equal to
    ``sequential_matmul`` bit for bit;
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
-   structure at narrow widths with 8 experts, each 2 layers) served on
-   the card (kernels) and on the CPU (plain versions) through each
-   engine kind (``"paged"``, ``"slot"``, ``"sequential"``): identical
-   greedy tokens per kind, and on the card the slot engine's equal to
-   the paged engine's; the same requests through ``ServeFrontend`` over
-   the slot and paged engines on the card, submitted out of order from
-   two threads, equal to the CPU offline ``run()``'s; and one train step
-   of each on both: the loss, every gradient and the parameters after
-   AdamW;
+   structure at narrow widths with 8 experts, each 2 layers; gemma3-1b's
+   layer structure, 5 sliding-window layers to 1 global, at narrow
+   widths with a window of 16 and 12 layers) served on the card
+   (kernels) and on the CPU (plain versions) through each engine kind
+   (``"paged"``, ``"slot"``, ``"sequential"``; gemma3's through slot and
+   sequential, with prompts across the window and past ``max_seq``):
+   identical greedy tokens per kind, and on the card the slot engine's
+   equal to the paged engine's; the same requests through
+   ``ServeFrontend`` over the slot and paged engines (gemma3's: slot) on
+   the card, submitted out of order from two threads, equal to the CPU
+   offline ``run()``'s; and one train step of each on both: the loss,
+   every gradient and the parameters after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -124,14 +127,29 @@ Phases (any failure exits non-zero before the last line is printed):
    bf16), each path first run once
    with the counters zeroed; K7 at phi3.5-moe's expert shapes at
    capacities 2, 37 and 320 (``torch.bmm`` as the yardstick);
-11. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
+11. ``gemma3-1b`` at full width and depth (26 layers, 22 of them
+    sliding-window with a window of 512) in bfloat16 with seeded random
+    weights, once the qwen model is freed: 8 requests of 16, 300, 511,
+    512, 513, 700, 1000 and 1100 prompt tokens (1100 is past
+    ``max_seq``), 32 new tokens each, through ``make_engine(kind="slot",
+    max_slots=8, max_seq=1024, window=8)`` after ``warmup()``, then
+    through ``kind="sequential"``; the launch counters zeroed just
+    before each serve: K1 > 0, K2 0, every K1 launch on the wgmma route;
+    on the slot engine ``decode_compiles`` 0, every slot drained, each
+    request's token count that of the ``max_seq`` stop rule and the
+    dense cache exactly 125,829,120 bytes (the local layers' rings hold
+    512 cells, the global layers' 1024); finite logits of the 1100-token
+    prompt; printed: K1's plans at gemma3's shapes, the completions the
+    two engines share, one profiled slot window, and K1's times (as in
+    phase 10) for one decode step at rung 8 and one 512-row prefill;
+12. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
     "paged")``, with K1's, K2's and K4's counters zeroed before and > 0
     after, finite logits, ``decode_compiles`` 0, a drained pool, peak
     memory, one profiled decode window, and K4's times at the decode
     (rung 8) and 208-row prefill shapes;
-12. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
+13. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
     most that fit with AdamW's state), once the serve's model is freed:
     ``Trainer(cfg, TrainerConfig(...)).run()`` for 6 steps of 8 x 256
     synthetic tokens, ``remat="none"``, with K1's, K4's (forward and dX)
@@ -332,6 +350,36 @@ def _k1_cases(torch, gen, dtype, table, m):
     yield "unaligned 100x36", 100, 100, rand(100, 36)
 
 
+# gemma3-1b's K1 shapes (k, n): q, k and v, o, gate and up, down; its tied
+# LM head is table.T, 1152 x 262144.
+GEMMA_K1 = ((1152, 1024), (1152, 256), (1024, 1152), (1152, 6912),
+            (6912, 1152))
+GEMMA_HEAD = (262144, 1152)
+
+
+def _gemma_k1_rows():
+    """The rows gemma3's serve (``serve_gemma3``) gives K1: decode
+    batches of 1 to 8 rows, logits read for every row; and the prefills
+    of ``GEMMA_LENS``, the slot engine's power-of-two buckets (8 at
+    least, ``GEMMA_MAX_SEQ`` at most) and the sequential engine's exact
+    lengths, 1100 exact in both, the LM head on 1 row."""
+    buckets = {min(1 << max(3, (s - 1).bit_length()), GEMMA_MAX_SEQ)
+               for s in GEMMA_LENS if s <= GEMMA_MAX_SEQ}
+    return tuple(range(1, 9)), tuple(sorted(buckets | set(GEMMA_LENS)))
+
+
+def _k1_gemma_cases(torch, gen, table, head):
+    """(name, A's column count, A's row stride, B) at gemma3's shapes,
+    bf16; the tied LM head (trans_b) when ``head``."""
+    for k, n in GEMMA_K1:
+        yield (f"gemma {k}x{n}", k, k,
+               (torch.randn(k, n, device="cuda", generator=gen)
+                / k ** 0.5).bfloat16())
+    if head:
+        yield (f"gemma lm_head {table.shape[1]}x{table.shape[0]} trans_b",
+               table.shape[1], table.shape[1], table.T)
+
+
 def _k1_plans_of(kernels, m, k, n):
     """The launch plans of one bf16 K1 call with aligned rows: one per
     row pass (the ragged residual is its own pass)."""
@@ -342,35 +390,51 @@ def check_k1(torch, kernels, gen) -> float:
     """Every tile height at full height (M = 16, 32, 64, 128, 256), the
     decode rungs 1 and 8, and the ragged main-plus-residual split
     (M = 200 and the 208-row prefill's 128 + 80), each at the main path's
-    shapes and the ragged cases.  The bf16 plans reached must cover every
-    branch of K1's wgmma body that the main path's shapes use: swap-AB at
-    n8 and n16, each cluster size, and each CTA tile."""
+    shapes and the ragged cases; then, in bf16, gemma3's shapes at every
+    row count its serve gives K1 (``_gemma_k1_rows``).  The bf16 plans
+    reached must cover every branch of K1's wgmma body that the main
+    path's shapes use: swap-AB at n8 and n16, each cluster size, and
+    each CTA tile."""
     worst, n_cases = 0.0, 0
     reached = set()
+
+    def check(dtype, m, name, k, lda, b):
+        nonlocal worst, n_cases
+        a = torch.randn(m, lda, device="cuda",
+                        generator=gen).to(dtype)[:, :k]
+        ref = kernels.sisa_gemm_plain(a, b)
+        err = _max_err(f"K1 {dtype} M={m} {name}", kernels.sisa_matmul(a, b),
+                       ref, 0.0 if dtype == torch.float32 else BF16_REL,
+                       _f32_atol(ref))
+        worst = max(worst, err)
+        n_cases += 1
+        if dtype == torch.bfloat16 and k % 8 == 0:
+            reached.update((p.swap_ab, p.bm, p.bn, p.cluster)
+                           for p in _k1_plans_of(kernels, m, k, b.shape[1]))
+
     for dtype in (torch.float32, torch.bfloat16):
-        rel = 0.0 if dtype == torch.float32 else BF16_REL
         table = (torch.randn(153600, 896, device="cuda", generator=gen)
                  / 896 ** 0.5).to(dtype)
         for m in K1_ROWS:
-            for name, k, lda, b in _k1_cases(torch, gen, dtype, table, m):
-                a = torch.randn(m, lda, device="cuda",
-                                generator=gen).to(dtype)[:, :k]
-                ref = kernels.sisa_gemm_plain(a, b)
-                err = _max_err(f"K1 {dtype} M={m} {name}",
-                               kernels.sisa_matmul(a, b), ref, rel,
-                               _f32_atol(ref))
-                worst = max(worst, err)
-                n_cases += 1
-                if dtype == torch.bfloat16 and k % 8 == 0:
-                    reached.update((p.swap_ab, p.bm, p.bn, p.cluster)
-                                   for p in _k1_plans_of(kernels, m, k,
-                                                         b.shape[1]))
+            for case in _k1_cases(torch, gen, dtype, table, m):
+                check(dtype, m, *case)
+    decode_rows, prefill_rows = _gemma_k1_rows()
+    table = (torch.randn(*GEMMA_HEAD, device="cuda", generator=gen)
+             / GEMMA_HEAD[1] ** 0.5).bfloat16()
+    for m in decode_rows + prefill_rows:
+        for case in _k1_gemma_cases(torch, gen, table,
+                                    head=m in decode_rows):
+            check(torch.bfloat16, m, *case)
+    del table
     # qwen's serve (decode rungs, the 208-row prefill), phi's serve and
-    # training (2048 rows).
+    # training (2048 rows), gemma3's serve.
     qwen = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 153600))
     phi = ((4096, 4096), (4096, 1024), (4096, 32768))
+    gemma_head = GEMMA_K1 + ((GEMMA_HEAD[1], GEMMA_HEAD[0]),)
     main_path = [p for ms, shapes in (((1, 8, 16, 208), qwen),
-                                      ((8, 208, 2048), phi))
+                                      ((8, 208, 2048), phi),
+                                      (decode_rows, gemma_head),
+                                      (prefill_rows, GEMMA_K1))
                  for m in ms for k, n in shapes
                  for p in _k1_plans_of(kernels, m, k, n)]
 
@@ -385,7 +449,8 @@ def check_k1(torch, kernels, gen) -> float:
         raise AssertionError(f"K1 branches of the main path not checked: "
                              f"{sorted(need - got)}")
     _say(f"k1: {n_cases} cases (M in {K1_ROWS}; main-path shapes and "
-         f"ragged edges; f32 and bf16) agree with the plain version (max "
+         f"ragged edges; f32 and bf16; gemma3's shapes in bf16 at M in "
+         f"{decode_rows + prefill_rows}) agree with the plain version (max "
          f"abs err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 "
          f"2^-7*|ref| + 2e-5*max|ref|); bf16 plans reached (swap-AB, bm, bn, "
          f"cluster): {sorted(reached)}")
@@ -779,10 +844,39 @@ def _requests(Request, rng, vocab, lens):
             for i, p in enumerate(prompts)]
 
 
+def _max_seq_counts(lens, new, max_seq):
+    """Each request's token count under the ``max_seq`` stop rule: the
+    first token, then decode (one step at least) until ``new`` tokens
+    or the position reaches ``max_seq - 1``."""
+    return [1 + min(new - 1, max(1, max_seq - 1 - s)) for s in lens]
+
+
+def _serve_offline(eng, kind, reqs, max_seq):
+    """``reqs`` served offline; completions in rid order.  The
+    sequential engine decodes a batch at its longest row's position and
+    stops the whole batch at ``max_seq``, so there the requests that
+    leave room for every new token run together and each longer one in
+    a run of its own: each request then gets its count of
+    :func:`_max_seq_counts`, as on the slot engine."""
+    groups = [reqs]
+    if kind == "sequential":
+        fits = [len(r.prompt) + r.max_new_tokens <= max_seq for r in reqs]
+        groups = ([[r for r, f in zip(reqs, fits) if f]]
+                  + [[r] for r, f in zip(reqs, fits) if not f])
+    done = []
+    for group in groups:
+        for req in group:
+            eng.submit(req)
+        done += eng.run()
+    return sorted(done, key=lambda c: c.rid)
+
+
 def _small_configs():
-    """qwen2.5-0.5b's widths, and phi3.5-moe-42b's layer structure (GQA
-    32/8 at head_dim 128, top-2 MoE) at narrow widths with 8 experts,
-    each cut to 2 layers and a 4096-token vocabulary, in float32."""
+    """qwen2.5-0.5b's widths, phi3.5-moe-42b's layer structure (GQA 32/8
+    at head_dim 128, top-2 MoE) at narrow widths with 8 experts, each
+    cut to 2 layers, and gemma3-1b's layer structure (5 sliding-window
+    layers to 1 global, GQA 4/1) at narrow widths with a window of 16
+    and 12 layers; a 4096-token vocabulary, float32."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MoEConfig
 
@@ -792,47 +886,71 @@ def _small_configs():
                               d_model=512, d_ff=1024, vocab_size=4096,
                               moe=MoEConfig(n_experts=8, top_k=2),
                               param_dtype="float32")
-    return {"qwen2.5-0.5b widths": qwen, "phi3.5-moe structure": phi}
+    gemma = dataclasses.replace(get_config("gemma3-1b"), n_layers=12,
+                                d_model=512, head_dim=128, d_ff=1024,
+                                sliding_window=16, vocab_size=4096,
+                                param_dtype="float32")
+    return {"qwen2.5-0.5b widths": qwen, "phi3.5-moe structure": phi,
+            "gemma3 structure": gemma}
+
+
+# The small models' prompts: each crosses the paged engine's 16-token
+# pages; gemma3's also cross its window of 16 and max_seq = 64 (70 and
+# 100 take the exact-length prefill into the ring).
+SMALL_LENS = (33, 40, 50, 7, 16)
+SMALL_LOCAL_LENS = (33, 40, 70, 7, 16, 17, 100)
 
 
 def check_small_model(torch, np, label, cfg) -> None:
     """``cfg`` served on the card (kernels) and on the CPU (plain
-    versions) through each engine kind: same weights, same requests,
-    same greedy tokens per kind; on the card the slot engine's tokens
-    equal the paged engine's (rows are independent in both).  Then the
-    same requests through ``ServeFrontend`` over the slot and paged
-    engines on the card, submitted out of order from two threads: the
-    tokens must equal the CPU offline ``run()``'s (the coalesced
-    prefill is bitwise the single one in float32)."""
+    versions) through each engine kind (slot and sequential for a model
+    with sliding-window layers, which the paged engine does not serve
+    yet): same weights, same requests, same greedy tokens per kind; on
+    the card the slot engine's tokens equal the paged engine's (rows are
+    independent in both).  Then the same requests through
+    ``ServeFrontend`` over the slot (and paged) engines on the card,
+    submitted out of order from two threads: the tokens must equal the
+    CPU offline ``run()``'s (the coalesced prefill is bitwise the single
+    one in float32)."""
+    from repro_torch.configs.base import LOCAL
     from repro_torch.models import init_params
     from repro_torch.serve import make_engine, Request, ServeFrontend
 
+    local = LOCAL in cfg.layer_kinds()
+    kinds = ("slot", "sequential") if local else ("paged", "slot",
+                                                  "sequential")
+    lens = SMALL_LOCAL_LENS if local else SMALL_LENS
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
     outs = {}
-    for kind in ("paged", "slot", "sequential"):
+    for kind in kinds:
         for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
             eng = make_engine(cfg, params, kind=kind, device=dev,
                               max_slots=4, max_seq=64, page_size=16,
                               window=4)
-            rng = np.random.default_rng(1)
-            for req in _requests(Request, rng, cfg.vocab_size,
-                                 (33, 40, 50, 7, 16)):
+            reqs = _requests(Request, np.random.default_rng(1),
+                             cfg.vocab_size, lens)
+            for req in reqs:
                 req.max_new_tokens = 12
-                eng.submit(req)
-            outs[kind, dev] = sorted((c.rid, c.tokens) for c in eng.run())
+            done = _serve_offline(eng, kind, reqs, 64)
+            counts = [c.n_tokens for c in done]
+            if counts != _max_seq_counts(lens, 12, 64):
+                raise AssertionError(
+                    f"small model, kind={kind} on {dev}: token counts "
+                    f"{counts}, want {_max_seq_counts(lens, 12, 64)}")
+            outs[kind, dev] = [(c.rid, c.tokens) for c in done]
         if outs[kind, "cpu"] != outs[kind, "cuda"]:
             raise AssertionError(
                 f"small model, kind={kind}: card tokens {outs[kind, 'cuda']}"
                 f" differ from the CPU's {outs[kind, 'cpu']}")
-    if outs["slot", "cuda"] != outs["paged", "cuda"]:
+    if not local and outs["slot", "cuda"] != outs["paged", "cuda"]:
         raise AssertionError("small model: slot tokens on the card differ "
                              "from the paged engine's")
-    for kind in ("slot", "paged"):
+    for kind in kinds[:-1]:
         eng = make_engine(cfg, gpu, kind=kind, device="cuda", max_slots=4,
                           max_seq=64, page_size=16, window=4)
         reqs = _requests(Request, np.random.default_rng(1), cfg.vocab_size,
-                         (33, 40, 50, 7, 16))
+                         lens)
         fe = ServeFrontend(eng)
         handles = {}
         start = threading.Barrier(2, timeout=60)
@@ -842,8 +960,9 @@ def check_small_model(torch, np, label, cfg) -> None:
             for rid in rids:
                 handles[rid] = fe.submit(reqs[rid].prompt, 12, rid=rid)
 
-        threads = [threading.Thread(target=submitter, args=(rids,))
-                   for rids in ((4, 2, 0), (3, 1))]
+        rids = list(range(len(lens)))[::-1]
+        threads = [threading.Thread(target=submitter, args=(rids[i::2],))
+                   for i in (0, 1)]
         for t in threads:
             t.start()
         for t in threads:
@@ -855,11 +974,15 @@ def check_small_model(torch, np, label, cfg) -> None:
                 f"small model, ServeFrontend over kind={kind}: card tokens "
                 f"{online} differ from the CPU offline run's "
                 f"{outs[kind, 'cpu']}")
-    _say(f"small model ({label}, 2 layers, f32): {len(outs['paged', 'cpu'])}"
-         " requests through the paged, slot and sequential engines, tokens "
-         "on the card identical to the CPU plain path, slot == paged; "
-         "through ServeFrontend over slot and paged (submitted out of "
-         "order from two threads) identical to the CPU offline run")
+    _say(f"small model ({label}, {cfg.n_layers} layers, f32): "
+         f"{len(outs[kinds[0], 'cpu'])} requests of {list(lens)} prompt "
+         f"tokens through the {', '.join(kinds)} engines (the sequential "
+         f"one's past max_seq - 12 each alone), "
+         f"{_max_seq_counts(lens, 12, 64)} tokens each, tokens on the "
+         f"card identical to the CPU plain path"
+         f"{'' if local else ', slot == paged'}; through ServeFrontend "
+         f"over {' and '.join(kinds[:-1])} (submitted out of order from "
+         "two threads) identical to the CPU offline run")
 
 
 def check_small_train(torch, np, label, cfg) -> None:
@@ -1132,6 +1255,164 @@ def check_prefill_batch(torch, np, eng, cfg) -> None:
          f"{len(reqs)} prompts; parked caches within {worst} of their "
          f"largest magnitude of the single prefills' (tol {COALESCED_REL}); "
          f"{same} of {len(reqs)} first tokens equal")
+
+
+# gemma3-1b at full width: 8 requests whose prompts sit below, at and
+# above its 512-token window and up to past max_seq (1100 takes the
+# exact-length prefill into every ring).  The dense cache at 8 slots and
+# max_seq 1024, bf16: 2 (K, V) x 8 slots x 1 KV head x 256 x 2 bytes x
+# (4 global layers x 1024 + 22 local layers x 512) cells.
+GEMMA_LENS = (16, 300, 511, 512, 513, 700, 1000, 1100)
+GEMMA_MAX_SEQ = 1024
+GEMMA_CACHE_BYTES = 125_829_120
+
+
+def _k1_wgmma_only(launches) -> None:
+    """Raises unless every K1 launch of a run took the wgmma body (none
+    fell to the CUDA-core body)."""
+    if launches["sisa_gemm_core"]:
+        raise AssertionError(f"{launches['sisa_gemm_core']} of "
+                             f"{launches['sisa_gemm']} K1 launches took the "
+                             "CUDA-core body")
+
+
+def serve_gemma3(torch, np, kernels) -> None:
+    """``gemma3-1b`` at full width and depth in bf16 (seeded random
+    weights): the 8 requests of ``GEMMA_LENS``, 32 new tokens each,
+    through ``make_engine(kind="slot", max_slots=8, max_seq=1024,
+    window=8)`` after ``warmup()``, then through ``kind="sequential"``
+    (``_serve_offline``: the 1000- and 1100-token prompts each in a run
+    of its own).  Every launch counter is zeroed just before each serve;
+    K1's must be > 0 and K2's 0 just after, and every K1 launch on the
+    wgmma route.  Each request's token count is that of the ``max_seq``
+    stop rule on both engines.  The slot serve: ``decode_compiles`` 0,
+    every slot drained, and the dense cache exactly
+    ``GEMMA_CACHE_BYTES``.  Finite logits of the
+    expected shape from the 1100-token prompt.  Printed: the completions
+    the two engines share, one profiled slot window, and K1's time for
+    one decode step (rung 8) and one 512-row prefill at gemma3's
+    shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.sisa_gemm import k1_plan
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import cache_capacity
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.serve import make_engine, Request, validate_stats
+
+    cfg = get_config("gemma3-1b")
+    cells = sum(cache_capacity(kind, GEMMA_MAX_SEQ, cfg.sliding_window)
+                for kind in cfg.layer_kinds())
+    if 2 * 8 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * cells \
+            != GEMMA_CACHE_BYTES:
+        raise AssertionError(f"gemma3 cache cells {cells}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    _say(f"params: {cfg.name} full width, {cfg.n_layers} layers "
+         f"({cfg.layer_kinds().count('local')} sliding-window, window "
+         f"{cfg.sliding_window}), "
+         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G weights "
+         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
+    hd, d, ff = cfg.resolved_head_dim, cfg.d_model, cfg.d_ff
+    shapes = {"q": (d, cfg.n_heads * hd), "k, v": (d, cfg.n_kv_heads * hd),
+              "o": (cfg.n_heads * hd, d), "gate, up": (d, ff),
+              "down": (ff, d), "lm head (table.T)": (d, padded_vocab(
+                  cfg.vocab_size))}
+    _say("gemma3 K1 plans (k, n) at the decode rung 8 and a 512-row "
+         "prefill: " + json.dumps({
+             name: [dataclasses.asdict(k1_plan(m, n, k)) for m in (8, 512)]
+             for name, (k, n) in shapes.items()}))
+    outs, slot_eng = {}, None
+    for kind in ("slot", "sequential"):
+        eng = make_engine(cfg, params, kind=kind, max_slots=8,
+                          max_seq=GEMMA_MAX_SEQ, window=8)
+        if kind == "slot":
+            eng.warmup()
+        reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                         GEMMA_LENS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        done = _serve_offline(eng, kind, reqs, GEMMA_MAX_SEQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+        _k1_wgmma_only(launches)
+        validate_stats(eng.stats)
+        if launches["sisa_gemm"] <= 0 or launches["paged_attn"] \
+                or launches["paged_attn_int8"]:
+            raise AssertionError(f"gemma3 {kind} serve: {launches}")
+        if len(done) != len(GEMMA_LENS) or not all(
+                0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+            raise AssertionError(f"gemma3 {kind} serve: {done}")
+        counts = [c.n_tokens for c in done]
+        want = _max_seq_counts(GEMMA_LENS, NEW_TOKENS, GEMMA_MAX_SEQ)
+        if counts != want:
+            raise AssertionError(f"gemma3 {kind} token counts {counts}, "
+                                 f"want {want}")
+        if kind == "slot":
+            if eng.stats["decode_compiles"] != 0:
+                raise AssertionError("gemma3 slot decode_compiles "
+                                     f"{eng.stats['decode_compiles']}")
+            ext = eng.stats["engine"]
+            if eng.cache.n_free != eng.max_batch or ext["slot_admits"] \
+                    != ext["slot_releases"]:
+                raise AssertionError("gemma3 slots did not drain")
+            nbytes = eng.cache.resident_bytes()
+            if nbytes != GEMMA_CACHE_BYTES:
+                raise AssertionError(f"gemma3 dense cache {nbytes} bytes, "
+                                     f"want {GEMMA_CACHE_BYTES}")
+            slot_eng = eng
+        outs[kind] = done
+        n_tok = sum(counts)
+        summary = {
+            "model": cfg.name, "kind": kind, "layers": cfg.n_layers,
+            "max_seq": GEMMA_MAX_SEQ, "prompts": list(GEMMA_LENS),
+            "tokens": counts, "finish": [c.finish_reason for c in done],
+            "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_compiles": eng.stats["decode_compiles"],
+            "decode_steps": eng.stats["decode_steps"],
+            "batches": eng.stats["batches"],
+            "cache_bytes": (eng.cache.resident_bytes() if kind == "slot"
+                            else None),
+            "launches": launches}
+        _say(f"gemma3 serve: {json.dumps(summary)}")
+    # Finite f32 logits of the expected shape, from the prompt past
+    # max_seq (exact length: every ring laid by the per-row gather).
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    prompt = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                       GEMMA_LENS)[-1].prompt
+    logits, cache = slot_eng.prefill_fn(params, {
+        "tokens": torch.as_tensor(prompt[None], device=slot_eng.device),
+        "last_index": len(prompt) - 1})
+    _k1_wgmma_only({name: c.n for name, c in LAUNCH_COUNTERS.items()})
+    if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
+            or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        raise AssertionError(f"gemma3 bad logits {logits.shape}")
+    if sum(t.numel() * t.element_size() for t in cache.values()) \
+            != GEMMA_CACHE_BYTES // 8:
+        raise AssertionError("gemma3 prefill cache bytes")
+    same = sum(a.tokens == b.tokens
+               for a, b in zip(outs["slot"], outs["sequential"]))
+    first = sum(a.tokens[:2] == b.tokens[:2]
+                for a, b in zip(outs["slot"], outs["sequential"]))
+    _say(f"gemma3: {same} of {len(GEMMA_LENS)} completions of the slot and "
+         f"sequential serves equal, {first} equal in their first two "
+         "tokens (the sequential engine decodes a batch at its longest "
+         "row's position; its prefill is exact-length, the slot engine's "
+         "bucketed)")
+    profile_window(torch, np, slot_eng, cfg)
+    for rows, what in ((8, "decode step (rung 8"), (512, "prefill (512 rows, "
+                                                     "LM head on 1 row")):
+        t = time_k1(torch, kernels, params, cfg, rows=rows)
+        _say(f"k1 gemma3-1b {what}, {t['gemms']} GEMMs): {json.dumps(t)}")
 
 
 # An exception in a frontend thread ends that thread (the scheduler's
@@ -1489,25 +1770,27 @@ def _host_us(torch, fns: dict, calls: int) -> dict:
 
 
 def time_k1(torch, kernels, params, cfg, rows: int):
-    """All K1 work of one forward at ``rows`` rows: 7 linears x 24
-    layers, plus the LM head over ``min(rows, 8)`` rows (decode reads
-    logits for every row, prefill for the last token only)."""
+    """All K1 work of one forward at ``rows`` rows: 7 linears a layer,
+    plus the LM head over ``min(rows, 8)`` rows (decode reads logits for
+    every row, prefill for the last token only)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    d = cfg.d_model
-    x_d = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
-    x_ff = torch.randn(rows, cfg.d_ff, device="cuda",
-                       generator=gen).bfloat16()
-    head_rows = rows if rows <= 8 else 1
-    x_head = x_d[:head_rows]
-    table_t = params["embed"]["table"].T
+    xs = {}                             # one input a contraction width
+
+    def x_of(k):
+        if k not in xs:
+            xs[k] = torch.randn(rows, k, device="cuda",
+                                generator=gen).bfloat16()
+        return xs[k]
+
     gemms = []
     for layer in params["layers"]:
         mix, mlp = layer["mixer"], layer["mlp"]
-        gemms += [(x_d, mix["q"]["w"]), (x_d, mix["k"]["w"]),
-                  (x_d, mix["v"]["w"]), (x_d, mix["o"]["w"]),
-                  (x_d, mlp["gate"]["w"]), (x_d, mlp["up"]["w"]),
-                  (x_ff, mlp["down"]["w"])]
-    gemms.append((x_head, table_t))
+        gemms += [(x_of(w.shape[0]), w) for w in (
+            mix["q"]["w"], mix["k"]["w"], mix["v"]["w"], mix["o"]["w"],
+            mlp["gate"]["w"], mlp["up"]["w"], mlp["down"]["w"])]
+    head_rows = rows if rows <= 8 else 1
+    gemms.append((x_of(cfg.d_model)[:head_rows],
+                  params["embed"]["table"].T))
 
     def run(fn):
         return lambda: [fn(a, b) for a, b in gemms]
@@ -2468,6 +2751,10 @@ def main() -> int:
     _say(f"k3 decode step (rung 8, {k3['gemms']} GEMMs, slabs of "
          f"{K3_BK}): {json.dumps(k3)}")
     del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve_gemma3(torch, np, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 

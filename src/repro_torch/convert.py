@@ -20,7 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import cache_layout, check_supported
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -49,13 +49,17 @@ def _unstack_layers(groups, cfg: ModelConfig):
 def cache_from_jax(caches, cfg: ModelConfig, device=None
                    ) -> Dict[str, torch.Tensor]:
     """The reference's dense cache (a list of per-group pytrees, leaves
-    already numpy) as the port's layer-stacked cache."""
+    already numpy) as the port's per-class layer stacks."""
     check_supported(cfg)
     dev = resolve_device(device)
-    layers = [{name: np.asarray(x)[r] for name, x in group[b].items()}
-              for group, b, r in _unstack_layers(caches, cfg)]
-    return {name: _tensor(np.stack([layer[name] for layer in layers]), dev)
-            for name in layers[0]}
+    stacks: Dict[str, list] = {}
+    for (group, b, r), (pre, _) in zip(_unstack_layers(caches, cfg),
+                                       cache_layout(cfg)):
+        stacks.setdefault(pre, []).append(
+            {name: np.asarray(x)[r] for name, x in group[b].items()})
+    return {pre + name: _tensor(np.stack([layer[name] for layer in layers]),
+                                dev)
+            for pre, layers in stacks.items() for name in layers[0]}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

@@ -29,9 +29,9 @@
 Each kernel module keeps a plain PyTorch version beside the kernel
 (used for CPU tensors and as the reference on the card) and a launch
 counter (``LAUNCHES``; K4 counts its forward and its transposed-weight
-dX launches apart, K2 its int8-pool launches, K3 its CUDA-core
-partials' launches), gathered here in ``LAUNCH_COUNTERS`` by kernel
-name.  Importing builds nothing.
+dX launches apart, K2 its int8-pool launches, K1 its CUDA-core body's
+launches and K3 its CUDA-core partials' launches), gathered here in
+``LAUNCH_COUNTERS`` by kernel name.  Importing builds nothing.
 """
 from repro_torch.kernels.coexec import LAUNCHES as _K6_LAUNCHES
 from repro_torch.kernels.coexec import (build_coexec_plan, coexec_matmul,
@@ -67,6 +67,7 @@ from repro_torch.kernels.paged_attn import (K2Plan, k2_plan,
                                             quantize_page_pool,
                                             set_paged_attn_backend)
 from repro_torch.kernels.sisa_gemm import LAUNCHES as _K1_LAUNCHES
+from repro_torch.kernels.sisa_gemm import CORE_LAUNCHES as _K1_CORE_LAUNCHES
 from repro_torch.kernels.sisa_gemm import SPLITK_LAUNCHES as _K3_LAUNCHES
 from repro_torch.kernels.sisa_gemm import \
     SPLITK_CORE_LAUNCHES as _K3_CORE_LAUNCHES
@@ -76,7 +77,9 @@ from repro_torch.kernels.sisa_gemm import (BlockConfig, choose_block_config,
                                            sisa_gemm_splitk,
                                            sisa_gemm_splitk_plain)
 
-LAUNCH_COUNTERS = {"sisa_gemm": _K1_LAUNCHES, "paged_attn": _K2_LAUNCHES,
+LAUNCH_COUNTERS = {"sisa_gemm": _K1_LAUNCHES,
+                   "sisa_gemm_core": _K1_CORE_LAUNCHES,
+                   "paged_attn": _K2_LAUNCHES,
                    "paged_attn_int8": _K2_INT8_LAUNCHES,
                    "grouped_gemm": _K4_LAUNCHES,
                    "grouped_gemm_dx": _K4_DX_LAUNCHES,

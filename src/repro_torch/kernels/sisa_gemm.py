@@ -44,6 +44,8 @@ kernel, so operands are never padded.
 or raises; it takes its plain version, :func:`sisa_gemm_plain`, only
 for CPU tensors.  :func:`sisa_gemm_plan_plain` follows a plan's K
 slices (:func:`plan_k_slices`) and rank-order sum on the CPU.
+``LAUNCHES`` counts its launches and ``CORE_LAUNCHES`` those of them
+that took the CUDA-core body.
 
 K3, the split-K variant (``repro/kernels/sisa_gemm.py::_splitk_kernel``,
 ``pallas_call`` at line 132), is :func:`sisa_gemm_splitk`: C summed over
@@ -90,6 +92,8 @@ K1_MIN_CTAS = SMS // 2     # CTAs a plan splits K to reach
 K3_MAX_CLUSTER = 8         # CTAs a K3 cluster deals its slabs to
 
 LAUNCHES = _build.LaunchCounter("sisa_gemm")
+# K1's launches on the CUDA-core body (float32 and unaligned bf16).
+CORE_LAUNCHES = _build.LaunchCounter("sisa_gemm_core")
 # K3's two routes: one wgmma launch a call (the slab sum inside), or the
 # CUDA-core partials that torch.sum adds.
 SPLITK_LAUNCHES = _build.LaunchCounter("sisa_gemm_splitk")
@@ -308,6 +312,7 @@ def sisa_gemm(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, lda, sbk,
             sbn, n, trans_b, _DTYPES[a.dtype],
             choose_block_config(m, n, k, a.dtype).bm, stream)
+        CORE_LAUNCHES.n += 1
     LAUNCHES.n += 1
     _build.check("sisa_gemm", err)
     return out

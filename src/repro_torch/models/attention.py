@@ -1,15 +1,26 @@
-"""GQA global causal attention with dense and paged KV decode (the port
-of the global ``ATTN`` part of ``repro/models/attention.py``).
+"""GQA causal attention, global (``ATTN``) and sliding-window
+(``LOCAL``), with dense and paged KV decode (the port of the causal
+self-attention part of ``repro/models/attention.py``).
 
 Prefill attention is plain PyTorch (the reference's is plain XLA, not
 Pallas): einsum logits with f32 accumulation, softmax in f32, the
-probabilities cast to ``q.dtype`` before the PV product.  Decode reads
-either a dense per-row cache ``{"k","v": (B, cap, Hkv, hd)}`` in plain
-PyTorch (:func:`attn_decode_step`; the reference's is plain XLA too) or
-the shared page pool through K2 (:func:`paged_attn_decode_step`).
-Dense caches are int8 with bf16 scale planes ``"k_s","v_s"`` while
-:func:`set_kv_cache_quant` is on.  Sliding-window, bidirectional and
-cross attention are later slices.
+probabilities cast to ``q.dtype`` before the PV product.  A ``LOCAL``
+layer masks keys more than ``cfg.sliding_window`` positions back.
+The reference's opt-in banded local and chunked global prefill forms
+(``set_attention_impl``) are not ported: nothing in the port selects
+them yet.
+
+Decode reads either a dense per-row cache ``{"k","v": (B, cap, Hkv,
+hd)}`` in plain PyTorch (:func:`attn_decode_step`; the reference's is
+plain XLA too) or the shared page pool through K2
+(:func:`paged_attn_decode_step`, global layers only).  A dense cache is
+a ring: a global layer's capacity is the engine's ``max_seq``, a local
+layer's ``min(max_seq, window)`` (:func:`cache_capacity`), and that
+capacity is all that limits a local layer's window at decode.
+:func:`prefill_into_cache` lays a prompt longer than the capacity as
+that ring.  Dense caches are int8 with bf16 scale planes ``"k_s","v_s"``
+while :func:`set_kv_cache_quant` is on.  Bidirectional and cross
+attention are later slices.
 """
 from __future__ import annotations
 
@@ -60,18 +71,27 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _causal_mask(sq: int, skv: int, device) -> Tensor:
+def _causal_mask(sq: int, skv: int, window: Optional[int],
+                 device) -> Tensor:
     qi = torch.arange(sq, device=device)[:, None]
     kj = torch.arange(skv, device=device)[None, :]
-    return (kj <= qi)[None, None]                   # (1, 1, Sq, Skv)
+    mask = kj <= qi
+    if window is not None:
+        mask &= (qi - kj) < window
+    return mask[None, None]                         # (1, 1, Sq, Skv)
 
 
-def attn_apply(p, x: Tensor, cfg, *, positions: Optional[Tensor] = None
+def attn_apply(p, x: Tensor, cfg, *, kind: str = "attn",
+               positions: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Full-sequence causal attention (prefill).  Returns the output and
-    the post-RoPE K/V, which :func:`prefill_into_cache` lays into a
-    cache (the reference projects K/V a second time for that; the values
-    are the same)."""
+    """Full-sequence causal attention (training and prefill), ``kind``
+    ``"attn"`` (global) or ``"local"`` (sliding window): the masked
+    softmax, the reference's default form.  Returns the output and the post-RoPE K/V, which
+    :func:`prefill_into_cache` lays into a cache (the reference projects
+    K/V a second time for that; the values are the same)."""
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"attention kind {kind!r}: bidirectional "
+                                  "and cross attention are later slices")
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -81,8 +101,9 @@ def attn_apply(p, x: Tensor, cfg, *, positions: Optional[Tensor] = None
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                _causal_mask(s, s, x.device))
+    mask = _causal_mask(s, s, cfg.sliding_window if kind == "local"
+                        else None, x.device)
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), mask)
     out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
     return linear_apply(p["o"], out), k, v
 
@@ -127,19 +148,42 @@ def init_cache(batch: int, cap: int, n_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def prefill_into_cache(k: Tensor, v: Tensor, cap: int) -> Dict[str, Tensor]:
-    """Lay a prompt's post-RoPE K/V ``(B, S, Hkv, hd)`` into a cache of
-    capacity ``cap >= S`` (zero tail), quantized while
-    :data:`CACHE_QUANT` is on.  Global layers only: the rolled ring
-    layout for ``S > cap`` belongs to sliding-window layers."""
-    s = k.shape[1]
-    if s > cap:
-        raise NotImplementedError(
-            "ring-buffer caches (sliding-window layers) are a later slice")
-    pad = cap - s
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+def prefill_into_cache(k: Tensor, v: Tensor, cap: int,
+                       last_index=None) -> Dict[str, Tensor]:
+    """Lay a prompt's post-RoPE K/V ``(B, S, Hkv, hd)`` into a ring
+    cache of capacity ``cap``, quantized after the layout while
+    :data:`CACHE_QUANT` is on, as the reference's ``prefill_into_cache``
+    lays it:
+
+    * ``S <= cap``: positions 0..S-1 in cells 0..S-1, a zero tail;
+    * ``S > cap`` with ``last_index`` (an int, a 0-dim tensor or a
+      ``(B,)`` vector: each row's real last token under right-padded
+      prefill): per row, cell ``j`` takes position ``last - ((last - j)
+      mod cap)``, the one position in ``(last - cap, last]`` that is
+      ``j`` mod ``cap``, zeroed where it is negative (a row shorter
+      than ``cap``, whose decode mask never reads those cells);
+    * ``S > cap`` without it: the last ``cap`` positions, rolled so
+      position ``t`` sits in cell ``t mod cap``.
+    """
+    b, s = k.shape[:2]
+    if s <= cap:
+        pad = cap - s
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    elif last_index is not None:
+        last = torch.as_tensor(last_index, device=k.device).long()
+        last = last.reshape(-1, 1).expand(b, 1)                 # (B, 1)
+        j = torch.arange(cap, device=k.device)[None, :]
+        src = last - torch.remainder(last - j, cap)             # (B, cap)
+        valid = (src >= 0)[:, :, None, None]
+        idx = src.clamp(0, s - 1)[:, :, None, None].expand(
+            -1, -1, *k.shape[2:])
+        k = torch.gather(k, 1, idx).masked_fill(~valid, 0)
+        v = torch.gather(v, 1, idx).masked_fill(~valid, 0)
+    else:
+        k = torch.roll(k[:, -cap:], s % cap, dims=1)
+        v = torch.roll(v[:, -cap:], s % cap, dims=1)
     if CACHE_QUANT["enabled"]:
         (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
         return {"k": kq, "v": vq, "k_s": ks, "v_s": vs}

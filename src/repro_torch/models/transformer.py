@@ -1,5 +1,6 @@
-"""Model assembly for global-attention decoders, dense or MoE (the port
-of the main path of ``repro/models/transformer.py``).
+"""Model assembly for causal-attention decoders, dense or MoE, with
+global (``ATTN``) and sliding-window (``LOCAL``) layers (the port of the
+main path of ``repro/models/transformer.py``).
 
 The parameter tree keeps the reference's names with the scanned layer
 groups unstacked into one dict per layer::
@@ -10,17 +11,22 @@ groups unstacked into one dict per layer::
                  | "moe": {"router","up","down"[,"gate"]}}, ...],
      ["lm_head": {"table"}]}
 
-Layers run in a Python loop (the reference scans them).  Prefill emits
-the filled KV cache stacked over layers, ``{"k","v": (L, B, cap, Hkv,
-hd)}`` (int8 with ``"k_s","v_s"`` scale planes while
-``attention.CACHE_QUANT`` is on); decode reads and writes either such
-dense caches or page pools ``{"pk","pv": (L, pages + sink, page_size,
-Hkv, hd)}`` through a ``(B, max_pages)`` page table.
-MoE layers (``cfg.moe``) replace the MLP with
-:func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train` returns
-the next-token loss and its metrics for training (``repro/models/
-transformer.py:188-246``).  Sliding-window, recurrent, enc-dec and
-frontend models raise ``NotImplementedError`` (later slices, ROADMAP.md).
+Layers run in a Python loop (the reference scans them), each with its
+kind from ``cfg.layer_kinds()``.  Prefill emits the filled dense KV
+cache as one stack a layer class, since the classes differ in
+capacity: global layers ``{"k","v": (L_attn, B, max_seq, Hkv, hd)}``,
+local layers ``{"wk","wv": (L_local, B, min(max_seq, window), Hkv,
+hd)}`` (int8 with ``"k_s","v_s"`` / ``"wk_s","wv_s"`` scale planes
+while ``attention.CACHE_QUANT`` is on); a model with one class has one
+stack (:func:`cache_layout` maps a layer to its stack and index).
+Decode reads and writes either such dense caches or, for global-only
+models, page pools ``{"pk","pv": (L, pages + sink, page_size, Hkv,
+hd)}`` through a ``(B, max_pages)`` page table.  MoE layers
+(``cfg.moe``) replace the MLP with :func:`repro_torch.models.moe.
+moe_apply`.  :func:`forward_train` returns the next-token loss and its
+metrics for training (``repro/models/transformer.py:188-246``).
+Recurrent, enc-dec and frontend models raise ``NotImplementedError``
+(later slices, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
@@ -45,11 +51,43 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any architecture outside this slice of the port."""
     kinds = set(cfg.layer_kinds())
-    if kinds != {ATTN} or cfg.enc_dec or cfg.frontend is not None:
+    if not kinds <= {ATTN, LOCAL} or cfg.enc_dec \
+            or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves global-attention decoders (dense "
-            f"or MoE) only so far (layer kinds {sorted(kinds)}, "
-            f"enc_dec={cfg.enc_dec}, frontend={cfg.frontend}); see ROADMAP.md")
+            f"{cfg.name}: the port serves causal-attention decoders (global "
+            f"and sliding-window layers, dense or MoE) only so far (layer "
+            f"kinds {sorted(kinds)}, enc_dec={cfg.enc_dec}, "
+            f"frontend={cfg.frontend}); recurrent layers, enc-dec and "
+            f"frontends are later slices, see ROADMAP.md")
+
+
+# A local layer's cache tensors carry this prefix ("wk", "wv", ...),
+# so the two classes' stacks live side by side in one dict.
+_LOCAL_PREFIX = "w"
+
+
+def _class(kind: str) -> str:
+    return _LOCAL_PREFIX if kind == LOCAL else ""
+
+
+def cache_layout(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """Per layer, its cache stack's name prefix (``""`` global, ``"w"``
+    local) and its index in that stack."""
+    seen = {"": 0, _LOCAL_PREFIX: 0}
+    out = []
+    for kind in cfg.layer_kinds():
+        pre = _class(kind)
+        out.append((pre, seen[pre]))
+        seen[pre] += 1
+    return out
+
+
+def _layer_cache(caches: Dict[str, Tensor], pre: str, index: int
+                 ) -> Dict[str, Tensor]:
+    """Layer ``index`` of the ``pre`` stack, under the plain names
+    ``"k","v"[,"k_s","v_s"]`` (views: writes land in the stack)."""
+    return {name[len(pre):]: t[index] for name, t in caches.items()
+            if name.startswith(_LOCAL_PREFIX) == bool(pre)}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -117,11 +155,11 @@ def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     return lm_head_logits(table, x, cfg.vocab_size)
 
 
-def _block_train(p: Params, x: Tensor, cfg: ModelConfig
+def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str
                  ) -> Tuple[Tensor, Tensor]:
     """One full-sequence block for training: ``(x, moe_aux)``."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    mix, _, _ = attn.attn_apply(p["mixer"], h, cfg)
+    mix, _, _ = attn.attn_apply(p["mixer"], h, cfg, kind=kind)
     x = x + mix
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if cfg.moe is not None:
@@ -158,11 +196,12 @@ def forward_train(params: Params, cfg: ModelConfig,
         raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
     x = _embed(params, cfg, batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["layers"]:
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
         if remat == "none":
-            x, a = _block_train(p, x, cfg)
+            x, a = _block_train(p, x, cfg, kind)
         else:
-            x, a = checkpoint(_block_train, p, x, cfg, use_reentrant=False)
+            x, a = checkpoint(_block_train, p, x, cfg, kind,
+                              use_reentrant=False)
         aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)
@@ -198,15 +237,25 @@ def _next_token_loss(logits: Tensor, labels: Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
                device=None) -> Dict[str, Tensor]:
-    """Zero dense KV cache ``{"k","v": (L, batch, seq_len, Hkv, hd)}``,
-    int8 with bf16 ``"k_s","v_s"`` scale planes while
+    """Zero dense KV cache: ``{"k","v": (L_attn, batch, seq_len, Hkv,
+    hd)}`` for the global layers and ``{"wk","wv": (L_local, batch,
+    min(seq_len, window), Hkv, hd)}`` for the local ones (a class with
+    no layer has no stack), int8 with bf16 scale planes while
     ``attention.CACHE_QUANT`` is on."""
     check_supported(cfg)
-    cap = attn.cache_capacity("attn", seq_len, cfg.sliding_window)
-    one = attn.init_cache(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
-                          dtype, resolve_device(device))
-    return {name: t.new_zeros((cfg.n_layers,) + t.shape)
-            for name, t in one.items()}
+    dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
+    out: Dict[str, Tensor] = {}
+    for kind in (ATTN, LOCAL):
+        n = kinds.count(kind)
+        if not n:
+            continue
+        cap = attn.cache_capacity(kind, seq_len, cfg.sliding_window)
+        one = attn.init_cache(batch, cap, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, dtype, dev)
+        out.update({_class(kind) + name: t.new_zeros((n,) + t.shape)
+                    for name, t in one.items()})
+    return out
 
 
 def forward_prefill(params: Params, cfg: ModelConfig,
@@ -214,28 +263,34 @@ def forward_prefill(params: Params, cfg: ModelConfig,
                     cache_len: Optional[int] = None,
                     logits_index=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Process prompts ``batch["tokens"]`` (B, S); return the f32 logits
-    ``(B, 1, vocab_padded)`` of one position and the filled cache.
+    ``(B, 1, vocab_padded)`` of one position and the filled cache
+    (module doc), each layer's capacity ``cache_capacity(kind,
+    cache_len or S, window)``.
 
     ``logits_index`` (an int or 0-dim tensor, or a ``(B,)`` vector)
     selects the position whose logits are returned instead of the last
     — the bucketed prefill pads prompts and reads each row's last real
-    token (causal masking hides the pads from it).  MoE layers also take
-    the tokens up to it as the real ones (``valid``), as the reference
-    does (``repro/models/transformer.py:326-333``).
+    token (causal masking hides the pads from it).  Every attention
+    layer also takes it as ``last_index``: a layer whose capacity is
+    shorter than S lays its ring at each row's real length, as the
+    reference does (``repro/models/transformer.py:370-377``).  MoE
+    layers take the tokens up to it as the real ones (``valid``).
     """
     check_supported(cfg)
     x = _embed(params, cfg, batch["tokens"])
-    cap = cache_len or x.shape[1]
+    cap_seq = cache_len or x.shape[1]
     valid = None
     if logits_index is not None and cfg.moe is not None:
         last = torch.as_tensor(logits_index, device=x.device).reshape(-1)
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  <= last.expand(x.shape[0])[:, None])
-    caches: List[Dict[str, Tensor]] = []
-    for p in params["layers"]:
+    caches: Dict[str, List[Dict[str, Tensor]]] = {}
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        mix, k, v = attn.attn_apply(p["mixer"], h, cfg)
-        caches.append(attn.prefill_into_cache(k, v, cap))
+        mix, k, v = attn.attn_apply(p["mixer"], h, cfg, kind=kind)
+        cap = attn.cache_capacity(kind, cap_seq, cfg.sliding_window)
+        caches.setdefault(_class(kind), []).append(
+            attn.prefill_into_cache(k, v, cap, logits_index))
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h, valid)
@@ -251,7 +306,8 @@ def forward_prefill(params: Params, cfg: ModelConfig,
             i = int(idx)
             x_last = x[:, i:i + 1]
     return _logits(params, cfg, x_last), {
-        name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+        pre + name: torch.stack([c[name] for c in layers])
+        for pre, layers in caches.items() for name in layers[0]}
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
@@ -259,27 +315,33 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
                    page_table=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step.  tokens: (B, 1).
 
-    With ``page_table`` None, ``caches`` are dense ``{"k","v": (L, B,
-    cap, Hkv, hd)}`` (int8 caches add their ``"k_s","v_s"`` scale
-    planes) and ``pos`` is a scalar (every row at one position: the
-    sequential engine) or a ``(B,)`` vector of per-row positions (the
-    slot engine).  Otherwise ``caches`` are page pools ``{"pk","pv":
-    (L, pages + sink, page_size, Hkv, hd)}`` (int8 pools add
-    ``"pk_s","pv_s"``), ``page_table`` is a ``(B, max_pages)`` int32
-    tensor or ``{"global": ...}``, and ``pos`` is ``(B,)``.  Either way
-    the caches are updated in place, so a view of a larger buffer
-    receives the writes.  Returns the f32 logits ``(B, 1,
-    vocab_padded)`` and the caches."""
+    With ``page_table`` None, ``caches`` are the dense stacks of
+    :func:`init_cache` / :func:`forward_prefill` (module doc), each
+    layer reading its own stack (:func:`cache_layout`), and ``pos`` is a
+    scalar (every row at one position: the sequential engine) or a
+    ``(B,)`` vector of per-row positions (the slot engine); a local
+    layer's ring capacity is its window.  Otherwise ``caches`` are page
+    pools ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}`` (int8
+    pools add ``"pk_s","pv_s"``), ``page_table`` is a ``(B, max_pages)``
+    int32 tensor or ``{"global": ...}``, and ``pos`` is ``(B,)``; local
+    layers have no page rings yet and raise.  Either way the caches are
+    updated in place, so a view of a larger buffer receives the writes.
+    Returns the f32 logits ``(B, 1, vocab_padded)`` and the caches."""
     check_supported(cfg)
+    if page_table is not None and LOCAL in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{cfg.name}: paged decode of sliding-window layers (page "
+            "rings) is the next slice of the port; serve it through the "
+            "slot or sequential engine")
     if isinstance(page_table, dict):
         page_table = page_table["global"]
     x = _embed(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
         pos = pos.long()
-    for layer, p in enumerate(params["layers"]):
+    for p, (pre, index) in zip(params["layers"], cache_layout(cfg)):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        cache = {name: t[layer] for name, t in caches.items()}
+        cache = _layer_cache(caches, pre, index)
         if page_table is None:
             mix, _ = attn.attn_decode_step(p["mixer"], h, cache, pos, cfg)
         else:

@@ -203,9 +203,11 @@ class ServeEngine:
     """The sequential engine: admit a ladder batch and serve it to
     completion, one decode step (and one host sync) a token.
 
-    Prefills run at exact length into ``max_seq``-capacity caches, which
-    are concatenated along the batch axis and decoded at ``pos =
-    max(positions)``; finished rows are dropped from the batch by index.
+    Prefills run at exact length into ``max_seq``-capacity caches (a
+    prompt longer than a layer's capacity keeps its last positions,
+    rolled into the ring), which are concatenated along the batch axis
+    and decoded at ``pos = max(positions)``; finished rows are dropped
+    from the batch by index.
     ``stats["decode_compiles"]`` is the number of distinct decode batch
     sizes run since construction (what the reference's jit cache
     counts), kept across :meth:`reset`."""

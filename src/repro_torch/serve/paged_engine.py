@@ -32,9 +32,12 @@
   engines' ``CACHE_QUANT`` flag is refused, as the reference does.
 
 Decode writes the new K/V into the pool in place and attends through K2
-(:func:`repro_torch.models.attention.paged_attn_decode_step`).  The
-reference's sliding-window page rings, recurrent slabs and cross pages
-are later slices and raise ``NotImplementedError``.
+(:func:`repro_torch.models.attention.paged_attn_decode_step`).  Models
+with sliding-window layers (gemma3-1b) are served by the slot and
+sequential engines; the reference's page rings for them are the next
+slice, and this engine raises ``NotImplementedError`` for any config
+with ``LOCAL`` layers.  Recurrent slabs and cross pages are later
+slices too.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LOCAL, ModelConfig
 from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.attention import CACHE_QUANT
 from repro_torch.models.transformer import param_dtype
@@ -327,6 +330,11 @@ class PagedServeEngine(SlotServeEngine):
                  max_batch: int = 8, max_seq: int = 256,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = True, **kw):
+        if LOCAL in cfg.layer_kinds():
+            raise NotImplementedError(
+                f"{cfg.name}: the paged engine has no page rings for "
+                "sliding-window layers yet (the next slice of the port); "
+                "serve it with make_engine(kind='slot') or 'sequential'")
         if CACHE_QUANT["enabled"]:
             raise NotImplementedError(
                 "paged storage quantizes at the pool boundary "

@@ -2,10 +2,12 @@
 port of ``repro/serve/slot_engine.py``).
 
 * **Persistent slot cache** (:class:`SlotKVCache`): KV caches live in
-  fixed ``(layers, max_batch, max_seq, ...)`` buffers.  A request is
-  assigned a slot at admission (one in-place copy writes its prefilled
-  cache in) and releases it when done; admission overwrites the slot's
-  full sequence capacity, so slot reuse is safe.
+  fixed ``(layers, max_batch, capacity, ...)`` buffers, one stack a
+  layer class (global layers at ``max_seq``, sliding-window layers at
+  ``min(max_seq, window)``).  A request is assigned a slot at admission
+  (one in-place copy writes its prefilled cache in) and releases it
+  when done; admission overwrites the slot's full capacity, so slot
+  reuse is safe.
 * **Fixed-shape ladder decode**: a decode window always runs at a
   ``SLAB_LADDER`` rung (the smallest rung covering the highest live
   slot), with per-slot budgets masking holes and finished rows.
@@ -18,7 +20,10 @@ port of ``repro/serve/slot_engine.py``).
   rung — where the reference traces — and reads 0 after :meth:`warmup`.
 * **Bucketed prefill**: prompts pad to a bucket (powers of two here,
   page multiples on the paged engine) with the last real token's logits
-  read back (causal masking hides pads).
+  read back (causal masking hides pads); a layer whose ring is shorter
+  than the bucket lays it at each row's real last token.  Buckets clamp
+  to ``max_seq``; a longer prompt takes an exact-length prefill (a
+  fallback), which lays its last ``max_seq`` positions as a ring.
 * **Coalesced prefill** (:meth:`SlotServeEngine.prefill_batch`): one
   batched prefill for a group of same-bucket prompts, each row parked
   decode-ready (off for MoE, whose routing capacity couples rows, and
@@ -98,8 +103,8 @@ class SlotKVCache:
                    for t in self.buffers.values())
 
     def write(self, prefill_cache: Cache, slot: int) -> None:
-        """Store a single-request prefilled cache ``(L, 1, max_seq,
-        ...)`` into ``slot``."""
+        """Store a single-request prefilled cache (each stack ``(L, 1,
+        capacity, ...)``) into ``slot``."""
         if self.buffers is None:
             self.buffers = {
                 name: t.new_zeros(t.shape[:1] + (self.max_slots,)
