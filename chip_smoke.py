@@ -24,8 +24,8 @@ Phases (any failure exits non-zero before the last line is printed):
    B transposed, dB = Aᵀ dC with Aᵀ read in place, the LM head's
    ``table.T``);
 4. K2 (split-KV paged attention) against its plain version: GQA 14/2
-   with head_dim 64 (qwen) and 32/8 with head_dim 128 (phi3.5-moe),
-   16-token pages, q in f32 and bf16, tables with sink entries, a row at
+   with head_dim 64 (qwen), 32/8 with head_dim 128 (phi3.5-moe) and 4/1
+   with head_dim 256 (gemma3-1b's global layers), 16-token pages, q in f32 and bf16, tables with sink entries, a row at
    position 0 (every split but the first empty), rows on page edges and
    on either side of the plan's first two split edges, a full row;
 5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
@@ -56,12 +56,12 @@ Phases (any failure exits non-zero before the last line is printed):
    layer structure, 5 sliding-window layers to 1 global, at narrow
    widths with a window of 16 and 12 layers) served on the card
    (kernels) and on the CPU (plain versions) through each engine kind
-   (``"paged"``, ``"slot"``, ``"sequential"``; gemma3's through slot and
-   sequential, with prompts across the window and past ``max_seq``):
-   identical greedy tokens per kind, and on the card the slot engine's
-   equal to the paged engine's; the same requests through
-   ``ServeFrontend`` over the slot and paged engines (gemma3's: slot) on
-   the card, submitted out of order from two threads, equal to the CPU
+   (``"paged"``, ``"slot"``, ``"sequential"``; gemma3's with prompts
+   across the window and past ``max_seq``, those past the page table
+   left out on paged): identical greedy tokens per kind, and on the card
+   the slot engine's equal to the paged engine's; the same requests
+   through ``ServeFrontend`` over the slot and paged engines on the
+   card, submitted out of order from two threads, equal to the CPU
    offline ``run()``'s; and one train step of each on both: the loss,
    every gradient and the parameters after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
@@ -133,15 +133,21 @@ Phases (any failure exits non-zero before the last line is printed):
     512, 513, 700, 1000 and 1100 prompt tokens (1100 is past
     ``max_seq``), 32 new tokens each, through ``make_engine(kind="slot",
     max_slots=8, max_seq=1024, window=8)`` after ``warmup()``, then
-    through ``kind="sequential"``; the launch counters zeroed just
-    before each serve: K1 > 0, K2 0, every K1 launch on the wgmma route;
-    on the slot engine ``decode_compiles`` 0, every slot drained, each
-    request's token count that of the ``max_seq`` stop rule and the
-    dense cache exactly 125,829,120 bytes (the local layers' rings hold
-    512 cells, the global layers' 1024); finite logits of the 1100-token
-    prompt; printed: K1's plans at gemma3's shapes, the completions the
-    two engines share, one profiled slot window, and K1's times (as in
-    phase 10) for one decode step at rung 8 and one 512-row prefill;
+    through ``kind="sequential"``, then (all but 1100, which its page
+    table refuses) through ``kind="paged"`` on bf16 pools after
+    ``warmup()``; the launch counters zeroed just before each serve:
+    K1 > 0, every K1 launch on the wgmma route, K2 0 on the dense
+    engines and 4 a decode step on paged (its int8 variant 0); each
+    request's token count that of the ``max_seq`` stop rule; on slot
+    and paged ``decode_compiles`` 0 and every slot drained; the dense
+    cache exactly 125,829,120 bytes (the local layers' rings hold 512
+    cells, the global layers' 1024), the paged pools exactly
+    132,025,408 (rings of 34 pages of 16), every page and ring page
+    back, ring pages reclaimed; finite logits of the 1100-token prompt;
+    printed: K1's plans at gemma3's shapes, the completions the engines
+    share, one profiled slot window and one paged, K1's times (as in
+    phase 10) for one decode step at rung 8 and one 512-row prefill, and
+    K2's for one decode step at gemma3's layout;
 12. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
@@ -530,11 +536,12 @@ def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
     return q, pk, pv, table, pos_t
 
 
-K2_HEADS = ((14, 2, 64), (32, 8, 128))     # qwen2.5-0.5b, phi3.5-moe-42b
+# qwen2.5-0.5b, phi3.5-moe-42b, gemma3-1b's global layers.
+K2_HEADS = ((14, 2, 64), (32, 8, 128), (4, 1, 256))
 
 
 def _k2_cases(torch, kernels, gen, quant):
-    """K2 against its plain version at both head layouts, q in f32 and
+    """K2 against its plain version at every head layout, q in f32 and
     bf16, float or int8 pools, 8 rows of 16-page tables: a row at ``pos``
     0 (every split but the first empty), rows ending on a page edge and on
     either side of the first two split edges of the plan the wrapper
@@ -565,8 +572,9 @@ def _k2_cases(torch, kernels, gen, quant):
 
 def check_k2(torch, kernels, gen) -> float:
     worst, edges = _k2_cases(torch, kernels, gen, quant=False)
-    _say(f"k2: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, f32 and bf16, "
-         f"split edges at cells {edges}, pos 0, full rows and sink entries, "
+    _say(f"k2: GQA 14/2 hd 64, GQA 32/8 hd 128 and GQA 4/1 hd 256, psz 16, "
+         f"f32 and bf16, split edges at cells {edges}, pos 0, full rows and "
+         f"sink entries, "
          f"agree with the plain version (max abs err {worst}; elementwise "
          f"tol f32 1e-5, bf16 2^-7*|ref| + 1e-5)")
     return worst
@@ -896,19 +904,29 @@ def _small_configs():
 
 # The small models' prompts: each crosses the paged engine's 16-token
 # pages; gemma3's also cross its window of 16 and max_seq = 64 (70 and
-# 100 take the exact-length prefill into the ring).
+# 100 take the exact-length prefill into the dense rings; the paged
+# engine, like the reference's, refuses a prompt past its page table, so
+# it serves the others).
 SMALL_LENS = (33, 40, 50, 7, 16)
 SMALL_LOCAL_LENS = (33, 40, 70, 7, 16, 17, 100)
+KINDS = ("paged", "slot", "sequential")
+
+
+def _small_requests(Request, np, cfg, kind, lens):
+    """The small models' requests of ``lens`` (rids by position), those
+    past the page table left out for the paged engine."""
+    reqs = _requests(Request, np.random.default_rng(1), cfg.vocab_size,
+                     lens)
+    return [r for r in reqs if kind != "paged" or len(r.prompt) <= 64]
 
 
 def check_small_model(torch, np, label, cfg) -> None:
     """``cfg`` served on the card (kernels) and on the CPU (plain
-    versions) through each engine kind (slot and sequential for a model
-    with sliding-window layers, which the paged engine does not serve
-    yet): same weights, same requests, same greedy tokens per kind; on
-    the card the slot engine's tokens equal the paged engine's (rows are
+    versions) through each engine kind: same weights, same requests,
+    same greedy tokens per kind; on the card the slot engine's tokens
+    equal the paged engine's for the prompts both serve (rows are
     independent in both).  Then the same requests through
-    ``ServeFrontend`` over the slot (and paged) engines on the card,
+    ``ServeFrontend`` over the paged and slot engines on the card,
     submitted out of order from two threads: the tokens must equal the
     CPU offline ``run()``'s (the coalesced prefill is bitwise the single
     one in float32)."""
@@ -917,40 +935,40 @@ def check_small_model(torch, np, label, cfg) -> None:
     from repro_torch.serve import make_engine, Request, ServeFrontend
 
     local = LOCAL in cfg.layer_kinds()
-    kinds = ("slot", "sequential") if local else ("paged", "slot",
-                                                  "sequential")
     lens = SMALL_LOCAL_LENS if local else SMALL_LENS
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
     outs = {}
-    for kind in kinds:
+    for kind in KINDS:
         for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
             eng = make_engine(cfg, params, kind=kind, device=dev,
                               max_slots=4, max_seq=64, page_size=16,
                               window=4)
-            reqs = _requests(Request, np.random.default_rng(1),
-                             cfg.vocab_size, lens)
+            reqs = _small_requests(Request, np, cfg, kind, lens)
             for req in reqs:
                 req.max_new_tokens = 12
             done = _serve_offline(eng, kind, reqs, 64)
             counts = [c.n_tokens for c in done]
-            if counts != _max_seq_counts(lens, 12, 64):
+            want = _max_seq_counts([len(r.prompt) for r in reqs], 12, 64)
+            if counts != want:
                 raise AssertionError(
                     f"small model, kind={kind} on {dev}: token counts "
-                    f"{counts}, want {_max_seq_counts(lens, 12, 64)}")
+                    f"{counts}, want {want}")
             outs[kind, dev] = [(c.rid, c.tokens) for c in done]
         if outs[kind, "cpu"] != outs[kind, "cuda"]:
             raise AssertionError(
                 f"small model, kind={kind}: card tokens {outs[kind, 'cuda']}"
                 f" differ from the CPU's {outs[kind, 'cpu']}")
-    if not local and outs["slot", "cuda"] != outs["paged", "cuda"]:
+    paged_rids = {rid for rid, _ in outs["paged", "cuda"]}
+    if [o for o in outs["slot", "cuda"] if o[0] in paged_rids] \
+            != outs["paged", "cuda"]:
         raise AssertionError("small model: slot tokens on the card differ "
                              "from the paged engine's")
-    for kind in kinds[:-1]:
+    for kind in KINDS[:-1]:
         eng = make_engine(cfg, gpu, kind=kind, device="cuda", max_slots=4,
                           max_seq=64, page_size=16, window=4)
-        reqs = _requests(Request, np.random.default_rng(1), cfg.vocab_size,
-                         lens)
+        reqs = {r.rid: r for r in _small_requests(Request, np, cfg, kind,
+                                                  lens)}
         fe = ServeFrontend(eng)
         handles = {}
         start = threading.Barrier(2, timeout=60)
@@ -960,7 +978,7 @@ def check_small_model(torch, np, label, cfg) -> None:
             for rid in rids:
                 handles[rid] = fe.submit(reqs[rid].prompt, 12, rid=rid)
 
-        rids = list(range(len(lens)))[::-1]
+        rids = sorted(reqs)[::-1]
         threads = [threading.Thread(target=submitter, args=(rids[i::2],))
                    for i in (0, 1)]
         for t in threads:
@@ -975,13 +993,13 @@ def check_small_model(torch, np, label, cfg) -> None:
                 f"{online} differ from the CPU offline run's "
                 f"{outs[kind, 'cpu']}")
     _say(f"small model ({label}, {cfg.n_layers} layers, f32): "
-         f"{len(outs[kinds[0], 'cpu'])} requests of {list(lens)} prompt "
-         f"tokens through the {', '.join(kinds)} engines (the sequential "
-         f"one's past max_seq - 12 each alone), "
+         f"{len(lens)} requests of {list(lens)} prompt tokens through the "
+         f"slot and sequential engines (the sequential one's past max_seq "
+         f"- 12 each alone), {len(paged_rids)} of them (those within the "
+         f"page table) through the paged one, "
          f"{_max_seq_counts(lens, 12, 64)} tokens each, tokens on the "
-         f"card identical to the CPU plain path"
-         f"{'' if local else ', slot == paged'}; through ServeFrontend "
-         f"over {' and '.join(kinds[:-1])} (submitted out of order from "
+         f"card identical to the CPU plain path, slot == paged; through "
+         f"ServeFrontend over paged and slot (submitted out of order from "
          "two threads) identical to the CPU offline run")
 
 
@@ -1265,6 +1283,14 @@ def check_prefill_batch(torch, np, eng, cfg) -> None:
 GEMMA_LENS = (16, 300, 511, 512, 513, 700, 1000, 1100)
 GEMMA_MAX_SEQ = 1024
 GEMMA_CACHE_BYTES = 125_829_120
+# The paged engine's pools at 8 slots, max_seq 1024, pages of 16 and
+# window 8, bf16: rings of R = ceil((512 + 8) / 16) + 1 = 34 pages, so 2
+# (K, V) x 22 local layers x (8 x 34 + 1 sink) pages plus 2 x 4 global
+# layers x (8 x 64 + 1) pages, each 16 x 256 x 2 bytes, and the tables
+# (8 x 64 + 8 x 34 int32).  The paged engine serves the prompts within
+# its page table (1100 is refused, as the reference refuses it).
+GEMMA_POOL_BYTES = 132_025_408
+GEMMA_PAGED_LENS = tuple(n for n in GEMMA_LENS if n <= GEMMA_MAX_SEQ)
 
 
 def _k1_wgmma_only(launches) -> None:
@@ -1282,16 +1308,21 @@ def serve_gemma3(torch, np, kernels) -> None:
     through ``make_engine(kind="slot", max_slots=8, max_seq=1024,
     window=8)`` after ``warmup()``, then through ``kind="sequential"``
     (``_serve_offline``: the 1000- and 1100-token prompts each in a run
-    of its own).  Every launch counter is zeroed just before each serve;
-    K1's must be > 0 and K2's 0 just after, and every K1 launch on the
-    wgmma route.  Each request's token count is that of the ``max_seq``
-    stop rule on both engines.  The slot serve: ``decode_compiles`` 0,
-    every slot drained, and the dense cache exactly
-    ``GEMMA_CACHE_BYTES``.  Finite logits of the
-    expected shape from the 1100-token prompt.  Printed: the completions
-    the two engines share, one profiled slot window, and K1's time for
-    one decode step (rung 8) and one 512-row prefill at gemma3's
-    shapes."""
+    of its own), then the 7 of ``GEMMA_PAGED_LENS`` through
+    ``kind="paged"`` on bf16 pools after ``warmup()``.  Every launch
+    counter is zeroed just before each serve; K1's must be > 0 just
+    after, every K1 launch on the wgmma route, and K2's 0 on the dense
+    engines, 4 a decode step (the global layers) on the paged one, whose
+    int8 variant stays 0.  Each request's token count is that of the
+    ``max_seq`` stop rule on every engine.  Slot and paged:
+    ``decode_compiles`` 0, every slot drained.  The slot serve's dense
+    cache is exactly ``GEMMA_CACHE_BYTES``; the paged serve's pools
+    ``GEMMA_POOL_BYTES``, every page and ring back in its pool, and some
+    ring pages reclaimed.  Finite logits of the expected shape from the
+    1100-token prompt.  Printed: the completions the engines share, one
+    profiled slot window and one paged, K1's time for one decode step
+    (rung 8) and one 512-row prefill at gemma3's shapes, and K2's for
+    one decode step at the paged serve's last positions (returned)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.sisa_gemm import k1_plan
@@ -1301,11 +1332,18 @@ def serve_gemma3(torch, np, kernels) -> None:
     from repro_torch.serve import make_engine, Request, validate_stats
 
     cfg = get_config("gemma3-1b")
+    kinds = cfg.layer_kinds()
     cells = sum(cache_capacity(kind, GEMMA_MAX_SEQ, cfg.sliding_window)
-                for kind in cfg.layer_kinds())
-    if 2 * 8 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * cells \
-            != GEMMA_CACHE_BYTES:
+                for kind in kinds)
+    cell = cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    if 2 * 8 * cell * cells != GEMMA_CACHE_BYTES:
         raise AssertionError(f"gemma3 cache cells {cells}")
+    ring = -(-(cfg.sliding_window + 8) // 16) + 1
+    pmax = GEMMA_MAX_SEQ // 16
+    if 2 * 16 * cell * (kinds.count("local") * (8 * ring + 1)
+                        + kinds.count("attn") * (8 * pmax + 1)) \
+            + 4 * 8 * (pmax + ring) != GEMMA_POOL_BYTES:
+        raise AssertionError(f"gemma3 pool bytes at rings of {ring}")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -1324,14 +1362,16 @@ def serve_gemma3(torch, np, kernels) -> None:
          "prefill: " + json.dumps({
              name: [dataclasses.asdict(k1_plan(m, n, k)) for m in (8, 512)]
              for name, (k, n) in shapes.items()}))
-    outs, slot_eng = {}, None
-    for kind in ("slot", "sequential"):
+    outs, engs = {}, {}
+    for kind in ("slot", "sequential", "paged"):
+        lens = GEMMA_PAGED_LENS if kind == "paged" else GEMMA_LENS
         eng = make_engine(cfg, params, kind=kind, max_slots=8,
                           max_seq=GEMMA_MAX_SEQ, window=8)
-        if kind == "slot":
+        if kind != "sequential":
             eng.warmup()
-        reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
-                         GEMMA_LENS)
+        reqs = [r for r in _requests(Request, np.random.default_rng(0),
+                                     cfg.vocab_size, GEMMA_LENS)
+                if len(r.prompt) in lens]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for counter in LAUNCH_COUNTERS.values():
@@ -1343,35 +1383,50 @@ def serve_gemma3(torch, np, kernels) -> None:
         launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
         _k1_wgmma_only(launches)
         validate_stats(eng.stats)
-        if launches["sisa_gemm"] <= 0 or launches["paged_attn"] \
+        k2 = (4 * eng.stats["decode_steps"] if kind == "paged" else 0)
+        if launches["sisa_gemm"] <= 0 or launches["paged_attn"] != k2 \
                 or launches["paged_attn_int8"]:
-            raise AssertionError(f"gemma3 {kind} serve: {launches}")
-        if len(done) != len(GEMMA_LENS) or not all(
+            raise AssertionError(f"gemma3 {kind} serve: {launches}, K2 "
+                                 f"launches want {k2}")
+        if len(done) != len(lens) or not all(
                 0 <= t < cfg.vocab_size for c in done for t in c.tokens):
             raise AssertionError(f"gemma3 {kind} serve: {done}")
         counts = [c.n_tokens for c in done]
-        want = _max_seq_counts(GEMMA_LENS, NEW_TOKENS, GEMMA_MAX_SEQ)
+        want = _max_seq_counts(lens, NEW_TOKENS, GEMMA_MAX_SEQ)
         if counts != want:
             raise AssertionError(f"gemma3 {kind} token counts {counts}, "
                                  f"want {want}")
-        if kind == "slot":
+        ext = eng.stats["engine"]
+        if kind != "sequential":
             if eng.stats["decode_compiles"] != 0:
-                raise AssertionError("gemma3 slot decode_compiles "
+                raise AssertionError(f"gemma3 {kind} decode_compiles "
                                      f"{eng.stats['decode_compiles']}")
-            ext = eng.stats["engine"]
             if eng.cache.n_free != eng.max_batch or ext["slot_admits"] \
                     != ext["slot_releases"]:
-                raise AssertionError("gemma3 slots did not drain")
+                raise AssertionError(f"gemma3 {kind} slots did not drain")
             nbytes = eng.cache.resident_bytes()
-            if nbytes != GEMMA_CACHE_BYTES:
-                raise AssertionError(f"gemma3 dense cache {nbytes} bytes, "
-                                     f"want {GEMMA_CACHE_BYTES}")
-            slot_eng = eng
-        outs[kind] = done
+            want_bytes = (GEMMA_POOL_BYTES if kind == "paged"
+                          else GEMMA_CACHE_BYTES)
+            if nbytes != want_bytes:
+                raise AssertionError(f"gemma3 {kind} storage {nbytes} "
+                                     f"bytes, want {want_bytes}")
+        if kind == "paged" and (
+                eng.cache.n_free_local != eng.num_local_pages
+                or eng.cache.n_free_pages != eng.num_pages
+                or ext["window_pages_reclaimed"] <= 0
+                or ext["local_ring_pages"] != ring):
+            raise AssertionError(
+                f"gemma3 paged: {eng.cache.n_free_local} of "
+                f"{eng.num_local_pages} ring pages and "
+                f"{eng.cache.n_free_pages} of {eng.num_pages} pages free, "
+                f"{ext['window_pages_reclaimed']} reclaimed, rings of "
+                f"{ext['local_ring_pages']}")
+        outs[kind], engs[kind] = done, eng
+        k2_launches = launches["paged_attn"]
         n_tok = sum(counts)
         summary = {
             "model": cfg.name, "kind": kind, "layers": cfg.n_layers,
-            "max_seq": GEMMA_MAX_SEQ, "prompts": list(GEMMA_LENS),
+            "max_seq": GEMMA_MAX_SEQ, "prompts": list(lens),
             "tokens": counts, "finish": [c.finish_reason for c in done],
             "wall_s": wall, "tok_per_s": n_tok / wall,
             "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
@@ -1379,9 +1434,13 @@ def serve_gemma3(torch, np, kernels) -> None:
             "decode_compiles": eng.stats["decode_compiles"],
             "decode_steps": eng.stats["decode_steps"],
             "batches": eng.stats["batches"],
-            "cache_bytes": (eng.cache.resident_bytes() if kind == "slot"
-                            else None),
+            "cache_bytes": (eng.cache.resident_bytes()
+                            if kind != "sequential" else None),
             "launches": launches}
+        if kind == "paged":
+            summary.update({key: ext[key] for key in (
+                "local_ring_pages", "window_pages_reclaimed", "page_admits",
+                "page_grows", "pages_mapped_peak", "pages_shared")})
         _say(f"gemma3 serve: {json.dumps(summary)}")
     # Finite f32 logits of the expected shape, from the prompt past
     # max_seq (exact length: every ring laid by the per-row gather).
@@ -1389,6 +1448,7 @@ def serve_gemma3(torch, np, kernels) -> None:
         counter.reset()
     prompt = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
                        GEMMA_LENS)[-1].prompt
+    slot_eng = engs["slot"]
     logits, cache = slot_eng.prefill_fn(params, {
         "tokens": torch.as_tensor(prompt[None], device=slot_eng.device),
         "last_index": len(prompt) - 1})
@@ -1408,11 +1468,25 @@ def serve_gemma3(torch, np, kernels) -> None:
          "tokens (the sequential engine decodes a batch at its longest "
          "row's position; its prefill is exact-length, the slot engine's "
          "bucketed)")
+    paged = sum(a.tokens == b.tokens for a, b in zip(outs["slot"],
+                                                      outs["paged"]))
+    _say(f"gemma3: {paged} of {len(GEMMA_PAGED_LENS)} completions of the "
+         "paged serve equal the slot serve's (bf16: K2 and the dense "
+         "attention sum in other orders)")
     profile_window(torch, np, slot_eng, cfg)
+    profile_window(torch, np, engs["paged"], cfg)
+    del engs
     for rows, what in ((8, "decode step (rung 8"), (512, "prefill (512 rows, "
                                                      "LM head on 1 row")):
         t = time_k1(torch, kernels, params, cfg, rows=rows)
         _say(f"k1 gemma3-1b {what}, {t['gemms']} GEMMs): {json.dumps(t)}")
+    k2 = time_k2(torch, kernels, K2_HEADS[2], kinds.count("attn"), pos=[
+        min(n + NEW_TOKENS - 1, GEMMA_MAX_SEQ - 1) for n in GEMMA_PAGED_LENS],
+        pmax=pmax)
+    _say(f"k2 gemma3-1b layout decode step ({len(GEMMA_PAGED_LENS)} rows, "
+         f"GQA 4/1 hd 256, {k2['launches_timed']} layers, pmax {pmax}): "
+         f"{json.dumps(k2)}")
+    return {**k2, "serve_launches": k2_launches}
 
 
 # An exception in a frontend thread ends that thread (the scheduler's
@@ -1809,16 +1883,19 @@ def time_k1(torch, kernels, params, cfg, rows: int):
             "bytes": nbytes, "flops": flops}
 
 
-def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False):
-    """One decode step of K2 (a launch a layer) at 8 rows, each at the
-    position it reaches at the end of the serve phase: qwen2.5-0.5b's
-    layout (14/2 heads, hd 64, 24 layers) unless ``heads``/``layers``
-    say otherwise, on bf16 pools or (``quant``) int8 pools; with the host
-    microseconds a ``paged_attention`` call."""
+def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False,
+            pos=None, pmax=16):
+    """One decode step of K2 (a launch a layer) at a row each of ``pos``
+    (default: the 8 positions the serve phase ends at), ``pmax`` pages a
+    table row: qwen2.5-0.5b's layout (14/2 heads, hd 64, 24 layers)
+    unless ``heads``/``layers`` say otherwise, on bf16 pools or
+    (``quant``) int8 pools; with the host microseconds a
+    ``paged_attention`` call."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
+    pos = pos or [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
     q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos,
-                                           heads=heads)
+                                           n_pages=len(pos) * pmax,
+                                           pmax=pmax, heads=heads)
     scales = ()
     if quant:
         pk, pv, *scales = _int8_pools(kernels, pk, pv)
@@ -2237,8 +2314,9 @@ def check_k2_int8(torch, kernels, gen) -> float:
     """K2 on int8 pools made by ``quantize_page_pool``, against its plain
     version, at the cases of :func:`_k2_cases`."""
     worst, edges = _k2_cases(torch, kernels, gen, quant=True)
-    _say(f"k2 int8: GQA 14/2 hd 64 and GQA 32/8 hd 128, psz 16, int8 pools "
-         f"with bf16 scale planes, q in f32 and bf16, split edges at cells "
+    _say(f"k2 int8: GQA 14/2 hd 64, GQA 32/8 hd 128 and GQA 4/1 hd 256, psz "
+         f"16, int8 pools with bf16 scale planes, q in f32 and bf16, split "
+         f"edges at cells "
          f"{edges}, pos 0, full rows and sink entries, agree with the plain "
          f"version (max abs err {worst}; elementwise tol f32 1e-5, bf16 "
          f"2^-7*|ref| + 1e-5)")
@@ -2754,7 +2832,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    serve_gemma3(torch, np, kernels)
+    k2_gemma = serve_gemma3(torch, np, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2822,10 +2900,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "note": "times: one qwen2.5-0.5b decode step (24 launches); "
-                 "phi_* at phi3.5-moe-42b's layout (8 launches)",
+                 "phi_* at phi3.5-moe-42b's layout (8 launches); gemma3_* "
+                 "at gemma3-1b's (4 launches, 7 rows, pmax 64), launches "
+                 "from its paged serve",
          "launches": launches["paged_attn"], "max_abs_err": k2_err,
          **{k: k2[k] for k in keys},
-         **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")}},
+         **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
+         **{f"gemma3_{k}": k2_gemma[k] for k in (
+             "ms", "plain_ms", "bound_ms", "serve_launches")}},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",

@@ -9,7 +9,8 @@ layer, in the order the reference's scan runs them, so both packages
 compute the same function on the same weights.  :func:`cache_from_jax`
 does the same for a dense KV cache: the reference's per-group cache
 pytrees (``repro/models/transformer.py:init_cache``) become the port's
-stacked ``{"k","v"[,"k_s","v_s"]}: (L, B, cap, Hkv, hd)``.
+stacked ``{"k","v"[,"k_s","v_s"]}: (L, B, cap, Hkv, hd)``, and
+:func:`pools_from_jax` for the paged engine's pools.
 """
 from __future__ import annotations
 
@@ -60,6 +61,21 @@ def cache_from_jax(caches, cfg: ModelConfig, device=None
     return {pre + name: _tensor(np.stack([layer[name] for layer in layers]),
                                 dev)
             for pre, layers in stacks.items() for name in layers[0]}
+
+
+def pools_from_jax(pools, cfg: ModelConfig, device=None
+                   ) -> Dict[str, torch.Tensor]:
+    """The reference's paged pools (per-group pytrees whose leaves,
+    already numpy, are named ``"pk","pv"[,"pk_s","pv_s"]`` for global
+    layers and ``"lk","lv"`` for local ones) as the port's pool stacks
+    under the same names, each layer at its index in its class."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    stacks: Dict[str, list] = {}
+    for group, b, r in _unstack_layers(pools, cfg):
+        for name, x in group[b].items():
+            stacks.setdefault(name, []).append(np.asarray(x)[r])
+    return {name: _tensor(np.stack(xs), dev) for name, xs in stacks.items()}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

@@ -10,17 +10,19 @@ The reference's opt-in banded local and chunked global prefill forms
 (``set_attention_impl``) are not ported: nothing in the port selects
 them yet.
 
-Decode reads either a dense per-row cache ``{"k","v": (B, cap, Hkv,
-hd)}`` in plain PyTorch (:func:`attn_decode_step`; the reference's is
-plain XLA too) or the shared page pool through K2
-(:func:`paged_attn_decode_step`, global layers only).  A dense cache is
-a ring: a global layer's capacity is the engine's ``max_seq``, a local
-layer's ``min(max_seq, window)`` (:func:`cache_capacity`), and that
-capacity is all that limits a local layer's window at decode.
-:func:`prefill_into_cache` lays a prompt longer than the capacity as
-that ring.  Dense caches are int8 with bf16 scale planes ``"k_s","v_s"``
-while :func:`set_kv_cache_quant` is on.  Bidirectional and cross
-attention are later slices.
+Decode reads a dense per-row cache ``{"k","v": (B, cap, Hkv, hd)}`` in
+plain PyTorch (:func:`attn_decode_step`; the reference's is plain XLA
+too), or shared page pools: a global layer's pool through K2
+(:func:`paged_attn_decode_step`), a local layer's ring of pages by a
+plain gather (:func:`paged_local_attn_decode_step`, plain XLA in the
+reference as well).  A dense cache is a ring: a global layer's capacity
+is the engine's ``max_seq``, a local layer's ``min(max_seq, window)``
+(:func:`cache_capacity`), and that capacity is all that limits a local
+layer's window at decode; a paged local layer reads the same ring
+through its ring table.  :func:`prefill_into_cache` lays a prompt
+longer than the capacity as that ring.  Dense caches are int8 with bf16
+scale planes ``"k_s","v_s"`` while :func:`set_kv_cache_quant` is on.
+Bidirectional and cross attention are later slices.
 """
 from __future__ import annotations
 
@@ -291,5 +293,54 @@ def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     cache["pv"][phys, off] = v[:, 0]
     out = paged_attention(q[:, 0], cache["pk"], cache["pv"], page_table, pos,
                           *scales)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
+    return linear_apply(p["o"], out), cache
+
+
+def paged_local_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
+                                 page_table: Tensor, pos: Tensor, cfg, *,
+                                 window_cap: int
+                                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token sliding-window step against a ring of pages.
+
+    ``cache`` is this layer's slice of the local pool ``{"lk": (n_lpages
+    + sink, page_size, Hkv, hd), "lv": ...}`` (model precision, never
+    int8), ``page_table`` the per-row ring table ``(B, R)`` int32 (the
+    page of sequence block ``b`` is ``page_table[i, b % R]``) and ``pos``
+    the per-row ``(B,)`` write position.  ``window_cap`` is the dense
+    ring's capacity ``min(sliding_window, max_seq)``.
+
+    Row ``i`` writes its new K/V in place at cell ``(table[i, (pos_i //
+    P) % R], pos_i % P)``, then gathers the logical ring of
+    ``window_cap`` cells through the table: cell ``j`` holds position
+    ``pos_i - ((pos_i - j) mod window_cap)``, masked where that is
+    negative, the cell order and mask of :func:`attn_decode_step`, so
+    :func:`_sdpa` sees the dense ring's operands.  The engine sizes ``R``
+    so that a page it recycles is behind every read.
+    """
+    b = x.shape[0]
+    psz = cache["lk"].shape[1]
+    ring = page_table.shape[1]
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    pos_l = pos.long()
+    rows = torch.arange(b, device=x.device)
+    table = page_table.long()
+    phys = table[rows, (pos_l // psz) % ring]
+    cache["lk"][phys, pos_l % psz] = k[:, 0]
+    cache["lv"][phys, pos_l % psz] = v[:, 0]
+    j = torch.arange(window_cap, device=x.device)
+    logical = pos_l[:, None] - torch.remainder(pos_l[:, None] - j[None, :],
+                                               window_cap)     # (B, w)
+    pc = logical.clamp(min=0)
+    pages = table[rows[:, None], (pc // psz) % ring]
+    kd = cache["lk"][pages, pc % psz]                          # (B, w, Hkv, hd)
+    vd = cache["lv"][pages, pc % psz]
+    mask = (logical >= 0)[:, None, None, :]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), mask)
     out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
     return linear_apply(p["o"], out), cache

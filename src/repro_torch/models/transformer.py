@@ -19,12 +19,15 @@ local layers ``{"wk","wv": (L_local, B, min(max_seq, window), Hkv,
 hd)}`` (int8 with ``"k_s","v_s"`` / ``"wk_s","wv_s"`` scale planes
 while ``attention.CACHE_QUANT`` is on); a model with one class has one
 stack (:func:`cache_layout` maps a layer to its stack and index).
-Decode reads and writes either such dense caches or, for global-only
-models, page pools ``{"pk","pv": (L, pages + sink, page_size, Hkv,
-hd)}`` through a ``(B, max_pages)`` page table.  MoE layers
-(``cfg.moe``) replace the MLP with :func:`repro_torch.models.moe.
-moe_apply`.  :func:`forward_train` returns the next-token loss and its
-metrics for training (``repro/models/transformer.py:188-246``).
+Decode reads and writes either such dense caches or page pools, one
+stack a layer class: global layers ``{"pk","pv": (L_attn, pages + sink,
+page_size, Hkv, hd)}`` (int8 with ``"pk_s","pv_s"`` scale planes) through
+a ``(B, max_pages)`` page table, local layers ``{"lk","lv": (L_local,
+local pages + sink, page_size, Hkv, hd)}`` (model precision) through a
+``(B, R)`` ring table.  MoE layers (``cfg.moe``) replace the MLP with
+:func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train`
+returns the next-token loss and its metrics for training
+(``repro/models/transformer.py:188-246``).
 Recurrent, enc-dec and frontend models raise ``NotImplementedError``
 (later slices, ROADMAP.md).
 """
@@ -310,9 +313,15 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         for pre, layers in caches.items() for name in layers[0]}
 
 
+# The initial of a layer class's page-pool tensors ("pk", "pk_s" global;
+# "lk" local), keyed by its dense-cache prefix.
+_POOL_CLASS = {"": "p", _LOCAL_PREFIX: "l"}
+
+
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
-                   caches: Dict[str, Tensor], pos, *,
-                   page_table=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                   caches: Dict[str, Tensor], pos, *, page_table=None,
+                   window_cap: Optional[int] = None
+                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step.  tokens: (B, 1).
 
     With ``page_table`` None, ``caches`` are the dense stacks of
@@ -320,33 +329,38 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     layer reading its own stack (:func:`cache_layout`), and ``pos`` is a
     scalar (every row at one position: the sequential engine) or a
     ``(B,)`` vector of per-row positions (the slot engine); a local
-    layer's ring capacity is its window.  Otherwise ``caches`` are page
-    pools ``{"pk","pv": (L, pages + sink, page_size, Hkv, hd)}`` (int8
-    pools add ``"pk_s","pv_s"``), ``page_table`` is a ``(B, max_pages)``
-    int32 tensor or ``{"global": ...}``, and ``pos`` is ``(B,)``; local
-    layers have no page rings yet and raise.  Either way the caches are
-    updated in place, so a view of a larger buffer receives the writes.
-    Returns the f32 logits ``(B, 1, vocab_padded)`` and the caches."""
+    layer's ring capacity is its window.  Otherwise ``caches`` are the
+    page pools of the module doc, ``pos`` is ``(B,)``, and
+    ``page_table`` is ``{"global": (B, max_pages)[, "local": (B, R)]}``
+    (a bare tensor means ``{"global": tensor}``): a global layer reads
+    its ``"pk","pv"`` through K2, a local layer its ``"lk","lv"`` ring
+    through the ring table with the logical ring capacity ``window_cap``
+    (the engine's ``min(sliding_window, max_seq)``; default the
+    window).  Either way the caches are updated in place, so a view of
+    a larger buffer receives the writes.  Returns the f32 logits ``(B,
+    1, vocab_padded)`` and the caches."""
     check_supported(cfg)
-    if page_table is not None and LOCAL in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: paged decode of sliding-window layers (page "
-            "rings) is the next slice of the port; serve it through the "
-            "slot or sequential engine")
-    if isinstance(page_table, dict):
-        page_table = page_table["global"]
+    if page_table is not None and not isinstance(page_table, dict):
+        page_table = {"global": page_table}
     x = _embed(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
         pos = pos.long()
     for p, (pre, index) in zip(params["layers"], cache_layout(cfg)):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        cache = _layer_cache(caches, pre, index)
         if page_table is None:
-            mix, _ = attn.attn_decode_step(p["mixer"], h, cache, pos, cfg)
+            mix, _ = attn.attn_decode_step(
+                p["mixer"], h, _layer_cache(caches, pre, index), pos, cfg)
         else:
-            mix, _ = attn.paged_attn_decode_step(p["mixer"], h, cache,
-                                                 page_table, pos, cfg)
+            cache = {name: t[index] for name, t in caches.items()
+                     if name[0] == _POOL_CLASS[pre]}
+            if pre:
+                mix, _ = attn.paged_local_attn_decode_step(
+                    p["mixer"], h, cache, page_table["local"], pos, cfg,
+                    window_cap=window_cap or cfg.sliding_window)
+            else:
+                mix, _ = attn.paged_attn_decode_step(
+                    p["mixer"], h, cache, page_table["global"], pos, cfg)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h)

@@ -1,8 +1,9 @@
 """Paged serving: block-granular KV storage behind the ladder-locked loop
-(the port of the global-pool half of ``repro/serve/paged_engine.py``).
+(the port of the global-pool and page-ring parts of
+``repro/serve/paged_engine.py``).
 
-* **Flat page pool** (:class:`PagedKVCache`): KV lives in
-  ``(L, num_pages + 1, page_size, Hkv, hd)`` tensors shared by all
+* **Flat page pool** (:class:`PagedKVCache`): global layers' KV lives in
+  ``(L_attn, num_pages + 1, page_size, Hkv, hd)`` tensors shared by all
   requests; page ``num_pages`` is the *sink* that absorbs the masked
   writes of released rows and holes.  A request holds exactly the pages
   its sequence occupies.
@@ -12,40 +13,54 @@
   the prefilled cache in with one in-place ``index_copy_`` per pool;
   decode appends a page only when a row's position crosses a boundary;
   release returns the pages and points the row at the sink.
-* **Refcounted prefix sharing (copy-on-write)**, on by default: two
-  requests whose token prefixes agree through a page boundary map the
-  same physical page; a holder about to write a shared page first gets
-  a private copy.  The engine keys sharing on a host-side registry of
-  page-aligned token prefixes, purged as pages drain.
+* **Page rings for sliding-window layers**: a ``LOCAL`` layer never
+  reads more than its window, so each slot maps one fixed ring of ``R =
+  ceil((w + window_tokens) / page_size) + 1`` pages (``w =
+  min(sliding_window, max_seq)``) of a local pool ``(L_local,
+  num_local_pages + 1, page_size, Hkv, hd)`` through a ``(max_slots, R)``
+  ring table: block ``b`` lives at column ``b % R``.  At every window
+  boundary :meth:`PagedKVCache.advance_ring` frees each column whose
+  block fell behind the window to the back of a FIFO free list and
+  maps it again from the front, so a slot holds ``R`` local pages
+  however long it decodes (``stats["engine"]["window_pages_reclaimed"]``
+  counts the swaps).
+* **Refcounted prefix sharing (copy-on-write)**, on by default for
+  models with global layers: two requests whose token prefixes agree
+  through a page boundary map the same physical global page; a holder
+  about to write a shared page first gets a private copy.  The engine
+  keys sharing on a host-side registry of page-aligned token prefixes,
+  purged as pages drain.
 * **Reservation-based admission**: a request reserves its worst-case
-  page count at admission, so lazy boundary mapping never finds the
-  free list empty and the ladder sweep never targets a rung the pool
-  cannot back.
+  global page count, and a free ring where it has local layers, at
+  admission, so lazy boundary mapping never finds a free list empty and
+  the ladder sweep never targets a rung the pools cannot back.
 * **int8 pools** (``kv_quant="int8"``): ``pk``/``pv`` hold int8 values
   and ``pk_s``/``pv_s`` one bf16 scale per (page, offset, KV head) cell,
   about half the bytes of bf16 pools.  Admission quantizes the prefilled
   chunks as it copies them in, decode quantizes each new K/V as it
   writes it, with the same numerics (:func:`repro_torch.kernels.
   paged_attn.quantize_page_pool`), so admitted and decoded cells
-  dequantize identically.  A prefill parked by co-execution backfill
-  stays at model precision until its admission copies it in.  The dense
-  engines' ``CACHE_QUANT`` flag is refused, as the reference does.
+  dequantize identically.  Local rings stay at model precision, as in
+  the reference.  A prefill parked by co-execution backfill stays at
+  model precision until its admission copies it in.  The dense engines'
+  ``CACHE_QUANT`` flag is refused, as the reference does.
 
-Decode writes the new K/V into the pool in place and attends through K2
-(:func:`repro_torch.models.attention.paged_attn_decode_step`).  Models
-with sliding-window layers (gemma3-1b) are served by the slot and
-sequential engines; the reference's page rings for them are the next
-slice, and this engine raises ``NotImplementedError`` for any config
-with ``LOCAL`` layers.  Recurrent slabs and cross pages are later
-slices too.
+Decode writes the new K/V into the pools in place; global layers attend
+through K2 (:func:`repro_torch.models.attention.paged_attn_decode_step`),
+local layers gather their ring
+(:func:`~repro_torch.models.attention.paged_local_attn_decode_step`).
+Every model the port accepts (global and sliding-window layers, dense or
+MoE: gemma3-1b among them) serves here; recurrent slabs and cross pages
+are later slices.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
 from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.attention import CACHE_QUANT
 from repro_torch.models.transformer import param_dtype
@@ -57,18 +72,31 @@ POOL_QUANTS = (None, "int8")
 
 
 class PagedKVCache:
-    """Flat global page pools + per-slot page table + a refcounting,
-    reservation-based page allocator.  Pools are allocated once, at
-    construction; the allocator's bookkeeping is host-side."""
+    """Flat page pools + per-slot page tables + a refcounting,
+    reservation-based global page allocator and a FIFO ring allocator.
+
+    Global layers (``n_layers`` of them) keep ``"pk","pv"`` (int8 pools
+    add ``"pk_s","pv_s"``) indirected by ``table`` ``(max_slots,
+    max_pages_per_slot)``; sliding-window layers (``n_local_layers``,
+    where ``local_ring`` > 0) keep ``"lk","lv"`` at model precision,
+    ``(n_local_layers, num_local_pages + 1, page_size, Hkv, hd)`` with
+    sink page ``lsink``, indirected by the ring table ``ltable``
+    ``(max_slots, local_ring)``.  Pools are allocated once, at
+    construction; the allocators' bookkeeping is host-side."""
 
     def __init__(self, max_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, *, n_layers: int, n_kv_heads: int,
                  head_dim: int, dtype: torch.dtype, device: torch.device,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, n_local_layers: int = 0,
+                 local_ring: int = 0, num_local_pages: int = 0):
         if num_pages < max_pages_per_slot:
             raise ValueError(
                 f"pool of {num_pages} pages cannot hold one full-length "
                 f"request ({max_pages_per_slot} pages)")
+        if local_ring and num_local_pages < local_ring:
+            raise ValueError(
+                f"local pool of {num_local_pages} pages cannot hold one "
+                f"ring ({local_ring} pages)")
         self.max_slots = max_slots
         self.num_pages = num_pages
         self.page_size = page_size
@@ -77,23 +105,45 @@ class PagedKVCache:
             raise ValueError(f"quant={quant!r} not in {POOL_QUANTS}")
         self.device = device
         self.quant = quant
+        self.local_ring = local_ring
+        self.num_local_pages = num_local_pages
         self.sink = num_pages                      # physical sink page id
-        shape = (n_layers, num_pages + 1, page_size, n_kv_heads, head_dim)
-        vals = torch.int8 if quant else dtype
-        self.pools = {"pk": torch.zeros(shape, dtype=vals, device=device),
-                      "pv": torch.zeros(shape, dtype=vals, device=device)}
-        if quant:
-            plane = shape[:-1] + (1,)
+        self.lsink = num_local_pages               # the local pool's sink
+        self.pools: Dict[str, torch.Tensor] = {}
+        if n_layers:
+            shape = (n_layers, num_pages + 1, page_size, n_kv_heads, head_dim)
+            vals = torch.int8 if quant else dtype
             self.pools.update(
-                pk_s=torch.zeros(plane, dtype=torch.bfloat16, device=device),
-                pv_s=torch.zeros(plane, dtype=torch.bfloat16, device=device))
+                pk=torch.zeros(shape, dtype=vals, device=device),
+                pv=torch.zeros(shape, dtype=vals, device=device))
+            if quant:
+                plane = shape[:-1] + (1,)
+                self.pools.update(
+                    pk_s=torch.zeros(plane, dtype=torch.bfloat16,
+                                     device=device),
+                    pv_s=torch.zeros(plane, dtype=torch.bfloat16,
+                                     device=device))
         self.table = torch.full((max_slots, max_pages_per_slot), self.sink,
                                 dtype=torch.int32, device=device)
+        self.ltable: Optional[torch.Tensor] = None
+        if local_ring:
+            lshape = (n_local_layers, num_local_pages + 1, page_size,
+                      n_kv_heads, head_dim)
+            self.pools.update(
+                lk=torch.zeros(lshape, dtype=dtype, device=device),
+                lv=torch.zeros(lshape, dtype=dtype, device=device))
+            self.ltable = torch.full((max_slots, local_ring), self.lsink,
+                                     dtype=torch.int32, device=device)
         self._reset_allocator()
 
     def _reset_allocator(self) -> None:
         self._free_slots = list(range(self.max_slots - 1, -1, -1))
         self._free_pages = list(range(self.num_pages - 1, -1, -1))  # pop->lowest
+        # Ring pages rotate: freed ones join the back, fresh ones leave
+        # the front, so a reclaimed page crosses the whole list first.
+        self._free_local = deque(range(self.num_local_pages))
+        self._lrow: List[List[int]] = [[] for _ in range(self.max_slots)]
+        self._lblock = [-1] * self.max_slots      # highest ring block mapped
         self._mapped: List[List[int]] = [[] for _ in range(self.max_slots)]
         self._reserved = [0] * self.max_slots
         self._shared = [0] * self.max_slots        # pages mapped by ref
@@ -110,6 +160,10 @@ class PagedKVCache:
     @property
     def n_free_pages(self) -> int:
         return len(self._free_pages)
+
+    @property
+    def n_free_local(self) -> int:
+        return len(self._free_local)
 
     @property
     def orphaned_pages(self) -> int:
@@ -131,31 +185,56 @@ class PagedKVCache:
     def mapped_pages(self, slot: int) -> List[int]:
         return list(self._mapped[slot])
 
+    def local_pages_of(self, slot: int) -> List[int]:
+        """Physical ring pages of ``slot``, in column order."""
+        return list(self._lrow[slot])
+
     def page_refcount(self, page: int) -> int:
         return self._refcount[page]
 
-    def _write_row(self, slot: int, start: int, pages: Sequence[int]) -> None:
-        self.table[slot, start:start + len(pages)] = torch.as_tensor(
+    def _write_row(self, slot: int, start: int, pages: Sequence[int],
+                   table: Optional[torch.Tensor] = None) -> None:
+        table = self.table if table is None else table
+        table[slot, start:start + len(pages)] = torch.as_tensor(
             pages, dtype=torch.int32).to(self.device)
 
     # -- page lifecycle -----------------------------------------------------
     def admit(self, prefill_cache: Dict[str, torch.Tensor], slot: int,
-              reserve_pages: int, shared_pages: Sequence[int] = ()) -> int:
-        """Map a prefilled cache ``{"k","v": (L, 1, S, Hkv, hd)}`` (S a
-        page multiple) into ``slot`` and reserve its worst case.  The
-        first ``len(shared_pages)`` logical pages are mapped by
-        reference (the caller guarantees their content equals the
-        prefill's leading chunks); the rest are copied into fresh pages.
-        Returns the number of fresh pages mapped."""
-        k, v = prefill_cache["k"], prefill_cache["v"]
-        n_layers, _, cap = k.shape[:3]
-        if cap % self.page_size:
-            raise ValueError(f"prefill cache capacity {cap} is not a "
-                             f"multiple of page_size {self.page_size}")
-        n = cap // self.page_size
-        if n > self.max_pages_per_slot:
-            raise ValueError(f"prompt needs {n} pages > max_pages_per_slot "
-                             f"{self.max_pages_per_slot}")
+              reserve_pages: int, shared_pages: Sequence[int] = (), *,
+              last_index: Optional[int] = None) -> int:
+        """Map a prefilled cache (:func:`~repro_torch.models.transformer.
+        forward_prefill`'s stacks, each ``(L, 1, capacity, Hkv, hd)``)
+        into ``slot`` and reserve its worst case.
+
+        Global stacks ``"k","v"`` (capacity S, a page multiple): the
+        first ``len(shared_pages)`` logical pages are mapped by reference
+        (the caller guarantees their content equals the prefill's leading
+        chunks); the rest are copied into fresh pages.  Local stacks
+        ``"wk","wv"`` map one full ring of ``local_ring`` fresh pages
+        whatever the prompt's length, regathered into ring-cell order at
+        ``last_index``, the position of the prompt's last real token:
+        flat ring cell ``t`` takes position ``p = last - ((last - t) mod
+        R * page_size)`` from dense cell ``p mod capacity``, zeroed where
+        ``p < 0`` (decode writes a cell before it reads it).  Returns
+        the number of fresh global pages mapped."""
+        has_local = "wk" in prefill_cache
+        if has_local and not self.local_ring:
+            raise ValueError("cache has sliding-window stacks but the pool "
+                             "was built with local_ring=0")
+        if has_local and len(self._free_local) < self.local_ring:
+            raise ValueError(f"no free ring: {len(self._free_local)} local "
+                             f"pages free of {self.local_ring}")
+        n = 0
+        if "k" in prefill_cache:
+            cap = prefill_cache["k"].shape[2]
+            if cap % self.page_size:
+                raise ValueError(f"prefill cache capacity {cap} is not a "
+                                 f"multiple of page_size {self.page_size}")
+            n = cap // self.page_size
+            if n > self.max_pages_per_slot:
+                raise ValueError(f"prompt needs {n} pages > "
+                                 f"max_pages_per_slot "
+                                 f"{self.max_pages_per_slot}")
         shared = list(shared_pages)
         n_fresh = n - len(shared)
         if n_fresh < 0:
@@ -177,23 +256,70 @@ class PagedKVCache:
             self._owner[pg] = slot
         if fresh:
             idx = torch.as_tensor(fresh, device=self.device)
-            for name, src in (("pk", k), ("pv", v)):
-                chunks = src[:, 0].reshape(n_layers, n, self.page_size,
+            for name in ("k", "v"):
+                src = prefill_cache[name]
+                chunks = src[:, 0].reshape(src.shape[0], n, self.page_size,
                                            *src.shape[3:])[:, len(shared):]
                 if self.quant:
                     # Quantized as decode quantizes its writes (the
                     # reference's _quantize_pool_tree at admission).
                     chunks, scale = quantize_page_pool(chunks)
-                    self.pools[name + "_s"].index_copy_(1, idx, scale)
-                self.pools[name].index_copy_(1, idx, chunks)
+                    self.pools[f"p{name}_s"].index_copy_(1, idx, scale)
+                self.pools[f"p{name}"].index_copy_(1, idx, chunks)
         pages = shared + fresh
         if pages:
             self._write_row(slot, 0, pages)
         self._mapped[slot] = pages
+        if has_local:
+            self._admit_ring(prefill_cache, slot,
+                             max(last_index or 0, 0))
         self._shared[slot] = len(shared)
         self._reserved[slot] = reserve_pages
         self.reserved_total += reserve_pages
         return n_fresh
+
+    def _admit_ring(self, prefill_cache: Dict[str, torch.Tensor], slot: int,
+                    last: int) -> None:
+        """Map ``local_ring`` fresh pages into ``slot``'s ring row and
+        copy the local stacks in, in ring-cell order (:meth:`admit`)."""
+        psz, ring = self.page_size, self.local_ring
+        row = [self._free_local.popleft() for _ in range(ring)]
+        cells = ring * psz
+        t = torch.arange(cells, device=self.device)
+        p = last - torch.remainder(last - t, cells)
+        idx = torch.as_tensor(row, device=self.device)
+        for name in ("k", "v"):
+            src = prefill_cache["w" + name][:, 0]       # (L, cap, Hkv, hd)
+            g = src.index_select(
+                1, torch.remainder(p.clamp(min=0), src.shape[1]))
+            g = g.masked_fill((p < 0)[None, :, None, None], 0)
+            self.pools["l" + name].index_copy_(
+                1, idx, g.reshape(src.shape[0], ring, psz, *src.shape[2:]))
+        self._write_row(slot, 0, row, self.ltable)
+        self._lrow[slot] = row
+        self._lblock[slot] = last // psz
+
+    def advance_ring(self, slot: int, last_block: int) -> int:
+        """Recycle ``slot``'s ring columns before a window writes through
+        block ``last_block``: each block in ``(_lblock, last_block]``
+        takes column ``block % R``, whose old block is behind every read
+        of the window (the ring has one block of slack, ``(R - 1) *
+        page_size >= window + window tokens``).  The old page goes to
+        the back of the free list before the column takes the front one,
+        so an exactly sized, fully held pool hands a column its own page
+        back.  Returns the number of swaps."""
+        if not self.local_ring or last_block <= self._lblock[slot]:
+            return 0
+        row = self._lrow[slot]
+        swaps = 0
+        for nb in range(self._lblock[slot] + 1, last_block + 1):
+            col = nb % self.local_ring
+            self._free_local.append(row[col])
+            row[col] = self._free_local.popleft()
+            swaps += 1
+        self._lblock[slot] = last_block
+        self._write_row(slot, 0, row, self.ltable)
+        return swaps
 
     def ensure_capacity(self, slot: int, last_pos: int) -> int:
         """Map pages so ``slot`` can write through ``last_pos`` (within
@@ -238,8 +364,9 @@ class PagedKVCache:
             self._orphaned += 1
         else:
             self._shared[slot] -= 1
-        for pool in self.pools.values():
-            pool[:, new] = pool[:, pg]
+        for name, pool in self.pools.items():
+            if name[0] == "p":                     # global pools only
+                pool[:, new] = pool[:, pg]
         self._write_row(slot, logical_idx, [new])
         self._mapped[slot][logical_idx] = new
         return True
@@ -256,9 +383,10 @@ class PagedKVCache:
         return cows
 
     def release(self, slot: int) -> List[int]:
-        """Release ``slot``'s pages (a shared page is freed only when its
-        last holder releases) and point its table row at the sink.
-        Returns the pages actually freed."""
+        """Release ``slot``'s pages (a shared global page is freed only
+        when its last holder releases; the whole ring returns to the back
+        of the local free list) and point its table rows at the sinks.
+        Returns the global pages actually freed."""
         freed = []
         for pg in self._mapped[slot]:
             self._refcount[pg] -= 1
@@ -278,15 +406,23 @@ class PagedKVCache:
         self._reserved[slot] = 0
         self._shared[slot] = 0
         self.table[slot] = self.sink
+        if self._lrow[slot]:
+            self._free_local.extend(self._lrow[slot])
+            self._lrow[slot] = []
+            self._lblock[slot] = -1
+            self.ltable[slot] = self.lsink
         self._free_slots.append(slot)
         self._free_slots.sort(reverse=True)
         return freed
 
     def tables(self) -> Dict[str, torch.Tensor]:
-        return {"global": self.table}
+        """The per-class tables a decode step reads its pools through."""
+        if self.ltable is None:
+            return {"global": self.table}
+        return {"global": self.table, "local": self.ltable}
 
     def seize_pages(self, n: int) -> List[int]:
-        """Fault injection: pull up to ``n`` free pages out of
+        """Fault injection: pull up to ``n`` free global pages out of
         circulation under a ghost reservation, so ``can_reserve`` and
         the engine's ``_admit_cap`` see real pool pressure and the free
         list cannot underflow (the seizure is bounded by the unreserved
@@ -310,31 +446,33 @@ class PagedKVCache:
         never attended) are kept."""
         self._reset_allocator()
         self.table.fill_(self.sink)
+        if self.ltable is not None:
+            self.ltable.fill_(self.lsink)
 
     def resident_bytes(self) -> int:
-        """Bytes of persistent paged storage: pools (sink included; int8
-        pools with their scale planes) and the page table."""
-        return (sum(p.numel() * p.element_size() for p in self.pools.values())
-                + self.table.numel() * self.table.element_size())
+        """Bytes of persistent paged storage: pools (sinks included; int8
+        pools with their scale planes) and the page tables."""
+        tables = [self.table] + ([self.ltable] if self.ltable is not None
+                                 else [])
+        return sum(t.numel() * t.element_size()
+                   for t in list(self.pools.values()) + tables)
 
 
 class PagedServeEngine(SlotServeEngine):
     """Ladder-locked serving over block-granular paged KV storage:
     global layers hold their sequence's pages, with page-aligned common
     prompt prefixes shared copy-on-write (``prefix_sharing``, default
-    on).  ``num_pages`` sizes the pool; the default matches a dense
-    engine's ``max_batch * max_seq`` capacity."""
+    on where there are global layers); sliding-window layers hold one
+    ring of ``local_ring`` pages a slot, whose dead pages are recycled
+    as decode advances.  ``num_pages`` sizes the global pool; the
+    default matches a dense engine's ``max_batch * max_seq`` capacity.
+    The local pool holds ``max_batch`` rings."""
 
     def __init__(self, cfg: ModelConfig, params, *, device,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_batch: int = 8, max_seq: int = 256,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = True, **kw):
-        if LOCAL in cfg.layer_kinds():
-            raise NotImplementedError(
-                f"{cfg.name}: the paged engine has no page rings for "
-                "sliding-window layers yet (the next slice of the port); "
-                "serve it with make_engine(kind='slot') or 'sequential'")
         if CACHE_QUANT["enabled"]:
             raise NotImplementedError(
                 "paged storage quantizes at the pool boundary "
@@ -343,12 +481,25 @@ class PagedServeEngine(SlotServeEngine):
             raise ValueError(f"kv_quant={kv_quant!r} not in {POOL_QUANTS}")
         if page_size < 1 or page_size > max_seq:
             raise ValueError(f"page_size {page_size} not in [1, {max_seq}]")
+        kinds = cfg.layer_kinds()
+        self._has_global = ATTN in kinds
+        self._has_local = LOCAL in kinds
         self.page_size = page_size
         self.kv_quant = kv_quant
-        self.prefix_sharing = prefix_sharing
+        self.prefix_sharing = prefix_sharing and self._has_global
         self.max_pages_per_slot = -(-max_seq // page_size)
         self.num_pages = (num_pages if num_pages is not None
                           else max_batch * self.max_pages_per_slot)
+        # A ring covers the window, one decode window and one page of
+        # slack, so a column is recycled only once its old block is
+        # behind every read of the coming window (sized before
+        # super().__init__ builds the cache).
+        self.local_ring = 0
+        if self._has_local:
+            w = min(cfg.sliding_window, max_seq)
+            self.local_ring = -(-(w + int(kw.get("window", 8)))
+                                // page_size) + 1
+        self.num_local_pages = max_batch * self.local_ring
         # token-prefix bytes -> physical page, and its reverse (purged
         # when pages drain back to the free list).
         self._prefix_registry: Dict[bytes, int] = {}
@@ -368,6 +519,8 @@ class PagedServeEngine(SlotServeEngine):
         extras.update({"page_admits": 0, "page_grows": 0,
                        "pages_mapped_peak": 0,
                        "pages_shared": 0, "page_cows": 0,
+                       "window_pages_reclaimed": 0,
+                       "local_ring_pages": self.local_ring,
                        "pool_pages": self.num_pages,
                        "kv_pool": self.kv_quant or "f32"})
         return extras
@@ -378,16 +531,23 @@ class PagedServeEngine(SlotServeEngine):
         return None
 
     def _default_decode_fn(self):
-        return make_paged_decode_step(self.cfg)
+        wc = (min(self.cfg.sliding_window, self.max_seq)
+              if self._has_local else None)
+        return make_paged_decode_step(self.cfg, window_cap=wc)
 
     def _make_cache(self):
         cfg = self.cfg
+        kinds = cfg.layer_kinds()
         return PagedKVCache(self.max_batch, self.num_pages, self.page_size,
-                            self.max_pages_per_slot, n_layers=cfg.n_layers,
+                            self.max_pages_per_slot,
+                            n_layers=kinds.count(ATTN),
                             n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.resolved_head_dim,
                             dtype=param_dtype(self.params),
-                            device=self.device, quant=self.kv_quant)
+                            device=self.device, quant=self.kv_quant,
+                            n_local_layers=kinds.count(LOCAL),
+                            local_ring=self.local_ring,
+                            num_local_pages=self.num_local_pages)
 
     def _bucket_len(self, s: int) -> Optional[int]:
         # Page-multiple buckets: admission maps exactly
@@ -406,7 +566,10 @@ class PagedServeEngine(SlotServeEngine):
         """Worst-case pages for ``req``: padded (effective) prompt plus
         its remaining decode budget, clamped to the ``max_seq`` stop
         rule.  A preempted request's effective prompt grew by exactly
-        what its budget shrank, so resume reserves the same worst case."""
+        what its budget shrank, so resume reserves the same worst case.
+        A model with no global layer reserves none."""
+        if not self._has_global:
+            return 0
         k = len(req.generated)
         s = len(req.prompt) + max(k - 1, 0)
         blen = self._bucket_len(s) or s
@@ -440,22 +603,28 @@ class PagedServeEngine(SlotServeEngine):
 
     def _admit_cap(self) -> Optional[int]:
         """Live rows plus the prefix of waiting requests (backfilled
-        first) whose worst-case reservations still fit the pool."""
+        first) whose worst-case reservations, and rings, still fit the
+        pools."""
         cap = self._n_active()
         rem = (self.cache.num_pages - self.cache.reserved_total
                - self.cache.orphaned_pages)
+        rings = (self.cache.n_free_local // self.local_ring
+                 if self._has_local else self.max_batch)
         waiting = [r for r, _, _ in self._backfilled] + list(self.queue)
         for req in waiting:
             if cap >= self.max_batch:
                 break
             need = self._pages_for(req) - len(self._probe_shared(req))
-            if need > rem:
+            if need > rem or rings < 1:
                 break
             cap += 1
             rem -= need
+            rings -= 1
         return cap
 
     def _can_admit(self, req: Request) -> bool:
+        if self._has_local and self.cache.n_free_local < self.local_ring:
+            return False
         return self.cache.can_reserve(self._pages_for(req)
                                       - len(self._probe_shared(req)))
 
@@ -463,7 +632,8 @@ class PagedServeEngine(SlotServeEngine):
         shared = self._probe_shared(req)
         fresh = self.cache.admit(cache, slot,
                                  self._pages_for(req) - len(shared),
-                                 shared_pages=shared)
+                                 shared_pages=shared,
+                                 last_index=len(effective_tokens(req)) - 1)
         ext = self.stats["engine"]
         ext["page_admits"] += fresh
         ext["pages_shared"] += len(shared)
@@ -493,9 +663,10 @@ class PagedServeEngine(SlotServeEngine):
     # -- window over the page pool ----------------------------------------
     def _window_call(self, rung: int, toks, pos, budget):
         # Map the pages this window can write (within each admission's
-        # reservation by construction) and copy any shared page a row is
+        # reservation by construction), copy any shared page a row is
         # about to write (never in the serve flow: sharing covers full
-        # prompt pages only).
+        # prompt pages only), and recycle the ring columns the window
+        # will enter.
         ext = self.stats["engine"]
         for slot in range(rung):
             if self._req[slot] is None:
@@ -505,8 +676,12 @@ class PagedServeEngine(SlotServeEngine):
                 continue
             first = int(self._pos[slot])
             last = min(first + min(self.window, b) - 1, self.max_seq - 1)
-            ext["page_grows"] += self.cache.ensure_capacity(slot, last)
-            ext["page_cows"] += self.cache.ensure_writable(slot, first, last)
+            if self._has_global:
+                ext["page_grows"] += self.cache.ensure_capacity(slot, last)
+                ext["page_cows"] += self.cache.ensure_writable(slot, first,
+                                                               last)
+            ext["window_pages_reclaimed"] += self.cache.advance_ring(
+                slot, last // self.page_size)
         self._note_pages_peak()
         tables = {k: t[:rung] for k, t in self.cache.tables().items()}
         return self._decode_window(

@@ -49,14 +49,18 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
-def make_paged_decode_step(cfg: ModelConfig):
+def make_paged_decode_step(cfg: ModelConfig, *,
+                           window_cap: Optional[int] = None):
     """Decode step over paged KV storage: ``(params, pools, page_table,
     tokens (B, 1), pos (B,))`` -> ``(logits, pools)``, the pools updated
-    in place."""
+    in place.  ``page_table`` is the global table or a dict of the
+    per-class tables (``"global"``, ``"local"``); ``window_cap`` pins the
+    local layers' logical ring capacity to the engine's
+    ``min(sliding_window, max_seq)``."""
 
     def decode_step(params, pools, page_table, tokens: torch.Tensor,
                     pos: torch.Tensor):
         return forward_decode(params, cfg, tokens, pools, pos,
-                              page_table=page_table)
+                              page_table=page_table, window_cap=window_cap)
 
     return decode_step

@@ -21,10 +21,10 @@ window)`` whatever the prompt.
   ``max_seq`` (63-200), with ``prefill_batch`` (every coalesced row also
   against its own single prefill within ``TOL``), with the int8 dense
   cache, and through ``ServeFrontend`` over slot.
-* **What stays unsupported raises**: the paged engine on gemma3 (before
-  it reads the weights) and paged decode of local layers, and
-  recurrentgemma-2b, whisper-base, rwkv6-3b and internvl2-76b on every
-  kind.  Global-only models keep their cache names and shapes.
+* **What stays unsupported raises**: recurrentgemma-2b, whisper-base,
+  rwkv6-3b and internvl2-76b on every kind.  Global-only models keep
+  their cache names and shapes.  (gemma3 on the paged engine is
+  ``tests/test_torch_local_rings.py``.)
 """
 import numpy as np
 import pytest
@@ -38,7 +38,7 @@ from repro.serve import make_engine as jax_make_engine
 from repro.serve import Request as JaxRequest
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.models import attention as tattn
-from repro_torch.models import forward_decode, forward_prefill, init_cache
+from repro_torch.models import forward_prefill, init_cache
 from repro_torch.models.transformer import cache_layout
 from repro_torch.serve import make_engine, Request, ServeFrontend
 
@@ -279,22 +279,6 @@ def test_gemma3_frontend_over_slot_matches_jax(frontends):
 # --------------------------------------------------------------------------
 # What stays unsupported, and what stays as it was
 # --------------------------------------------------------------------------
-def test_paged_engine_refuses_sliding_window_layers():
-    """Raised before the weights are read: qwen's params stand in."""
-    qwen = setup("qwen2.5-0.5b")[3]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_engine(torch_smoke_config(GEMMA), qwen, kind="paged",
-                    device="cpu")
-    _, tcfg, _, tparams = setup(GEMMA)
-    toks = torch.zeros((1, 1), dtype=torch.int32)
-    pools = {"pk": torch.zeros(2, 3, 8, 1, 8),
-             "pv": torch.zeros(2, 3, 8, 1, 8)}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        forward_decode(tparams, tcfg, toks, pools,
-                       torch.zeros(1, dtype=torch.int32),
-                       page_table=torch.zeros((1, 2), dtype=torch.int32))
-
-
 @pytest.mark.parametrize("kind", ["slot", "sequential", "paged"])
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "whisper-base",
                                   "rwkv6-3b", "internvl2-76b"])
