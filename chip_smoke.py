@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the last line is printed):
    split (the 208-row prefill's 128 + 80), in float32 and bfloat16
    (elementwise, one bf16 ulp in bfloat16), with every branch of the
    wgmma body the main path uses reached (swap-AB at n8 and n16, each
-   cluster size, each CTA tile); and K1's backward at 2048 rows (dA with
+   cluster size, each CTA tile), in bf16 also at gemma3-1b's,
+   recurrentgemma-2b's and rwkv6-3b's shapes and LM heads at every row
+   count their serves give K1; and K1's backward at 2048 rows (dA with
    B transposed, dB = Aᵀ dC with Aᵀ read in place, the LM head's
    ``table.T``);
 4. K2 (split-KV paged attention) against its plain version: GQA 14/2
@@ -54,16 +56,19 @@ Phases (any failure exits non-zero before the last line is printed):
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
    structure at narrow widths with 8 experts, each 2 layers; gemma3-1b's
    layer structure, 5 sliding-window layers to 1 global, at narrow
-   widths with a window of 16 and 12 layers) served on the card
-   (kernels) and on the CPU (plain versions) through each engine kind
-   (``"paged"``, ``"slot"``, ``"sequential"``; gemma3's with prompts
-   across the window and past ``max_seq``, those past the page table
-   left out on paged): identical greedy tokens per kind, and on the card
-   the slot engine's equal to the paged engine's; the same requests
-   through ``ServeFrontend`` over the slot and paged engines on the
-   card, submitted out of order from two threads, equal to the CPU
-   offline ``run()``'s; and one train step of each on both: the loss,
-   every gradient and the parameters after AdamW;
+   widths with a window of 16 and 12 layers; recurrentgemma-2b's, RG-LRU
+   and sliding-window layers, with a window of 16 and 6 layers, and
+   rwkv6-3b's, WKV layers, with 4 layers, at narrow widths) served on the
+   card (kernels) and on the CPU (plain versions) through each engine
+   kind (``"paged"``, ``"slot"``, ``"sequential"``; all but the
+   global-only ones with prompts across the window and past
+   ``max_seq``, those past the page table left out on paged): identical
+   greedy tokens per kind, and on the card the slot engine's equal to
+   the paged engine's; the same requests through ``ServeFrontend`` over
+   the slot and paged engines on the card, submitted out of order from
+   two threads, equal to the CPU offline ``run()``'s; and, for the
+   attention models, one train step of each on both: the loss, every
+   gradient and the parameters after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -148,14 +153,32 @@ Phases (any failure exits non-zero before the last line is printed):
     share, one profiled slot window and one paged, K1's times (as in
     phase 10) for one decode step at rung 8 and one 512-row prefill, and
     K2's for one decode step at gemma3's layout;
-12. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
+12. ``recurrentgemma-2b`` (26 layers: 18 RG-LRU, 8 sliding-window with a
+    window of 2048, GQA 10/1 at head_dim 256) and ``rwkv6-3b`` (32 WKV
+    layers, 40 heads of 64) at full width and depth in bfloat16 with
+    seeded random weights, each once the model before it is freed: 8
+    requests of 16, 512, 1500, 2047, 2048, 2049, 2600 and 3000 prompt
+    tokens (past 2048 recurrentgemma's ring prefill and decode wrap), 32
+    new tokens each, through ``make_engine(kind="slot", max_slots=8,
+    max_seq=3072, window=8)`` after ``warmup()``, ``kind="sequential"``
+    and ``kind="paged"`` (pages of 16) after ``warmup()``; the launch
+    counters zeroed just before each serve: K1 > 0, every K1 launch on
+    the wgmma route, K2 and its int8 variant 0; each request's token
+    count that of the ``max_seq`` stop rule; on slot and paged
+    ``decode_compiles`` 0 and every slot drained; the storage exactly the
+    bytes of ``RECURRENT_BYTES`` (slot buffers and state slabs, rings,
+    tables), computed from the config and printed beside; finite logits
+    of the 3000-token prompt; printed: the completions the engines share,
+    one profiled slot window and one paged, and K1's times for one
+    decode step (rung 8) and one 2048-row prefill;
+13. ``phi3.5-moe-42b`` at full width, 8 of its 32 layers (all 32 do not
     fit in 80 GB), in bfloat16 with seeded random weights, once the qwen
     model is freed: the same workload through ``make_engine(kind=
     "paged")``, with K1's, K2's and K4's counters zeroed before and > 0
     after, finite logits, ``decode_compiles`` 0, a drained pool, peak
     memory, one profiled decode window, and K4's times at the decode
     (rung 8) and 208-row prefill shapes;
-13. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
+14. ``phi3.5-moe-42b`` training at full width, 2 of its 32 layers (the
     most that fit with AdamW's state), once the serve's model is freed:
     ``Trainer(cfg, TrainerConfig(...)).run()`` for 6 steps of 8 x 256
     synthetic tokens, ``remat="none"``, with K1's, K4's (forward and dX)
@@ -386,6 +409,32 @@ def _k1_gemma_cases(torch, gen, table, head):
                table.shape[1], table.shape[1], table.T)
 
 
+# recurrentgemma-2b's and rwkv6-3b's K1 shapes (k, n), bf16: q, o and the
+# RG-LRU in_gate, in_rec and out (2560 x 2560, also rwkv6's r, k, v, w and
+# o), recurrentgemma's k and v (one KV head of 256), its gate and up, and
+# down; rwkv6's relu^2 up and down.  Their LM heads are table.T:
+# recurrentgemma's tied 256000-row table, rwkv6's untied 65536 rows.
+RECURRENT_K1 = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
+                (2560, 8960), (8960, 2560))
+RECURRENT_HEADS = ((256000, 2560), (65536, 2560))
+
+
+def _recurrent_k1_rows():
+    """The rows the recurrent serve (``serve_recurrent``) gives K1:
+    decode batches of 1 to 8 rows, logits read for every row; and the
+    prefills of ``RECURRENT_LENS`` at the slot engine's power-of-two
+    buckets (at most ``RECURRENT_MAX_SEQ``), the paged engine's 16-token
+    pages and the sequential engine's exact lengths, each also padded
+    to the WKV layers' 32-token chunks (their r/k/v/w projections run
+    on the padded rows), the LM head on 1 row."""
+    lens = set(RECURRENT_LENS)
+    lens |= {min(1 << max(3, (s - 1).bit_length()), RECURRENT_MAX_SEQ)
+             for s in RECURRENT_LENS}
+    lens |= {-(-s // 16) * 16 for s in RECURRENT_LENS}
+    lens |= {-(-s // 32) * 32 for s in lens}
+    return tuple(range(1, 9)), tuple(sorted(lens))
+
+
 def _k1_plans_of(kernels, m, k, n):
     """The launch plans of one bf16 K1 call with aligned rows: one per
     row pass (the ragged residual is its own pass)."""
@@ -397,7 +446,8 @@ def check_k1(torch, kernels, gen) -> float:
     decode rungs 1 and 8, and the ragged main-plus-residual split
     (M = 200 and the 208-row prefill's 128 + 80), each at the main path's
     shapes and the ragged cases; then, in bf16, gemma3's shapes at every
-    row count its serve gives K1 (``_gemma_k1_rows``).  The bf16 plans
+    row count its serve gives K1 (``_gemma_k1_rows``), and the recurrent
+    models' at theirs (``_recurrent_k1_rows``).  The bf16 plans
     reached must cover every branch of K1's wgmma body that the main
     path's shapes use: swap-AB at n8 and n16, each cluster size, and
     each CTA tile."""
@@ -432,15 +482,31 @@ def check_k1(torch, kernels, gen) -> float:
                                     head=m in decode_rows):
             check(torch.bfloat16, m, *case)
     del table
+    rec_decode, rec_prefill = _recurrent_k1_rows()
+    for head in RECURRENT_HEADS:
+        table = (torch.randn(*head, device="cuda", generator=gen)
+                 / head[1] ** 0.5).bfloat16()
+        for m in rec_decode:
+            check(torch.bfloat16, m, f"lm_head {head[1]}x{head[0]} "
+                  "trans_b", head[1], head[1], table.T)
+        del table
+    for k, n in RECURRENT_K1:
+        b = (torch.randn(k, n, device="cuda", generator=gen)
+             / k ** 0.5).bfloat16()
+        for m in rec_decode + rec_prefill:
+            check(torch.bfloat16, m, f"recurrent {k}x{n}", k, k, b)
     # qwen's serve (decode rungs, the 208-row prefill), phi's serve and
-    # training (2048 rows), gemma3's serve.
+    # training (2048 rows), gemma3's serve, the recurrent models' serves.
     qwen = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 153600))
     phi = ((4096, 4096), (4096, 1024), (4096, 32768))
     gemma_head = GEMMA_K1 + ((GEMMA_HEAD[1], GEMMA_HEAD[0]),)
+    rec_head = RECURRENT_K1 + tuple((h[1], h[0]) for h in RECURRENT_HEADS)
     main_path = [p for ms, shapes in (((1, 8, 16, 208), qwen),
                                       ((8, 208, 2048), phi),
                                       (decode_rows, gemma_head),
-                                      (prefill_rows, GEMMA_K1))
+                                      (prefill_rows, GEMMA_K1),
+                                      (rec_decode, rec_head),
+                                      (rec_prefill, RECURRENT_K1))
                  for m in ms for k, n in shapes
                  for p in _k1_plans_of(kernels, m, k, n)]
 
@@ -456,7 +522,9 @@ def check_k1(torch, kernels, gen) -> float:
                              f"{sorted(need - got)}")
     _say(f"k1: {n_cases} cases (M in {K1_ROWS}; main-path shapes and "
          f"ragged edges; f32 and bf16; gemma3's shapes in bf16 at M in "
-         f"{decode_rows + prefill_rows}) agree with the plain version (max "
+         f"{decode_rows + prefill_rows}; recurrentgemma-2b's and "
+         f"rwkv6-3b's in bf16 at M in {rec_decode + rec_prefill}, their "
+         f"LM heads at M in {rec_decode}) agree with the plain version (max "
          f"abs err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 "
          f"2^-7*|ref| + 2e-5*max|ref|); bf16 plans reached (swap-AB, bm, bn, "
          f"cluster): {sorted(reached)}")
@@ -902,11 +970,31 @@ def _small_configs():
             "gemma3 structure": gemma}
 
 
+def _small_recurrent_configs():
+    """recurrentgemma-2b's layer structure (RG-LRU, RG-LRU, sliding
+    window; GQA 4/1) at narrow widths with a window of 16 and 6 layers,
+    and rwkv6-3b's (WKV layers, 8 heads of 64, relu^2 MLP) with 4
+    layers; a 4096-token vocabulary, float32.  They serve only:
+    training on recurrent layers is a later slice."""
+    from repro_torch.configs import get_config
+
+    rg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=6,
+                             d_model=512, n_heads=4, n_kv_heads=1,
+                             head_dim=128, d_ff=1024, sliding_window=16,
+                             vocab_size=4096, param_dtype="float32")
+    rwkv = dataclasses.replace(get_config("rwkv6-3b"), n_layers=4,
+                               d_model=512, n_heads=8, n_kv_heads=8,
+                               head_dim=64, d_ff=1024, vocab_size=4096,
+                               param_dtype="float32")
+    return {"recurrentgemma structure": rg, "rwkv6 structure": rwkv}
+
+
 # The small models' prompts: each crosses the paged engine's 16-token
-# pages; gemma3's also cross its window of 16 and max_seq = 64 (70 and
-# 100 take the exact-length prefill into the dense rings; the paged
-# engine, like the reference's, refuses a prompt past its page table, so
-# it serves the others).
+# pages; those of the models with other layers than global ones also
+# cross their window of 16 and max_seq = 64 (70 and 100 take the
+# exact-length prefill into the dense rings and states; the paged engine,
+# like the reference's, refuses a prompt past its page table where it
+# has one, and is given the others).
 SMALL_LENS = (33, 40, 50, 7, 16)
 SMALL_LOCAL_LENS = (33, 40, 70, 7, 16, 17, 100)
 KINDS = ("paged", "slot", "sequential")
@@ -930,12 +1018,12 @@ def check_small_model(torch, np, label, cfg) -> None:
     submitted out of order from two threads: the tokens must equal the
     CPU offline ``run()``'s (the coalesced prefill is bitwise the single
     one in float32)."""
-    from repro_torch.configs.base import LOCAL
+    from repro_torch.configs.base import ATTN
     from repro_torch.models import init_params
     from repro_torch.serve import make_engine, Request, ServeFrontend
 
-    local = LOCAL in cfg.layer_kinds()
-    lens = SMALL_LOCAL_LENS if local else SMALL_LENS
+    global_only = set(cfg.layer_kinds()) == {ATTN}
+    lens = SMALL_LENS if global_only else SMALL_LOCAL_LENS
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = _tree_map(lambda t: t.cuda(), cpu)
     outs = {}
@@ -1489,6 +1577,189 @@ def serve_gemma3(torch, np, kernels) -> None:
     return {**k2, "serve_launches": k2_launches}
 
 
+# recurrentgemma-2b and rwkv6-3b at full width: 8 requests whose prompts
+# cross recurrentgemma's 2048-token window (2049-3000: its ring prefill
+# and decode wrap), 32 new tokens each, on 8 slots at max_seq 3072 with
+# pages of 16 and windows of 8.  Their storage in bf16, in bytes: the
+# dense slot cache (recurrentgemma: 8 local layers' rings of 2048 cells,
+# 1 KV head of 256, K and V; 18 RG-LRU layers' f32 h and bf16 3-tap
+# conv; rwkv6: 32 WKV layers' f32 40 x 64 x 64 state and bf16 shift)
+# and the paged engine's (rings of R = ceil((2048 + 8) / 16) + 1 = 130
+# pages a slot plus a sink, the same state slabs, the page table of
+# 3072 / 16 columns and the ring table).  _recurrent_bytes computes each
+# from the config.
+RECURRENT_LENS = (16, 512, 1500, 2047, 2048, 2049, 2600, 3000)
+RECURRENT_MAX_SEQ = 3072
+RECURRENT_BYTES = {"recurrentgemma-2b": {"slot": 137_904_128,
+                                         "paged": 140_142_656},
+                   "rwkv6-3b": {"slot": 169_082_880,
+                                "paged": 169_089_024}}
+
+
+def _recurrent_bytes(cfg, kind: str, slots=8, max_seq=RECURRENT_MAX_SEQ,
+                     page=16, window=8) -> dict:
+    """The slot or paged storage of ``cfg`` in bf16, by part, from the
+    layer counts and widths."""
+    kinds = cfg.layer_kinds()
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    cell = cfg.n_kv_heads * hd * 2                 # one position, K or V
+    w = min(cfg.sliding_window, max_seq)
+    parts = {"h": kinds.count("rglru") * slots * d * 4,
+             "conv": kinds.count("rglru") * slots * 3 * d * 2,
+             "state": kinds.count("wkv") * slots * (d // hd) * hd * hd * 4,
+             "shift": kinds.count("wkv") * slots * d * 2}
+    n_local = kinds.count("local")
+    if kind == "slot":
+        parts["rings"] = 2 * n_local * slots * w * cell
+    else:
+        ring = -(-(w + window) // page) + 1 if n_local else 0
+        parts["rings"] = 2 * n_local * (slots * ring + 1) * page * cell
+        parts["tables"] = 4 * slots * (max_seq // page + ring)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def serve_recurrent(torch, np, kernels, name: str) -> dict:
+    """``name`` (recurrentgemma-2b or rwkv6-3b) at full width and depth
+    in bf16 with seeded random weights: the 8 requests of
+    ``RECURRENT_LENS``, 32 new tokens each, through ``make_engine(kind=
+    "slot", max_slots=8, max_seq=3072, window=8)`` after ``warmup()``,
+    ``kind="sequential"`` and ``kind="paged"`` (pages of 16) after
+    ``warmup()``.  Every launch counter is zeroed just before each serve;
+    after it K1's must be > 0 with every launch on the wgmma route, K2's
+    and its int8 variant's 0 (neither model has a global layer); each
+    request's token count is that of the ``max_seq`` stop rule; slot and
+    paged: ``decode_compiles`` 0, every slot drained, the storage exactly
+    ``RECURRENT_BYTES`` (and ``_recurrent_bytes``), every ring page
+    back.  Finite logits of the expected shape from the 3000-token
+    prompt.  Printed: the completions slot and paged share, one profiled
+    slot window and one paged, and K1's times for one decode step (rung
+    8) and one 2048-row prefill (returned)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import init_params
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.serve import make_engine, Request, validate_stats
+
+    cfg = get_config(name)
+    want_bytes = {kind: _recurrent_bytes(cfg, kind)
+                  for kind in ("slot", "paged")}
+    for kind, parts in want_bytes.items():
+        if parts["total"] != RECURRENT_BYTES[name][kind]:
+            raise AssertionError(f"{name} {kind} bytes {parts}, want "
+                                 f"{RECURRENT_BYTES[name][kind]}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    _say(f"params: {name} full width, {cfg.n_layers} layers "
+         f"({ {k: kinds.count(k) for k in sorted(set(kinds))} }), "
+         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} G weights "
+         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
+    outs, engs, summaries = {}, {}, {}
+    for kind in ("slot", "sequential", "paged"):
+        eng = make_engine(cfg, params, kind=kind, max_slots=8,
+                          max_seq=RECURRENT_MAX_SEQ, page_size=16, window=8)
+        if kind != "sequential":
+            eng.warmup()
+        reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                         RECURRENT_LENS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        done = _serve_offline(eng, kind, reqs, RECURRENT_MAX_SEQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.n for k, c in LAUNCH_COUNTERS.items()}
+        _k1_wgmma_only(launches)
+        validate_stats(eng.stats)
+        if launches["sisa_gemm"] <= 0 or launches["paged_attn"] \
+                or launches["paged_attn_int8"]:
+            raise AssertionError(f"{name} {kind} serve: {launches}")
+        if len(done) != len(RECURRENT_LENS) or not all(
+                0 <= t < cfg.vocab_size for c in done for t in c.tokens):
+            raise AssertionError(f"{name} {kind} serve: {done}")
+        counts = [c.n_tokens for c in done]
+        want = _max_seq_counts(RECURRENT_LENS, NEW_TOKENS,
+                               RECURRENT_MAX_SEQ)
+        if counts != want:
+            raise AssertionError(f"{name} {kind} token counts {counts}, "
+                                 f"want {want}")
+        ext = eng.stats["engine"]
+        nbytes = None
+        if kind != "sequential":
+            if eng.stats["decode_compiles"] != 0:
+                raise AssertionError(f"{name} {kind} decode_compiles "
+                                     f"{eng.stats['decode_compiles']}")
+            if eng.cache.n_free != eng.max_batch or ext["slot_admits"] \
+                    != ext["slot_releases"]:
+                raise AssertionError(f"{name} {kind} slots did not drain")
+            nbytes = eng.cache.resident_bytes()
+            if nbytes != RECURRENT_BYTES[name][kind]:
+                raise AssertionError(f"{name} {kind} storage {nbytes} "
+                                     f"bytes, want {want_bytes[kind]}")
+        if kind == "paged" and (
+                eng.cache.n_free_local != eng.num_local_pages
+                or eng.cache.n_free_pages != eng.num_pages
+                or ext["page_admits"] or ext["page_grows"]):
+            raise AssertionError(
+                f"{name} paged: {eng.cache.n_free_local} of "
+                f"{eng.num_local_pages} ring pages free, "
+                f"{ext['page_admits']} pages admitted")
+        outs[kind], engs[kind] = done, eng
+        n_tok = sum(counts)
+        summaries[kind] = {
+            "model": name, "kind": kind, "layers": cfg.n_layers,
+            "max_seq": RECURRENT_MAX_SEQ, "prompts": list(RECURRENT_LENS),
+            "tokens": counts, "finish": [c.finish_reason for c in done],
+            "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_compiles": eng.stats["decode_compiles"],
+            "decode_steps": eng.stats["decode_steps"],
+            "batches": eng.stats["batches"], "storage_bytes": nbytes,
+            "storage_formula": want_bytes.get(kind),
+            "local_ring_pages": ext.get("local_ring_pages"),
+            "window_pages_reclaimed": ext.get("window_pages_reclaimed"),
+            "launches": launches}
+        _say(f"recurrent serve: {json.dumps(summaries[kind])}")
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    prompt = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                       RECURRENT_LENS)[-1].prompt
+    logits, _ = engs["slot"].prefill_fn(params, {
+        "tokens": torch.as_tensor(prompt[None], device="cuda"),
+        "last_index": len(prompt) - 1})
+    _k1_wgmma_only({k: c.n for k, c in LAUNCH_COUNTERS.items()})
+    if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
+            or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        raise AssertionError(f"{name} bad logits {logits.shape}")
+    same = sum(a.tokens == b.tokens
+               for a, b in zip(outs["slot"], outs["paged"]))
+    seq = sum(a.tokens == b.tokens
+              for a, b in zip(outs["slot"], outs["sequential"]))
+    _say(f"{name}: {same} of {len(RECURRENT_LENS)} completions of the "
+         f"paged serve equal the slot serve's, {seq} the sequential "
+         "serve's (bf16: K1 sums at other M in other orders; the "
+         "sequential prefill is exact-length, the slot one bucketed)")
+    profiles = {kind: profile_window(torch, np, engs[kind], cfg)
+                for kind in ("slot", "paged")}
+    del engs
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = {}
+    for rows, what in ((8, "decode step (rung 8"), (2048, "prefill (2048 "
+                                                       "rows, LM head on "
+                                                       "1 row")):
+        k1[rows] = time_k1(torch, kernels, params, cfg, rows=rows)
+        _say(f"k1 {name} {what}, {k1[rows]['gemms']} GEMMs): "
+             f"{json.dumps(k1[rows])}")
+    return {"k1": k1, "serves": summaries, "profiles": profiles}
+
+
 # An exception in a frontend thread ends that thread (the scheduler's
 # ends the serve): each one is recorded here and re-raised in the main
 # thread by _drain.
@@ -1844,8 +2115,9 @@ def _host_us(torch, fns: dict, calls: int) -> dict:
 
 
 def time_k1(torch, kernels, params, cfg, rows: int):
-    """All K1 work of one forward at ``rows`` rows: 7 linears a layer,
-    plus the LM head over ``min(rows, 8)`` rows (decode reads logits for
+    """All K1 work of one forward at ``rows`` rows: every linear of each
+    layer's mixer (attention, RG-LRU or WKV) and MLP, plus the LM head
+    (tied or not) over ``min(rows, 8)`` rows (decode reads logits for
     every row, prefill for the last token only)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     xs = {}                             # one input a contraction width
@@ -1858,13 +2130,13 @@ def time_k1(torch, kernels, params, cfg, rows: int):
 
     gemms = []
     for layer in params["layers"]:
-        mix, mlp = layer["mixer"], layer["mlp"]
-        gemms += [(x_of(w.shape[0]), w) for w in (
-            mix["q"]["w"], mix["k"]["w"], mix["v"]["w"], mix["o"]["w"],
-            mlp["gate"]["w"], mlp["up"]["w"], mlp["down"]["w"])]
+        gemms += [(x_of(lin["w"].shape[0]), lin["w"])
+                  for part in (layer["mixer"], layer["mlp"])
+                  for lin in part.values()
+                  if isinstance(lin, dict) and "w" in lin]
     head_rows = rows if rows <= 8 else 1
-    gemms.append((x_of(cfg.d_model)[:head_rows],
-                  params["embed"]["table"].T))
+    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
+    gemms.append((x_of(cfg.d_model)[:head_rows], table.T))
 
     def run(fn):
         return lambda: [fn(a, b) for a, b in gemms]
@@ -2796,6 +3068,8 @@ def main() -> int:
     for label, small in _small_configs().items():
         check_small_model(torch, np, label, small)
         check_small_train(torch, np, label, small)
+    for label, small in _small_recurrent_configs().items():
+        check_small_model(torch, np, label, small)
 
     cfg = get_config("qwen2.5-0.5b")
     eng, params, launches, flt_outs = serve_full_width(
@@ -2835,6 +3109,11 @@ def main() -> int:
     k2_gemma = serve_gemma3(torch, np, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    recurrent = {}
+    for name in RECURRENT_BYTES:
+        recurrent[name] = serve_recurrent(torch, np, kernels, name)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     k6_launches = drive_k6(torch, kernels)
     k6 = {}
@@ -2893,9 +3172,23 @@ def main() -> int:
         {"name": "sisa_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sisa_gemm.cu",
          "replaces": "src/repro/kernels/sisa_gemm.py:95",
+         "note": "launches: the qwen2.5-0.5b paged serve; times: one "
+                 "qwen2.5-0.5b decode step (rung 8); <model>_decode_* one "
+                 "decode step (rung 8) and <model>_prefill_* one 2048-row "
+                 "prefill of recurrentgemma-2b and rwkv6-3b, whose serves "
+                 "launched it <model>_serve_launches times (slot, "
+                 "sequential, paged)",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err),
-         **{k: k1[k] for k in keys}},
+         **{k: k1[k] for k in keys},
+         **{f"{name.split('-')[0]}_{step}_{k}": rec["k1"][rows][k]
+            for name, rec in recurrent.items()
+            for step, rows in (("decode", 8), ("prefill", 2048))
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"{name.split('-')[0]}_serve_launches": [
+             rec["serves"][kind]["launches"]["sisa_gemm"]
+             for kind in ("slot", "sequential", "paged")]
+            for name, rec in recurrent.items()}},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",

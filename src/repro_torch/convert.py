@@ -7,10 +7,15 @@ returns the port's tree: the scanned layer groups
 (``repro/models/transformer.py:59-98``) unstacked into one dict per
 layer, in the order the reference's scan runs them, so both packages
 compute the same function on the same weights.  :func:`cache_from_jax`
-does the same for a dense KV cache: the reference's per-group cache
+does the same for a dense cache: the reference's per-group cache
 pytrees (``repro/models/transformer.py:init_cache``) become the port's
-stacked ``{"k","v"[,"k_s","v_s"]}: (L, B, cap, Hkv, hd)``, and
-:func:`pools_from_jax` for the paged engine's pools.
+per-class stacks (``repro_torch.models.transformer``'s module doc:
+``{"k","v"[,"k_s","v_s"]}: (L, B, cap, Hkv, hd)`` for global layers,
+``"w"``-prefixed for local ones, ``{"h","conv"}`` and
+``{"state","shift"}`` for the recurrent ones), and
+:func:`pools_from_jax` for the paged engine's pools and state slabs.
+Float32 leaves (the recurrent gates, decays and states) stay float32
+in a model of another dtype.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import cache_layout, check_supported
+from repro_torch.models.transformer import (cache_layout, check_supported,
+                                           stack_name)
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -54,21 +60,23 @@ def cache_from_jax(caches, cfg: ModelConfig, device=None
     check_supported(cfg)
     dev = resolve_device(device)
     stacks: Dict[str, list] = {}
-    for (group, b, r), (pre, _) in zip(_unstack_layers(caches, cfg),
+    for (group, b, r), (tag, _) in zip(_unstack_layers(caches, cfg),
                                        cache_layout(cfg)):
-        stacks.setdefault(pre, []).append(
+        stacks.setdefault(tag, []).append(
             {name: np.asarray(x)[r] for name, x in group[b].items()})
-    return {pre + name: _tensor(np.stack([layer[name] for layer in layers]),
-                                dev)
-            for pre, layers in stacks.items() for name in layers[0]}
+    return {stack_name(tag, name): _tensor(
+                np.stack([layer[name] for layer in layers]), dev)
+            for tag, layers in stacks.items() for name in layers[0]}
 
 
 def pools_from_jax(pools, cfg: ModelConfig, device=None
                    ) -> Dict[str, torch.Tensor]:
     """The reference's paged pools (per-group pytrees whose leaves,
     already numpy, are named ``"pk","pv"[,"pk_s","pv_s"]`` for global
-    layers and ``"lk","lv"`` for local ones) as the port's pool stacks
-    under the same names, each layer at its index in its class."""
+    layers, ``"lk","lv"`` for local ones, and ``"h","conv"`` /
+    ``"state","shift"`` for the recurrent layers' slot slabs) as the
+    port's pool stacks under the same names, each layer at its index in
+    its class."""
     check_supported(cfg)
     dev = resolve_device(device)
     stacks: Dict[str, list] = {}

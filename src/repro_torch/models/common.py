@@ -111,6 +111,14 @@ def lm_head_logits(table: Tensor, x: Tensor, vocab: int) -> Tensor:
     return logits.masked_fill(pad, torch.finfo(torch.float32).min)
 
 
+def last_rows(last_index, batch: int, device) -> Tensor:
+    """A prefill's ``last_index`` (an int, a 0-dim tensor or a ``(B,)``
+    vector: each row's real last token) as a ``(batch,)`` long
+    vector."""
+    last = torch.as_tensor(last_index, device=device).long().reshape(-1)
+    return last.expand(batch)
+
+
 def activation(name: str) -> Callable[[Tensor], Tensor]:
     return {"silu": F.silu,
             # jax.nn.gelu defaults to the tanh approximation.

@@ -1,35 +1,46 @@
-"""Model assembly for causal-attention decoders, dense or MoE, with
-global (``ATTN``) and sliding-window (``LOCAL``) layers (the port of the
-main path of ``repro/models/transformer.py``).
+"""Model assembly for decoders of global (``ATTN``) and sliding-window
+(``LOCAL``) attention layers and RG-LRU (``RGLRU``) and RWKV6 time-mix
+(``WKV``) recurrent layers, dense or MoE (the port of the main path of
+``repro/models/transformer.py``).
 
 The parameter tree keeps the reference's names with the scanned layer
 groups unstacked into one dict per layer::
 
     {"embed": {"table"}, "final_norm": {"scale"},
-     "layers": [{"norm1", "norm2", "mixer": {"q","k","v","o"},
+     "layers": [{"norm1", "norm2",
+                 "mixer": {"q","k","v","o"}                 (attention)
+                        | {"in_gate","in_rec","conv_w","gate_r","gate_i",
+                           "lam","out"}                     (RG-LRU)
+                        | {"mu","r","k","v","w","u","o"},   (WKV)
                  "mlp": {"up","down"[,"gate"]}
                  | "moe": {"router","up","down"[,"gate"]}}, ...],
      ["lm_head": {"table"}]}
 
 Layers run in a Python loop (the reference scans them), each with its
-kind from ``cfg.layer_kinds()``.  Prefill emits the filled dense KV
-cache as one stack a layer class, since the classes differ in
-capacity: global layers ``{"k","v": (L_attn, B, max_seq, Hkv, hd)}``,
+kind from ``cfg.layer_kinds()``.  Caches hold one stack a layer class,
+since the classes differ in shape (:func:`cache_layout` maps a layer to
+its class's tag and its index in the stacks).  Prefill emits the filled
+dense cache: global layers ``{"k","v": (L_attn, B, max_seq, Hkv, hd)}``,
 local layers ``{"wk","wv": (L_local, B, min(max_seq, window), Hkv,
 hd)}`` (int8 with ``"k_s","v_s"`` / ``"wk_s","wv_s"`` scale planes
-while ``attention.CACHE_QUANT`` is on); a model with one class has one
-stack (:func:`cache_layout` maps a layer to its stack and index).
-Decode reads and writes either such dense caches or page pools, one
-stack a layer class: global layers ``{"pk","pv": (L_attn, pages + sink,
-page_size, Hkv, hd)}`` (int8 with ``"pk_s","pv_s"`` scale planes) through
-a ``(B, max_pages)`` page table, local layers ``{"lk","lv": (L_local,
-local pages + sink, page_size, Hkv, hd)}`` (model precision) through a
-``(B, R)`` ring table.  MoE layers (``cfg.moe``) replace the MLP with
-:func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train`
+while ``attention.CACHE_QUANT`` is on), RG-LRU layers ``{"h": (L_rglru,
+B, d) f32, "conv": (L_rglru, B, 3, d)}`` and WKV layers ``{"state":
+(L_wkv, B, H, hd, hd) f32, "shift": (L_wkv, B, d)}``, the recurrent
+states at model precision whatever the flag; a class with no layer has
+no stack.  Decode reads and writes either such dense caches or the
+paged engine's pools: global layers ``{"pk","pv": (L_attn, pages +
+sink, page_size, Hkv, hd)}`` (int8 with ``"pk_s","pv_s"`` scale planes)
+through a ``(B, max_pages)`` page table, local layers ``{"lk","lv":
+(L_local, local pages + sink, page_size, Hkv, hd)}`` (model precision)
+through a ``(B, R)`` ring table, and the recurrent states as slabs of
+the dense stacks' shapes, ``(L_kind, B, ...)``, a row a slot.  Decode
+updates every cache in place.  MoE layers (``cfg.moe``) replace the MLP
+with :func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train`
 returns the next-token loss and its metrics for training
-(``repro/models/transformer.py:188-246``).
-Recurrent, enc-dec and frontend models raise ``NotImplementedError``
-(later slices, ROADMAP.md).
+(``repro/models/transformer.py:188-246``) on attention models;
+recurrent layers raise there (training on them is the next slice of
+the port), and enc-dec and frontend models raise everywhere
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -39,13 +50,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, ModelConfig, RGLRU, WKV
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
-                                       embedding_lookup, lm_head_logits,
-                                       mlp_apply, mlp_init, rmsnorm_apply,
-                                       rmsnorm_init)
+                                       embedding_lookup, last_rows,
+                                       lm_head_logits, mlp_apply, mlp_init,
+                                       rmsnorm_apply, rmsnorm_init)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -54,43 +67,68 @@ Params = Dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any architecture outside this slice of the port."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= {ATTN, LOCAL} or cfg.enc_dec \
+    if not kinds <= {ATTN, LOCAL, RGLRU, WKV} or cfg.enc_dec \
             or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves causal-attention decoders (global "
-            f"and sliding-window layers, dense or MoE) only so far (layer "
-            f"kinds {sorted(kinds)}, enc_dec={cfg.enc_dec}, "
-            f"frontend={cfg.frontend}); recurrent layers, enc-dec and "
-            f"frontends are later slices, see ROADMAP.md")
+            f"{cfg.name}: the port serves decoders of global and "
+            f"sliding-window attention and RG-LRU and RWKV6 recurrent "
+            f"layers, dense or MoE, only so far (layer kinds "
+            f"{sorted(kinds)}, enc_dec={cfg.enc_dec}, "
+            f"frontend={cfg.frontend}); enc-dec models and frontends are "
+            f"later slices, see ROADMAP.md")
 
 
-# A local layer's cache tensors carry this prefix ("wk", "wv", ...),
-# so the two classes' stacks live side by side in one dict.
-_LOCAL_PREFIX = "w"
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for any architecture the port cannot train yet."""
+    check_supported(cfg)
+    recurrent = sorted(set(cfg.layer_kinds()) & {RGLRU, WKV})
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: training on recurrent layers ({recurrent}) is "
+            f"the next slice of the port, see ROADMAP.md; these layers "
+            f"serve only")
 
 
-def _class(kind: str) -> str:
-    return _LOCAL_PREFIX if kind == LOCAL else ""
+# Each layer class keeps its cache tensors in stacks of its own.  A
+# class's tag (cache_layout), and for each name of a layer's cache the
+# name of its class's stack in a dense cache.
+_TAG = {ATTN: "", LOCAL: "w", RGLRU: RGLRU, WKV: WKV}
+_KV = ("k", "v", "k_s", "v_s")
+_DENSE = {"": {n: n for n in _KV}, "w": {n: "w" + n for n in _KV},
+          RGLRU: {"h": "h", "conv": "conv"},
+          WKV: {"state": "state", "shift": "shift"}}
+# The names of each class's tensors in the paged engine's pools; a paged
+# layer's cache keeps them.
+_POOLS = {"": ("pk", "pv", "pk_s", "pv_s"), "w": ("lk", "lv"),
+          RGLRU: ("h", "conv"), WKV: ("state", "shift")}
+# The recurrent layers' stacks: no sequence axis, the same shape dense
+# (slot buffers) and paged (slabs).
+STATE_STACKS = _POOLS[RGLRU] + _POOLS[WKV]
+
+
+def stack_name(tag: str, name: str) -> str:
+    """The dense stack that holds ``name`` of a layer of class ``tag``."""
+    return _DENSE[tag][name]
 
 
 def cache_layout(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """Per layer, its cache stack's name prefix (``""`` global, ``"w"``
-    local) and its index in that stack."""
-    seen = {"": 0, _LOCAL_PREFIX: 0}
+    """Per layer, its class's tag (``""`` global, ``"w"`` local,
+    ``"rglru"``, ``"wkv"``) and its index in that class's stacks."""
+    seen = {tag: 0 for tag in _DENSE}
     out = []
     for kind in cfg.layer_kinds():
-        pre = _class(kind)
-        out.append((pre, seen[pre]))
-        seen[pre] += 1
+        tag = _TAG[kind]
+        out.append((tag, seen[tag]))
+        seen[tag] += 1
     return out
 
 
-def _layer_cache(caches: Dict[str, Tensor], pre: str, index: int
+def _layer_cache(caches: Dict[str, Tensor], tag: str, index: int
                  ) -> Dict[str, Tensor]:
-    """Layer ``index`` of the ``pre`` stack, under the plain names
-    ``"k","v"[,"k_s","v_s"]`` (views: writes land in the stack)."""
-    return {name[len(pre):]: t[index] for name, t in caches.items()
-            if name.startswith(_LOCAL_PREFIX) == bool(pre)}
+    """Layer ``index`` of class ``tag``'s dense stacks, under the names
+    its mixer reads (views: writes land in the stacks)."""
+    return {name: caches[stack][index] for name, stack in _DENSE[tag].items()
+            if stack in caches}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -114,14 +152,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "layers": [{
             "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
             "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-            "mixer": attn.attn_init(gen, cfg, dtype),
+            "mixer": _mixer_init(gen, cfg, kind, dtype),
             **_ffn_init(gen, cfg, dtype),
-        } for _ in range(cfg.n_layers)],
+        } for kind in cfg.layer_kinds()],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                            dtype)
     return params
+
+
+def _mixer_init(gen, cfg: ModelConfig, kind: str, dtype) -> Params:
+    if kind == RGLRU:
+        return rglru_mod.rglru_init(gen, cfg, dtype)
+    if kind == WKV:
+        return rwkv_mod.rwkv_init(gen, cfg, dtype)
+    return attn.attn_init(gen, cfg, dtype)
 
 
 def _ffn_init(gen, cfg: ModelConfig, dtype) -> Params:
@@ -189,8 +235,8 @@ def forward_train(params: Params, cfg: ModelConfig,
     activations.  ``"dots"`` (the reference keeps matmul outputs and
     recomputes the rest) maps to ``"full"`` here: the values are the
     same and only memory and time differ.  A mesh is the distributed
-    slice and raises."""
-    check_supported(cfg)
+    slice and raises, and so do recurrent layers (:func:`check_trainable`)."""
+    check_trainable(cfg)
     if mesh is not None:
         raise NotImplementedError(
             "sharded training is the distributed slice of the port "
@@ -238,27 +284,53 @@ def _next_token_loss(logits: Tensor, labels: Tensor
     return loss, acc
 
 
+def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
+                      seq_len: int, dtype, dev) -> Dict[str, Tensor]:
+    if kind == RGLRU:
+        return rglru_mod.rglru_init_cache(batch, cfg.d_model, dtype, dev)
+    if kind == WKV:
+        return rwkv_mod.rwkv_init_cache(batch, cfg, dtype, dev)
+    cap = attn.cache_capacity(kind, seq_len, cfg.sliding_window)
+    return attn.init_cache(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
+                           dtype, dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
-               device=None) -> Dict[str, Tensor]:
-    """Zero dense KV cache: ``{"k","v": (L_attn, batch, seq_len, Hkv,
-    hd)}`` for the global layers and ``{"wk","wv": (L_local, batch,
-    min(seq_len, window), Hkv, hd)}`` for the local ones (a class with
-    no layer has no stack), int8 with bf16 scale planes while
-    ``attention.CACHE_QUANT`` is on."""
+               device=None, *, kinds=(ATTN, LOCAL, RGLRU, WKV)
+               ) -> Dict[str, Tensor]:
+    """Zero dense cache of the module doc for the layers of ``kinds``:
+    ``{"k","v": (L_attn, batch, seq_len, Hkv, hd)}`` for the global
+    layers, ``{"wk","wv": (L_local, batch, min(seq_len, window), Hkv,
+    hd)}`` for the local ones (int8 with bf16 scale planes while
+    ``attention.CACHE_QUANT`` is on), ``{"h","conv"}`` for the RG-LRU
+    layers and ``{"state","shift"}`` for the WKV ones (a class with no
+    layer has no stack)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    kinds = cfg.layer_kinds()
+    layer_kinds = cfg.layer_kinds()
     out: Dict[str, Tensor] = {}
-    for kind in (ATTN, LOCAL):
-        n = kinds.count(kind)
+    for kind in kinds:
+        n = layer_kinds.count(kind)
         if not n:
             continue
-        cap = attn.cache_capacity(kind, seq_len, cfg.sliding_window)
-        one = attn.init_cache(batch, cap, cfg.n_kv_heads,
-                              cfg.resolved_head_dim, dtype, dev)
-        out.update({_class(kind) + name: t.new_zeros((n,) + t.shape)
-                    for name, t in one.items()})
+        one = _layer_cache_init(cfg, kind, batch, seq_len, dtype, dev)
+        out.update({stack_name(_TAG[kind], name):
+                    t.new_zeros((n,) + t.shape) for name, t in one.items()})
     return out
+
+
+def _mixer_prefill(p: Params, h: Tensor, cfg: ModelConfig, kind: str,
+                   cap_seq: int, last_index) -> Tuple[Tensor,
+                                                      Dict[str, Tensor]]:
+    """A layer's mixer over the prompt: its output and its cache."""
+    if kind == RGLRU:
+        return rglru_mod.rglru_prefill(p, h, cfg, last_index)
+    if kind == WKV:
+        return rwkv_mod.rwkv_apply(p, h, cfg, return_state=True,
+                                   last_index=last_index)
+    mix, k, v = attn.attn_apply(p, h, cfg, kind=kind)
+    cap = attn.cache_capacity(kind, cap_seq, cfg.sliding_window)
+    return mix, attn.prefill_into_cache(k, v, cap, last_index)
 
 
 def forward_prefill(params: Params, cfg: ModelConfig,
@@ -274,26 +346,27 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     selects the position whose logits are returned instead of the last
     — the bucketed prefill pads prompts and reads each row's last real
     token (causal masking hides the pads from it).  Every attention
-    layer also takes it as ``last_index``: a layer whose capacity is
-    shorter than S lays its ring at each row's real length, as the
-    reference does (``repro/models/transformer.py:370-377``).  MoE
-    layers take the tokens up to it as the real ones (``valid``).
+    and recurrent layer also takes it as ``last_index``, as the
+    reference's do (``repro/models/transformer.py:290-316``, ``:370-377``):
+    an attention layer whose capacity is shorter than S lays its ring at
+    each row's real length, and a recurrent layer keeps its state at
+    each row's real last token.  MoE layers take the tokens up to it as
+    the real ones (``valid``).
     """
     check_supported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     cap_seq = cache_len or x.shape[1]
     valid = None
     if logits_index is not None and cfg.moe is not None:
-        last = torch.as_tensor(logits_index, device=x.device).reshape(-1)
+        last = last_rows(logits_index, x.shape[0], x.device)
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
-                 <= last.expand(x.shape[0])[:, None])
+                 <= last[:, None])
     caches: Dict[str, List[Dict[str, Tensor]]] = {}
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        mix, k, v = attn.attn_apply(p["mixer"], h, cfg, kind=kind)
-        cap = attn.cache_capacity(kind, cap_seq, cfg.sliding_window)
-        caches.setdefault(_class(kind), []).append(
-            attn.prefill_into_cache(k, v, cap, logits_index))
+        mix, cache = _mixer_prefill(p["mixer"], h, cfg, kind, cap_seq,
+                                    logits_index)
+        caches.setdefault(_TAG[kind], []).append(cache)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h, valid)
@@ -309,13 +382,8 @@ def forward_prefill(params: Params, cfg: ModelConfig,
             i = int(idx)
             x_last = x[:, i:i + 1]
     return _logits(params, cfg, x_last), {
-        pre + name: torch.stack([c[name] for c in layers])
-        for pre, layers in caches.items() for name in layers[0]}
-
-
-# The initial of a layer class's page-pool tensors ("pk", "pk_s" global;
-# "lk" local), keyed by its dense-cache prefix.
-_POOL_CLASS = {"": "p", _LOCAL_PREFIX: "l"}
+        stack_name(tag, name): torch.stack([c[name] for c in layers])
+        for tag, layers in caches.items() for name in layers[0]}
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
@@ -336,9 +404,12 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     its ``"pk","pv"`` through K2, a local layer its ``"lk","lv"`` ring
     through the ring table with the logical ring capacity ``window_cap``
     (the engine's ``min(sliding_window, max_seq)``; default the
-    window).  Either way the caches are updated in place, so a view of
-    a larger buffer receives the writes.  Returns the f32 logits ``(B,
-    1, vocab_padded)`` and the caches."""
+    window).  Recurrent layers read and write their ``"h","conv"`` or
+    ``"state","shift"`` stacks either way (slot rows of the dense
+    buffers, or of the paged engine's slabs); they take no position.
+    Every cache is updated in place, so a view of a larger buffer
+    receives the writes.  Returns the f32 logits ``(B, 1,
+    vocab_padded)`` and the caches."""
     check_supported(cfg)
     if page_table is not None and not isinstance(page_table, dict):
         page_table = {"global": page_table}
@@ -346,21 +417,27 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
         pos = pos.long()
-    for p, (pre, index) in zip(params["layers"], cache_layout(cfg)):
+    for p, kind, (tag, index) in zip(params["layers"], cfg.layer_kinds(),
+                                      cache_layout(cfg)):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         if page_table is None:
-            mix, _ = attn.attn_decode_step(
-                p["mixer"], h, _layer_cache(caches, pre, index), pos, cfg)
+            cache = _layer_cache(caches, tag, index)
         else:
-            cache = {name: t[index] for name, t in caches.items()
-                     if name[0] == _POOL_CLASS[pre]}
-            if pre:
-                mix, _ = attn.paged_local_attn_decode_step(
-                    p["mixer"], h, cache, page_table["local"], pos, cfg,
-                    window_cap=window_cap or cfg.sliding_window)
-            else:
-                mix, _ = attn.paged_attn_decode_step(
-                    p["mixer"], h, cache, page_table["global"], pos, cfg)
+            cache = {name: caches[name][index] for name in _POOLS[tag]
+                     if name in caches}
+        if kind == RGLRU:
+            mix, _ = rglru_mod.rglru_decode_step(p["mixer"], h, cache, cfg)
+        elif kind == WKV:
+            mix, _ = rwkv_mod.rwkv_decode_step(p["mixer"], h, cache, cfg)
+        elif page_table is None:
+            mix, _ = attn.attn_decode_step(p["mixer"], h, cache, pos, cfg)
+        elif kind == LOCAL:
+            mix, _ = attn.paged_local_attn_decode_step(
+                p["mixer"], h, cache, page_table["local"], pos, cfg,
+                window_cap=window_cap or cfg.sliding_window)
+        else:
+            mix, _ = attn.paged_attn_decode_step(
+                p["mixer"], h, cache, page_table["global"], pos, cfg)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h)

@@ -205,9 +205,10 @@ class ServeEngine:
 
     Prefills run at exact length into ``max_seq``-capacity caches (a
     prompt longer than a layer's capacity keeps its last positions,
-    rolled into the ring), which are concatenated along the batch axis
-    and decoded at ``pos = max(positions)``; finished rows are dropped
-    from the batch by index.
+    rolled into the ring; a recurrent layer keeps its state after the
+    prompt), which are concatenated along the batch axis and decoded at
+    ``pos = max(positions)``, every cache updated in place; finished
+    rows are dropped from the batch by index.
     ``stats["decode_compiles"]`` is the number of distinct decode batch
     sizes run since construction (what the reference's jit cache
     counts), kept across :meth:`reset`."""

@@ -24,6 +24,14 @@
   maps it again from the front, so a slot holds ``R`` local pages
   however long it decodes (``stats["engine"]["window_pages_reclaimed"]``
   counts the swaps).
+* **Recurrent-state slabs**: RG-LRU (``"h","conv"``) and RWKV6
+  (``"state","shift"``) layers keep a state with no sequence axis, so it
+  lives in ``(L_kind, max_slots, ...)`` slabs beside the page pools,
+  addressed by slot: admission writes the prefilled state into the
+  slot's row, the decode window steps a view of the first ``rung`` rows
+  in place, and release and reset leave the rows (the next admission
+  overwrites a row whole).  No pages, no growth; a slot's bytes are
+  fixed.
 * **Refcounted prefix sharing (copy-on-write)**, on by default for
   models with global layers: two requests whose token prefixes agree
   through a page boundary map the same physical global page; a holder
@@ -40,18 +48,20 @@
   chunks as it copies them in, decode quantizes each new K/V as it
   writes it, with the same numerics (:func:`repro_torch.kernels.
   paged_attn.quantize_page_pool`), so admitted and decoded cells
-  dequantize identically.  Local rings stay at model precision, as in
-  the reference.  A prefill parked by co-execution backfill stays at
+  dequantize identically.  Local rings and state slabs stay at model
+  precision, as in the reference (a model with no global layer has no
+  byte to quantize).  A prefill parked by co-execution backfill stays at
   model precision until its admission copies it in.  The dense engines'
   ``CACHE_QUANT`` flag is refused, as the reference does.
 
 Decode writes the new K/V into the pools in place; global layers attend
 through K2 (:func:`repro_torch.models.attention.paged_attn_decode_step`),
 local layers gather their ring
-(:func:`~repro_torch.models.attention.paged_local_attn_decode_step`).
-Every model the port accepts (global and sliding-window layers, dense or
-MoE: gemma3-1b among them) serves here; recurrent slabs and cross pages
-are later slices.
+(:func:`~repro_torch.models.attention.paged_local_attn_decode_step`),
+recurrent layers step their slab rows.  Every model the port accepts
+(global, sliding-window and recurrent layers, dense or MoE: gemma3-1b,
+recurrentgemma-2b and rwkv6-3b among them) serves here; cross pages are
+a later slice.
 """
 from __future__ import annotations
 
@@ -60,10 +70,11 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, ModelConfig, RGLRU, WKV
 from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.attention import CACHE_QUANT
-from repro_torch.models.transformer import param_dtype
+from repro_torch.models.transformer import (init_cache, param_dtype,
+                                            STATE_STACKS)
 from repro_torch.serve.engine import effective_tokens, Request
 from repro_torch.serve.serve_step import make_paged_decode_step
 from repro_torch.serve.slot_engine import SlotServeEngine
@@ -81,14 +92,17 @@ class PagedKVCache:
     where ``local_ring`` > 0) keep ``"lk","lv"`` at model precision,
     ``(n_local_layers, num_local_pages + 1, page_size, Hkv, hd)`` with
     sink page ``lsink``, indirected by the ring table ``ltable``
-    ``(max_slots, local_ring)``.  Pools are allocated once, at
-    construction; the allocators' bookkeeping is host-side."""
+    ``(max_slots, local_ring)``.  ``slabs`` are the recurrent layers'
+    zero state stacks ``(L_kind, max_slots, ...)``, kept in ``pools``
+    under their own names and addressed by slot.  Pools are allocated
+    once, at construction; the allocators' bookkeeping is host-side."""
 
     def __init__(self, max_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, *, n_layers: int, n_kv_heads: int,
                  head_dim: int, dtype: torch.dtype, device: torch.device,
                  quant: Optional[str] = None, n_local_layers: int = 0,
-                 local_ring: int = 0, num_local_pages: int = 0):
+                 local_ring: int = 0, num_local_pages: int = 0,
+                 slabs: Optional[Dict[str, torch.Tensor]] = None):
         if num_pages < max_pages_per_slot:
             raise ValueError(
                 f"pool of {num_pages} pages cannot hold one full-length "
@@ -134,6 +148,7 @@ class PagedKVCache:
                 lv=torch.zeros(lshape, dtype=dtype, device=device))
             self.ltable = torch.full((max_slots, local_ring), self.lsink,
                                      dtype=torch.int32, device=device)
+        self.pools.update(slabs or {})
         self._reset_allocator()
 
     def _reset_allocator(self) -> None:
@@ -215,8 +230,9 @@ class PagedKVCache:
         ``last_index``, the position of the prompt's last real token:
         flat ring cell ``t`` takes position ``p = last - ((last - t) mod
         R * page_size)`` from dense cell ``p mod capacity``, zeroed where
-        ``p < 0`` (decode writes a cell before it reads it).  Returns
-        the number of fresh global pages mapped."""
+        ``p < 0`` (decode writes a cell before it reads it).  Recurrent
+        stacks (``(L, 1, ...)``) overwrite the slot's slab row whole.
+        Returns the number of fresh global pages mapped."""
         has_local = "wk" in prefill_cache
         if has_local and not self.local_ring:
             raise ValueError("cache has sliding-window stacks but the pool "
@@ -273,6 +289,9 @@ class PagedKVCache:
         if has_local:
             self._admit_ring(prefill_cache, slot,
                              max(last_index or 0, 0))
+        for name in STATE_STACKS:
+            if name in prefill_cache:
+                self.pools[name][:, slot] = prefill_cache[name][:, 0]
         self._shared[slot] = len(shared)
         self._reserved[slot] = reserve_pages
         self.reserved_total += reserve_pages
@@ -386,7 +405,8 @@ class PagedKVCache:
         """Release ``slot``'s pages (a shared global page is freed only
         when its last holder releases; the whole ring returns to the back
         of the local free list) and point its table rows at the sinks.
-        Returns the global pages actually freed."""
+        Its slab rows keep their stale state until the next admission
+        overwrites them.  Returns the global pages actually freed."""
         freed = []
         for pg in self._mapped[slot]:
             self._refcount[pg] -= 1
@@ -442,8 +462,8 @@ class PagedKVCache:
         self.reserved_total -= len(pages)
 
     def reset(self) -> None:
-        """Free every slot and page; the pools (and their stale content,
-        never attended) are kept."""
+        """Free every slot and page; the pools and slabs (and their
+        stale content, never read before it is overwritten) are kept."""
         self._reset_allocator()
         self.table.fill_(self.sink)
         if self.ltable is not None:
@@ -451,7 +471,8 @@ class PagedKVCache:
 
     def resident_bytes(self) -> int:
         """Bytes of persistent paged storage: pools (sinks included; int8
-        pools with their scale planes) and the page tables."""
+        pools with their scale planes), state slabs and the page
+        tables."""
         tables = [self.table] + ([self.ltable] if self.ltable is not None
                                  else [])
         return sum(t.numel() * t.element_size()
@@ -464,9 +485,10 @@ class PagedServeEngine(SlotServeEngine):
     prompt prefixes shared copy-on-write (``prefix_sharing``, default
     on where there are global layers); sliding-window layers hold one
     ring of ``local_ring`` pages a slot, whose dead pages are recycled
-    as decode advances.  ``num_pages`` sizes the global pool; the
-    default matches a dense engine's ``max_batch * max_seq`` capacity.
-    The local pool holds ``max_batch`` rings."""
+    as decode advances; recurrent layers hold one slab row a slot.
+    ``num_pages`` sizes the global pool; the default matches a dense
+    engine's ``max_batch * max_seq`` capacity.  The local pool holds
+    ``max_batch`` rings."""
 
     def __init__(self, cfg: ModelConfig, params, *, device,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -538,16 +560,20 @@ class PagedServeEngine(SlotServeEngine):
     def _make_cache(self):
         cfg = self.cfg
         kinds = cfg.layer_kinds()
+        dtype = param_dtype(self.params)
         return PagedKVCache(self.max_batch, self.num_pages, self.page_size,
                             self.max_pages_per_slot,
                             n_layers=kinds.count(ATTN),
                             n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.resolved_head_dim,
-                            dtype=param_dtype(self.params),
-                            device=self.device, quant=self.kv_quant,
+                            dtype=dtype, device=self.device,
+                            quant=self.kv_quant,
                             n_local_layers=kinds.count(LOCAL),
                             local_ring=self.local_ring,
-                            num_local_pages=self.num_local_pages)
+                            num_local_pages=self.num_local_pages,
+                            slabs=init_cache(cfg, self.max_batch, 1, dtype,
+                                             self.device,
+                                             kinds=(RGLRU, WKV)))
 
     def _bucket_len(self, s: int) -> Optional[int]:
         # Page-multiple buckets: admission maps exactly
@@ -666,7 +692,8 @@ class PagedServeEngine(SlotServeEngine):
         # reservation by construction), copy any shared page a row is
         # about to write (never in the serve flow: sharing covers full
         # prompt pages only), and recycle the ring columns the window
-        # will enter.
+        # will enter.  The window steps a view of the slabs' first
+        # ``rung`` rows in place; the page pools are read whole.
         ext = self.stats["engine"]
         for slot in range(rung):
             if self._req[slot] is None:
@@ -684,7 +711,8 @@ class PagedServeEngine(SlotServeEngine):
                 slot, last // self.page_size)
         self._note_pages_peak()
         tables = {k: t[:rung] for k, t in self.cache.tables().items()}
+        pools = {name: t[:, :rung] if name in STATE_STACKS else t
+                 for name, t in self.cache.pools.items()}
         return self._decode_window(
-            lambda t, p: self.decode_fn(self.params, self.cache.pools,
-                                        tables, t, p)[0],
+            lambda t, p: self.decode_fn(self.params, pools, tables, t, p)[0],
             toks, pos, budget, rung=rung)

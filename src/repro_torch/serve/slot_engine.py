@@ -4,10 +4,12 @@ port of ``repro/serve/slot_engine.py``).
 * **Persistent slot cache** (:class:`SlotKVCache`): KV caches live in
   fixed ``(layers, max_batch, capacity, ...)`` buffers, one stack a
   layer class (global layers at ``max_seq``, sliding-window layers at
-  ``min(max_seq, window)``).  A request is assigned a slot at admission
-  (one in-place copy writes its prefilled cache in) and releases it
-  when done; admission overwrites the slot's full capacity, so slot
-  reuse is safe.
+  ``min(max_seq, window)``), and recurrent layers' states (RG-LRU
+  ``"h","conv"``, RWKV6 ``"state","shift"``) in ``(layers, max_batch,
+  ...)`` buffers of the same kind, a row a slot.  A request is assigned
+  a slot at admission (one in-place copy writes its prefilled cache in)
+  and releases it when done; admission overwrites the slot's full
+  capacity and its whole state row, so slot reuse is safe.
 * **Fixed-shape ladder decode**: a decode window always runs at a
   ``SLAB_LADDER`` rung (the smallest rung covering the highest live
   slot), with per-slot budgets masking holes and finished rows.
@@ -67,8 +69,9 @@ Cache = Dict[str, torch.Tensor]
 class SlotKVCache:
     """Fixed slot buffers and a free list for the persistent serving
     cache.  Buffers are allocated at the first :meth:`write`, shaped
-    from the prefilled cache (float or int8 with scale planes) with the
-    batch axis widened to ``max_slots``."""
+    from the prefilled cache (float or int8 with scale planes; the
+    recurrent states at model precision, ``"h"`` and ``"state"``
+    float32) with the batch axis widened to ``max_slots``."""
 
     def __init__(self, max_slots: int):
         self.max_slots = max_slots
@@ -104,7 +107,8 @@ class SlotKVCache:
 
     def write(self, prefill_cache: Cache, slot: int) -> None:
         """Store a single-request prefilled cache (each stack ``(L, 1,
-        capacity, ...)``) into ``slot``."""
+        ...)``: KV at its capacity, or a recurrent state) into
+        ``slot``."""
         if self.buffers is None:
             self.buffers = {
                 name: t.new_zeros(t.shape[:1] + (self.max_slots,)
@@ -240,7 +244,9 @@ class SlotServeEngine:
         last emitted token, next write position, remaining budget per
         slot.  Rows with budget <= 0 (holes, finished requests) stay
         frozen and emit -1; their writes land in storage that is
-        released or overwritten at the next admission."""
+        released or overwritten at the next admission (a recurrent
+        row's state keeps stepping, as in the reference, and its next
+        admission overwrites it)."""
         self._window_rungs.add(rung)
         vocab = self.cfg.vocab_size
         emits = []

@@ -220,7 +220,7 @@ def test_paged_engine_refuses_the_dense_quant_flag(setup):
 
 def test_unported_architectures_raise(setup):
     _, _, tparams, _ = setup
-    for name in ("recurrentgemma-2b", "whisper-base", "rwkv6-3b"):
+    for name in ("whisper-base",):
         with pytest.raises(NotImplementedError):
             make_engine(torch_smoke_config(name), tparams, kind="paged",
                         device="cpu")
