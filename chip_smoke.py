@@ -21,13 +21,20 @@ Phases (any failure exits non-zero before the last line is printed):
    (elementwise, one bf16 ulp in bfloat16), with every branch of the
    wgmma body the main path uses reached (swap-AB at n8 and n16, each
    cluster size, each CTA tile), in bf16 also at gemma3-1b's,
-   recurrentgemma-2b's and rwkv6-3b's shapes and LM heads at every row
-   count their serves give K1; and K1's backward at 2048 rows (dA with
-   B transposed, dB = Aᵀ dC with Aᵀ read in place, the LM head's
-   ``table.T``);
+   recurrentgemma-2b's, rwkv6-3b's and internvl2-76b's shapes and LM
+   heads at every row count their serves give K1 (internvl2's
+   ``frontend_proj``, 3200 x 8192, at a 208-row prefill); and K1's
+   backward at 2048 rows (dA with B transposed, dB = Aᵀ dC with Aᵀ read
+   in place, the LM head's ``table.T``) at phi3.5-moe's training shapes
+   and, forward and backward in bf16, at those of recurrentgemma-2b,
+   rwkv6-3b and internvl2-76b with their LM heads, and internvl2's
+   ``frontend_proj`` with its bias at 208 and 2048 rows;
 4. K2 (split-KV paged attention) against its plain version: GQA 14/2
-   with head_dim 64 (qwen), 32/8 with head_dim 128 (phi3.5-moe) and 4/1
-   with head_dim 256 (gemma3-1b's global layers), 16-token pages, q in f32 and bf16, tables with sink entries, a row at
+   with head_dim 64 (qwen), 32/8 with head_dim 128 (phi3.5-moe), 4/1
+   with head_dim 256 (gemma3-1b's global layers) and 64/8 with head_dim
+   128 (internvl2-76b: a group of 8 query heads, each plan's threads
+   and shared memory within a CTA's), 16-token pages, q in f32 and
+   bf16, tables with sink entries, a row at
    position 0 (every split but the first empty), rows on page edges and
    on either side of the plan's first two split edges, a full row;
 5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
@@ -56,9 +63,10 @@ Phases (any failure exits non-zero before the last line is printed):
 6. small float32 models (qwen2.5-0.5b's widths, and phi3.5-moe's layer
    structure at narrow widths with 8 experts, each 2 layers; gemma3-1b's
    layer structure, 5 sliding-window layers to 1 global, at narrow
-   widths with a window of 16 and 12 layers; recurrentgemma-2b's, RG-LRU
-   and sliding-window layers, with a window of 16 and 6 layers, and
-   rwkv6-3b's, WKV layers, with 4 layers, at narrow widths) served on the
+   widths with a window of 16 and 12 layers; internvl2-76b's, GQA 8 to
+   a KV head and its stub frontend, with 2 layers; recurrentgemma-2b's,
+   RG-LRU and sliding-window layers, with a window of 16 and 6 layers,
+   and rwkv6-3b's, WKV layers, with 4 layers, at narrow widths) served on the
    card (kernels) and on the CPU (plain versions) through each engine
    kind (``"paged"``, ``"slot"``, ``"sequential"``; all but the
    global-only ones with prompts across the window and past
@@ -66,9 +74,10 @@ Phases (any failure exits non-zero before the last line is printed):
    greedy tokens per kind, and on the card the slot engine's equal to
    the paged engine's; the same requests through ``ServeFrontend`` over
    the slot and paged engines on the card, submitted out of order from
-   two threads, equal to the CPU offline ``run()``'s; and, for the
-   attention models, one train step of each on both: the loss, every
-   gradient and the parameters after AdamW;
+   two threads, equal to the CPU offline ``run()``'s; and one train
+   step of each on both (internvl2's on a batch with
+   ``frontend_embeds``): the loss, every gradient and the parameters
+   after AdamW;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -189,7 +198,37 @@ Phases (any failure exits non-zero before the last line is printed):
     and backward), K4 forward, K4 dX and K5 work beside their plain
     versions, bounds and library calls (``torch._grouped_mm`` for K4 and
     K5).  The serve and the training run must launch K4 and K5 only
-    through their wgmma routes.
+    through their wgmma routes;
+15. ``internvl2-76b`` at full width, 8 of its 80 layers (all 80 are about
+    141 GB), in bfloat16 with seeded random weights (exactly
+    17,970,790,400 bytes): the qwen workload through
+    ``make_engine(kind="slot")`` after ``warmup()``, ``kind=
+    "sequential"`` and ``kind="paged"`` after ``warmup()`` (tokens, as
+    the reference's engines serve it), the launch counters zeroed just
+    before each serve: K1 > 0, every K1 launch on the wgmma route, K2 8
+    launches a decode step on paged and 0 on the dense engines, its
+    int8 variant 0; 32 tokens each, ``decode_compiles`` 0, slots drained;
+    the dense cache exactly 67,108,864 bytes and the pools 67,633,664,
+    computed from the config; then one ``forward_prefill`` with
+    ``frontend_embeds`` of shape (1, 208, 3200): finite logits and K1's
+    launches those of the token prefill plus ``frontend_proj``'s.
+    Printed: the completions the engines share, one profiled paged
+    window, K1's times for one decode step and K2's at the serve's
+    layout (GQA 64/8 at head_dim 128, 8 layers);
+16. training at full width, each model freed before the next:
+    ``recurrentgemma-2b`` (all 26 layers) and ``rwkv6-3b`` (all 32),
+    ``internvl2-76b`` at 1 of its 80 layers with ``frontend_embeds`` in
+    its batches: ``Trainer(...).run()`` for 6 steps of 8 x 256 synthetic
+    tokens, ``remat="none"``: finite losses, K1 > 0 on the wgmma route;
+    the median step time, tokens/s and peak memory; one step profiled
+    part by part (K1 forward, K1 backward, optimizer, the recurrences
+    timed alone at the step's shapes, other, and the idle share), whose
+    K1 launches, forward and backward, times 6 must be the run's; and
+    K1's times for one step's forward and backward GEMMs beside their
+    plain versions, bounds and ``torch.matmul``.
+
+Phases 15 and 16 run after phase 14; ``elapsed after ...`` lines give
+the script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -417,6 +456,15 @@ def _k1_gemma_cases(torch, gen, table, head):
 RECURRENT_K1 = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
                 (2560, 8960), (8960, 2560))
 RECURRENT_HEADS = ((256000, 2560), (65536, 2560))
+# internvl2-76b's K1 shapes (k, n), bf16: q and o, k and v (8 KV heads of
+# 128), gate and up, down; its stub vision frontend's frontend_proj (3200
+# -> 8192; its bias is added after K1) at the rows of one prefill with
+# frontend_embeds; its untied LM head is table.T, 8192 x 129024 (the
+# 128,256-token vocabulary padded to a multiple of 1024, padded_vocab).
+INTERNVL_K1 = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
+INTERNVL_FRONTEND = (3200, 8192)
+INTERNVL_HEAD = (129024, 8192)
+FRONTEND_ROWS = 208
 
 
 def _recurrent_k1_rows():
@@ -432,6 +480,21 @@ def _recurrent_k1_rows():
              for s in RECURRENT_LENS}
     lens |= {-(-s // 16) * 16 for s in RECURRENT_LENS}
     lens |= {-(-s // 32) * 32 for s in lens}
+    return tuple(range(1, 9)), tuple(sorted(lens))
+
+
+def _internvl_k1_rows():
+    """The rows the internvl2-76b serve (``serve_internvl2``, the qwen
+    workload at ``max_seq`` 256) gives K1: decode batches of 1 to 8
+    rows, logits read for every row; the prefills of ``PROMPT_LENS`` at
+    the slot engine's power-of-two buckets (8 at least, 256 at most),
+    the paged engine's 16-token pages and the sequential engine's exact
+    lengths, the LM head on 1 row; and the frontend prefill's
+    ``FRONTEND_ROWS``."""
+    lens = set(PROMPT_LENS) | {FRONTEND_ROWS}
+    lens |= {min(1 << max(3, (s - 1).bit_length()), 256)
+             for s in PROMPT_LENS}
+    lens |= {-(-s // 16) * 16 for s in PROMPT_LENS}
     return tuple(range(1, 9)), tuple(sorted(lens))
 
 
@@ -495,18 +558,41 @@ def check_k1(torch, kernels, gen) -> float:
              / k ** 0.5).bfloat16()
         for m in rec_decode + rec_prefill:
             check(torch.bfloat16, m, f"recurrent {k}x{n}", k, k, b)
+    in_decode, in_prefill = _internvl_k1_rows()
+    table = (torch.randn(*INTERNVL_HEAD, device="cuda", generator=gen)
+             / INTERNVL_HEAD[1] ** 0.5).bfloat16()
+    for m in in_decode:
+        check(torch.bfloat16, m, f"internvl2 lm_head {INTERNVL_HEAD[1]}x"
+              f"{INTERNVL_HEAD[0]} trans_b", INTERNVL_HEAD[1],
+              INTERNVL_HEAD[1], table.T)
+    del table
+    for k, n in INTERNVL_K1:
+        b = (torch.randn(k, n, device="cuda", generator=gen)
+             / k ** 0.5).bfloat16()
+        for m in in_decode + in_prefill:
+            check(torch.bfloat16, m, f"internvl2 {k}x{n}", k, k, b)
+        del b
+    k, n = INTERNVL_FRONTEND
+    check(torch.bfloat16, FRONTEND_ROWS, f"internvl2 frontend_proj {k}x{n}",
+          k, k, (torch.randn(k, n, device="cuda", generator=gen)
+                 / k ** 0.5).bfloat16())
     # qwen's serve (decode rungs, the 208-row prefill), phi's serve and
     # training (2048 rows), gemma3's serve, the recurrent models' serves.
     qwen = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 153600))
     phi = ((4096, 4096), (4096, 1024), (4096, 32768))
     gemma_head = GEMMA_K1 + ((GEMMA_HEAD[1], GEMMA_HEAD[0]),)
     rec_head = RECURRENT_K1 + tuple((h[1], h[0]) for h in RECURRENT_HEADS)
+    in_head = INTERNVL_K1 + ((INTERNVL_HEAD[1], INTERNVL_HEAD[0]),)
     main_path = [p for ms, shapes in (((1, 8, 16, 208), qwen),
                                       ((8, 208, 2048), phi),
                                       (decode_rows, gemma_head),
                                       (prefill_rows, GEMMA_K1),
                                       (rec_decode, rec_head),
-                                      (rec_prefill, RECURRENT_K1))
+                                      (rec_prefill, RECURRENT_K1),
+                                      (in_decode, in_head),
+                                      (in_prefill, INTERNVL_K1),
+                                      ((FRONTEND_ROWS,),
+                                       (INTERNVL_FRONTEND,)))
                  for m in ms for k, n in shapes
                  for p in _k1_plans_of(kernels, m, k, n)]
 
@@ -524,8 +610,11 @@ def check_k1(torch, kernels, gen) -> float:
          f"ragged edges; f32 and bf16; gemma3's shapes in bf16 at M in "
          f"{decode_rows + prefill_rows}; recurrentgemma-2b's and "
          f"rwkv6-3b's in bf16 at M in {rec_decode + rec_prefill}, their "
-         f"LM heads at M in {rec_decode}) agree with the plain version (max "
-         f"abs err {worst}; elementwise tol f32 2e-5*max|ref|, bf16 "
+         f"LM heads at M in {rec_decode}; internvl2-76b's in bf16 at M in "
+         f"{in_decode + in_prefill}, its LM head at M in {in_decode}, its "
+         f"frontend_proj at M {FRONTEND_ROWS}) agree with the plain "
+         f"version (max abs err {worst}; elementwise tol f32 2e-5*max|ref|, "
+         f"bf16 "
          f"2^-7*|ref| + 2e-5*max|ref|); bf16 plans reached (swap-AB, bm, bn, "
          f"cluster): {sorted(reached)}")
     return worst
@@ -604,8 +693,9 @@ def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
     return q, pk, pv, table, pos_t
 
 
-# qwen2.5-0.5b, phi3.5-moe-42b, gemma3-1b's global layers.
-K2_HEADS = ((14, 2, 64), (32, 8, 128), (4, 1, 256))
+# qwen2.5-0.5b, phi3.5-moe-42b, gemma3-1b's global layers, internvl2-76b
+# (a group of 8 query heads, the widest K2 runs).
+K2_HEADS = ((14, 2, 64), (32, 8, 128), (4, 1, 256), (64, 8, 128))
 
 
 def _k2_cases(torch, kernels, gen, quant):
@@ -620,7 +710,17 @@ def _k2_cases(torch, kernels, gen, quant):
         for dtype in (torch.float32, torch.bfloat16):
             size = 1 if quant else torch.tensor([], dtype=dtype).element_size()
             plan = kernels.k2_plan(8, h, hkv, hd, 16, 16, size, quant)
-            edge = plan.pages_per_split * 16
+            # One warp a (page of the split, query head) of one KV head,
+            # and the split's pages in shared memory, within a CTA.
+            pps = plan.pages_per_split
+            smem = kernels.paged_attn.k2_smem_bytes(h // hkv, 16, pps, hd,
+                                                    size, quant)
+            if 32 * (h // hkv) * pps > 1024 \
+                    or smem > kernels.paged_attn.K2_MAX_SMEM:
+                raise AssertionError(f"K2 plan {plan} at {heads}: "
+                                     f"{32 * (h // hkv) * pps} threads, "
+                                     f"{smem} bytes of shared memory")
+            edge = pps * 16
             edges.add(edge)
             pos = [0, 16, edge - 1, edge, 2 * edge - 1, min(2 * edge, 254),
                    128, 255]
@@ -640,7 +740,9 @@ def _k2_cases(torch, kernels, gen, quant):
 
 def check_k2(torch, kernels, gen) -> float:
     worst, edges = _k2_cases(torch, kernels, gen, quant=False)
-    _say(f"k2: GQA 14/2 hd 64, GQA 32/8 hd 128 and GQA 4/1 hd 256, psz 16, "
+    _say(f"k2: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256 and GQA "
+         f"64/8 hd 128 (plans within a CTA's threads and shared memory), "
+         f"psz 16, "
          f"f32 and bf16, split edges at cells {edges}, pos 0, full rows and "
          f"sink entries, "
          f"agree with the plain version (max abs err {worst}; elementwise "
@@ -906,10 +1008,108 @@ def check_k1_backward(torch, kernels, gen) -> float:
             worst = max(worst, _max_err(f"K1 dB {dtype} {name}", leaf.grad,
                                         db, rel, _f32_atol(db)))
             n_cases += 2
+    new = check_k1_train_shapes(torch, kernels, gen)
     _say(f"k1 backward: {n_cases} cases (2048 rows; dA via B transposed, "
          f"dB = A^T dC contracting over the tokens; 4096x4096, 4096x1024 "
          f"and the LM head's table.T; f32 and bf16) agree with the plain "
          f"version (max abs err {worst})")
+    return max(worst, new)
+
+
+# The training shapes (k, n) of recurrentgemma-2b, rwkv6-3b and
+# internvl2-76b at full width, bf16, beside their LM heads (vocab rows,
+# d: recurrentgemma's tied table, the others' untied) and internvl2's
+# frontend_proj with its bias.
+K1_TRAIN_MODELS = {
+    "recurrentgemma-2b": (RECURRENT_K1[:4], RECURRENT_HEADS[0]),
+    "rwkv6-3b": (RECURRENT_K1[:1] + RECURRENT_K1[4:], RECURRENT_HEADS[1]),
+    "internvl2-76b": (INTERNVL_K1, INTERNVL_HEAD)}
+
+
+def check_k1_train_shapes(torch, kernels, gen, rows: int = 2048) -> float:
+    """``sisa_matmul`` forward and backward on the card at the training
+    shapes of ``K1_TRAIN_MODELS`` (``rows`` tokens, bf16): C, dA and dB
+    against the plain K1, the LM heads read as ``table.T`` (dB lands on
+    the (vocab, d) table); and internvl2's ``frontend_proj`` through
+    ``linear_apply`` with its bias (y = x W + b: C, dx, dW and db
+    against the plain K1 plus the bias).  The LM heads' dA contracts
+    over the vocabulary (K up to 256,000): there the tensor cores'
+    float32 accumulator, which truncates each k16 step's sum, may part
+    from the plain version's by up to K / 16 steps x 2^-24 of the
+    largest partial sum, so a case's ``atol`` is the larger of
+    ``_f32_atol`` and ``K x 2^-28 x max|ref|``; the largest error
+    against max|ref| of each K is printed."""
+    from repro_torch.models.common import linear_apply
+
+    worst, n_cases, by_k = 0.0, 0, {}
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).bfloat16()
+
+    def held(what, got, ref, k):
+        nonlocal worst, n_cases
+        top = ref.float().abs().max().item()
+        err = _max_err(what, got, ref, BF16_REL,
+                       max(_f32_atol(ref), k * 2.0 ** -28 * top))
+        worst = max(worst, err)
+        by_k[k] = max(by_k.get(k, 0.0), err / max(top, 1e-30))
+        n_cases += 1
+
+    for name, (shapes, head) in K1_TRAIN_MODELS.items():
+        for k, n, is_head in [(k, n, False) for k, n in shapes] + [
+                (head[1], head[0], True)]:
+            a = rand(rows, k).requires_grad_()
+            dc = rand(rows, n)
+            w = rand(*((n, k) if is_head else (k, n)),
+                      scale=k ** -0.5).requires_grad_()
+            b = w.T if is_head else w
+            c = kernels.sisa_matmul(a, b)
+            c.backward(dc)
+            what = f"K1 train {name} {'lm_head table.T ' if is_head else ''}"
+            with torch.no_grad():
+                bd = b.detach()
+                held(f"{what}{k}x{n} C", c, kernels.sisa_gemm_plain(a, bd),
+                     k)
+                held(f"{what}{k}x{n} dA", a.grad,
+                     kernels.sisa_gemm_plain(dc, bd.t()), n)
+                db = kernels.sisa_gemm_plain(a.detach().t(), dc)
+                held(f"{what}{k}x{n} dB", w.grad, db.t() if is_head else db,
+                     rows)
+            del a, dc, w, b, c
+    k, n = INTERNVL_FRONTEND
+    for m in (FRONTEND_ROWS, rows):
+        proj = {"w": rand(k, n, scale=k ** -0.5).requires_grad_(),
+                "b": rand(n).requires_grad_()}
+        x = rand(m, k).requires_grad_()
+        dy = rand(m, n)
+        y = linear_apply(proj, x)
+        y.backward(dy)
+        with torch.no_grad():
+            w = proj["w"].detach()
+            # y rounds twice (x W, then + b): one ulp of each term.
+            xw = kernels.sisa_gemm_plain(x, w)
+            ref = xw + proj["b"].detach()
+            err = (y.float() - ref.float()).abs()
+            tol = BF16_REL * (xw.float().abs() + ref.float().abs()) \
+                + _f32_atol(ref)
+            if not (err <= tol).all():
+                raise AssertionError(f"frontend_proj y M={m}: "
+                                     f"{int((err > tol).sum())} elements off")
+            worst, n_cases = max(worst, err.max().item()), n_cases + 1
+            held(f"frontend_proj dx M={m}", x.grad,
+                 kernels.sisa_gemm_plain(dy, w.t()), n)
+            held(f"frontend_proj dW M={m}", proj["w"].grad,
+                 kernels.sisa_gemm_plain(x.detach().t(), dy), m)
+            held(f"frontend_proj db M={m}", proj["b"].grad,
+                 dy.float().sum(0).bfloat16(), m)
+    _say(f"k1 training shapes: {n_cases} cases (C, dA and dB at {rows} "
+         f"rows, bf16, of recurrentgemma-2b's, rwkv6-3b's and "
+         f"internvl2-76b's projections and LM heads' table.T, and "
+         f"internvl2's frontend_proj with its bias at {FRONTEND_ROWS} and "
+         f"{rows} rows) agree with the plain version (max abs err {worst}; "
+         f"elementwise tol 2^-7*|ref| + max(2e-5, K*2^-28)*max|ref|; the "
+         f"largest error / max|ref| by K: {json.dumps(by_k)})")
     return worst
 
 
@@ -950,9 +1150,12 @@ def _serve_offline(eng, kind, reqs, max_seq):
 def _small_configs():
     """qwen2.5-0.5b's widths, phi3.5-moe-42b's layer structure (GQA 32/8
     at head_dim 128, top-2 MoE) at narrow widths with 8 experts, each
-    cut to 2 layers, and gemma3-1b's layer structure (5 sliding-window
+    cut to 2 layers, gemma3-1b's layer structure (5 sliding-window
     layers to 1 global, GQA 4/1) at narrow widths with a window of 16
-    and 12 layers; a 4096-token vocabulary, float32."""
+    and 12 layers, and internvl2-76b's (GQA 8 to a KV head, untied
+    head, its stub frontend with ``frontend_dim`` 64: the train step's
+    batch carries ``frontend_embeds``) at narrow widths with 2 layers; a
+    4096-token vocabulary, float32."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MoEConfig
 
@@ -966,16 +1169,20 @@ def _small_configs():
                                 d_model=512, head_dim=128, d_ff=1024,
                                 sliding_window=16, vocab_size=4096,
                                 param_dtype="float32")
+    internvl = dataclasses.replace(get_config("internvl2-76b"), n_layers=2,
+                                   d_model=512, n_heads=16, n_kv_heads=2,
+                                   head_dim=64, d_ff=1024, frontend_dim=64,
+                                   vocab_size=4096, param_dtype="float32")
     return {"qwen2.5-0.5b widths": qwen, "phi3.5-moe structure": phi,
-            "gemma3 structure": gemma}
+            "gemma3 structure": gemma, "internvl2 structure": internvl}
 
 
 def _small_recurrent_configs():
     """recurrentgemma-2b's layer structure (RG-LRU, RG-LRU, sliding
     window; GQA 4/1) at narrow widths with a window of 16 and 6 layers,
     and rwkv6-3b's (WKV layers, 8 heads of 64, relu^2 MLP) with 4
-    layers; a 4096-token vocabulary, float32.  They serve only:
-    training on recurrent layers is a later slice."""
+    layers; a 4096-token vocabulary, float32.  Each is served and takes
+    a train step, as the attention models do."""
     from repro_torch.configs import get_config
 
     rg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=6,
@@ -1760,6 +1967,162 @@ def serve_recurrent(torch, np, kernels, name: str) -> dict:
     return {"k1": k1, "serves": summaries, "profiles": profiles}
 
 
+# internvl2-76b at full width, 8 of its 80 layers (all 80 are about 141 GB
+# of bf16 weights), bf16: 8 x 1,711,308,800 bytes a layer (q and o 8192 x
+# 8192, k and v 8192 x 1024, gate, up and down 8192 x 28672, two norms),
+# 2 x 2,113,929,216 for the embedding and the untied head (the 128,256
+# rows padded to 129,024, x 8192), 16,384 for the final norm and
+# 52,445,184 for frontend_proj (3200 x 8192 and its bias).  The
+# qwen workload (PROMPT_LENS, 32 new tokens, 8 slots, max_seq 256): the
+# dense slot cache is 2 (K, V) x 8 layers x 8 slots x 256 cells x 8 KV
+# heads x 128 x 2 bytes, the paged pools 2 x 8 layers x (8 x 16 + 1 sink)
+# pages of 16 cells, and the page table 8 x 16 int32.
+INTERNVL_LAYERS = 8
+INTERNVL_WEIGHT_BYTES = 17_970_790_400
+INTERNVL_CACHE_BYTES = 67_108_864
+INTERNVL_POOL_BYTES = 67_633_664
+
+
+def _internvl_bytes(cfg) -> dict:
+    """internvl2's weight, dense cache and pool bytes in bf16 from the
+    config (the comment above ``INTERNVL_LAYERS``)."""
+    from repro_torch.models.common import padded_vocab
+
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    layer = 2 * (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * ff + 2 * d)
+    table = 2 * padded_vocab(cfg.vocab_size) * d
+    cell = 2 * cfg.n_kv_heads * hd
+    pmax = 256 // 16
+    return {"weights": cfg.n_layers * layer + 2 * table + 2 * d
+            + 2 * (cfg.frontend_dim + 1) * d,
+            "cache": 2 * cfg.n_layers * 8 * 256 * cell,
+            "pools": 2 * cfg.n_layers * (8 * pmax + 1) * 16 * cell
+            + 4 * 8 * pmax}
+
+
+def serve_internvl2(torch, np, kernels) -> dict:
+    """``internvl2-76b`` at full width, ``INTERNVL_LAYERS`` of its 80
+    layers, bf16, seeded random weights (exactly ``INTERNVL_WEIGHT_BYTES``
+    of them): the qwen workload through ``make_engine(kind="slot")``
+    after ``warmup()``, ``kind="sequential"`` and ``kind="paged"`` (pages
+    of 16) after ``warmup()`` (``serve_full_width``: counters zeroed just
+    before each serve, every request prefilled once, 32 tokens each,
+    ``decode_compiles`` 0 and slots drained on slot and paged); K1 > 0
+    with every launch on the wgmma route; K2 8 launches a decode step
+    on paged (its int8 variant 0) and 0 on the dense engines; the dense
+    cache exactly ``INTERNVL_CACHE_BYTES``, the pools
+    ``INTERNVL_POOL_BYTES``.  Then one ``forward_prefill`` with
+    ``frontend_embeds`` of shape (1, 208, 3200): finite logits, and K1's
+    launches those of a 208-token prefill plus ``frontend_proj``'s.
+    Printed: the completions the engines share, one profiled paged
+    window, K1's times for one decode step (rung 8), one 208-row prefill
+    of image features (``frontend_proj``, the layers, the head on the
+    last row) and ``frontend_proj`` alone, and K2's at the serve's
+    layout (8 layers, GQA 64/8 at head_dim 128)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.common import padded_vocab
+
+    cfg = dataclasses.replace(get_config("internvl2-76b"),
+                              n_layers=INTERNVL_LAYERS)
+    want = _internvl_bytes(cfg)
+    if (want["weights"], want["cache"], want["pools"]) != (
+            INTERNVL_WEIGHT_BYTES, INTERNVL_CACHE_BYTES, INTERNVL_POOL_BYTES):
+        raise AssertionError(f"internvl2 bytes from the config: {want}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    _say(f"params: {cfg.name} full width, {cfg.n_layers} of 80 layers, "
+         f"{nbytes} bytes of weights "
+         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
+    if nbytes != INTERNVL_WEIGHT_BYTES:
+        raise AssertionError(f"internvl2 weights {nbytes} bytes")
+    outs, k2_launches = {}, None
+    for kind in ("slot", "sequential", "paged"):
+        eng, _, launches, done = serve_full_width(
+            torch, np, cfg, ("sisa_gemm",) + (("paged_attn",) if kind ==
+                                              "paged" else ()),
+            params=params, kind=kind,
+            absent=("paged_attn_int8",) + (() if kind == "paged"
+                                           else ("paged_attn",)))
+        _k1_wgmma_only(launches)
+        if kind == "paged":
+            steps = eng.stats["decode_steps"]
+            if launches["paged_attn"] != cfg.n_layers * steps:
+                raise AssertionError(
+                    f"internvl2 paged: {launches['paged_attn']} K2 launches "
+                    f"for {steps} decode steps of {cfg.n_layers} layers")
+            k2_launches = launches["paged_attn"]
+        if kind != "sequential":
+            got = eng.cache.resident_bytes()
+            need = want["pools" if kind == "paged" else "cache"]
+            if got != need:
+                raise AssertionError(f"internvl2 {kind} storage {got} "
+                                     f"bytes, want {need}")
+            _say(f"internvl2 {kind} storage: {got} bytes (config: {need})")
+        outs[kind] = done
+        if kind == "paged":
+            profile = profile_window(torch, np, eng, cfg)
+        del eng
+    for kind in ("sequential", "paged"):
+        same = sum(a.tokens == b.tokens
+                   for a, b in zip(outs["slot"], outs[kind]))
+        _say(f"internvl2: {same} of {len(PROMPT_LENS)} completions of the "
+             f"{kind} serve equal the slot serve's (bf16: K1 and K2 sum in "
+             "other orders)")
+    # One prefill of image features: frontend_proj in place of the token
+    # embedding, then the 8 layers and the head on the last row.
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FRONTEND_ROWS),
+                           device="cuda", generator=gen)
+    embeds = torch.randn(1, FRONTEND_ROWS, cfg.frontend_dim, device="cuda",
+                         generator=gen)
+    counts = {}
+    for label, batch in (("tokens", {"tokens": tokens}),
+                         ("frontend_embeds", {"tokens": tokens,
+                                              "frontend_embeds": embeds})):
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        logits, _ = forward_prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        launches = {k: c.n for k, c in LAUNCH_COUNTERS.items()}
+        _k1_wgmma_only(launches)
+        if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
+                or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+            raise AssertionError(f"internvl2 prefill ({label}): bad logits")
+        counts[label] = launches["sisa_gemm"]
+    passes = len(kernels.row_passes(FRONTEND_ROWS))
+    layer_gemms = 7 * cfg.n_layers               # q, k, v, o, gate, up, down
+    if counts != {"tokens": layer_gemms * passes + 1,
+                  "frontend_embeds": (layer_gemms + 1) * passes + 1}:
+        raise AssertionError(f"internvl2 prefill K1 launches {counts}")
+    _say(f"internvl2 prefill of {FRONTEND_ROWS} positions: finite logits; "
+         f"K1 launches {counts} ({passes} a {FRONTEND_ROWS}-row GEMM, the "
+         f"head on the last row: frontend_proj's {passes} beside the "
+         "token prefill's)")
+    k1 = {"decode": time_k1(torch, kernels, params, cfg, rows=8),
+          "prefill": time_k1(torch, kernels, params, cfg,
+                             rows=FRONTEND_ROWS, embeds=True),
+          "frontend_proj": time_gemms(torch, kernels, [(
+              embeds[0].bfloat16(), params["frontend_proj"]["w"])])}
+    for what, t in k1.items():
+        rows = "rung 8" if what == "decode" else f"{FRONTEND_ROWS} rows"
+        _say(f"k1 internvl2-76b {what} ({rows}, {t['gemms']} GEMMs): "
+             f"{json.dumps(t)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2 = time_k2(torch, kernels, K2_HEADS[3], cfg.n_layers)
+    _say(f"k2 internvl2-76b layout decode step (8 rows, GQA 64/8 hd 128, "
+         f"{k2['launches_timed']} layers): {json.dumps(k2)}")
+    return {"k1": k1, "k2": k2, "k2_serve_launches": k2_launches,
+            "profile": profile}
+
+
 # An exception in a frontend thread ends that thread (the scheduler's
 # ends the serve): each one is recorded here and re-raised in the main
 # thread by _drain.
@@ -2114,11 +2477,13 @@ def _host_us(torch, fns: dict, calls: int) -> dict:
     return out
 
 
-def time_k1(torch, kernels, params, cfg, rows: int):
+def time_k1(torch, kernels, params, cfg, rows: int, embeds: bool = False):
     """All K1 work of one forward at ``rows`` rows: every linear of each
     layer's mixer (attention, RG-LRU or WKV) and MLP, plus the LM head
     (tied or not) over ``min(rows, 8)`` rows (decode reads logits for
-    every row, prefill for the last token only)."""
+    every row, prefill for the last token only), and with ``embeds`` a
+    stub frontend's ``frontend_proj`` over the rows (a prefill of
+    ``frontend_embeds``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     xs = {}                             # one input a contraction width
 
@@ -2129,6 +2494,8 @@ def time_k1(torch, kernels, params, cfg, rows: int):
         return xs[k]
 
     gemms = []
+    if embeds:
+        gemms.append((x_of(cfg.frontend_dim), params["frontend_proj"]["w"]))
     for layer in params["layers"]:
         gemms += [(x_of(lin["w"].shape[0]), lin["w"])
                   for part in (layer["mixer"], layer["mlp"])
@@ -2137,7 +2504,13 @@ def time_k1(torch, kernels, params, cfg, rows: int):
     head_rows = rows if rows <= 8 else 1
     table = params["lm_head" if "lm_head" in params else "embed"]["table"]
     gemms.append((x_of(cfg.d_model)[:head_rows], table.T))
+    return time_gemms(torch, kernels, gemms)
 
+
+def time_gemms(torch, kernels, gemms):
+    """K1 on each ``(a, b)`` of ``gemms`` in turn, beside the plain
+    version and ``torch.matmul`` (``_times``), the host microseconds a
+    call, and the bound of the bytes and operations of the calls."""
     def run(fn):
         return lambda: [fn(a, b) for a, b in gemms]
 
@@ -2283,12 +2656,12 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 256, 6
 TRAIN_NEED = ("sisa_gemm", "grouped_gemm", "grouped_gemm_dx", "grouped_dw")
 
 
-def train_full_width(torch, cfg):
+def train_full_width(torch, cfg, need=TRAIN_NEED):
     """``Trainer(cfg, TrainerConfig(...)).run()`` for ``TRAIN_STEPS`` steps
     of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` synthetic tokens, ``remat="none"``,
     from seeded random bf16 weights.  Every launch counter is zeroed just
-    before the run; K1's, K4's (forward and dX) and K5's must be > 0 just
-    after, and every loss finite."""
+    before the run; those of ``need`` (by default K1's, K4's forward and
+    dX and K5's) must be > 0 just after, and every loss finite."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
@@ -2319,7 +2692,7 @@ def train_full_width(torch, cfg):
     if len(losses) != TRAIN_STEPS or not all(
             l == l and abs(l) < float("inf") for l in losses):
         raise AssertionError(f"train losses {losses}")
-    if any(launches[name] <= 0 for name in TRAIN_NEED):
+    if any(launches[name] <= 0 for name in need):
         raise AssertionError(f"training skipped a kernel: {launches}")
     step_s = statistics.median(h["dt"] for h in out["history"][1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2388,17 +2761,30 @@ def profile_train_step(torch, trainer, params, opt_state) -> dict:
 
 def time_train_k1(torch, kernels, params, cfg, rows: int):
     """K1's work in one train step at ``rows`` tokens: the forward GEMMs
-    (q, k, v, o of every layer and the untied LM head) and their
-    backward (dA = dC Bᵀ with B read transposed, dB = Aᵀ dC with Aᵀ
-    read in place), as ``sisa_matmul``'s backward runs them; beside the
-    backward, ``at_copy_ms``, the time of the Aᵀ copies that reading Aᵀ
-    in place saves."""
+    (every linear of each layer's mixer and dense MLP, the LM head, tied
+    or not, and a stub frontend's ``frontend_proj``; phi3.5-moe's
+    experts are K4's) and their backward (dA = dC Bᵀ with B read
+    transposed, dB = Aᵀ dC with Aᵀ read in place), as ``sisa_matmul``'s
+    backward runs them; beside the backward, ``at_copy_ms``, the time of
+    the Aᵀ copies that reading Aᵀ in place saves."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    x = torch.randn(rows, cfg.d_model, device="cuda",
-                    generator=gen).bfloat16()
-    gemms = [(x, layer["mixer"][n]["w"]) for layer in params["layers"]
-             for n in ("q", "k", "v", "o")]
-    gemms.append((x, params["lm_head"]["table"].T))
+    xs = {}                             # one input a contraction width
+
+    def x_of(k):
+        if k not in xs:
+            xs[k] = torch.randn(rows, k, device="cuda",
+                                generator=gen).bfloat16()
+        return xs[k]
+
+    gemms = [(x_of(lin["w"].shape[0]), lin["w"])
+             for layer in params["layers"]
+             for part in ("mixer", "mlp") if part in layer
+             for lin in layer[part].values()
+             if isinstance(lin, dict) and "w" in lin]
+    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
+    gemms.append((x_of(cfg.d_model), table.T))
+    if "frontend_proj" in params:
+        gemms.append((x_of(cfg.frontend_dim), params["frontend_proj"]["w"]))
     dcs = [torch.randn(rows, b.shape[1], device="cuda",
                        generator=gen).bfloat16() for _, b in gemms]
 
@@ -2425,8 +2811,8 @@ def time_train_k1(torch, kernels, params, cfg, rows: int):
         bound, by = _bound_ms(nbytes, flops)
         out[label] = {**t, "bound_ms": bound, "bound_by": by,
                       "gemms": mult * len(gemms)}
-    _say(f"k1 train step ({rows} tokens, {len(gemms)} forward GEMMs): "
-         f"{json.dumps(out)}")
+    _say(f"k1 train step ({cfg.name}, {rows} tokens, {len(gemms)} forward "
+         f"GEMMs): {json.dumps(out)}")
     return out
 
 
@@ -2557,6 +2943,170 @@ def _k5_library(torch, kernels, calls, gids, e):
     return loop, "per-expert torch.matmul loop"
 
 
+# Training at full width on the models of the fifteenth slice, each freed
+# before the next: recurrentgemma-2b (26 layers) and rwkv6-3b (32) at full
+# depth, about 2.66 and 2.85 G parameters, and internvl2-76b at 1 of its
+# 80 layers (about 2.98 G, its two 128,256-row tables the most of them),
+# its batches with frontend_embeds.  With AdamW's f32 moments that is
+# about 12 bytes a parameter, 32-36 GB, plus the activations of
+# remat="none" (at their peaks 54.05, 57.19 and 45.47 GB on an H100
+# 80GB HBM3 at 700 W; PERF.md).
+FULL_TRAIN = (("recurrentgemma-2b", 26), ("rwkv6-3b", 32),
+              ("internvl2-76b", 1))
+
+
+def _scans_ms(torch, cfg, rows: int) -> dict:
+    """The device time of one train step's recurrences alone, forward and
+    backward, at ``rows`` = ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: the
+    RG-LRU doubling scan (``rglru._scan``) of every RG-LRU layer on
+    float32 decays and inputs, and the WKV chunk scan
+    (``rwkv6._chunk_scan``) of every WKV layer on bf16 r, k, v and
+    float32 log-decays at the bound; none for a model of neither."""
+    from repro_torch.models import rglru, rwkv6
+
+    kinds = cfg.layer_kinds()
+    n_rg, n_wkv = kinds.count("rglru"), kinds.count("wkv")
+    if not n_rg + n_wkv:
+        return {"ms": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, d = TRAIN_BATCH, rows // TRAIN_BATCH, cfg.d_model
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    if n_rg:
+        a = torch.rand(b, s, d, device="cuda",
+                       generator=gen).requires_grad_()
+        x, dh = rand(b, s, d).requires_grad_(), rand(b, s, d)
+    if n_wkv:
+        h, hd = rwkv6.rwkv_head_dims(cfg)
+        rkv = [(rand(b, s, h, hd, dtype=torch.bfloat16) * 0.1
+                ).requires_grad_() for _ in range(3)]
+        wlog = (-(1e-4 + 1.4 * torch.rand(b, s, h, hd, device="cuda",
+                                          generator=gen))).requires_grad_()
+        u, dy = rand(h, hd).requires_grad_(), rand(b, s, h, hd)
+        s0 = torch.zeros(b, h, hd, hd, device="cuda")
+
+    def run():
+        for _ in range(n_rg):
+            rglru._scan(a, x).backward(dh)
+        for _ in range(n_wkv):
+            rwkv6._chunk_scan(*rkv, wlog, u, s0)[0].backward(dy)
+
+    return _times(torch, {"ms": run})
+
+
+def profile_train_phases(torch, trainer, params, opt_state) -> dict:
+    """Where one train step's time goes, its parts run one after another
+    under ``torch.profiler``: the forward (``forward_train``), the
+    backward (``torch.autograd.grad``) and the optimizer
+    (``apply_updates``): K1's device time in the forward and in the
+    backward (kernels named ``sisa_gemm``), the optimizer's, the
+    recurrences' (forward and backward, profiled alone at the step's
+    shapes by :func:`_scans_ms`), the rest (other), and the idle share
+    of the three parts' wall time.  K1's launches in the forward and in the
+    backward are read from its counter, zeroed before each part."""
+    from torch.profiler import profile, ProfilerActivity
+
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import forward_train
+    from repro_torch.optim import adamw
+
+    cfg = trainer.cfg
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in trainer.data.batch(TRAIN_STEPS).items()}
+    trainer.step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    walls, k1, rest, k1_launches = {}, {}, {}, {}
+
+    def part(label, fn):
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            walls[label] = (time.perf_counter() - t0) * 1e3
+        k1_launches[label] = LAUNCH_COUNTERS["sisa_gemm"].n
+        k1[label] = rest[label] = 0.0
+        for evt in prof.key_averages():
+            if "CUDA" in str(getattr(evt, "device_type", "")):
+                fam = k1 if "sisa_gemm" in evt.key else rest
+                fam[label] += _self_device_us(evt) / 1e3
+        return res
+
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = part("forward", lambda: forward_train(
+            params, cfg, batch, remat=trainer.tcfg.remat))
+        grads = part("backward", lambda: torch.autograd.grad(
+            loss, leaves, allow_unused=True))
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, grads))
+    grads = _tree_map(lambda _: next(it), params)
+    part("optimizer", lambda: adamw.apply_updates(params, grads, opt_state,
+                                                  trainer.opt_cfg))
+    del grads, loss
+    scans = _scans_ms(torch, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    wall = sum(walls.values())
+    fam = {"K1 forward": k1["forward"], "K1 backward": k1["backward"],
+           "optimizer": k1["optimizer"] + rest["optimizer"],
+           # the profiler's kernel sum: the queued time of these many
+           # small launches still holds launch gaps
+           "scans": scans.get("ms_profiler") or scans["ms"]}
+    busy = sum(k1.values()) + sum(rest.values())
+    fam["other"] = busy - sum(fam.values())
+    out = {"model": cfg.name, "step_wall_ms": wall, "part_wall_ms": walls,
+           "device_ms": fam, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall, "k1_launches": k1_launches,
+           "scans": scans}
+    if min(k1_launches["forward"], k1_launches["backward"]) <= 0:
+        raise AssertionError(f"{cfg.name} train step: K1 launches "
+                             f"{k1_launches}")
+    _say(f"train step profile ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} "
+         f"tokens; scans timed alone): {json.dumps(out)}")
+    return out
+
+
+def train_model(torch, kernels, name: str, layers: int) -> dict:
+    """``name`` at full width and ``layers`` layers through
+    ``train_full_width`` (K1 > 0, every K1 launch on the wgmma route,
+    finite losses; a model with a frontend trains on batches with
+    ``frontend_embeds``); one profiled step (``profile_train_phases``),
+    whose K1 launches, forward and backward, times ``TRAIN_STEPS`` must
+    be the run's; and K1's times for one step's forward and backward
+    (``time_train_k1``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    trainer, out, launches, summary = train_full_width(
+        torch, cfg, need=("sisa_gemm",))
+    _k1_wgmma_only(launches)
+    if (cfg.frontend is not None) != ("frontend_embeds"
+                                      in trainer.data.batch(0)):
+        raise AssertionError(f"{name}: frontend_embeds in the batches?")
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    prof = profile_train_phases(torch, trainer, params, opt_state)
+    per_step = prof["k1_launches"]["forward"] \
+        + prof["k1_launches"]["backward"]
+    if launches["sisa_gemm"] != TRAIN_STEPS * per_step:
+        raise AssertionError(f"{name}: {launches['sisa_gemm']} K1 launches "
+                             f"in {TRAIN_STEPS} steps of {per_step}")
+    del opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = time_train_k1(torch, kernels, params, cfg,
+                       rows=TRAIN_BATCH * TRAIN_SEQ)
+    return {"summary": summary, "profile": prof, "k1": k1}
+
+
 # ---------------------------------------------------------------------------
 # The fourth slice: K2 on int8 pools, K3 (split-K), K6 (co-execution) and
 # K7 (the capacity MoE GEMM).
@@ -2586,9 +3136,9 @@ def check_k2_int8(torch, kernels, gen) -> float:
     """K2 on int8 pools made by ``quantize_page_pool``, against its plain
     version, at the cases of :func:`_k2_cases`."""
     worst, edges = _k2_cases(torch, kernels, gen, quant=True)
-    _say(f"k2 int8: GQA 14/2 hd 64, GQA 32/8 hd 128 and GQA 4/1 hd 256, psz "
-         f"16, int8 pools with bf16 scale planes, q in f32 and bf16, split "
-         f"edges at cells "
+    _say(f"k2 int8: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256 and "
+         f"GQA 64/8 hd 128, psz 16, int8 pools with bf16 scale planes, q in "
+         f"f32 and bf16, split edges at cells "
          f"{edges}, pos 0, full rows and sink entries, agree with the plain "
          f"version (max abs err {worst}; elementwise tol f32 1e-5, bf16 "
          f"2^-7*|ref| + 1e-5)")
@@ -3048,6 +3598,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     _say(smi)
     t0 = time.perf_counter()
+
+    def lap(label):
+        _say(f"elapsed after {label}: {time.perf_counter() - t0:.1f} s")
+
     secs = _build.build()
     _say(f"build: {json.dumps(secs)}, {time.perf_counter() - t0:.2f} s wall")
 
@@ -3063,6 +3617,7 @@ def main() -> int:
     k3_err = check_k3(torch, kernels, gen)
     k7_err = check_k7(torch, kernels, gen)
     k6_err = check_k6(torch, kernels, gen)
+    lap("the kernel checks")
     gc.collect()
     torch.cuda.empty_cache()
     for label, small in _small_configs().items():
@@ -3070,6 +3625,8 @@ def main() -> int:
         check_small_train(torch, np, label, small)
     for label, small in _small_recurrent_configs().items():
         check_small_model(torch, np, label, small)
+        check_small_train(torch, np, label, small)
+    lap("the small models")
 
     cfg = get_config("qwen2.5-0.5b")
     eng, params, launches, flt_outs = serve_full_width(
@@ -3105,15 +3662,18 @@ def main() -> int:
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
+    lap("qwen2.5-0.5b")
 
     k2_gemma = serve_gemma3(torch, np, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("gemma3-1b")
     recurrent = {}
     for name in RECURRENT_BYTES:
         recurrent[name] = serve_recurrent(torch, np, kernels, name)
         gc.collect()
         torch.cuda.empty_cache()
+        lap(name)
 
     k6_launches = drive_k6(torch, kernels)
     k6 = {}
@@ -3136,6 +3696,7 @@ def main() -> int:
          f"{json.dumps(k7_train)}")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("K6 and K7")
 
     moe_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
                                   n_layers=MOE_LAYERS)
@@ -3151,6 +3712,7 @@ def main() -> int:
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phi3.5-moe-42b serve")
 
     train_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
                                     n_layers=TRAIN_LAYERS)
@@ -3165,6 +3727,21 @@ def main() -> int:
                   rows=TRAIN_BATCH * TRAIN_SEQ)
     train_t = time_train_experts(torch, kernels, params, train_cfg,
                                  n_tokens=TRAIN_BATCH * TRAIN_SEQ)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phi3.5-moe-42b training")
+
+    internvl = serve_internvl2(torch, np, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("internvl2-76b serve")
+    trained = {}
+    for name, layers in FULL_TRAIN:
+        trained[name] = train_model(torch, kernels, name, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"{name} training")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
@@ -3177,7 +3754,14 @@ def main() -> int:
                  "decode step (rung 8) and <model>_prefill_* one 2048-row "
                  "prefill of recurrentgemma-2b and rwkv6-3b, whose serves "
                  "launched it <model>_serve_launches times (slot, "
-                 "sequential, paged)",
+                 "sequential, paged); internvl2_decode_* one decode step, "
+                 "internvl2_prefill_* one 208-row prefill of image "
+                 "features and internvl2_frontend_proj_* its "
+                 "frontend_proj alone, of internvl2-76b's 8-layer serve; "
+                 "<model>_train_fwd_* "
+                 "and _bwd_* one train step's forward and backward GEMMs "
+                 "(8 x 256 tokens) of the full-width training runs, which "
+                 "launched it <model>_train_launches times in 6 steps",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err),
          **{k: k1[k] for k in keys},
@@ -3188,19 +3772,33 @@ def main() -> int:
          **{f"{name.split('-')[0]}_serve_launches": [
              rec["serves"][kind]["launches"]["sisa_gemm"]
              for kind in ("slot", "sequential", "paged")]
-            for name, rec in recurrent.items()}},
+            for name, rec in recurrent.items()},
+         **{f"internvl2_{what}_{k}": internvl["k1"][what][k]
+            for what in ("decode", "prefill", "frontend_proj")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"{name.split('-')[0]}_train_{part}_{k}": rec["k1"][part][k]
+            for name, rec in trained.items() for part in ("fwd", "bwd")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"{name.split('-')[0]}_train_launches":
+            rec["summary"]["launches"]["sisa_gemm"]
+            for name, rec in trained.items()}},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "note": "times: one qwen2.5-0.5b decode step (24 launches); "
                  "phi_* at phi3.5-moe-42b's layout (8 launches); gemma3_* "
                  "at gemma3-1b's (4 launches, 7 rows, pmax 64), launches "
-                 "from its paged serve",
+                 "from its paged serve; internvl2_* at internvl2-76b's "
+                 "(GQA 64/8 hd 128, 8 launches), launches from its 8-layer "
+                 "paged serve",
          "launches": launches["paged_attn"], "max_abs_err": k2_err,
          **{k: k2[k] for k in keys},
          **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
          **{f"gemma3_{k}": k2_gemma[k] for k in (
-             "ms", "plain_ms", "bound_ms", "serve_launches")}},
+             "ms", "plain_ms", "bound_ms", "serve_launches")},
+         **{f"internvl2_{k}": internvl["k2"][k]
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "internvl2_serve_launches": internvl["k2_serve_launches"]},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",

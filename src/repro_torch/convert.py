@@ -88,7 +88,9 @@ def pools_from_jax(pools, cfg: ModelConfig, device=None
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
-    """The reference's (numpy-leaved) params as the port's tree."""
+    """The reference's (numpy-leaved) params as the port's tree, with
+    the untied ``lm_head`` and a stub frontend's ``frontend_proj``
+    (``{"w","b"}``) where the reference's tree has them."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = [_map(group[b], lambda x, r=r: _tensor(np.asarray(x)[r], dev))
@@ -96,6 +98,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     out = {"embed": _map(tree["embed"], lambda x: _tensor(x, dev)),
            "final_norm": _map(tree["final_norm"], lambda x: _tensor(x, dev)),
            "layers": layers}
-    if "lm_head" in tree:
-        out["lm_head"] = _map(tree["lm_head"], lambda x: _tensor(x, dev))
+    for name in ("lm_head", "frontend_proj"):
+        if name in tree:
+            out[name] = _map(tree[name], lambda x: _tensor(x, dev))
     return out

@@ -31,8 +31,8 @@
 //   padded by 16 bytes so the lanes reading eight neighbouring cells hit
 //   eight bank groups.  Table entries are clamped into the pool: a sink or
 //   stale entry never faults.
-// * Compute is small (a GQA group of 4 or 7 query heads against 16 cells a
-//   page) and stays in f32 FMAs, but its chain of dependent steps (logits,
+// * Compute is small (a GQA group of 4 to 8 query heads against 16 cells a
+//   page: phi3.5-moe and gemma3-1b 4, qwen2.5 7, internvl2 8) and stays in f32 FMAs, but its chain of dependent steps (logits,
 //   max, exp, sum, P.V) is long for the few warps a split has.  So the
 //   pages of a split run side by side: one warp a (page, query head), each
 //   with its own online-softmax state, merged in shared memory in page

@@ -92,6 +92,16 @@ def _scan(a: Tensor, b: Tensor) -> Tensor:
     return b
 
 
+def _block(p, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The block over ``x`` (B, S, d): its output, ``in_rec``'s rows
+    before the conv and the scan's float32 ``h``."""
+    gate = activation("gelu")(linear_apply(p["in_gate"], x))
+    u_raw = linear_apply(p["in_rec"], x)
+    a, b = _gates(p, _conv1d(p, u_raw).float())
+    h = _scan(a, b)
+    return linear_apply(p["out"], gate * h.to(x.dtype)), u_raw, h
+
+
 def rglru_prefill(p, x: Tensor, cfg, last_index=None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The block's output over the prompt ``x`` (B, S, d) and its cache
@@ -105,11 +115,7 @@ def rglru_prefill(p, x: Tensor, cfg, last_index=None
     only real tokens.  The conv tail is ``in_rec``'s rows ``last-2 ..
     last``, zero where they fall before the prompt."""
     bsz, s, _ = x.shape
-    gate = activation("gelu")(linear_apply(p["in_gate"], x))
-    u_raw = linear_apply(p["in_rec"], x)
-    a, b = _gates(p, _conv1d(p, u_raw).float())
-    h = _scan(a, b)
-    out = linear_apply(p["out"], gate * h.to(x.dtype))
+    out, u_raw, h = _block(p, x)
     if last_index is None:
         h_last = h[:, -1]
         conv = F.pad(u_raw, (0, 0, _CONV_W - 1, 0))[:, -(_CONV_W - 1):]
@@ -125,8 +131,10 @@ def rglru_prefill(p, x: Tensor, cfg, last_index=None
 
 
 def rglru_apply(p, x: Tensor, cfg) -> Tensor:
-    """Full-sequence forward. x: (B, S, d)."""
-    return rglru_prefill(p, x, cfg)[0]
+    """Full-sequence forward, the output alone (training: no cache).
+    x: (B, S, d).  Autograd runs back through the doubling scan's
+    ``cat`` and ``addcmul`` steps; nothing is written in place."""
+    return _block(p, x)[0]
 
 
 def rglru_init_cache(batch: int, d: int, dtype, device=None

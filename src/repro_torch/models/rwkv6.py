@@ -20,8 +20,11 @@ and is rounded to the weights' dtype before its projection, because K1
 takes one dtype; the reference projects the float32 mix against the
 promoted weights.  The two agree exactly in float32.
 
-Decode writes ``"state"`` and ``"shift"`` back into the caller's cache
-tensors in place.
+Training calls :func:`rwkv_apply` with no ``last_index`` and no
+state: autograd runs back through the chunk scan, its float32
+``exp(-cs)`` and ``exp(cs - wc)`` factors included, and only a sequence
+off CHUNK is masked (its pad).  Decode writes ``"state"`` and
+``"shift"`` back into the caller's cache tensors in place.
 """
 from __future__ import annotations
 

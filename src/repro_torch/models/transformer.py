@@ -14,7 +14,7 @@ groups unstacked into one dict per layer::
                         | {"mu","r","k","v","w","u","o"},   (WKV)
                  "mlp": {"up","down"[,"gate"]}
                  | "moe": {"router","up","down"[,"gate"]}}, ...],
-     ["lm_head": {"table"}]}
+     ["lm_head": {"table"}], ["frontend_proj": {"w","b"}]}
 
 Layers run in a Python loop (the reference scans them), each with its
 kind from ``cfg.layer_kinds()``.  Caches hold one stack a layer class,
@@ -37,10 +37,14 @@ the dense stacks' shapes, ``(L_kind, B, ...)``, a row a slot.  Decode
 updates every cache in place.  MoE layers (``cfg.moe``) replace the MLP
 with :func:`repro_torch.models.moe.moe_apply`.  :func:`forward_train`
 returns the next-token loss and its metrics for training
-(``repro/models/transformer.py:188-246``) on attention models;
-recurrent layers raise there (training on them is the next slice of
-the port), and enc-dec and frontend models raise everywhere
-(ROADMAP.md).
+(``repro/models/transformer.py:188-246``) on every layer kind above.
+
+A decoder with a stub frontend (internvl2's vision tower) has the leaf
+``"frontend_proj": {"w": (frontend_dim, d_model), "b"}``: training
+and prefill project ``batch["frontend_embeds"]`` through it in place of
+the token embedding (unscaled), cast to the weights' dtype first since
+K1 takes one dtype; decode and the engines embed tokens, as the
+reference's do.  Enc-dec models raise everywhere (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
                                        embedding_lookup, last_rows,
+                                       linear_apply, linear_init,
                                        lm_head_logits, mlp_apply, mlp_init,
                                        rmsnorm_apply, rmsnorm_init)
 
@@ -65,28 +70,15 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any architecture outside this slice of the port."""
+    """Raise for any architecture outside the port so far."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= {ATTN, LOCAL, RGLRU, WKV} or cfg.enc_dec \
-            or cfg.frontend is not None:
+    if not kinds <= {ATTN, LOCAL, RGLRU, WKV} or cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders of global and "
-            f"sliding-window attention and RG-LRU and RWKV6 recurrent "
-            f"layers, dense or MoE, only so far (layer kinds "
-            f"{sorted(kinds)}, enc_dec={cfg.enc_dec}, "
-            f"frontend={cfg.frontend}); enc-dec models and frontends are "
-            f"later slices, see ROADMAP.md")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for any architecture the port cannot train yet."""
-    check_supported(cfg)
-    recurrent = sorted(set(cfg.layer_kinds()) & {RGLRU, WKV})
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: training on recurrent layers ({recurrent}) is "
-            f"the next slice of the port, see ROADMAP.md; these layers "
-            f"serve only")
+            f"{cfg.name}: the port serves and trains decoders of global "
+            f"and sliding-window attention and RG-LRU and RWKV6 recurrent "
+            f"layers, dense or MoE, with or without a stub frontend, only "
+            f"so far (layer kinds {sorted(kinds)}, enc_dec={cfg.enc_dec}); "
+            f"enc-dec models are later slices, see ROADMAP.md")
 
 
 # Each layer class keeps its cache tensors in stacks of its own.  A
@@ -159,6 +151,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                            dtype)
+    if cfg.frontend is not None:
+        # A bias, though the model's other linears have none, as in the
+        # reference (repro/models/transformer.py:88-90).
+        params["frontend_proj"] = linear_init(gen, cfg.frontend_dim,
+                                              cfg.d_model, dtype,
+                                              use_bias=True)
     return params
 
 
@@ -198,18 +196,42 @@ def _embed(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     return x * embed_scale(cfg.d_model, x.dtype)
 
 
+def _embed_inputs(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, Tensor]) -> Tensor:
+    """The residual stream's input: ``batch["frontend_embeds"]`` (B, S,
+    frontend_dim) through ``frontend_proj``, unscaled, where the model
+    has a frontend and the batch carries them; else the scaled token
+    embedding.  The embeds are cast to the weights' dtype first (K1
+    takes one dtype); the reference projects float32 embeds against
+    promoted weights, so in bf16 its stream is float32."""
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        proj = params["frontend_proj"]
+        return linear_apply(proj, batch["frontend_embeds"].to(
+            proj["w"].dtype))
+    return _embed(params, cfg, batch["tokens"])
+
+
 def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"])
     return lm_head_logits(table, x, cfg.vocab_size)
 
 
+def _mixer_train(p: Params, h: Tensor, cfg: ModelConfig, kind: str
+                 ) -> Tensor:
+    """A layer's mixer over the whole sequence, its output only."""
+    if kind == RGLRU:
+        return rglru_mod.rglru_apply(p, h, cfg)
+    if kind == WKV:
+        return rwkv_mod.rwkv_apply(p, h, cfg)
+    return attn.attn_apply(p, h, cfg, kind=kind)[0]
+
+
 def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str
                  ) -> Tuple[Tensor, Tensor]:
     """One full-sequence block for training: ``(x, moe_aux)``."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    mix, _, _ = attn.attn_apply(p["mixer"], h, cfg, kind=kind)
-    x = x + mix
+    x = x + _mixer_train(p["mixer"], h, cfg, kind)
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if cfg.moe is not None:
         ffn, aux = moe_mod.moe_apply(p["moe"], h, cfg)
@@ -226,24 +248,27 @@ def forward_train(params: Params, cfg: ModelConfig,
                   batch: Dict[str, Tensor], *, mesh=None,
                   remat: str = "full") -> Tuple[Tensor, Dict[str, Tensor]]:
     """Returns ``(loss, {"loss", "accuracy", "moe_aux"})`` for ``batch``
-    ``{"tokens": (B, S)[, "labels"]}``: the mean next-token cross entropy,
-    plus ``0.01 * aux / n_layers`` for MoE, as the reference's
-    ``forward_train``.
+    ``{"tokens": (B, S)[, "labels"][, "frontend_embeds": (B, S,
+    frontend_dim)]}``: the mean next-token cross entropy, plus ``0.01 *
+    aux / n_layers`` for MoE, as the reference's ``forward_train``.
+    Each layer runs its kind's mixer (attention, RG-LRU or WKV), as the
+    reference's ``_block_apply`` does; the embeds, where the model has a
+    frontend, replace the token embedding (:func:`_embed_inputs`).
 
     ``remat="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations.  ``"dots"`` (the reference keeps matmul outputs and
     recomputes the rest) maps to ``"full"`` here: the values are the
     same and only memory and time differ.  A mesh is the distributed
-    slice and raises, and so do recurrent layers (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    slice and raises, and so do enc-dec models (:func:`check_supported`)."""
+    check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
             "sharded training is the distributed slice of the port "
             "(ROADMAP.md)")
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
         if remat == "none":
@@ -337,7 +362,9 @@ def forward_prefill(params: Params, cfg: ModelConfig,
                     batch: Dict[str, Tensor], *,
                     cache_len: Optional[int] = None,
                     logits_index=None) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Process prompts ``batch["tokens"]`` (B, S); return the f32 logits
+    """Process prompts ``batch["tokens"]`` (B, S), or on a model with a
+    frontend ``batch["frontend_embeds"]`` (B, S, frontend_dim) where
+    the batch has them (:func:`_embed_inputs`); return the f32 logits
     ``(B, 1, vocab_padded)`` of one position and the filled cache
     (module doc), each layer's capacity ``cache_capacity(kind,
     cache_len or S, window)``.
@@ -354,7 +381,7 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     the real ones (``valid``).
     """
     check_supported(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     cap_seq = cache_len or x.shape[1]
     valid = None
     if logits_index is not None and cfg.moe is not None:

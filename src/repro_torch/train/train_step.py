@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import check_trainable, forward_train
+from repro_torch.models import check_supported, forward_train
 from repro_torch.models.moe import set_expert_backend
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -71,7 +71,7 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
         raise NotImplementedError(
             "sharded training is the distributed slice of the port "
             "(ROADMAP.md)")
-    check_trainable(cfg)
+    check_supported(cfg)
     if expert_backend is not None:
         set_expert_backend(expert_backend)
     if grad_compression not in (None, "bf16"):

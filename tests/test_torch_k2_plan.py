@@ -3,20 +3,20 @@
 
 The plan lays the split-KV paged-attention decode of
 ``csrc/paged_attn.cu`` out from static shapes: pages a split and splits,
-one KV head a CTA.  Its arithmetic is checked here at qwen2.5-0.5b's and
-phi3.5-moe-42b's serve layouts: every page of a row in exactly one split,
-the CTA's threads, shared memory and grid within an H100's limits, and
-the limits mirrored from the source.  The kernel runs only on the card
+one KV head a CTA.  Its arithmetic is checked here at qwen2.5-0.5b's,
+phi3.5-moe-42b's and internvl2-76b's serve layouts: every page of a row
+in exactly one split, the CTA's threads, shared memory and grid within
+an H100's limits, and the limits mirrored from the source.  The kernel runs only on the card
 (``chip_smoke.py`` holds it against the plain version there).
 
 ``paged_attention_split_plain`` computes each split's online softmax
 over its own pages and then the kernel's combine.  Under every plan
 ``k2_plan`` lays out for a case, it is held against the JAX package's
 ``paged_attention`` in Pallas interpret mode and its XLA twin, in float32
-within 1e-5: GQA 14/2 at head_dim 64, 32/8 at 128, MHA, pages of 16 and
-32 cells, positions on page and split edges, at 0 and at a full row,
-dead table entries on the sink page, float pools and int8 pools from the
-reference's ``quantize_page_pool``.
+within 1e-5: GQA 14/2 at head_dim 64, 32/8 and 64/8 at 128, MHA, pages
+of 16 and 32 cells, positions on page and split edges, at 0 and at a
+full row, dead table entries on the sink page, float pools and int8
+pools from the reference's ``quantize_page_pool``.
 """
 import re
 from pathlib import Path
@@ -40,10 +40,13 @@ SMEM_LIMIT = 232448     # bytes of shared memory an H100 block can use
 SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "kernels" / "csrc" / "paged_attn.cu").read_text()
 
-# (name, query heads, KV heads, head_dim) of the two serve layouts.
+# (name, query heads, KV heads, head_dim) of the serve layouts: qwen's
+# group of 7 at hd 64, phi's 4 at hd 128, internvl2's 8 (64/8) at hd 128,
+# the widest group K2 runs.
 SERVE = [(name, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
          for name, cfg in ((n, get_config(n)) for n in
-                           ("qwen2.5-0.5b", "phi3.5-moe-42b"))]
+                           ("qwen2.5-0.5b", "phi3.5-moe-42b",
+                            "internvl2-76b"))]
 ROWS, PSZ, PMAX = 8, 16, 16     # chip_smoke.py's serves: max_seq 256
 
 
@@ -102,6 +105,8 @@ CASES = [
     ("gqa_14_2_hd64", 14, 2, 64, 16, 8,
      [0, 15, 16, 31, 32, 63, 64, 127], False),
     ("gqa_32_8_hd128", 32, 8, 128, 16, 8,
+     [0, 16, 31, 32, 63, 64, 95, 127], False),
+    ("gqa_64_8_hd128", 64, 8, 128, 16, 8,
      [0, 16, 31, 32, 63, 64, 95, 127], False),
     ("mha_4_4_hd64_psz32", 4, 4, 64, 32, 4, [0, 31, 32, 63, 64, 127], False),
     ("gqa_14_2_hd64_int8", 14, 2, 64, 16, 8,

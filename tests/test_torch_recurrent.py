@@ -21,7 +21,8 @@ RGLRU)`` tail), ``init_params``' tree, ``init_cache`` and
 ``cache_layout``, ``forward_prefill`` logits and per-class caches
 against the JAX caches carried over by ``cache_from_jax``, and decode
 steps (dense caches, and slabs through ``pools_from_jax``), updated in
-place.  ``forward_train`` and ``Trainer`` refuse recurrent layers.
+place.  (Training on these layers: ``tests/test_torch_recurrent_train.py``;
+enc-dec models still raise.)
 Float32, TF32 off, ``TOL = 1e-5``; WKV outputs and the logits of
 models of WKV layers ``WKV_TOL = 1e-4`` (the chunked form scales its
 factors by up to ``e^44.8`` and back, and JAX's scan and the port's
@@ -45,11 +46,10 @@ from repro.models import rwkv6 as jrwkv
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.convert import cache_from_jax, params_from_jax, pools_from_jax
 from repro_torch.models import (forward_decode, forward_prefill,
-                                forward_train, init_cache, init_params)
+                                init_cache, init_params)
 from repro_torch.models import rglru as trglru
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.transformer import cache_layout, check_supported
-from repro_torch.train import Trainer, TrainerConfig
 
 TOL = 1e-5
 WKV_TOL = 1e-4
@@ -542,18 +542,7 @@ def test_paged_forward_decode_steps_the_slabs(name):
                 tol=_tol(name), what="pools")
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_training_refuses_recurrent_layers(name, tmp_path):
-    _, tcfg, _, tparams = setup(name)
-    toks = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        forward_train(tparams, tcfg, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        Trainer(tcfg, TrainerConfig(steps=1, global_batch=2, seq_len=8,
-                                    ckpt_dir=str(tmp_path)), device="cpu")
-
-
-@pytest.mark.parametrize("name", ["whisper-base", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["whisper-base"])
 def test_enc_dec_and_frontends_still_raise(name):
     with pytest.raises(NotImplementedError, match="later slices"):
         check_supported(torch_smoke_config(name))
