@@ -23,12 +23,19 @@ Phases (any failure exits non-zero before the last line is printed):
    cluster size, each CTA tile), in bf16 also at gemma3-1b's,
    recurrentgemma-2b's, rwkv6-3b's and internvl2-76b's shapes and LM
    heads at every row count their serves give K1 (internvl2's
-   ``frontend_proj``, 3200 x 8192, at a 208-row prefill); and K1's
+   ``frontend_proj``, 3200 x 8192, at a 208-row prefill), and at
+   whisper-base's (512 x 512, 512 x 2048, 2048 x 512 at its decode rungs,
+   prompt buckets, exact prompt lengths and 1,500 encoder frames, its
+   tied 53,248-row head, and ``frontend_proj``, 80 x 512: K 80, a last
+   stage 16 deep); and K1's
    backward at 2048 rows (dA with B transposed, dB = Aᵀ dC with Aᵀ read
    in place, the LM head's ``table.T``) at phi3.5-moe's training shapes
    and, forward and backward in bf16, at those of recurrentgemma-2b,
    rwkv6-3b and internvl2-76b with their LM heads, and internvl2's
-   ``frontend_proj`` with its bias at 208 and 2048 rows;
+   ``frontend_proj`` with its bias at 208 and 2048 rows; and at
+   whisper-base's (12,000 encoder rows, 3,584 decoder rows with the
+   head), and its ``frontend_proj`` with its bias at 1,500 and 12,000
+   rows (dA with N = 80, dB with M = 80);
 4. K2 (split-KV paged attention) against its plain version: GQA 14/2
    with head_dim 64 (qwen), 32/8 with head_dim 128 (phi3.5-moe), 4/1
    with head_dim 256 (gemma3-1b's global layers) and 64/8 with head_dim
@@ -77,7 +84,11 @@ Phases (any failure exits non-zero before the last line is printed):
    two threads, equal to the CPU offline ``run()``'s; and one train
    step of each on both (internvl2's on a batch with
    ``frontend_embeds``): the loss, every gradient and the parameters
-   after AdamW;
+   after AdamW; and whisper-base's structure (2 bidirectional encoder
+   layers, 2 decoder layers with cross-attention, 37 frames) served on
+   the card and the CPU through slot and sequential, each request with
+   its own seeded features (identical greedy tokens), the paged engine
+   refusing it, and one train step card vs CPU;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -94,7 +105,8 @@ Phases (any failure exits non-zero before the last line is printed):
    float one 0, pool bytes (hd + 2) / (2 hd) of the bf16 pools', one K2
    launch on the serve's own pools against the plain version), and 16
    requests on the 8 slots with and without ``coexec_backend="kernel"``
-   (identical tokens, backfilled prefills > 0);
+   (identical tokens, backfilled prefills > 0; the serve without it runs
+   with ``multi_tenant=False``, whose packing stats nothing reads);
 8. the online frontend, after the coalesced-prefill check of phase 7,
    on the same weights: the 8 requests through ``ServeFrontend`` over
    ``make_engine(kind="paged")`` (``warmup()`` first), submitted by a
@@ -225,10 +237,29 @@ Phases (any failure exits non-zero before the last line is printed):
     timed alone at the step's shapes, other, and the idle share), whose
     K1 launches, forward and backward, times 6 must be the run's; and
     K1's times for one step's forward and backward GEMMs beside their
-    plain versions, bounds and ``torch.matmul``.
+    plain versions, bounds and ``torch.matmul``;
+17. ``whisper-base`` at full width and depth (6 bidirectional encoder
+    layers over 1,500 frames, 6 decoder layers with cross-attention,
+    bf16, 71,428,608 seeded parameters): the qwen workload, each request
+    with its own seeded (1,500, 80) features (two share a block),
+    through ``make_engine(kind="slot", max_slots=8, max_seq=448,
+    window=8)`` after ``warmup()`` and ``kind="sequential"``, the
+    counters zeroed just before each serve: K1 > 0 all on the wgmma
+    route, K2 and its int8 variant 0, 32 tokens each; slot:
+    ``decode_compiles`` 0, slots drained, buffers exactly 191,496,192
+    bytes (the cross stacks at 1,500 frames), one window at rung 8 with
+    49 K1 launches a step and the cross stacks bitwise unchanged,
+    finite logits of a prefill with features.  Printed: the completions
+    the engines share, one profiled slot window, K1's times for a rung-8
+    decode step, one request's encoder (with the cross K/V projections)
+    and ``frontend_proj``.  Then ``Trainer`` for 6 steps of 8 x (1,500
+    frames, 448 tokens), ``remat="none"``: finite losses, K1 > 0 on the
+    wgmma route, a step profiled part by part whose K1 launches times 6
+    are the run's, and K1's forward and backward times beside the plain
+    version, the bound and ``torch.matmul``.
 
-Phases 15 and 16 run after phase 14; ``elapsed after ...`` lines give
-the script's time at the end of each group of phases.
+Phases 15-17 run after phase 14; ``elapsed after ...`` lines give the
+script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -465,6 +496,20 @@ INTERNVL_K1 = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
 INTERNVL_FRONTEND = (3200, 8192)
 INTERNVL_HEAD = (129024, 8192)
 FRONTEND_ROWS = 208
+# whisper-base's K1 shapes (k, n), bf16: q, k, v and o of its self and
+# cross attention (8 heads of 64), up (GELU, no gate) and down, each with
+# a bias added after K1; its stub audio frontend's frontend_proj (80 mel
+# bins -> 512: K = 80, two 64-deep stages, the second 16 deep, the first
+# K of the main path that is not whole stages); its tied LM head is
+# table.T, 512 x 53248 (the 51,865 tokens padded to a multiple of 2048).
+# A request's encoder runs over 1,500 frames (11 x 128 + 92 rows), and so
+# do its cross K/V projections; training over 8 x 1,500 frames and the
+# decoder's 8 x 448 tokens.
+WHISPER_K1 = ((512, 512), (512, 2048), (2048, 512))
+WHISPER_FRONTEND = (80, 512)
+WHISPER_HEAD = (53248, 512)
+WHISPER_FRAMES = 1500
+WHISPER_MAX_SEQ = 448
 
 
 def _recurrent_k1_rows():
@@ -495,6 +540,19 @@ def _internvl_k1_rows():
     lens |= {min(1 << max(3, (s - 1).bit_length()), 256)
              for s in PROMPT_LENS}
     lens |= {-(-s // 16) * 16 for s in PROMPT_LENS}
+    return tuple(range(1, 9)), tuple(sorted(lens))
+
+
+def _whisper_k1_rows():
+    """The rows whisper-base's serves (``serve_whisper``: ``PROMPT_LENS``
+    at ``max_seq`` 448) give K1: decode batches of 1 to 8 rows, logits
+    read for every row; the decoder's prefills at the slot engine's
+    power-of-two buckets (8 at least) and the sequential engine's exact
+    lengths, the LM head on 1 row; and each request's 1,500-frame
+    encoder and cross K/V projections."""
+    lens = set(PROMPT_LENS) | {WHISPER_FRAMES}
+    lens |= {min(1 << max(3, (s - 1).bit_length()), WHISPER_MAX_SEQ)
+             for s in PROMPT_LENS}
     return tuple(range(1, 9)), tuple(sorted(lens))
 
 
@@ -576,6 +634,24 @@ def check_k1(torch, kernels, gen) -> float:
     check(torch.bfloat16, FRONTEND_ROWS, f"internvl2 frontend_proj {k}x{n}",
           k, k, (torch.randn(k, n, device="cuda", generator=gen)
                  / k ** 0.5).bfloat16())
+    wh_decode, wh_prefill = _whisper_k1_rows()
+    table = (torch.randn(*WHISPER_HEAD, device="cuda", generator=gen)
+             / WHISPER_HEAD[1] ** 0.5).bfloat16()
+    for m in wh_decode:
+        check(torch.bfloat16, m, f"whisper lm_head {WHISPER_HEAD[1]}x"
+              f"{WHISPER_HEAD[0]} trans_b", WHISPER_HEAD[1],
+              WHISPER_HEAD[1], table.T)
+    del table
+    for k, n in WHISPER_K1:
+        b = (torch.randn(k, n, device="cuda", generator=gen)
+             / k ** 0.5).bfloat16()
+        for m in wh_decode + wh_prefill:
+            check(torch.bfloat16, m, f"whisper {k}x{n}", k, k, b)
+    k, n = WHISPER_FRONTEND
+    b = (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+         ).bfloat16()
+    for m in (1, 8, WHISPER_FRAMES):      # K = 80: the 16-deep last stage
+        check(torch.bfloat16, m, f"whisper frontend_proj {k}x{n}", k, k, b)
     # qwen's serve (decode rungs, the 208-row prefill), phi's serve and
     # training (2048 rows), gemma3's serve, the recurrent models' serves.
     qwen = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 153600))
@@ -583,6 +659,7 @@ def check_k1(torch, kernels, gen) -> float:
     gemma_head = GEMMA_K1 + ((GEMMA_HEAD[1], GEMMA_HEAD[0]),)
     rec_head = RECURRENT_K1 + tuple((h[1], h[0]) for h in RECURRENT_HEADS)
     in_head = INTERNVL_K1 + ((INTERNVL_HEAD[1], INTERNVL_HEAD[0]),)
+    wh_head = WHISPER_K1 + ((WHISPER_HEAD[1], WHISPER_HEAD[0]),)
     main_path = [p for ms, shapes in (((1, 8, 16, 208), qwen),
                                       ((8, 208, 2048), phi),
                                       (decode_rows, gemma_head),
@@ -592,7 +669,11 @@ def check_k1(torch, kernels, gen) -> float:
                                       (in_decode, in_head),
                                       (in_prefill, INTERNVL_K1),
                                       ((FRONTEND_ROWS,),
-                                       (INTERNVL_FRONTEND,)))
+                                       (INTERNVL_FRONTEND,)),
+                                      (wh_decode, wh_head),
+                                      (wh_prefill, WHISPER_K1),
+                                      ((WHISPER_FRAMES,),
+                                       (WHISPER_FRONTEND,)))
                  for m in ms for k, n in shapes
                  for p in _k1_plans_of(kernels, m, k, n)]
 
@@ -612,7 +693,10 @@ def check_k1(torch, kernels, gen) -> float:
          f"rwkv6-3b's in bf16 at M in {rec_decode + rec_prefill}, their "
          f"LM heads at M in {rec_decode}; internvl2-76b's in bf16 at M in "
          f"{in_decode + in_prefill}, its LM head at M in {in_decode}, its "
-         f"frontend_proj at M {FRONTEND_ROWS}) agree with the plain "
+         f"frontend_proj at M {FRONTEND_ROWS}; whisper-base's in bf16 at M "
+         f"in {wh_decode + wh_prefill}, its LM head at M in {wh_decode}, "
+         f"its frontend_proj (K 80) at M 1, 8 and {WHISPER_FRAMES}) agree "
+         f"with the plain "
          f"version (max abs err {worst}; elementwise tol f32 2e-5*max|ref|, "
          f"bf16 "
          f"2^-7*|ref| + 2e-5*max|ref|); bf16 plans reached (swap-AB, bm, bn, "
@@ -1026,17 +1110,27 @@ K1_TRAIN_MODELS = {
     "internvl2-76b": (INTERNVL_K1, INTERNVL_HEAD)}
 
 
+# whisper-base's training rows: the encoder's 8 x 1,500 frames (and the
+# cross K/V projections over them), the decoder's 8 x 448 tokens.
+WHISPER_TRAIN_ROWS = {"encoder": 8 * WHISPER_FRAMES,
+                      "decoder": 8 * WHISPER_MAX_SEQ}
+
+
 def check_k1_train_shapes(torch, kernels, gen, rows: int = 2048) -> float:
     """``sisa_matmul`` forward and backward on the card at the training
-    shapes of ``K1_TRAIN_MODELS`` (``rows`` tokens, bf16): C, dA and dB
+    shapes of ``K1_TRAIN_MODELS`` (``rows`` tokens, bf16) and of
+    whisper-base (its projections at the encoder's and the decoder's
+    ``WHISPER_TRAIN_ROWS``, its LM head at the decoder's): C, dA and dB
     against the plain K1, the LM heads read as ``table.T`` (dB lands on
-    the (vocab, d) table); and internvl2's ``frontend_proj`` through
-    ``linear_apply`` with its bias (y = x W + b: C, dx, dW and db
-    against the plain K1 plus the bias).  The LM heads' dA contracts
-    over the vocabulary (K up to 256,000): there the tensor cores'
-    float32 accumulator, which truncates each k16 step's sum, may part
-    from the plain version's by up to K / 16 steps x 2^-24 of the
-    largest partial sum, so a case's ``atol`` is the larger of
+    the (vocab, d) table); and the stub frontends' ``frontend_proj``
+    through ``linear_apply`` with its bias (y = x W + b: C, dx, dW and
+    db against the plain K1 plus the bias), internvl2's at 208 and
+    ``rows`` rows, whisper's (K 80: dx has N = 80, dW M = 80) at one
+    request's 1,500 frames and the training run's 12,000.  The LM
+    heads' dA contracts over the vocabulary (K up to 256,000): there the
+    tensor cores' float32 accumulator, which truncates each k16 step's
+    sum, may part from the plain version's by up to K / 16 steps x 2^-24
+    of the largest partial sum, so a case's ``atol`` is the larger of
     ``_f32_atol`` and ``K x 2^-28 x max|ref|``; the largest error
     against max|ref| of each K is printed."""
     from repro_torch.models.common import linear_apply
@@ -1056,29 +1150,26 @@ def check_k1_train_shapes(torch, kernels, gen, rows: int = 2048) -> float:
         by_k[k] = max(by_k.get(k, 0.0), err / max(top, 1e-30))
         n_cases += 1
 
-    for name, (shapes, head) in K1_TRAIN_MODELS.items():
-        for k, n, is_head in [(k, n, False) for k, n in shapes] + [
-                (head[1], head[0], True)]:
-            a = rand(rows, k).requires_grad_()
-            dc = rand(rows, n)
-            w = rand(*((n, k) if is_head else (k, n)),
-                      scale=k ** -0.5).requires_grad_()
-            b = w.T if is_head else w
-            c = kernels.sisa_matmul(a, b)
-            c.backward(dc)
-            what = f"K1 train {name} {'lm_head table.T ' if is_head else ''}"
-            with torch.no_grad():
-                bd = b.detach()
-                held(f"{what}{k}x{n} C", c, kernels.sisa_gemm_plain(a, bd),
-                     k)
-                held(f"{what}{k}x{n} dA", a.grad,
-                     kernels.sisa_gemm_plain(dc, bd.t()), n)
-                db = kernels.sisa_gemm_plain(a.detach().t(), dc)
-                held(f"{what}{k}x{n} dB", w.grad, db.t() if is_head else db,
-                     rows)
-            del a, dc, w, b, c
-    k, n = INTERNVL_FRONTEND
-    for m in (FRONTEND_ROWS, rows):
+    def gemm(name, m, k, n, is_head):
+        a = rand(m, k).requires_grad_()
+        dc = rand(m, n)
+        w = rand(*((n, k) if is_head else (k, n)),
+                  scale=k ** -0.5).requires_grad_()
+        b = w.T if is_head else w
+        c = kernels.sisa_matmul(a, b)
+        c.backward(dc)
+        what = (f"K1 train {name} M={m} "
+                f"{'lm_head table.T ' if is_head else ''}")
+        with torch.no_grad():
+            bd = b.detach()
+            held(f"{what}{k}x{n} C", c, kernels.sisa_gemm_plain(a, bd), k)
+            held(f"{what}{k}x{n} dA", a.grad,
+                 kernels.sisa_gemm_plain(dc, bd.t()), n)
+            db = kernels.sisa_gemm_plain(a.detach().t(), dc)
+            held(f"{what}{k}x{n} dB", w.grad, db.t() if is_head else db, m)
+
+    def frontend(name, m, k, n):
+        nonlocal worst, n_cases
         proj = {"w": rand(k, n, scale=k ** -0.5).requires_grad_(),
                 "b": rand(n).requires_grad_()}
         x = rand(m, k).requires_grad_()
@@ -1094,22 +1185,40 @@ def check_k1_train_shapes(torch, kernels, gen, rows: int = 2048) -> float:
             tol = BF16_REL * (xw.float().abs() + ref.float().abs()) \
                 + _f32_atol(ref)
             if not (err <= tol).all():
-                raise AssertionError(f"frontend_proj y M={m}: "
+                raise AssertionError(f"{name} frontend_proj y M={m}: "
                                      f"{int((err > tol).sum())} elements off")
             worst, n_cases = max(worst, err.max().item()), n_cases + 1
-            held(f"frontend_proj dx M={m}", x.grad,
+            held(f"{name} frontend_proj dx M={m}", x.grad,
                  kernels.sisa_gemm_plain(dy, w.t()), n)
-            held(f"frontend_proj dW M={m}", proj["w"].grad,
+            held(f"{name} frontend_proj dW M={m}", proj["w"].grad,
                  kernels.sisa_gemm_plain(x.detach().t(), dy), m)
-            held(f"frontend_proj db M={m}", proj["b"].grad,
+            held(f"{name} frontend_proj db M={m}", proj["b"].grad,
                  dy.float().sum(0).bfloat16(), m)
+
+    for name, (shapes, head) in K1_TRAIN_MODELS.items():
+        for k, n in shapes:
+            gemm(name, rows, k, n, False)
+        gemm(name, rows, head[1], head[0], True)
+    for part, m in WHISPER_TRAIN_ROWS.items():
+        for k, n in WHISPER_K1:
+            gemm(f"whisper-base {part}", m, k, n, False)
+    gemm("whisper-base decoder", WHISPER_TRAIN_ROWS["decoder"],
+         WHISPER_HEAD[1], WHISPER_HEAD[0], True)
+    for m in (FRONTEND_ROWS, rows):
+        frontend("internvl2", m, *INTERNVL_FRONTEND)
+    for m in (WHISPER_FRAMES, WHISPER_TRAIN_ROWS["encoder"]):
+        frontend("whisper", m, *WHISPER_FRONTEND)
     _say(f"k1 training shapes: {n_cases} cases (C, dA and dB at {rows} "
          f"rows, bf16, of recurrentgemma-2b's, rwkv6-3b's and "
-         f"internvl2-76b's projections and LM heads' table.T, and "
-         f"internvl2's frontend_proj with its bias at {FRONTEND_ROWS} and "
-         f"{rows} rows) agree with the plain version (max abs err {worst}; "
-         f"elementwise tol 2^-7*|ref| + max(2e-5, K*2^-28)*max|ref|; the "
-         f"largest error / max|ref| by K: {json.dumps(by_k)})")
+         f"internvl2-76b's projections and LM heads' table.T, of "
+         f"whisper-base's at {json.dumps(WHISPER_TRAIN_ROWS)} rows and its "
+         f"LM head's at the decoder's, and the frontend_proj with its "
+         f"bias of internvl2 at {FRONTEND_ROWS} and {rows} rows and of "
+         f"whisper (K 80) at {WHISPER_FRAMES} and "
+         f"{WHISPER_TRAIN_ROWS['encoder']}) agree with the plain version "
+         f"(max abs err {worst}; elementwise tol 2^-7*|ref| + max(2e-5, "
+         f"K*2^-28)*max|ref|; the largest error / max|ref| by K: "
+         f"{json.dumps(by_k)})")
     return worst
 
 
@@ -1194,6 +1303,72 @@ def _small_recurrent_configs():
                                head_dim=64, d_ff=1024, vocab_size=4096,
                                param_dtype="float32")
     return {"recurrentgemma structure": rg, "rwkv6 structure": rwkv}
+
+
+def _small_enc_dec_config():
+    """whisper-base's structure (bidirectional encoder layers, decoder
+    layers with cross-attention, biases, GELU MLP, tied head, its
+    80-wide frontend) at narrow widths with 2 + 2 layers, 4 heads of 64,
+    a 4096-token vocabulary and 37 encoder frames (not a multiple of
+    16), float32."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("whisper-base"), n_layers=2,
+                               n_enc_layers=2, d_model=256, n_heads=4,
+                               n_kv_heads=4, head_dim=64, d_ff=512,
+                               vocab_size=4096, enc_frames=37,
+                               param_dtype="float32")
+
+
+def check_small_enc_dec(torch, np, label, cfg) -> None:
+    """``cfg`` (an enc-dec model) served on the card (kernels) and on the
+    CPU (plain versions) through the slot and sequential engines, each
+    request with its own seeded ``(enc_frames, frontend_dim)`` features:
+    the same greedy tokens per kind, each request's token count that of
+    the ``max_seq`` stop rule; ``kind="paged"`` raises
+    ``NotImplementedError`` (its cross page pool is the next slice)."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_engine, Request
+
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = _tree_map(lambda t: t.cuda(), cpu)
+    rng = np.random.default_rng(7)
+    feats = [rng.standard_normal((cfg.enc_frames, cfg.frontend_dim),
+                                 dtype=np.float32) for _ in SMALL_LOCAL_LENS]
+    outs = {}
+    for kind in ("slot", "sequential"):
+        for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            eng = make_engine(cfg, params, kind=kind, device=dev,
+                              max_slots=4, max_seq=64, window=4)
+            reqs = _small_requests(Request, np, cfg, kind, SMALL_LOCAL_LENS)
+            for req, f in zip(reqs, feats):
+                req.max_new_tokens, req.enc_embeds = 12, f
+            done = _serve_offline(eng, kind, reqs, 64)
+            counts = [c.n_tokens for c in done]
+            want = _max_seq_counts(SMALL_LOCAL_LENS, 12, 64)
+            if counts != want:
+                raise AssertionError(f"{label}, kind={kind} on {dev}: token "
+                                     f"counts {counts}, want {want}")
+            outs[kind, dev] = [(c.rid, c.tokens) for c in done]
+        if outs[kind, "cpu"] != outs[kind, "cuda"]:
+            raise AssertionError(
+                f"{label}, kind={kind}: card tokens {outs[kind, 'cuda']} "
+                f"differ from the CPU's {outs[kind, 'cpu']}")
+    try:
+        make_engine(cfg, gpu, kind="paged", device="cuda", max_slots=4,
+                    max_seq=64, page_size=16, window=4)
+    except NotImplementedError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError(f"{label}: the paged engine took an enc-dec "
+                             "model")
+    _say(f"small model ({label}, {cfg.n_enc_layers} + {cfg.n_layers} "
+         f"layers, {cfg.enc_frames} frames, f32): {len(SMALL_LOCAL_LENS)} "
+         f"requests of {list(SMALL_LOCAL_LENS)} prompt tokens, each with "
+         f"its own features, through the slot and sequential engines, "
+         f"{_max_seq_counts(SMALL_LOCAL_LENS, 12, 64)} tokens each, tokens "
+         f"on the card identical to the CPU plain path; paged refused: "
+         f"{refused}")
 
 
 # The small models' prompts: each crosses the paged engine's 16-token
@@ -1305,7 +1480,13 @@ def check_small_train(torch, np, label, cfg) -> None:
     update.  The step is ``loss_and_grads`` then ``apply_updates``, what
     ``make_train_step`` runs with ``accum_steps=1``, split so the
     gradients can be read.  lr 1e-3 with one warmup step makes the
-    update about 1e-3 per element, far above the tolerances."""
+    update about 1e-3 per element, far above the tolerances.  An
+    enc-dec model's cross-attention key biases have an exact gradient
+    of 0 (with no RoPE, a key bias adds one constant to a query's
+    logits, which the softmax removes): both sides hold rounding noise
+    there, each within 1e-6 of the largest gradient, and their moments
+    and steps (Adam's step of noise, up to lr either way) are held by
+    the parameters' rule for gradients that are not firm."""
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.models import init_params
@@ -1348,19 +1529,31 @@ def check_small_train(torch, np, label, cfg) -> None:
         / clip
     err = {"grad": 0.0, "mu": 0.0, "nu": 0.0, "param": 0.0}
     firm = total = 0
+    zero = {id(layer["cross"]["k"]["b"]) for layer in cpu["layers"]
+            if "cross" in layer and "b" in layer["cross"]["k"]}
+    zero = [i for i, t in enumerate(_leaves(cpu)) if id(t) in zero]
+    top = max(g.abs().max().item() for g in g_cpu)
     for i, (gg, gc) in enumerate(zip(g_gpu, g_cpu)):
         gg = gg.cpu()
-        # f32 sums in other orders: 1e-4 of the leaf's largest value.
-        scale = max(gc.abs().max().item(), 1e-30)
-        err["grad"] = max(err["grad"], _max_err(
-            f"small train ({label}) grad", gg, gc, 0.0, 1e-4 * scale) / scale)
-        for key, got, want, rel in (
-                ("mu", mu_gpu, mu_cpu, 1e-4 + 2 * dclip),
-                ("nu", nu_gpu, nu_cpu, 2e-4 + 4 * dclip)):
-            sc = max(want[i].abs().max().item(), 1e-30)
-            err[key] = max(err[key], _max_err(
-                f"small train ({label}) {key}", got[i].cpu(), want[i], 0.0,
-                rel * sc) / sc)
+        if i in zero:
+            noise = max(gg.abs().max().item(), gc.abs().max().item())
+            if noise > 1e-6 * top:
+                raise AssertionError(f"small train ({label}) leaf {i}: a "
+                                     f"key bias's gradient {noise} of "
+                                     f"{top}")
+        else:
+            # f32 sums in other orders: 1e-4 of the leaf's largest value.
+            scale = max(gc.abs().max().item(), 1e-30)
+            err["grad"] = max(err["grad"], _max_err(
+                f"small train ({label}) grad", gg, gc, 0.0,
+                1e-4 * scale) / scale)
+            for key, got, want, rel in (
+                    ("mu", mu_gpu, mu_cpu, 1e-4 + 2 * dclip),
+                    ("nu", nu_gpu, nu_cpu, 2e-4 + 4 * dclip)):
+                sc = max(want[i].abs().max().item(), 1e-30)
+                err[key] = max(err[key], _max_err(
+                    f"small train ({label}) {key}", got[i].cpu(), want[i],
+                    0.0, rel * sc) / sc)
         # Adam's first step moves an element by lr * g / (|g| + eps)
         # (plus weight decay): about lr * sign(g).  Where the clipped
         # gradient is at least 1000 eps and four times the leaf's
@@ -1393,6 +1586,8 @@ def check_small_train(torch, np, label, cfg) -> None:
          f"after the step at the {firm} of {total} elements with a firm "
          f"gradient (max abs err {err['param']}; tol lr/100 + 1e-6 = "
          f"{lr1 / 100 + 1e-6}; each moved by >= lr/2 on the CPU), the rest "
+         f"(and the {len(zero)} cross-attention key biases' noise "
+         f"gradients, within 1e-6 of the largest) "
          f"within 2 lr + 1e-6; card launches {json.dumps(launches)}")
 
 
@@ -2123,6 +2318,320 @@ def serve_internvl2(torch, np, kernels) -> dict:
             "profile": profile}
 
 
+# whisper-base at full width and depth, bf16: 71,428,608 parameters
+# (the tied 51,865-row table padded to 53,248 x 512; 6 decoder layers of
+# self and cross attention and a GELU MLP, biases on every linear; 6
+# encoder layers; frontend_proj 80 x 512 with its bias).  The slot
+# buffers at 8 slots and max_seq 448: the self stacks 2 (K, V) x 6 layers
+# x 8 slots x 448 cells and the cross stacks 2 x 6 x 8 x 1,500 frames,
+# each cell 8 KV heads x 64 x 2 bytes.  A decode step launches K1 49
+# times at rung 8: q, k, v and o, the cross attention's q and o, up and
+# down in each of 6 layers, and the head; the cross K/V are projected
+# once, at prefill.
+WHISPER_PARAMS = 71_428_608
+WHISPER_SLOT_BYTES = 191_496_192
+WHISPER_DECODE_K1 = 49
+
+
+def _whisper_counts(cfg) -> dict:
+    """whisper's parameter count, slot buffer bytes (bf16) and K1
+    launches a decode step, from the config (the comment above
+    ``WHISPER_PARAMS``)."""
+    from repro_torch.models.common import padded_vocab
+
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    # q, k, v and o with their biases
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd \
+        + cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd + d
+    mlp = 2 * d * ff + ff + d
+    cell = 2 * cfg.n_kv_heads * hd
+    return {"params": padded_vocab(cfg.vocab_size) * d + d
+            + cfg.n_layers * (3 * d + 2 * attn + mlp)
+            + cfg.n_enc_layers * (2 * d + attn + mlp) + d
+            + (cfg.frontend_dim + 1) * d,
+            "slot_bytes": 2 * cfg.n_layers * 8 * (WHISPER_MAX_SEQ
+                                                   + cfg.enc_frames) * cell,
+            "decode_k1": 8 * cfg.n_layers + 1}
+
+
+def _whisper_requests(Request, np, cfg):
+    """The qwen workload (``PROMPT_LENS``, two prompts sharing a prefix,
+    32 new tokens each), each request with its own seeded (1,500, 80)
+    float32 features but rid 2, which shares rid 1's block."""
+    reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
+                     PROMPT_LENS)
+    rng = np.random.default_rng(11)
+    for req in reqs:
+        req.enc_embeds = rng.standard_normal(
+            (cfg.enc_frames, cfg.frontend_dim), dtype=np.float32)
+    reqs[2].enc_embeds = reqs[1].enc_embeds
+    return reqs
+
+
+def _whisper_gemms(torch, params, cfg, part: str, rows: int, gen):
+    """K1's ``(a, b)`` pairs of one whisper pass, a random bf16 input a
+    (rows, K): ``"decode"`` one decode step (each layer's q, k, v, o,
+    cross q and o, up and down, and the head on every row);
+    ``"encoder"`` one request's encoder over ``rows`` frames
+    (``frontend_proj``, each encoder layer's q, k, v, o, up and down) and
+    the decoder's cross K/V projections over its output;
+    ``"frontend_proj"`` that GEMM alone."""
+    xs = {}
+
+    def x_of(k):
+        if k not in xs:
+            xs[k] = torch.randn(rows, k, device="cuda",
+                                generator=gen).bfloat16()
+        return xs[k]
+
+    def lin(p):
+        return (x_of(p["w"].shape[0]), p["w"])
+
+    proj = [lin(params["frontend_proj"])]
+    if part == "frontend_proj":
+        return proj
+    if part == "encoder":
+        return proj + [lin(layer[group][name])
+                       for layer in params["encoder"]["layers"]
+                       for group, names in (("mixer", "qkvo"),
+                                            ("mlp", ("up", "down")))
+                       for name in names] + [
+            lin(layer["cross"][name]) for layer in params["layers"]
+            for name in "kv"]
+    gemms = [lin(layer[group][name]) for layer in params["layers"]
+             for group, names in (("mixer", "qkvo"), ("cross", "qo"),
+                                  ("mlp", ("up", "down")))
+             for name in names]
+    return gemms + [(x_of(cfg.d_model), params["embed"]["table"].T)]
+
+
+def _whisper_window(torch, np, eng, cfg) -> dict:
+    """One slot window at rung 8 with all 8 requests resident: K1
+    launches ``WHISPER_DECODE_K1`` times a step, every one on the wgmma
+    route, and the cross stacks ``xk``, ``xv`` are bitwise unchanged
+    across it; then the requests finish and the slots drain."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.serve import Request
+
+    reqs = _whisper_requests(Request, np, cfg)
+    for req in reqs:
+        req.max_new_tokens = 2 * eng.window + 1
+        eng.submit(req)
+    finished = []
+    eng.step(finished)                  # admission, prefills, one window
+    if eng.queue or eng._n_active() != len(reqs):
+        raise AssertionError(f"whisper: {eng._n_active()} resident after "
+                             f"the first step, {len(eng.queue)} queued")
+    held = {k: eng.cache.buffers[k].clone() for k in ("xk", "xv")}
+    torch.cuda.synchronize()
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    eng.step(finished)                  # one decode window, nothing else
+    torch.cuda.synchronize()
+    launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+    _k1_wgmma_only(launches)
+    rung = eng.stats["engine"]["rungs"][-1]
+    if rung != 8 or launches["sisa_gemm"] != WHISPER_DECODE_K1 * eng.window:
+        raise AssertionError(f"whisper window at rung {rung}: "
+                             f"{launches['sisa_gemm']} K1 launches for "
+                             f"{eng.window} steps")
+    for k, t in held.items():
+        if not torch.equal(eng.cache.buffers[k], t):
+            raise AssertionError(f"whisper: the cross stack {k} changed "
+                                 "across a decode window")
+    eng.run()
+    if eng.cache.n_free != eng.max_batch:
+        raise AssertionError("whisper: slots did not drain after the window")
+    out = {"rung": rung, "steps": eng.window,
+           "k1_launches": launches["sisa_gemm"],
+           "k1_per_step": launches["sisa_gemm"] / eng.window,
+           "cross_stacks_unchanged": True}
+    _say(f"whisper slot window: {json.dumps(out)}")
+    return out
+
+
+def serve_whisper(torch, np, kernels) -> dict:
+    """``whisper-base`` at full width and depth in bf16, seeded random
+    weights (exactly ``WHISPER_PARAMS`` parameters): the 8 requests of
+    ``_whisper_requests`` through ``make_engine(kind="slot",
+    max_slots=8, max_seq=448, window=8)`` after ``warmup()``, then
+    ``kind="sequential"``; every launch counter zeroed just before each
+    serve: K1 > 0, all on the wgmma route (``sisa_gemm_core`` 0), K2 and
+    its int8 variant 0, 32 tokens each; slot: ``decode_compiles`` 0, every
+    slot drained, the buffers exactly ``WHISPER_SLOT_BYTES`` (the cross
+    stacks at 1,500 frames); one window at rung 8 (``_whisper_window``:
+    49 K1 launches a step, the cross stacks bitwise unchanged); finite
+    logits of the expected shape from one prefill with features.
+    Printed: the completions the two engines share, one profiled slot
+    window, and K1's times for a rung-8 decode step, one request's
+    1,500-frame encoder (with the cross K/V projections) and
+    ``frontend_proj`` alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import forward_prefill, init_params
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.serve import make_engine, Request, validate_stats
+    from repro_torch.serve.engine import prefill_batch_of
+
+    cfg = get_config("whisper-base")
+    want = _whisper_counts(cfg)
+    if (want["params"], want["slot_bytes"], want["decode_k1"]) != (
+            WHISPER_PARAMS, WHISPER_SLOT_BYTES, WHISPER_DECODE_K1):
+        raise AssertionError(f"whisper counts from the config: {want}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    _say(f"params: {cfg.name} full width, {cfg.n_enc_layers} encoder + "
+         f"{cfg.n_layers} decoder layers, {n_params} parameters "
+         f"({torch.cuda.memory_allocated() / 1e9:.3f} GB allocated), init "
+         f"{time.perf_counter() - t0:.2f} s")
+    if n_params != WHISPER_PARAMS:
+        raise AssertionError(f"whisper parameters {n_params}")
+    outs, summaries, window = {}, {}, None
+    for kind in ("slot", "sequential"):
+        eng = make_engine(cfg, params, kind=kind, max_slots=8,
+                          max_seq=WHISPER_MAX_SEQ, window=8)
+        if kind == "slot":
+            eng.warmup()
+        reqs = _whisper_requests(Request, np, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        done = _serve_offline(eng, kind, reqs, WHISPER_MAX_SEQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+        _k1_wgmma_only(launches)
+        validate_stats(eng.stats)
+        if launches["sisa_gemm"] <= 0 or launches["paged_attn"] \
+                or launches["paged_attn_int8"]:
+            raise AssertionError(f"whisper {kind} serve: {launches}")
+        if len(done) != len(reqs) or any(
+                c.n_tokens != NEW_TOKENS or c.finish_reason != "length"
+                or not all(0 <= t < cfg.vocab_size for t in c.tokens)
+                for c in done):
+            raise AssertionError(f"whisper {kind} serve: " + str(
+                [(c.rid, c.n_tokens, c.finish_reason) for c in done]))
+        ext = eng.stats["engine"]
+        if kind == "slot":
+            if eng.stats["decode_compiles"] != 0:
+                raise AssertionError(f"whisper slot decode_compiles "
+                                     f"{eng.stats['decode_compiles']}")
+            if eng.cache.n_free != eng.max_batch or ext["slot_admits"] \
+                    != ext["slot_releases"]:
+                raise AssertionError("whisper slots did not drain")
+            nbytes = eng.cache.resident_bytes()
+            if nbytes != WHISPER_SLOT_BYTES:
+                raise AssertionError(f"whisper slot buffers {nbytes} bytes, "
+                                     f"want {WHISPER_SLOT_BYTES}")
+        n_tok = sum(c.n_tokens for c in done)
+        summaries[kind] = {
+            "model": cfg.name, "kind": kind, "max_seq": WHISPER_MAX_SEQ,
+            "prompts": list(PROMPT_LENS), "frames": cfg.enc_frames,
+            "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_compiles": eng.stats["decode_compiles"],
+            "decode_steps": eng.stats["decode_steps"],
+            "batches": eng.stats["batches"],
+            "cache_bytes": (eng.cache.resident_bytes() if kind == "slot"
+                            else None),
+            "launches": launches}
+        _say(f"whisper serve: {json.dumps(summaries[kind])}")
+        outs[kind] = done
+        if kind == "slot":
+            window = _whisper_window(torch, np, eng, cfg)
+            profile = profile_window(torch, np, eng, cfg)
+            # Finite f32 logits of the expected shape from one prefill
+            # of a prompt with its features.
+            req = _whisper_requests(Request, np, cfg)[0]
+            for counter in LAUNCH_COUNTERS.values():
+                counter.reset()
+            logits, cache = forward_prefill(params, cfg, prefill_batch_of(
+                req.prompt[None], [req], cfg, "cuda"))
+            torch.cuda.synchronize()
+            _k1_wgmma_only({k: c.n for k, c in LAUNCH_COUNTERS.items()})
+            if tuple(cache["xk"].shape) != (
+                    cfg.n_layers, 1, cfg.enc_frames, cfg.n_kv_heads,
+                    cfg.resolved_head_dim) or logits.shape != (
+                    1, 1, padded_vocab(cfg.vocab_size)) \
+                    or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+                raise AssertionError("whisper prefill: bad logits or cache")
+        del eng
+    same = sum(a.tokens == b.tokens
+               for a, b in zip(outs["slot"], outs["sequential"]))
+    _say(f"whisper: {same} of {len(PROMPT_LENS)} completions of the slot "
+         "and sequential serves equal (the sequential engine decodes a "
+         "batch at its longest row's position; its prefill is "
+         "exact-length, the slot engine's bucketed)")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k1 = {part: time_gemms(torch, kernels, _whisper_gemms(
+              torch, params, cfg, part, rows, gen))
+          for part, rows in (("decode", 8), ("encoder", WHISPER_FRAMES),
+                             ("frontend_proj", WHISPER_FRAMES))}
+    for part, t in k1.items():
+        rows = "rung 8" if part == "decode" else f"{WHISPER_FRAMES} frames"
+        _say(f"k1 whisper-base {part} ({rows}, {t['gemms']} GEMMs): "
+             f"{json.dumps(t)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k1": k1, "serves": summaries, "window": window,
+            "profile": profile}
+
+
+def train_whisper(torch, kernels) -> dict:
+    """``whisper-base`` at full width and depth through
+    ``train_full_width``: ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+    (1,500 frames of features, 448 tokens), ``remat="none"``; K1 > 0,
+    every launch on the wgmma route, finite losses; one step profiled
+    part by part (``profile_train_phases``), whose K1 launches, forward
+    and backward, times ``TRAIN_STEPS`` must be the run's; and K1's
+    times for one step's forward and backward GEMMs (the encoder's and
+    the cross K/V projections at 12,000 rows, the decoder's and the head
+    at 3,584) beside the plain version, the bound and
+    ``torch.matmul``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-base")
+    trainer, out, launches, summary = train_full_width(
+        torch, cfg, need=("sisa_gemm",), seq=WHISPER_FRAMES,
+        tokens=TRAIN_BATCH * WHISPER_MAX_SEQ)
+    _k1_wgmma_only(launches)
+    batch = trainer.data.batch(0)
+    if batch["frontend_embeds"].shape != (TRAIN_BATCH, WHISPER_FRAMES,
+                                          cfg.frontend_dim) \
+            or batch["tokens"].shape != (TRAIN_BATCH, WHISPER_MAX_SEQ):
+        raise AssertionError(f"whisper batch: { {k: v.shape for k, v in batch.items()} }")
+    params, opt_state = out["params"], out["opt_state"]
+    del out
+    prof = profile_train_phases(torch, trainer, params, opt_state)
+    per_step = prof["k1_launches"]["forward"] \
+        + prof["k1_launches"]["backward"]
+    if launches["sisa_gemm"] != TRAIN_STEPS * per_step:
+        raise AssertionError(f"whisper: {launches['sisa_gemm']} K1 launches "
+                             f"in {TRAIN_STEPS} steps of {per_step}")
+    del opt_state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    enc = _whisper_gemms(torch, params, cfg, "encoder",
+                         WHISPER_TRAIN_ROWS["encoder"], gen)
+    dec = _whisper_gemms(torch, params, cfg, "decode",
+                         WHISPER_TRAIN_ROWS["decoder"], gen)
+    k1 = time_train_gemms(torch, kernels, enc + dec, gen)
+    _say(f"k1 train step (whisper-base, {len(enc)} GEMMs at "
+         f"{WHISPER_TRAIN_ROWS['encoder']} rows, {len(dec)} at "
+         f"{WHISPER_TRAIN_ROWS['decoder']}): {json.dumps(k1)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"summary": summary, "profile": prof, "k1": k1}
+
+
 # An exception in a frontend thread ends that thread (the scheduler's
 # ends the serve): each one is recorded here and re-raised in the main
 # thread by _drain.
@@ -2656,12 +3165,15 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 256, 6
 TRAIN_NEED = ("sisa_gemm", "grouped_gemm", "grouped_gemm_dx", "grouped_dw")
 
 
-def train_full_width(torch, cfg, need=TRAIN_NEED):
+def train_full_width(torch, cfg, need=TRAIN_NEED, seq=TRAIN_SEQ,
+                     tokens=None):
     """``Trainer(cfg, TrainerConfig(...)).run()`` for ``TRAIN_STEPS`` steps
-    of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` synthetic tokens, ``remat="none"``,
-    from seeded random bf16 weights.  Every launch counter is zeroed just
-    before the run; those of ``need`` (by default K1's, K4's forward and
-    dX and K5's) must be > 0 just after, and every loss finite."""
+    of ``TRAIN_BATCH`` x ``seq`` synthetic tokens (an enc-dec model's
+    batch: ``seq`` frames of features and its decoder's tokens, of which
+    ``tokens`` a step count in tokens/s), ``remat="none"``, from seeded
+    random bf16 weights.  Every launch counter is zeroed just before the
+    run; those of ``need`` (by default K1's, K4's forward and dX and
+    K5's) must be > 0 just after, and every loss finite."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
@@ -2676,7 +3188,7 @@ def train_full_width(torch, cfg, need=TRAIN_NEED):
          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), init "
          f"{time.perf_counter() - t0:.2f} s")
     tcfg = TrainerConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-                         seq_len=TRAIN_SEQ, remat="none", log_every=1)
+                         seq_len=seq, remat="none", log_every=1)
     trainer = Trainer(cfg, tcfg, params=params)
     del params
     torch.cuda.reset_peak_memory_stats()
@@ -2695,7 +3207,7 @@ def train_full_width(torch, cfg, need=TRAIN_NEED):
     if any(launches[name] <= 0 for name in need):
         raise AssertionError(f"training skipped a kernel: {launches}")
     step_s = statistics.median(h["dt"] for h in out["history"][1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = tokens or TRAIN_BATCH * seq
     summary = {"model": cfg.name, "layers": cfg.n_layers,
                "params_g": n_params / 1e9, "steps": TRAIN_STEPS,
                "tokens_per_step": tokens, "remat": "none", "losses": losses,
@@ -2785,8 +3297,19 @@ def time_train_k1(torch, kernels, params, cfg, rows: int):
     gemms.append((x_of(cfg.d_model), table.T))
     if "frontend_proj" in params:
         gemms.append((x_of(cfg.frontend_dim), params["frontend_proj"]["w"]))
-    dcs = [torch.randn(rows, b.shape[1], device="cuda",
-                       generator=gen).bfloat16() for _, b in gemms]
+    out = time_train_gemms(torch, kernels, gemms, gen)
+    _say(f"k1 train step ({cfg.name}, {rows} tokens, {len(gemms)} forward "
+         f"GEMMs): {json.dumps(out)}")
+    return out
+
+
+def time_train_gemms(torch, kernels, gemms, gen):
+    """K1 on the forward GEMMs ``gemms`` (``(a, b)`` pairs) and on their
+    backward (dA = dC Bᵀ, dB = Aᵀ dC on random dC), beside the plain
+    version, ``torch.matmul`` and the bound of each pass's bytes and
+    operations; beside the backward, ``at_copy_ms``."""
+    dcs = [torch.randn(a.shape[0], b.shape[1], device="cuda",
+                       generator=gen).bfloat16() for a, b in gemms]
 
     def fwd(fn):
         return lambda: [fn(a, b) for a, b in gemms]
@@ -2811,8 +3334,6 @@ def time_train_k1(torch, kernels, params, cfg, rows: int):
         bound, by = _bound_ms(nbytes, flops)
         out[label] = {**t, "bound_ms": bound, "bound_by": by,
                       "gemms": mult * len(gemms)}
-    _say(f"k1 train step ({cfg.name}, {rows} tokens, {len(gemms)} forward "
-         f"GEMMs): {json.dumps(out)}")
     return out
 
 
@@ -3069,8 +3590,9 @@ def profile_train_phases(torch, trainer, params, opt_state) -> dict:
     if min(k1_launches["forward"], k1_launches["backward"]) <= 0:
         raise AssertionError(f"{cfg.name} train step: K1 launches "
                              f"{k1_launches}")
-    _say(f"train step profile ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} "
-         f"tokens; scans timed alone): {json.dumps(out)}")
+    _say(f"train step profile ({cfg.name}, {trainer.tcfg.global_batch}x"
+         f"{trainer.tcfg.seq_len} batch; scans timed alone): "
+         f"{json.dumps(out)}")
     return out
 
 
@@ -3391,8 +3913,11 @@ def serve_coexec(torch, np, cfg, params):
     co-scheduled prefills run as backfill, the tokens do not change."""
     lens = PROMPT_LENS + PROMPT_LENS[::-1]
     need = ("sisa_gemm", "paged_attn")
+    # Without co-execution the multi-tenant plan only fills stats that
+    # nothing here reads (its host-side simulation is most of a serve's
+    # wall), and the tokens do not depend on it.
     eng0, _, _, plain = serve_full_width(torch, np, cfg, need, params=params,
-                                         lens=lens)
+                                         lens=lens, multi_tenant=False)
     del eng0
     eng, _, launches, outs = serve_full_width(
         torch, np, cfg, need, params=params, lens=lens,
@@ -3626,6 +4151,9 @@ def main() -> int:
     for label, small in _small_recurrent_configs().items():
         check_small_model(torch, np, label, small)
         check_small_train(torch, np, label, small)
+    small = _small_enc_dec_config()
+    check_small_enc_dec(torch, np, "whisper structure", small)
+    check_small_train(torch, np, "whisper structure", small)
     lap("the small models")
 
     cfg = get_config("qwen2.5-0.5b")
@@ -3633,12 +4161,16 @@ def main() -> int:
         torch, np, cfg, ("sisa_gemm", "paged_attn"))
     profile_window(torch, np, eng, cfg)
     serve_dense(torch, np, cfg, params, flt_outs)
+    lap("qwen2.5-0.5b paged and dense serves")
     serve_online(torch, np, cfg, params)
+    lap("qwen2.5-0.5b online serves")
     run_launchers(torch)
     eng8, int8_launches, k2_pool_err = serve_int8(torch, np, kernels, cfg,
                                                   params, eng, flt_outs)
     del eng8
+    lap("the launchers and the int8 serve")
     serve_coexec(torch, np, cfg, params)
+    lap("qwen2.5-0.5b co-execution serves")
     k1 = time_k1(torch, kernels, params, cfg, rows=8)
     k1_prefill = time_k1(torch, kernels, params, cfg, rows=208)
     k2 = time_k2(torch, kernels, layers=cfg.n_layers)
@@ -3742,6 +4274,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap(f"{name} training")
+    whisper = serve_whisper(torch, np, kernels)
+    lap("whisper-base serve")
+    whisper_train = train_whisper(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("whisper-base training")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
@@ -3761,7 +4299,14 @@ def main() -> int:
                  "<model>_train_fwd_* "
                  "and _bwd_* one train step's forward and backward GEMMs "
                  "(8 x 256 tokens) of the full-width training runs, which "
-                 "launched it <model>_train_launches times in 6 steps",
+                 "launched it <model>_train_launches times in 6 steps; "
+                 "whisper_decode_* one whisper-base decode step (rung 8), "
+                 "whisper_encoder_* one request's 1,500-frame encoder with "
+                 "the cross K/V projections and whisper_frontend_proj_* "
+                 "its frontend_proj (K 80) alone, of the serves that "
+                 "launched it whisper_serve_launches times (slot, "
+                 "sequential); whisper_train_* one step of 8 x (1,500 "
+                 "frames, 448 tokens)",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err),
          **{k: k1[k] for k in keys},
@@ -3781,7 +4326,18 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
          **{f"{name.split('-')[0]}_train_launches":
             rec["summary"]["launches"]["sisa_gemm"]
-            for name, rec in trained.items()}},
+            for name, rec in trained.items()},
+         **{f"whisper_{part}_{k}": whisper["k1"][part][k]
+            for part in ("decode", "encoder", "frontend_proj")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "whisper_serve_launches": [
+             whisper["serves"][kind]["launches"]["sisa_gemm"]
+             for kind in ("slot", "sequential")],
+         **{f"whisper_train_{part}_{k}": whisper_train["k1"][part][k]
+            for part in ("fwd", "bwd")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "whisper_train_launches":
+             whisper_train["summary"]["launches"]["sisa_gemm"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",

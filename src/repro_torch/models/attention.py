@@ -1,11 +1,14 @@
-"""GQA causal attention, global (``ATTN``) and sliding-window
-(``LOCAL``), with dense and paged KV decode (the port of the causal
-self-attention part of ``repro/models/attention.py``).
+"""GQA attention: causal global (``ATTN``) and sliding-window
+(``LOCAL``), an encoder's bidirectional (``BIDIR``) and a decoder's
+cross-attention, with dense and paged KV decode (the port of
+``repro/models/attention.py``).
 
 Prefill attention is plain PyTorch (the reference's is plain XLA, not
 Pallas): einsum logits with f32 accumulation, softmax in f32, the
 probabilities cast to ``q.dtype`` before the PV product.  A ``LOCAL``
-layer masks keys more than ``cfg.sliding_window`` positions back.
+layer masks keys more than ``cfg.sliding_window`` positions back;
+bidirectional and cross attention mask nothing, and cross attention
+takes no RoPE.
 The reference's opt-in banded local and chunked global prefill forms
 (``set_attention_impl``) are not ported: nothing in the port selects
 them yet.
@@ -22,7 +25,9 @@ layer's window at decode; a paged local layer reads the same ring
 through its ring table.  :func:`prefill_into_cache` lays a prompt
 longer than the capacity as that ring.  Dense caches are int8 with bf16
 scale planes ``"k_s","v_s"`` while :func:`set_kv_cache_quant` is on.
-Bidirectional and cross attention are later slices.
+A decoder's cross K/V (:func:`encode_cross_kv`) is projected once at
+prefill, kept at model precision whatever that flag says, and only read
+at decode (:func:`cross_attn_decode`).
 """
 from __future__ import annotations
 
@@ -84,30 +89,69 @@ def _causal_mask(sq: int, skv: int, window: Optional[int],
 
 
 def attn_apply(p, x: Tensor, cfg, *, kind: str = "attn",
-               positions: Optional[Tensor] = None
+               positions: Optional[Tensor] = None,
+               kv_x: Optional[Tensor] = None
                ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Full-sequence causal attention (training and prefill), ``kind``
-    ``"attn"`` (global) or ``"local"`` (sliding window): the masked
-    softmax, the reference's default form.  Returns the output and the post-RoPE K/V, which
-    :func:`prefill_into_cache` lays into a cache (the reference projects
-    K/V a second time for that; the values are the same)."""
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"attention kind {kind!r}: bidirectional "
-                                  "and cross attention are later slices")
+    """Full-sequence attention (training and prefill), the reference's
+    default form, ``kind``:
+
+    * ``"attn"`` (global) or ``"local"`` (sliding window): causal, RoPE
+      on q and k;
+    * ``"bidir"`` (an encoder layer): RoPE on q and k, no mask;
+    * ``"cross"`` (a decoder layer's cross-attention): queries from
+      ``x``, keys and values projected from ``kv_x`` (the encoder's
+      output), no RoPE and no mask.
+
+    Returns the output and the layer's K/V (post-RoPE for self
+    attention), which :func:`prefill_into_cache` lays into a cache, or
+    which are a decoder's cross K/V as is: the reference projects them a
+    second time for that (``encode_cross_kv``), to the same values."""
+    if kind not in ("attn", "local", "bidir", "cross"):
+        raise ValueError(f"attention kind {kind!r}")
+    if (kind == "cross") != (kv_x is not None):
+        raise ValueError("kv_x is the encoder output of cross attention "
+                         "and of no other kind")
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+    src = x if kv_x is None else kv_x
     q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
-    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
-    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(linear_apply(p["k"], src), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], src), cfg.n_kv_heads)
+    if kind != "cross":
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    mask = None
+    if kind in ("attn", "local"):
+        mask = _causal_mask(s, s, cfg.sliding_window if kind == "local"
+                            else None, x.device)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    mask = _causal_mask(s, s, cfg.sliding_window if kind == "local"
-                        else None, x.device)
     out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), mask)
     out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
     return linear_apply(p["o"], out), k, v
+
+
+def encode_cross_kv(p, enc_out: Tensor, cfg) -> Dict[str, Tensor]:
+    """A decoder layer's cross K/V ``{"k","v": (B, S_enc, Hkv, hd)}``,
+    projected once from the encoder output, at model precision whatever
+    :data:`CACHE_QUANT` says (the reference's ``encode_cross_kv``)."""
+    k = _split_heads(linear_apply(p["k"], enc_out), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], enc_out), cfg.n_kv_heads)
+    return {"k": k, "v": v}
+
+
+def cross_attn_decode(p, x: Tensor, cross_kv: Dict[str, Tensor], cfg
+                      ) -> Tensor:
+    """A decoder token's cross-attention against the static encoder K/V
+    ``cross_kv`` (:func:`encode_cross_kv`'s): every frame visible, no
+    RoPE; nothing is written."""
+    b, s, _ = x.shape
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(cross_kv["k"], n_rep),
+                _repeat_kv(cross_kv["v"], n_rep), None)
+    return linear_apply(p["o"], out.reshape(
+        b, s, cfg.n_heads * cfg.resolved_head_dim))
 
 
 # int8 dense KV caches (per-position, per-head symmetric scales), the

@@ -16,6 +16,10 @@ groups unstacked into one dict per layer::
                  | "moe": {"router","up","down"[,"gate"]}}, ...],
      ["lm_head": {"table"}], ["frontend_proj": {"w","b"}]}
 
+and an enc-dec model (whisper) adds to each decoder layer ``"norm_cross"``
+and ``"cross": {"q","k","v","o"}``, and ``"encoder": {"layers": [...],
+"final_norm"}`` of bidirectional (``BIDIR``) attention layers.
+
 Layers run in a Python loop (the reference scans them), each with its
 kind from ``cfg.layer_kinds()``.  Caches hold one stack a layer class,
 since the classes differ in shape (:func:`cache_layout` maps a layer to
@@ -44,7 +48,18 @@ A decoder with a stub frontend (internvl2's vision tower) has the leaf
 and prefill project ``batch["frontend_embeds"]`` through it in place of
 the token embedding (unscaled), cast to the weights' dtype first since
 K1 takes one dtype; decode and the engines embed tokens, as the
-reference's do.  Enc-dec models raise everywhere (ROADMAP.md).
+reference's do.
+
+An enc-dec model (whisper-base) runs ``batch["frontend_embeds"]``
+through ``frontend_proj`` and the encoder (:func:`_encode`) in training
+and prefill; its decoder embeds the tokens unscaled there and scaled by
+√d in decode, as the reference does, and each decoder layer attends the
+encoder's output after its self-attention.  Prefill projects each
+layer's cross K/V once into the dense stacks ``{"xk","xv": (L_dec, B,
+S_enc, Hkv, hd)}`` (model precision even under ``CACHE_QUANT``), which
+decode only reads.  The slot and sequential engines serve it; the paged
+engine refuses it until its cross page pool (ROADMAP.md, queue A item
+1b).
 """
 from __future__ import annotations
 
@@ -54,7 +69,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, LOCAL, ModelConfig, RGLRU, WKV
+from repro_torch.configs.base import (ATTN, BIDIR, LOCAL, ModelConfig, RGLRU,
+                                      WKV)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -70,15 +86,16 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any architecture outside the port so far."""
+    """Raise for any architecture outside the port so far.  Enc-dec
+    models pass: only the paged engine still refuses them (its cross
+    page pool is queue A item 1b of ROADMAP.md)."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= {ATTN, LOCAL, RGLRU, WKV} or cfg.enc_dec:
+    if not kinds <= {ATTN, LOCAL, RGLRU, WKV}:
         raise NotImplementedError(
             f"{cfg.name}: the port serves and trains decoders of global "
             f"and sliding-window attention and RG-LRU and RWKV6 recurrent "
-            f"layers, dense or MoE, with or without a stub frontend, only "
-            f"so far (layer kinds {sorted(kinds)}, enc_dec={cfg.enc_dec}); "
-            f"enc-dec models are later slices, see ROADMAP.md")
+            f"layers, dense or MoE, with or without a stub frontend or an "
+            f"encoder, only (layer kinds {sorted(kinds)}); see ROADMAP.md")
 
 
 # Each layer class keeps its cache tensors in stacks of its own.  A
@@ -96,6 +113,9 @@ _POOLS = {"": ("pk", "pv", "pk_s", "pv_s"), "w": ("lk", "lv"),
 # The recurrent layers' stacks: no sequence axis, the same shape dense
 # (slot buffers) and paged (slabs).
 STATE_STACKS = _POOLS[RGLRU] + _POOLS[WKV]
+# An enc-dec decoder's dense cross K/V, (L_dec, B, enc_len, Hkv, hd), a
+# row a layer; named apart from the paged cross pools ("ck","cv").
+CROSS_STACKS = ("xk", "xv")
 
 
 def stack_name(tag: str, name: str) -> str:
@@ -141,12 +161,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     params: Params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
-        "layers": [{
-            "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-            "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-            "mixer": _mixer_init(gen, cfg, kind, dtype),
-            **_ffn_init(gen, cfg, dtype),
-        } for kind in cfg.layer_kinds()],
+        "layers": [_block_init(gen, cfg, kind, dtype, dev, cfg.enc_dec)
+                   for kind in cfg.layer_kinds()],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
@@ -157,7 +173,26 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         params["frontend_proj"] = linear_init(gen, cfg.frontend_dim,
                                               cfg.d_model, dtype,
                                               use_bias=True)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "layers": [_block_init(gen, cfg, BIDIR, dtype, dev, False)
+                       for _ in range(cfg.n_enc_layers)],
+            "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
     return params
+
+
+def _block_init(gen, cfg: ModelConfig, kind: str, dtype, dev,
+                with_cross: bool) -> Params:
+    """One layer's weights; an enc-dec decoder layer adds its
+    cross-attention (``"norm_cross"``, ``"cross"``)."""
+    p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+         "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
+         "mixer": _mixer_init(gen, cfg, kind, dtype)}
+    if with_cross:
+        p["norm_cross"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["cross"] = attn.attn_init(gen, cfg, dtype)
+    p.update(_ffn_init(gen, cfg, dtype))
+    return p
 
 
 def _mixer_init(gen, cfg: ModelConfig, kind: str, dtype) -> Params:
@@ -196,19 +231,40 @@ def _embed(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     return x * embed_scale(cfg.d_model, x.dtype)
 
 
+def _project_frontend(params: Params, embeds: Tensor) -> Tensor:
+    """``embeds`` (B, S, frontend_dim) through ``frontend_proj``, cast to
+    the weights' dtype first (K1 takes one dtype); the reference
+    projects float32 embeds against promoted weights, so in bf16 its
+    stream is float32."""
+    proj = params["frontend_proj"]
+    return linear_apply(proj, embeds.to(proj["w"].dtype))
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, Tensor]) -> Tensor:
-    """The residual stream's input: ``batch["frontend_embeds"]`` (B, S,
-    frontend_dim) through ``frontend_proj``, unscaled, where the model
-    has a frontend and the batch carries them; else the scaled token
-    embedding.  The embeds are cast to the weights' dtype first (K1
-    takes one dtype); the reference projects float32 embeds against
-    promoted weights, so in bf16 its stream is float32."""
+    """The decoder's input: on an enc-dec model the token embedding,
+    unscaled (the reference's training and prefill; its decode scales,
+    :func:`_embed`); else ``batch["frontend_embeds"]`` through
+    ``frontend_proj``, unscaled, where the model has a frontend and the
+    batch carries them; else the scaled token embedding."""
+    if cfg.enc_dec:
+        return embedding_lookup(params["embed"], batch["tokens"])
     if cfg.frontend is not None and "frontend_embeds" in batch:
-        proj = params["frontend_proj"]
-        return linear_apply(proj, batch["frontend_embeds"].to(
-            proj["w"].dtype))
+        return _project_frontend(params, batch["frontend_embeds"])
     return _embed(params, cfg, batch["tokens"])
+
+
+def _encode(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor], *,
+            remat: str = "none") -> Tensor:
+    """An enc-dec model's encoder: ``batch["frontend_embeds"]`` (B,
+    S_enc, frontend_dim) through ``frontend_proj``, the bidirectional
+    layers (each recomputed in the backward unless ``remat`` is
+    ``"none"``; the MoE aux of the encoder is dropped, as in the
+    reference) and the encoder's final norm: ``(B, S_enc, d)``."""
+    x = _project_frontend(params, batch["frontend_embeds"])
+    for p in params["encoder"]["layers"]:
+        x = _run_block(p, x, cfg, BIDIR, None, remat)[0]
+    return rmsnorm_apply(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
 def _logits(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -227,11 +283,16 @@ def _mixer_train(p: Params, h: Tensor, cfg: ModelConfig, kind: str
     return attn.attn_apply(p, h, cfg, kind=kind)[0]
 
 
-def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str
-                 ) -> Tuple[Tensor, Tensor]:
-    """One full-sequence block for training: ``(x, moe_aux)``."""
+def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str,
+                 enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """One full-sequence block for training: ``(x, moe_aux)``; a decoder
+    layer of an enc-dec model attends ``enc_out`` after its mixer."""
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
     x = x + _mixer_train(p["mixer"], h, cfg, kind)
+    if "cross" in p:
+        h = rmsnorm_apply(p["norm_cross"], x, cfg.norm_eps)
+        x = x + attn.attn_apply(p["cross"], h, cfg, kind="cross",
+                                kv_x=enc_out)[0]
     h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
     if cfg.moe is not None:
         ffn, aux = moe_mod.moe_apply(p["moe"], h, cfg)
@@ -244,6 +305,17 @@ def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str
 REMAT_MODES = ("none", "full", "dots")
 
 
+def _run_block(p: Params, x: Tensor, cfg: ModelConfig, kind: str,
+               enc_out: Optional[Tensor], remat: str
+               ) -> Tuple[Tensor, Tensor]:
+    """:func:`_block_train`, recomputed in the backward unless ``remat``
+    is ``"none"``."""
+    if remat == "none":
+        return _block_train(p, x, cfg, kind, enc_out)
+    return checkpoint(_block_train, p, x, cfg, kind, enc_out,
+                      use_reentrant=False)
+
+
 def forward_train(params: Params, cfg: ModelConfig,
                   batch: Dict[str, Tensor], *, mesh=None,
                   remat: str = "full") -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -253,14 +325,17 @@ def forward_train(params: Params, cfg: ModelConfig,
     aux / n_layers`` for MoE, as the reference's ``forward_train``.
     Each layer runs its kind's mixer (attention, RG-LRU or WKV), as the
     reference's ``_block_apply`` does; the embeds, where the model has a
-    frontend, replace the token embedding (:func:`_embed_inputs`).
+    frontend, replace the token embedding (:func:`_embed_inputs`).  On
+    an enc-dec model the embeds (B, S_enc, frontend_dim) go through the
+    encoder instead (:func:`_encode`), every decoder layer attends its
+    output, and the labels are the tokens.
 
     ``remat="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations.  ``"dots"`` (the reference keeps matmul outputs and
     recomputes the rest) maps to ``"full"`` here: the values are the
     same and only memory and time differ.  A mesh is the distributed
-    slice and raises, and so do enc-dec models (:func:`check_supported`)."""
+    slice and raises."""
     check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
@@ -268,14 +343,12 @@ def forward_train(params: Params, cfg: ModelConfig,
             "(ROADMAP.md)")
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
+    enc_out = _encode(params, cfg, batch, remat=remat) if cfg.enc_dec \
+        else None
     x = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
-        if remat == "none":
-            x, a = _block_train(p, x, cfg, kind)
-        else:
-            x, a = checkpoint(_block_train, p, x, cfg, kind,
-                              use_reentrant=False)
+        x, a = _run_block(p, x, cfg, kind, enc_out, remat)
         aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x)
@@ -321,15 +394,19 @@ def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
-               device=None, *, kinds=(ATTN, LOCAL, RGLRU, WKV)
-               ) -> Dict[str, Tensor]:
+               device=None, *, kinds=(ATTN, LOCAL, RGLRU, WKV),
+               enc_len: Optional[int] = None) -> Dict[str, Tensor]:
     """Zero dense cache of the module doc for the layers of ``kinds``:
     ``{"k","v": (L_attn, batch, seq_len, Hkv, hd)}`` for the global
     layers, ``{"wk","wv": (L_local, batch, min(seq_len, window), Hkv,
     hd)}`` for the local ones (int8 with bf16 scale planes while
     ``attention.CACHE_QUANT`` is on), ``{"h","conv"}`` for the RG-LRU
     layers and ``{"state","shift"}`` for the WKV ones (a class with no
-    layer has no stack)."""
+    layer has no stack).  An enc-dec model adds its cross stacks
+    ``{"xk","xv": (L_dec, batch, enc_len or seq_len, Hkv, hd)}`` in
+    ``dtype`` whatever the flag (what prefill fills them with is never
+    quantized; the reference's ``init_cache`` quantizes its zero cross
+    caches under the flag, which its prefill then replaces)."""
     check_supported(cfg)
     dev = resolve_device(device)
     layer_kinds = cfg.layer_kinds()
@@ -341,6 +418,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
         one = _layer_cache_init(cfg, kind, batch, seq_len, dtype, dev)
         out.update({stack_name(_TAG[kind], name):
                     t.new_zeros((n,) + t.shape) for name, t in one.items()})
+    if cfg.enc_dec:
+        shape = (cfg.n_layers, batch, enc_len or seq_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        out.update({name: torch.zeros(shape, dtype=dtype, device=dev)
+                    for name in CROSS_STACKS})
     return out
 
 
@@ -367,7 +449,11 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     the batch has them (:func:`_embed_inputs`); return the f32 logits
     ``(B, 1, vocab_padded)`` of one position and the filled cache
     (module doc), each layer's capacity ``cache_capacity(kind,
-    cache_len or S, window)``.
+    cache_len or S, window)``.  On an enc-dec model the embeds (B,
+    S_enc, frontend_dim) go through the encoder (:func:`_encode`), the
+    tokens through the decoder, and the cache adds each decoder layer's
+    cross K/V, ``{"xk","xv": (L_dec, B, S_enc, Hkv, hd)}``, projected
+    once (``attn_apply(kind="cross")`` returns them).
 
     ``logits_index`` (an int or 0-dim tensor, or a ``(B,)`` vector)
     selects the position whose logits are returned instead of the last
@@ -381,6 +467,7 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     the real ones (``valid``).
     """
     check_supported(cfg)
+    enc_out = _encode(params, cfg, batch) if cfg.enc_dec else None
     x = _embed_inputs(params, cfg, batch)
     cap_seq = cache_len or x.shape[1]
     valid = None
@@ -389,12 +476,19 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  <= last[:, None])
     caches: Dict[str, List[Dict[str, Tensor]]] = {}
+    cross: List[Dict[str, Tensor]] = []
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         mix, cache = _mixer_prefill(p["mixer"], h, cfg, kind, cap_seq,
                                     logits_index)
         caches.setdefault(_TAG[kind], []).append(cache)
         x = x + mix
+        if "cross" in p:
+            h = rmsnorm_apply(p["norm_cross"], x, cfg.norm_eps)
+            mix, xk, xv = attn.attn_apply(p["cross"], h, cfg, kind="cross",
+                                          kv_x=enc_out)
+            cross.append({"xk": xk, "xv": xv})
+            x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h, valid)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
@@ -408,9 +502,11 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         else:
             i = int(idx)
             x_last = x[:, i:i + 1]
-    return _logits(params, cfg, x_last), {
-        stack_name(tag, name): torch.stack([c[name] for c in layers])
-        for tag, layers in caches.items() for name in layers[0]}
+    out = {stack_name(tag, name): torch.stack([c[name] for c in layers])
+           for tag, layers in caches.items() for name in layers[0]}
+    out.update({name: torch.stack([c[name] for c in cross])
+                for name in CROSS_STACKS if cross})
+    return _logits(params, cfg, x_last), out
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
@@ -434,9 +530,13 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     window).  Recurrent layers read and write their ``"h","conv"`` or
     ``"state","shift"`` stacks either way (slot rows of the dense
     buffers, or of the paged engine's slabs); they take no position.
-    Every cache is updated in place, so a view of a larger buffer
-    receives the writes.  Returns the f32 logits ``(B, 1,
-    vocab_padded)`` and the caches."""
+    An enc-dec decoder layer then attends its dense cross K/V (the
+    ``"xk","xv"`` stacks, read and never written).  Every cache is
+    updated in place, so a view of a larger buffer receives the writes.
+    The token embedding is scaled by √d here, as in the reference's
+    decode, also on an enc-dec model, whose training and prefill leave
+    it unscaled (:func:`_embed_inputs`).  Returns the f32 logits ``(B,
+    1, vocab_padded)`` and the caches."""
     check_supported(cfg)
     if page_table is not None and not isinstance(page_table, dict):
         page_table = {"global": page_table}
@@ -444,8 +544,8 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
         pos = pos.long()
-    for p, kind, (tag, index) in zip(params["layers"], cfg.layer_kinds(),
-                                      cache_layout(cfg)):
+    for i, (p, kind, (tag, index)) in enumerate(zip(
+            params["layers"], cfg.layer_kinds(), cache_layout(cfg))):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         if page_table is None:
             cache = _layer_cache(caches, tag, index)
@@ -466,6 +566,11 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
             mix, _ = attn.paged_attn_decode_step(
                 p["mixer"], h, cache, page_table["global"], pos, cfg)
         x = x + mix
+        if "cross" in p:
+            h = rmsnorm_apply(p["norm_cross"], x, cfg.norm_eps)
+            x = x + attn.cross_attn_decode(
+                p["cross"], h, {"k": caches["xk"][i], "v": caches["xv"][i]},
+                cfg)
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

@@ -73,6 +73,40 @@ class Request:
     deadline: Optional[float] = None
     preemptions: int = 0
     finish_reason: Optional[str] = None
+    # enc-dec only: fixed-shape (cfg.enc_frames, cfg.frontend_dim)
+    # encoder features (whisper mel frames through the stub frontend).
+    # None serves against all-zero features (still a valid encoding).
+    enc_embeds: Optional[np.ndarray] = None
+
+
+def encoder_inputs(req: Request, cfg: ModelConfig) -> Optional[np.ndarray]:
+    """The fixed-shape float32 encoder feature block a prefill of
+    ``req`` needs (None for a model without an encoder): its
+    ``enc_embeds``, or zeros where it has none.  Enc-dec serving keeps
+    the encoder at one source length, ``cfg.enc_frames``, so features
+    arrive pre-padded; another shape raises ``ValueError``."""
+    if not cfg.enc_dec:
+        return None
+    if req.enc_embeds is None:
+        return np.zeros((cfg.enc_frames, cfg.frontend_dim), np.float32)
+    e = np.asarray(req.enc_embeds, np.float32)
+    if e.shape != (cfg.enc_frames, cfg.frontend_dim):
+        raise ValueError(
+            f"enc_embeds must be ({cfg.enc_frames}, {cfg.frontend_dim}), "
+            f"got {e.shape}")
+    return e
+
+
+def prefill_batch_of(tokens: np.ndarray, reqs: List[Request],
+                     cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    """A prefill batch: ``tokens`` (B, S) and, on an enc-dec model, the
+    encoder features of ``reqs`` (a request a row) as
+    ``"frontend_embeds"`` (B, enc_frames, frontend_dim)."""
+    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+    if cfg.enc_dec:
+        batch["frontend_embeds"] = torch.as_tensor(
+            np.stack([encoder_inputs(r, cfg) for r in reqs]), device=device)
+    return batch
 
 
 def effective_tokens(req: Request) -> np.ndarray:
@@ -280,9 +314,9 @@ class ServeEngine:
         self.stats["engine"].update({"cancelled": 0})
 
     def _prefill_one(self, req: Request):
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32)[None],
-                                 device=self.device)
-        logits, cache = self.prefill_fn(self.params, {"tokens": tokens})
+        logits, cache = self.prefill_fn(self.params, prefill_batch_of(
+            np.asarray(req.prompt, np.int32)[None], [req], self.cfg,
+            self.device))
         note_first_token(req, logits, self.cfg.vocab_size, self.stats)
         return cache, len(req.prompt)
 

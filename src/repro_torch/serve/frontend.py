@@ -626,12 +626,12 @@ class ServeFrontend:
         no mesh, so this returns at once, as the reference's does for a
         meshless engine; elastic re-mesh (``plan_elastic_mesh`` and the
         engines' ``remesh``) belongs to the distributed slice of the port
-        (ROADMAP.md, queue A item 3)."""
+        (ROADMAP.md, queue A item 2)."""
         eng = self.engine
         if getattr(eng, "mesh", None) is None or not hasattr(eng, "remesh"):
             return
         raise NotImplementedError(
-            "elastic re-mesh is not ported yet (ROADMAP.md, queue A item 3)")
+            "elastic re-mesh is not ported yet (ROADMAP.md, queue A item 2)")
 
     def _abort_inflight(self) -> None:
         with self._mutex, self._intake_lock:

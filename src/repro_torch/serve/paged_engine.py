@@ -495,6 +495,11 @@ class PagedServeEngine(SlotServeEngine):
                  max_batch: int = 8, max_seq: int = 256,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = True, **kw):
+        if cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: the paged engine's cross page pool for "
+                "enc-dec models is queue A item 1b of ROADMAP.md; serve it "
+                "with kind='slot' or 'sequential'")
         if CACHE_QUANT["enabled"]:
             raise NotImplementedError(
                 "paged storage quantizes at the pool boundary "

@@ -56,8 +56,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import check_supported
 from repro_torch.serve.api import completion_of, Completion, FINISH_CANCELLED
 from repro_torch.serve.engine import (effective_tokens, init_serve_stats,
-                                      note_first_token, record_step_packing,
-                                      Request, SLAB_LADDER)
+                                      note_first_token, prefill_batch_of,
+                                      record_step_packing, Request,
+                                      SLAB_LADDER)
 from repro_torch.serve.policy import KLASS_BATCH, SchedulingPolicy
 from repro_torch.serve.serve_step import (make_bucketed_prefill_step,
                                           make_decode_step)
@@ -282,7 +283,8 @@ class SlotServeEngine:
 
     def _prefill_one(self, req: Request):
         # A preempted request resumes by re-prefilling every token it
-        # wrote (prompt + generated[:-1]); its first token was already
+        # wrote (prompt + generated[:-1]), and re-encoding its own
+        # features on an enc-dec model; its first token was already
         # sampled and stamped, so resume skips both.
         toks = effective_tokens(req)
         resume = bool(req.generated)
@@ -300,9 +302,9 @@ class SlotServeEngine:
             if self._bucket_enabled:
                 self.stats["engine"]["prefill_bucket_fallbacks"] += 1
             padded = np.asarray(toks, np.int32)
-        tokens = torch.as_tensor(padded[None], device=self.device)
-        logits, cache = self.prefill_fn(self.params, {"tokens": tokens,
-                                                      "last_index": s - 1})
+        batch = prefill_batch_of(padded[None], [req], self.cfg, self.device)
+        batch["last_index"] = s - 1
+        logits, cache = self.prefill_fn(self.params, batch)
         if not resume:
             note_first_token(req, logits, self.cfg.vocab_size, self.stats)
         return cache, s
@@ -574,15 +576,15 @@ class SlotServeEngine:
         else:
             self._seen_buckets.add(sig)
             self.stats["engine"]["prefill_bucket_misses"] += 1
+        rows = [group[i] if i < k else group[0] for i in range(rung)]
         toks = np.zeros((rung, b), np.int32)
         last = np.zeros(rung, np.int32)
-        for i in range(rung):
-            src = group[i] if i < k else group[0]
+        for i, src in enumerate(rows):
             toks[i, :len(src.prompt)] = src.prompt
             last[i] = len(src.prompt) - 1
-        logits, cache = self.prefill_fn(self.params, {
-            "tokens": torch.as_tensor(toks, device=self.device),
-            "last_index": torch.as_tensor(last, device=self.device)})
+        batch = prefill_batch_of(toks, rows, self.cfg, self.device)
+        batch["last_index"] = torch.as_tensor(last, device=self.device)
+        logits, cache = self.prefill_fn(self.params, batch)
         for i, req in enumerate(group):
             note_first_token(req, logits[i:i + 1], self.cfg.vocab_size,
                              self.stats)

@@ -85,11 +85,14 @@ def workload(seed, vocab):
     return work, prompts_of(work, vocab, seed)
 
 
-def submit(eng, request_cls, work, prompts, klass=None):
+def submit(eng, request_cls, work, prompts, klass=None, enc=None):
+    """Submit the workload; ``enc``, if given, holds each request's
+    encoder features (an enc-dec model's ``enc_embeds``, or None)."""
     for rid, (prompt, (_, budget)) in enumerate(zip(prompts, work)):
         eng.submit(request_cls(rid=rid, prompt=prompt.copy(),
                                max_new_tokens=budget,
-                               klass=klass[rid] if klass else None))
+                               klass=klass[rid] if klass else None,
+                               enc_embeds=None if enc is None else enc[rid]))
 
 
 def completion(req):

@@ -21,8 +21,9 @@ window)`` whatever the prompt.
   ``max_seq`` (63-200), with ``prefill_batch`` (every coalesced row also
   against its own single prefill within ``TOL``), with the int8 dense
   cache, and through ``ServeFrontend`` over slot.
-* **What stays unsupported raises**: whisper-base (enc-dec) on every
-  kind (the recurrent models serve:
+* **What stays unsupported raises**: whisper-base (enc-dec) on the
+  paged engine (slot and sequential serve it:
+  ``tests/test_torch_enc_dec_serve.py``; the recurrent models serve:
   ``tests/test_torch_recurrent_serve.py``; internvl2-76b serves on
   tokens: ``tests/test_torch_vision_frontend.py``).  Global-only models
   keep their cache names and shapes.  (gemma3 on the paged engine is
@@ -281,7 +282,7 @@ def test_gemma3_frontend_over_slot_matches_jax(frontends):
 # --------------------------------------------------------------------------
 # What stays unsupported, and what stays as it was
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("kind", ["slot", "sequential", "paged"])
+@pytest.mark.parametrize("kind", ["paged"])
 @pytest.mark.parametrize("name", ["whisper-base"])
 def test_other_architectures_still_raise(name, kind):
     qwen = setup("qwen2.5-0.5b")[3]

@@ -50,7 +50,6 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import train as launch_train
-from repro_torch.models import forward_train
 from repro_torch.models import rglru as trglru
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.optim import adamw
@@ -327,13 +326,3 @@ def test_launch_train_runs_on_the_cpu(name, capsys):
                               "--device", "cpu"]) == 0
     assert "done: loss" in capsys.readouterr().out
 
-
-def test_enc_dec_training_still_raises():
-    tcfg = torch_smoke_config("whisper-base")
-    toks = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        forward_train({}, tcfg, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        make_train_step(tcfg)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        Trainer(tcfg, TrainerConfig(steps=1), device="cpu")
