@@ -40,8 +40,10 @@ Phases (any failure exits non-zero before the last line is printed):
    with head_dim 64 (qwen), 32/8 with head_dim 128 (phi3.5-moe), 4/1
    with head_dim 256 (gemma3-1b's global layers) and 64/8 with head_dim
    128 (internvl2-76b: a group of 8 query heads, each plan's threads
-   and shared memory within a CTA's), 16-token pages, q in f32 and
-   bf16, tables with sink entries, a row at
+   and shared memory within a CTA's) and 8/8 with head_dim 64
+   (whisper-base: a group of 1), 16-token pages and 16-page tables, and
+   whisper-base's layout also on its 28-page tables with pages of 16 and
+   of 32, q in f32 and bf16, tables with sink entries, a row at
    position 0 (every split but the first empty), rows on page edges and
    on either side of the plan's first two split edges, a full row;
 5. K4 (flat grouped GEMM) against its plain version at phi3.5-moe's
@@ -86,9 +88,11 @@ Phases (any failure exits non-zero before the last line is printed):
    ``frontend_embeds``): the loss, every gradient and the parameters
    after AdamW; and whisper-base's structure (2 bidirectional encoder
    layers, 2 decoder layers with cross-attention, 37 frames) served on
-   the card and the CPU through slot and sequential, each request with
-   its own seeded features (identical greedy tokens), the paged engine
-   refusing it, and one train step card vs CPU;
+   the card and the CPU through all three kinds, each request with its
+   own seeded features but one sharing another's (identical greedy
+   tokens; on paged, pages of 16 leave the last cross page ragged, one
+   cross block is shared and every page comes back), and one train step
+   card vs CPU;
 7. ``qwen2.5-0.5b`` at full width in bfloat16 (seeded random weights)
    served through ``make_engine(kind="paged")``: 8 requests of 16-200
    prompt tokens, two sharing a 32-token prefix, 32 new tokens each;
@@ -252,7 +256,19 @@ Phases (any failure exits non-zero before the last line is printed):
     finite logits of a prefill with features.  Printed: the completions
     the engines share, one profiled slot window, K1's times for a rung-8
     decode step, one request's encoder (with the cross K/V projections)
-    and ``frontend_proj``.  Then ``Trainer`` for 6 steps of 8 x (1,500
+    and ``frontend_proj``.  Then the same requests through
+    ``kind="paged"`` (pages of 16) after ``warmup()``, on bf16 pools and
+    on ``kv_quant="int8"``, the counters zeroed just before each: K1 > 0
+    all wgmma, K2 6 launches a decode step on the pools' variant and 0
+    on the other, 32 tokens each, ``decode_compiles`` 0, 7 cross blocks
+    admitted and 1 shared, no prefix shared, pools exactly 192,286,528
+    and 170,859,328 bytes (the cross pools, 94 pages a block, at bf16 on
+    both), every slot, global page and cross page back; on bf16 pools
+    one rung-8 window of 49 K1 and 6 K2 launches a step with ``ck``/``cv``
+    bitwise unchanged.  Printed: the completions each paged serve shares
+    with the slot serve, one profiled paged window, and K2's times at
+    whisper's layout (GQA 8/8 hd 64, 6 layers, 28-page tables) on bf16
+    and int8 pools.  Then ``Trainer`` for 6 steps of 8 x (1,500
     frames, 448 tokens), ``remat="none"``: finite losses, K1 > 0 on the
     wgmma route, a step profiled part by part whose K1 launches times 6
     are the run's, and K1's forward and backward times beside the plain
@@ -761,59 +777,71 @@ def wgmma_build_report(build) -> None:
 
 
 def _attn_inputs(torch, gen, dtype, pos, n_pages=128, pmax=16,
-                 heads=(14, 2, 64)):
+                 heads=(14, 2, 64), psz=16):
     b = len(pos)
     h, hkv, hd = heads
     q = torch.randn(b, h, hd, device="cuda", generator=gen).to(dtype)
-    pk = torch.randn(n_pages + 1, 16, hkv, hd, device="cuda",
+    pk = torch.randn(n_pages + 1, psz, hkv, hd, device="cuda",
                      generator=gen).to(dtype)
-    pv = torch.randn(n_pages + 1, 16, hkv, hd, device="cuda",
+    pv = torch.randn(n_pages + 1, psz, hkv, hd, device="cuda",
                      generator=gen).to(dtype)
     perm = torch.randperm(n_pages, device="cuda", generator=gen)
     table = perm[:b * pmax].reshape(b, pmax).to(torch.int32)
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    live = torch.arange(pmax, device="cuda")[None, :] <= (pos_t // 16)[:, None]
+    live = (torch.arange(pmax, device="cuda")[None, :]
+            <= (pos_t // psz)[:, None])
     table = torch.where(live, table, n_pages)          # sink past pos
     return q, pk, pv, table, pos_t
 
 
 # qwen2.5-0.5b, phi3.5-moe-42b, gemma3-1b's global layers, internvl2-76b
-# (a group of 8 query heads, the widest K2 runs).
-K2_HEADS = ((14, 2, 64), (32, 8, 128), (4, 1, 256), (64, 8, 128))
+# (a group of 8 query heads, the widest K2 runs), whisper-base's decoder
+# self-attention (a group of 1: a CTA of 64 threads at 2 pages a split).
+K2_HEADS = ((14, 2, 64), (32, 8, 128), (4, 1, 256), (64, 8, 128),
+            (8, 8, 64))
+# whisper-base's page table at max_seq 448 in pages of 16 is 28 pages
+# wide; K2 is held there at pages of 16 and of 32 (the most its lanes
+# take), on 16-page tables at every layout above.
+WHISPER_PMAX = 28
+K2_CASES = tuple((heads, 16, 16) for heads in K2_HEADS) + tuple(
+    (K2_HEADS[4], psz, WHISPER_PMAX) for psz in (16, 32))
 
 
 def _k2_cases(torch, kernels, gen, quant):
-    """K2 against its plain version at every head layout, q in f32 and
-    bf16, float or int8 pools, 8 rows of 16-page tables: a row at ``pos``
-    0 (every split but the first empty), rows ending on a page edge and on
-    either side of the first two split edges of the plan the wrapper
-    takes, a full row (255), and dead table entries on the sink."""
+    """K2 against its plain version at every case of ``K2_CASES`` (head
+    layout, page size, table width), q in f32 and bf16, float or int8
+    pools, 8 rows: a row at ``pos`` 0 (every split but the first empty),
+    rows ending on a page edge and on either side of the first two split
+    edges of the plan the wrapper takes, a full row, and dead table
+    entries on the sink."""
     worst, edges = 0.0, set()
-    for heads in K2_HEADS:
+    for heads, psz, pmax in K2_CASES:
         h, hkv, hd = heads
         for dtype in (torch.float32, torch.bfloat16):
             size = 1 if quant else torch.tensor([], dtype=dtype).element_size()
-            plan = kernels.k2_plan(8, h, hkv, hd, 16, 16, size, quant)
+            plan = kernels.k2_plan(8, h, hkv, hd, psz, pmax, size, quant)
             # One warp a (page of the split, query head) of one KV head,
             # and the split's pages in shared memory, within a CTA.
             pps = plan.pages_per_split
-            smem = kernels.paged_attn.k2_smem_bytes(h // hkv, 16, pps, hd,
+            smem = kernels.paged_attn.k2_smem_bytes(h // hkv, psz, pps, hd,
                                                     size, quant)
             if 32 * (h // hkv) * pps > 1024 \
                     or smem > kernels.paged_attn.K2_MAX_SMEM:
                 raise AssertionError(f"K2 plan {plan} at {heads}: "
                                      f"{32 * (h // hkv) * pps} threads, "
                                      f"{smem} bytes of shared memory")
-            edge = pps * 16
+            edge, full = pps * psz, pmax * psz
             edges.add(edge)
-            pos = [0, 16, edge - 1, edge, 2 * edge - 1, min(2 * edge, 254),
-                   128, 255]
-            q, pk, pv, table, pos_t = _attn_inputs(torch, gen, dtype, pos,
-                                                   heads=heads)
+            pos = [0, psz, edge - 1, edge, 2 * edge - 1,
+                   min(2 * edge, full - 2), full // 2, full - 1]
+            q, pk, pv, table, pos_t = _attn_inputs(
+                torch, gen, dtype, pos, n_pages=8 * pmax, pmax=pmax,
+                heads=heads, psz=psz)
             pools = _int8_pools(kernels, pk, pv) if quant else (pk, pv)
             rel = 0.0 if dtype == torch.float32 else BF16_REL
             worst = max(worst, _max_err(
-                f"K2 {'int8 ' if quant else ''}{heads} {dtype} {plan}",
+                f"K2 {'int8 ' if quant else ''}{heads} psz {psz} pmax "
+                f"{pmax} {dtype} {plan}",
                 kernels.paged_attention(q, pools[0], pools[1], table, pos_t,
                                         *pools[2:]),
                 kernels.paged_attention_plain(q, pools[0], pools[1], table,
@@ -824,9 +852,10 @@ def _k2_cases(torch, kernels, gen, quant):
 
 def check_k2(torch, kernels, gen) -> float:
     worst, edges = _k2_cases(torch, kernels, gen, quant=False)
-    _say(f"k2: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256 and GQA "
-         f"64/8 hd 128 (plans within a CTA's threads and shared memory), "
-         f"psz 16, "
+    _say(f"k2: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256, GQA 64/8 "
+         f"hd 128 and GQA 8/8 hd 64 (plans within a CTA's threads and "
+         f"shared memory), psz 16 on 16-page tables, and GQA 8/8 hd 64 at "
+         f"psz 16 and 32 on {WHISPER_PMAX}-page tables, "
          f"f32 and bf16, split edges at cells {edges}, pos 0, full rows and "
          f"sink entries, "
          f"agree with the plain version (max abs err {worst}; elementwise "
@@ -1322,11 +1351,13 @@ def _small_enc_dec_config():
 
 def check_small_enc_dec(torch, np, label, cfg) -> None:
     """``cfg`` (an enc-dec model) served on the card (kernels) and on the
-    CPU (plain versions) through the slot and sequential engines, each
-    request with its own seeded ``(enc_frames, frontend_dim)`` features:
-    the same greedy tokens per kind, each request's token count that of
-    the ``max_seq`` stop rule; ``kind="paged"`` raises
-    ``NotImplementedError`` (its cross page pool is the next slice)."""
+    CPU (plain versions) through each engine kind, each request with its
+    own seeded ``(enc_frames, frontend_dim)`` features but rid 4, which
+    shares rid 3's: the same greedy tokens per kind, each request's token
+    count that of the ``max_seq`` stop rule; on paged (pages of 16, so
+    the last cross page is ragged) the prompts within its page table,
+    one cross block shared, every page of both classes back, and the
+    card's tokens equal to the slot engine's there."""
     from repro_torch.models import init_params
     from repro_torch.serve import make_engine, Request
 
@@ -1335,40 +1366,50 @@ def check_small_enc_dec(torch, np, label, cfg) -> None:
     rng = np.random.default_rng(7)
     feats = [rng.standard_normal((cfg.enc_frames, cfg.frontend_dim),
                                  dtype=np.float32) for _ in SMALL_LOCAL_LENS]
-    outs = {}
-    for kind in ("slot", "sequential"):
+    feats[4] = feats[3]
+    outs, cross = {}, {}
+    for kind in KINDS:
         for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
             eng = make_engine(cfg, params, kind=kind, device=dev,
-                              max_slots=4, max_seq=64, window=4)
+                              max_slots=4, max_seq=64, page_size=16,
+                              window=4)
             reqs = _small_requests(Request, np, cfg, kind, SMALL_LOCAL_LENS)
-            for req, f in zip(reqs, feats):
-                req.max_new_tokens, req.enc_embeds = 12, f
+            for req in reqs:
+                req.max_new_tokens, req.enc_embeds = 12, feats[req.rid]
             done = _serve_offline(eng, kind, reqs, 64)
             counts = [c.n_tokens for c in done]
-            want = _max_seq_counts(SMALL_LOCAL_LENS, 12, 64)
+            want = _max_seq_counts([len(r.prompt) for r in reqs], 12, 64)
             if counts != want:
                 raise AssertionError(f"{label}, kind={kind} on {dev}: token "
                                      f"counts {counts}, want {want}")
             outs[kind, dev] = [(c.rid, c.tokens) for c in done]
+            if kind == "paged":
+                c, ext = eng.cache, eng.stats["engine"]
+                cross[dev] = (ext["cross_admits"], ext["cross_shared"])
+                if ext["cross_shared"] < 1 or c.n_free_cross \
+                        != c.num_cross_pages or c.n_free_pages \
+                        != c.num_pages or eng._cross_registry:
+                    raise AssertionError(f"{label}, paged on {dev}: cross "
+                                         f"{cross[dev]}, pages not back")
         if outs[kind, "cpu"] != outs[kind, "cuda"]:
             raise AssertionError(
                 f"{label}, kind={kind}: card tokens {outs[kind, 'cuda']} "
                 f"differ from the CPU's {outs[kind, 'cpu']}")
-    try:
-        make_engine(cfg, gpu, kind="paged", device="cuda", max_slots=4,
-                    max_seq=64, page_size=16, window=4)
-    except NotImplementedError as exc:
-        refused = str(exc)
-    else:
-        raise AssertionError(f"{label}: the paged engine took an enc-dec "
-                             "model")
+    paged_rids = {rid for rid, _ in outs["paged", "cuda"]}
+    if cross["cpu"] != cross["cuda"] or [
+            o for o in outs["slot", "cuda"] if o[0] in paged_rids] \
+            != outs["paged", "cuda"]:
+        raise AssertionError(f"{label}: paged cross blocks {cross} or its "
+                             "tokens differ from the slot engine's")
     _say(f"small model ({label}, {cfg.n_enc_layers} + {cfg.n_layers} "
          f"layers, {cfg.enc_frames} frames, f32): {len(SMALL_LOCAL_LENS)} "
          f"requests of {list(SMALL_LOCAL_LENS)} prompt tokens, each with "
-         f"its own features, through the slot and sequential engines, "
-         f"{_max_seq_counts(SMALL_LOCAL_LENS, 12, 64)} tokens each, tokens "
-         f"on the card identical to the CPU plain path; paged refused: "
-         f"{refused}")
+         f"its features (rid 4 sharing rid 3's), through the slot and "
+         f"sequential engines and ({len(paged_rids)} within the page "
+         f"table) the paged one, {_max_seq_counts(SMALL_LOCAL_LENS, 12, 64)}"
+         f" tokens each, tokens on the card identical to the CPU plain "
+         f"path, slot == paged; paged cross blocks (admitted, shared) "
+         f"{cross['cuda']} on both, every page back")
 
 
 # The small models' prompts: each crosses the paged engine's 16-token
@@ -2331,12 +2372,22 @@ def serve_internvl2(torch, np, kernels) -> dict:
 WHISPER_PARAMS = 71_428_608
 WHISPER_SLOT_BYTES = 191_496_192
 WHISPER_DECODE_K1 = 49
+# The paged engine at the same 8 slots, max_seq 448 and pages of 16:
+# global pools 2 x 6 layers x (8 x 28 + 1) pages x 16 cells x 8 x 64 x 2
+# bytes = 44,236,800 (int8 values and bf16 scales: 22,809,600), cross
+# pools 2 x 6 x (8 x 94 + 1) x 16 x 8 x 64 x 2 = 148,045,824 (the 1,500
+# frames in 94 pages, 12 cells in the last; bf16 also on int8 pools), and
+# the page and cross tables 8 x 28 and 8 x 94 int32.  rid 2 shares rid
+# 1's features, so the 8 requests admit 7 cross blocks and share 1.
+WHISPER_POOL_BYTES = 192_286_528
+WHISPER_POOL_INT8_BYTES = 170_859_328
+WHISPER_CROSS_PAGES = 94
 
 
 def _whisper_counts(cfg) -> dict:
-    """whisper's parameter count, slot buffer bytes (bf16) and K1
-    launches a decode step, from the config (the comment above
-    ``WHISPER_PARAMS``)."""
+    """whisper's parameter count, slot buffer and page pool bytes (bf16
+    weights; pools of bf16 and of int8) and K1 launches a decode step,
+    from the config (the comment above ``WHISPER_PARAMS``)."""
     from repro_torch.models.common import padded_vocab
 
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
@@ -2345,12 +2396,23 @@ def _whisper_counts(cfg) -> dict:
         + cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd + d
     mlp = 2 * d * ff + ff + d
     cell = 2 * cfg.n_kv_heads * hd
+    # Paged: K and V cells of a page in every layer, the global pools'
+    # 8 x 28 pages + sink, the cross pools' 8 blocks of 94 pages + sink
+    # (bf16 whatever kv_quant says), both tables in int32.
+    page_cells = 2 * cfg.n_layers * 16 * cfg.n_kv_heads
+    cpages = -(-cfg.enc_frames // 16)
+    glob = page_cells * (8 * WHISPER_PMAX + 1)
+    cross = 2 * page_cells * hd * (8 * cpages + 1)
+    tables = 4 * 8 * (WHISPER_PMAX + cpages)
     return {"params": padded_vocab(cfg.vocab_size) * d + d
             + cfg.n_layers * (3 * d + 2 * attn + mlp)
             + cfg.n_enc_layers * (2 * d + attn + mlp) + d
             + (cfg.frontend_dim + 1) * d,
             "slot_bytes": 2 * cfg.n_layers * 8 * (WHISPER_MAX_SEQ
                                                    + cfg.enc_frames) * cell,
+            "pool_bytes": 2 * glob * hd + cross + tables,
+            "pool_int8_bytes": glob * (hd + 2) + cross + tables,
+            "cross_pages": cpages,
             "decode_k1": 8 * cfg.n_layers + 1}
 
 
@@ -2406,10 +2468,12 @@ def _whisper_gemms(torch, params, cfg, part: str, rows: int, gen):
 
 
 def _whisper_window(torch, np, eng, cfg) -> dict:
-    """One slot window at rung 8 with all 8 requests resident: K1
-    launches ``WHISPER_DECODE_K1`` times a step, every one on the wgmma
-    route, and the cross stacks ``xk``, ``xv`` are bitwise unchanged
-    across it; then the requests finish and the slots drain."""
+    """One window at rung 8 with all 8 requests resident: K1 launches
+    ``WHISPER_DECODE_K1`` times a step, every one on the wgmma route, and
+    on the paged engine K2 once a layer a step; the cross K/V (the slot
+    buffers' ``xk``, ``xv``, the paged engine's pools ``ck``, ``cv``) is
+    bitwise unchanged across it; then the requests finish and the slots
+    drain."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.serve import Request
 
@@ -2422,7 +2486,10 @@ def _whisper_window(torch, np, eng, cfg) -> dict:
     if eng.queue or eng._n_active() != len(reqs):
         raise AssertionError(f"whisper: {eng._n_active()} resident after "
                              f"the first step, {len(eng.queue)} queued")
-    held = {k: eng.cache.buffers[k].clone() for k in ("xk", "xv")}
+    paged = hasattr(eng.cache, "pools")
+    store = eng.cache.pools if paged else eng.cache.buffers
+    held = {k: store[k].clone()
+            for k in (("ck", "cv") if paged else ("xk", "xv"))}
     torch.cuda.synchronize()
     for counter in LAUNCH_COUNTERS.values():
         counter.reset()
@@ -2431,12 +2498,15 @@ def _whisper_window(torch, np, eng, cfg) -> dict:
     launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
     _k1_wgmma_only(launches)
     rung = eng.stats["engine"]["rungs"][-1]
-    if rung != 8 or launches["sisa_gemm"] != WHISPER_DECODE_K1 * eng.window:
+    k2 = cfg.n_layers * eng.window if paged else 0
+    if rung != 8 or launches["sisa_gemm"] != WHISPER_DECODE_K1 * eng.window \
+            or launches["paged_attn"] != k2 or launches["paged_attn_int8"]:
         raise AssertionError(f"whisper window at rung {rung}: "
-                             f"{launches['sisa_gemm']} K1 launches for "
+                             f"{launches['sisa_gemm']} K1 and "
+                             f"{launches['paged_attn']} K2 launches for "
                              f"{eng.window} steps")
     for k, t in held.items():
-        if not torch.equal(eng.cache.buffers[k], t):
+        if not torch.equal(store[k], t):
             raise AssertionError(f"whisper: the cross stack {k} changed "
                                  "across a decode window")
     eng.run()
@@ -2445,8 +2515,9 @@ def _whisper_window(torch, np, eng, cfg) -> dict:
     out = {"rung": rung, "steps": eng.window,
            "k1_launches": launches["sisa_gemm"],
            "k1_per_step": launches["sisa_gemm"] / eng.window,
+           "k2_per_step": launches["paged_attn"] / eng.window,
            "cross_stacks_unchanged": True}
-    _say(f"whisper slot window: {json.dumps(out)}")
+    _say(f"whisper {'paged' if paged else 'slot'} window: {json.dumps(out)}")
     return out
 
 
@@ -2475,8 +2546,12 @@ def serve_whisper(torch, np, kernels) -> dict:
 
     cfg = get_config("whisper-base")
     want = _whisper_counts(cfg)
-    if (want["params"], want["slot_bytes"], want["decode_k1"]) != (
-            WHISPER_PARAMS, WHISPER_SLOT_BYTES, WHISPER_DECODE_K1):
+    if (want["params"], want["slot_bytes"], want["decode_k1"],
+            want["pool_bytes"], want["pool_int8_bytes"],
+            want["cross_pages"]) != (
+            WHISPER_PARAMS, WHISPER_SLOT_BYTES, WHISPER_DECODE_K1,
+            WHISPER_POOL_BYTES, WHISPER_POOL_INT8_BYTES,
+            WHISPER_CROSS_PAGES):
         raise AssertionError(f"whisper counts from the config: {want}")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
@@ -2567,6 +2642,8 @@ def serve_whisper(torch, np, kernels) -> dict:
          "and sequential serves equal (the sequential engine decodes a "
          "batch at its longest row's position; its prefill is "
          "exact-length, the slot engine's bucketed)")
+    paged = serve_whisper_paged(torch, np, kernels, cfg, params,
+                                outs["slot"])
     gen = torch.Generator(device="cuda").manual_seed(12)
     k1 = {part: time_gemms(torch, kernels, _whisper_gemms(
               torch, params, cfg, part, rows, gen))
@@ -2580,7 +2657,119 @@ def serve_whisper(torch, np, kernels) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"k1": k1, "serves": summaries, "window": window,
-            "profile": profile}
+            "profile": profile, "paged": paged}
+
+
+def serve_whisper_paged(torch, np, kernels, cfg, params, slot_outs) -> dict:
+    """The 8 requests of ``_whisper_requests`` through
+    ``make_engine(kind="paged", max_slots=8, max_seq=448, page_size=16,
+    window=8)`` after ``warmup()``, on bf16 pools and then on
+    ``kv_quant="int8"``; every launch counter zeroed just before each
+    serve: K1 > 0, all on the wgmma route, K2 once a layer a decode step
+    on the pools' variant and never on the other, 32 tokens each,
+    ``decode_compiles`` 0, 7 cross blocks admitted and 1 shared (rid 2
+    maps rid 1's), no token prefix shared, the pools exactly
+    ``WHISPER_POOL_BYTES`` / ``WHISPER_POOL_INT8_BYTES``, and every slot,
+    global page and cross page back (no refcount, no registry entry
+    left).  On bf16 pools one window at rung 8 (``_whisper_window``: 49
+    K1 and 6 K2 launches a step, ``ck``/``cv`` bitwise unchanged).
+    Printed: the completions each paged serve shares with the slot
+    serve, one profiled paged window, and K2's times at whisper's layout
+    (GQA 8/8 hd 64, 6 layers, the serve's end positions, 28-page tables)
+    on bf16 and int8 pools beside the plain version and the bound."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.serve import make_engine, Request, validate_stats
+
+    t_start = time.perf_counter()
+    want = {None: WHISPER_POOL_BYTES, "int8": WHISPER_POOL_INT8_BYTES}
+    summaries, window, profile = {}, None, None
+    for quant, nbytes in want.items():
+        label = quant or "bf16"
+        eng = make_engine(cfg, params, kind="paged", max_slots=8,
+                          max_seq=WHISPER_MAX_SEQ, page_size=16, window=8,
+                          kv_quant=quant)
+        eng.warmup()
+        reqs = _whisper_requests(Request, np, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        t0 = time.perf_counter()
+        done = _serve_offline(eng, "paged", reqs, WHISPER_MAX_SEQ)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+        _k1_wgmma_only(launches)
+        validate_stats(eng.stats)
+        k2, off = (("paged_attn_int8", "paged_attn") if quant
+                   else ("paged_attn", "paged_attn_int8"))
+        steps = eng.stats["decode_steps"]
+        if launches["sisa_gemm"] <= 0 or launches[off] \
+                or launches[k2] != cfg.n_layers * steps:
+            raise AssertionError(f"whisper paged {label} serve: {steps} "
+                                 f"decode steps, launches {launches}")
+        if len(done) != len(reqs) or any(
+                c.n_tokens != NEW_TOKENS or c.finish_reason != "length"
+                or not all(0 <= t < cfg.vocab_size for t in c.tokens)
+                for c in done):
+            raise AssertionError(f"whisper paged {label} serve: " + str(
+                [(c.rid, c.n_tokens, c.finish_reason) for c in done]))
+        ext, c = eng.stats["engine"], eng.cache
+        got = c.resident_bytes()
+        back = (c.n_free == eng.max_batch and c.n_free_pages == c.num_pages
+                and c.reserved_total == 0 and c.orphaned_pages == 0
+                and c.n_free_cross == c.num_cross_pages
+                == 8 * WHISPER_CROSS_PAGES
+                and not any(c.cross_refcount(p)
+                            for p in range(c.num_cross_pages))
+                and not eng._cross_registry and not eng._cross_key)
+        if eng.stats["decode_compiles"] != 0 or ext["cross_admits"] != 7 \
+                or ext["cross_shared"] != 1 or ext["pages_shared"] \
+                or got != nbytes or not back:
+            raise AssertionError(
+                f"whisper paged {label}: decode_compiles "
+                f"{eng.stats['decode_compiles']}, cross blocks "
+                f"{ext['cross_admits']} admitted / {ext['cross_shared']} "
+                f"shared, pages shared {ext['pages_shared']}, pools {got} "
+                f"bytes (want {nbytes}), storage back {back}")
+        same = sum(a.tokens == b.tokens for a, b in zip(slot_outs, done))
+        n_tok = sum(x.n_tokens for x in done)
+        summaries[label] = {
+            "model": cfg.name, "kind": "paged", "kv_pool": ext["kv_pool"],
+            "max_seq": WHISPER_MAX_SEQ, "page_size": 16,
+            "wall_s": wall, "tok_per_s": n_tok / wall,
+            "ttft_p50_ms": statistics.median(eng.stats["ttft"]) * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_compiles": eng.stats["decode_compiles"],
+            "decode_steps": steps, "batches": eng.stats["batches"],
+            "cross_admits": ext["cross_admits"],
+            "cross_shared": ext["cross_shared"],
+            "page_admits": ext["page_admits"],
+            "pages_mapped_peak": ext["pages_mapped_peak"],
+            "pool_bytes": got, "k2_launches": launches[k2],
+            "k2_per_step": launches[k2] / steps,
+            "same_as_slot": same, "launches": launches}
+        _say(f"whisper serve: {json.dumps(summaries[label])}")
+        _say(f"whisper paged {label}: {same} of {len(PROMPT_LENS)} "
+             "completions equal the slot serve's (bf16: K2 sums the "
+             "self-attention in another order than the dense decode)")
+        if quant is None:
+            window = _whisper_window(torch, np, eng, cfg)
+            profile = profile_window(torch, np, eng, cfg)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    k2 = {label: time_k2(torch, kernels, K2_HEADS[4], cfg.n_layers,
+                         quant=quant, pmax=WHISPER_PMAX)
+          for label, quant in (("bf16", False), ("int8", True))}
+    for label, t in k2.items():
+        _say(f"k2 whisper-base layout decode step ({label} pools, 8 rows, "
+             f"GQA 8/8 hd 64, {WHISPER_PMAX}-page tables, "
+             f"{t['launches_timed']} layers): {json.dumps(t)}")
+    _say(f"whisper paged serves and K2 times: "
+         f"{time.perf_counter() - t_start:.1f} s")
+    return {"serves": summaries, "window": window, "profile": profile,
+            "k2": k2}
 
 
 def train_whisper(torch, kernels) -> dict:
@@ -3658,9 +3847,11 @@ def check_k2_int8(torch, kernels, gen) -> float:
     """K2 on int8 pools made by ``quantize_page_pool``, against its plain
     version, at the cases of :func:`_k2_cases`."""
     worst, edges = _k2_cases(torch, kernels, gen, quant=True)
-    _say(f"k2 int8: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256 and "
-         f"GQA 64/8 hd 128, psz 16, int8 pools with bf16 scale planes, q in "
-         f"f32 and bf16, split edges at cells "
+    _say(f"k2 int8: GQA 14/2 hd 64, GQA 32/8 hd 128, GQA 4/1 hd 256, GQA "
+         f"64/8 hd 128 and GQA 8/8 hd 64, psz 16 on 16-page tables, and "
+         f"GQA 8/8 hd 64 at psz 16 and 32 on {WHISPER_PMAX}-page tables, "
+         f"int8 pools with bf16 scale planes, q in f32 and bf16, split "
+         f"edges at cells "
          f"{edges}, pos 0, full rows and sink entries, agree with the plain "
          f"version (max abs err {worst}; elementwise tol f32 1e-5, bf16 "
          f"2^-7*|ref| + 1e-5)")
@@ -4305,8 +4496,9 @@ def main() -> int:
                  "the cross K/V projections and whisper_frontend_proj_* "
                  "its frontend_proj (K 80) alone, of the serves that "
                  "launched it whisper_serve_launches times (slot, "
-                 "sequential); whisper_train_* one step of 8 x (1,500 "
-                 "frames, 448 tokens)",
+                 "sequential, paged on bf16 and on int8 pools); "
+                 "whisper_train_* one step of 8 x (1,500 frames, 448 "
+                 "tokens)",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err),
          **{k: k1[k] for k in keys},
@@ -4332,7 +4524,9 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
          "whisper_serve_launches": [
              whisper["serves"][kind]["launches"]["sisa_gemm"]
-             for kind in ("slot", "sequential")],
+             for kind in ("slot", "sequential")] + [
+             whisper["paged"]["serves"][pool]["launches"]["sisa_gemm"]
+             for pool in ("bf16", "int8")],
          **{f"whisper_train_{part}_{k}": whisper_train["k1"][part][k]
             for part in ("fwd", "bwd")
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4346,7 +4540,9 @@ def main() -> int:
                  "at gemma3-1b's (4 launches, 7 rows, pmax 64), launches "
                  "from its paged serve; internvl2_* at internvl2-76b's "
                  "(GQA 64/8 hd 128, 8 launches), launches from its 8-layer "
-                 "paged serve",
+                 "paged serve; whisper_* at whisper-base's (GQA 8/8 hd "
+                 "64, 6 launches, 8 rows, 28-page tables), launches from "
+                 "its paged serve on bf16 pools",
          "launches": launches["paged_attn"], "max_abs_err": k2_err,
          **{k: k2[k] for k in keys},
          **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
@@ -4354,7 +4550,11 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "serve_launches")},
          **{f"internvl2_{k}": internvl["k2"][k]
             for k in ("ms", "plain_ms", "bound_ms")},
-         "internvl2_serve_launches": internvl["k2_serve_launches"]},
+         "internvl2_serve_launches": internvl["k2_serve_launches"],
+         **{f"whisper_{k}": whisper["paged"]["k2"]["bf16"][k]
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "whisper_serve_launches":
+             whisper["paged"]["serves"]["bf16"]["k2_launches"]},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
@@ -4380,11 +4580,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "note": "K2's quant=True branch: int8 pools with bf16 scale "
                  "planes; launches from the kv_quant='int8' serve; phi_* "
-                 "at phi3.5-moe-42b's layout",
+                 "at phi3.5-moe-42b's layout; whisper_* at whisper-base's "
+                 "(GQA 8/8 hd 64, 6 launches, 28-page tables), launches "
+                 "from its int8 paged serve",
          "launches": int8_launches["paged_attn_int8"],
          "max_abs_err": max(k2_int8_err, k2_pool_err),
          **{k: k2_int8[k] for k in keys},
-         **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")}},
+         **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")},
+         **{f"whisper_{k}": whisper["paged"]["k2"]["int8"][k]
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "whisper_serve_launches":
+             whisper["paged"]["serves"]["int8"]["k2_launches"]},
         {"name": "coexec", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/coexec.cu",
          "replaces": "src/repro/kernels/coexec.py:209",

@@ -15,7 +15,8 @@ per-class stacks (``repro_torch.models.transformer``'s module doc:
 ``{"state","shift"}`` for the recurrent ones, and an enc-dec decoder's
 per-layer ``{"self", "cross"}`` caches as the self stacks beside the
 cross stacks ``"xk","xv"``), and :func:`pools_from_jax` for the paged
-engine's pools and state slabs.  An enc-dec model's encoder (one
+engine's pools (an enc-dec model's cross pools ``"ck","cv"`` among
+them) and state slabs.  An enc-dec model's encoder (one
 scanned ``(BIDIR,)`` group) unstacks into ``params["encoder"]
 ["layers"]``.  Float32 leaves (the recurrent gates, decays and states)
 stay float32 in a model of another dtype.
@@ -88,15 +89,23 @@ def pools_from_jax(pools, cfg: ModelConfig, device=None
     """The reference's paged pools (per-group pytrees whose leaves,
     already numpy, are named ``"pk","pv"[,"pk_s","pv_s"]`` for global
     layers, ``"lk","lv"`` for local ones, and ``"h","conv"`` /
-    ``"state","shift"`` for the recurrent layers' slot slabs) as the
-    port's pool stacks under the same names, each layer at its index in
-    its class."""
+    ``"state","shift"`` for the recurrent layers' slot slabs; an
+    enc-dec decoder layer's are ``{"self": ..., "cross": {"ck","cv"}}``)
+    as the port's pool stacks under the same names, each layer at its
+    index in its class (the cross pools: every decoder layer)."""
     check_supported(cfg)
     dev = resolve_device(device)
     stacks: Dict[str, list] = {}
+
+    def add(tree, r):
+        for name, x in tree.items():
+            if isinstance(x, dict):
+                add(x, r)
+            else:
+                stacks.setdefault(name, []).append(np.asarray(x)[r])
+
     for group, b, r in _unstack_layers(pools, cfg):
-        for name, x in group[b].items():
-            stacks.setdefault(name, []).append(np.asarray(x)[r])
+        add(group[b], r)
     return {name: _tensor(np.stack(xs), dev) for name, xs in stacks.items()}
 
 

@@ -18,12 +18,13 @@ plain PyTorch (:func:`attn_decode_step`; the reference's is plain XLA
 too), or shared page pools: a global layer's pool through K2
 (:func:`paged_attn_decode_step`), a local layer's ring of pages by a
 plain gather (:func:`paged_local_attn_decode_step`, plain XLA in the
-reference as well).  A dense cache is a ring: a global layer's capacity
-is the engine's ``max_seq``, a local layer's ``min(max_seq, window)``
-(:func:`cache_capacity`), and that capacity is all that limits a local
-layer's window at decode; a paged local layer reads the same ring
-through its ring table.  :func:`prefill_into_cache` lays a prompt
-longer than the capacity as that ring.  Dense caches are int8 with bf16
+reference as well), a decoder's cross pool by a plain gather of its
+block (:func:`paged_cross_attn_decode`).  A dense cache is a ring: a
+global layer's capacity is the engine's ``max_seq``, a local layer's
+``min(max_seq, window)`` (:func:`cache_capacity`), and that capacity is
+all that limits a local layer's window at decode; a paged local layer
+reads the same ring through its ring table.  :func:`prefill_into_cache`
+lays a prompt longer than the capacity as that ring.  Dense caches are int8 with bf16
 scale planes ``"k_s","v_s"`` while :func:`set_kv_cache_quant` is on.
 A decoder's cross K/V (:func:`encode_cross_kv`) is projected once at
 prefill, kept at model precision whatever that flag says, and only read
@@ -152,6 +153,31 @@ def cross_attn_decode(p, x: Tensor, cross_kv: Dict[str, Tensor], cfg
                 _repeat_kv(cross_kv["v"], n_rep), None)
     return linear_apply(p["o"], out.reshape(
         b, s, cfg.n_heads * cfg.resolved_head_dim))
+
+
+def paged_cross_attn_decode(p, x: Tensor, cache: Dict[str, Tensor],
+                            page_table: Tensor, cfg, *, enc_len: int
+                            ) -> Tensor:
+    """A decoder token's cross-attention against the encoder K/V in the
+    cross page pool (the reference's ``paged_cross_attn_decode``).
+
+    ``cache`` is this layer's slice of the cross pool ``{"ck": (n_cpages
+    + sink, page_size, Hkv, hd), "cv": ...}`` (model precision, written
+    once at admission, never by decode) and ``page_table`` the per-row
+    ``(B, C)`` cross table.  Each row gathers its ``C`` pages, laid end
+    to end, and the gathered K/V are cut back to ``enc_len`` frames
+    before the softmax: cross attention masks nothing, so the zero cells
+    that pad the last page must not reach it.  On the same cells this is
+    :func:`cross_attn_decode` on the dense stacks."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    table = page_table.long()
+    kd = cache["ck"][table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
+    vd = cache["cv"][table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), None)
+    return linear_apply(p["o"], out.reshape(b, s, cfg.n_heads * hd))
 
 
 # int8 dense KV caches (per-position, per-head symmetric scales), the

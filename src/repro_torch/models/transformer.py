@@ -57,9 +57,10 @@ and prefill; its decoder embeds the tokens unscaled there and scaled by
 encoder's output after its self-attention.  Prefill projects each
 layer's cross K/V once into the dense stacks ``{"xk","xv": (L_dec, B,
 S_enc, Hkv, hd)}`` (model precision even under ``CACHE_QUANT``), which
-decode only reads.  The slot and sequential engines serve it; the paged
-engine refuses it until its cross page pool (ROADMAP.md, queue A item
-1b).
+decode only reads; the paged engine copies them into its cross pools
+``{"ck","cv": (L_dec, cross pages + sink, page_size, Hkv, hd)}`` (model
+precision on int8 pools too), which decode reads through a ``(B, C)``
+cross table.  All three engines serve it.
 """
 from __future__ import annotations
 
@@ -86,9 +87,9 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any architecture outside the port so far.  Enc-dec
-    models pass: only the paged engine still refuses them (its cross
-    page pool is queue A item 1b of ROADMAP.md)."""
+    """Raise for any architecture outside the port so far: layer kinds
+    other than global and sliding-window attention, RG-LRU and WKV.
+    Enc-dec models pass, and every engine serves them."""
     kinds = set(cfg.layer_kinds())
     if not kinds <= {ATTN, LOCAL, RGLRU, WKV}:
         raise NotImplementedError(
@@ -114,8 +115,10 @@ _POOLS = {"": ("pk", "pv", "pk_s", "pv_s"), "w": ("lk", "lv"),
 # (slot buffers) and paged (slabs).
 STATE_STACKS = _POOLS[RGLRU] + _POOLS[WKV]
 # An enc-dec decoder's dense cross K/V, (L_dec, B, enc_len, Hkv, hd), a
-# row a layer; named apart from the paged cross pools ("ck","cv").
+# row a layer, and the paged engine's cross pools, (L_dec, cross pages +
+# sink, page_size, Hkv, hd), read through the "cross" table.
 CROSS_STACKS = ("xk", "xv")
+CROSS_POOLS = ("ck", "cv")
 
 
 def stack_name(tag: str, name: str) -> str:
@@ -522,16 +525,19 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     ``(B,)`` vector of per-row positions (the slot engine); a local
     layer's ring capacity is its window.  Otherwise ``caches`` are the
     page pools of the module doc, ``pos`` is ``(B,)``, and
-    ``page_table`` is ``{"global": (B, max_pages)[, "local": (B, R)]}``
-    (a bare tensor means ``{"global": tensor}``): a global layer reads
-    its ``"pk","pv"`` through K2, a local layer its ``"lk","lv"`` ring
-    through the ring table with the logical ring capacity ``window_cap``
-    (the engine's ``min(sliding_window, max_seq)``; default the
-    window).  Recurrent layers read and write their ``"h","conv"`` or
+    ``page_table`` is ``{"global": (B, max_pages)[, "local": (B, R)][,
+    "cross": (B, C)]}`` (a bare tensor means ``{"global": tensor}``): a
+    global layer reads its ``"pk","pv"`` through K2, a local layer its
+    ``"lk","lv"`` ring through the ring table with the logical ring
+    capacity ``window_cap`` (the engine's ``min(sliding_window,
+    max_seq)``; default the window).  Recurrent layers read and write their ``"h","conv"`` or
     ``"state","shift"`` stacks either way (slot rows of the dense
     buffers, or of the paged engine's slabs); they take no position.
-    An enc-dec decoder layer then attends its dense cross K/V (the
-    ``"xk","xv"`` stacks, read and never written).  Every cache is
+    An enc-dec decoder layer then attends its cross K/V, read and never
+    written: the dense ``"xk","xv"`` stacks, or with a ``"cross"`` table
+    its ``"ck","cv"`` pools through it, cut to ``cfg.enc_frames``
+    frames (:func:`~repro_torch.models.attention.
+    paged_cross_attn_decode`).  Every cache is
     updated in place, so a view of a larger buffer receives the writes.
     The token embedding is scaled by √d here, as in the reference's
     decode, also on an enc-dec model, whose training and prefill leave
@@ -568,9 +574,14 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
         x = x + mix
         if "cross" in p:
             h = rmsnorm_apply(p["norm_cross"], x, cfg.norm_eps)
-            x = x + attn.cross_attn_decode(
-                p["cross"], h, {"k": caches["xk"][i], "v": caches["xv"][i]},
-                cfg)
+            if page_table is not None and "cross" in page_table:
+                x = x + attn.paged_cross_attn_decode(
+                    p["cross"], h, {n: caches[n][i] for n in CROSS_POOLS},
+                    page_table["cross"], cfg, enc_len=cfg.enc_frames)
+            else:
+                x = x + attn.cross_attn_decode(
+                    p["cross"], h,
+                    {"k": caches["xk"][i], "v": caches["xv"][i]}, cfg)
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)

@@ -1,6 +1,5 @@
 """Paged serving: block-granular KV storage behind the ladder-locked loop
-(the port of the global-pool and page-ring parts of
-``repro/serve/paged_engine.py``).
+(the port of ``repro/serve/paged_engine.py``).
 
 * **Flat page pool** (:class:`PagedKVCache`): global layers' KV lives in
   ``(L_attn, num_pages + 1, page_size, Hkv, hd)`` tensors shared by all
@@ -32,6 +31,16 @@
   in place, and release and reset leave the rows (the next admission
   overwrites a row whole).  No pages, no growth; a slot's bytes are
   fixed.
+* **Cross pages for enc-dec decoders** (whisper): a decoder layer's
+  cross K/V is a function of the request's encoder features alone, so
+  admission writes it once into ``C = ceil(enc_frames / page_size)``
+  pages of a cross pool ``(L_dec, num_cross_pages + 1, page_size, Hkv,
+  hd)`` (zero cells pad the last page), mapped through a ``(max_slots,
+  C)`` cross table and read-only thereafter.  Requests whose features
+  are byte-identical map the same block by reference (refcounted; the
+  engine keys a host registry on the feature bytes, purged as blocks
+  drain), so N decodes of one clip hold one copy.  Token-prefix sharing
+  is off for enc-dec: decoder K/V depends on the features too.
 * **Refcounted prefix sharing (copy-on-write)**, on by default for
   models with global layers: two requests whose token prefixes agree
   through a page boundary map the same physical global page; a holder
@@ -39,18 +48,19 @@
   keys sharing on a host-side registry of page-aligned token prefixes,
   purged as pages drain.
 * **Reservation-based admission**: a request reserves its worst-case
-  global page count, and a free ring where it has local layers, at
-  admission, so lazy boundary mapping never finds a free list empty and
-  the ladder sweep never targets a rung the pools cannot back.
+  global page count, a free ring where it has local layers and a free
+  cross block where its features are not resident, at admission, so
+  lazy boundary mapping never finds a free list empty and the ladder
+  sweep never targets a rung the pools cannot back.
 * **int8 pools** (``kv_quant="int8"``): ``pk``/``pv`` hold int8 values
   and ``pk_s``/``pv_s`` one bf16 scale per (page, offset, KV head) cell,
   about half the bytes of bf16 pools.  Admission quantizes the prefilled
   chunks as it copies them in, decode quantizes each new K/V as it
   writes it, with the same numerics (:func:`repro_torch.kernels.
   paged_attn.quantize_page_pool`), so admitted and decoded cells
-  dequantize identically.  Local rings and state slabs stay at model
-  precision, as in the reference (a model with no global layer has no
-  byte to quantize).  A prefill parked by co-execution backfill stays at
+  dequantize identically.  Local rings, cross pages and state slabs
+  stay at model precision, as in the reference (a model with no global
+  layer has no byte to quantize).  A prefill parked by co-execution backfill stays at
   model precision until its admission copies it in.  The dense engines'
   ``CACHE_QUANT`` flag is refused, as the reference does.
 
@@ -58,24 +68,27 @@ Decode writes the new K/V into the pools in place; global layers attend
 through K2 (:func:`repro_torch.models.attention.paged_attn_decode_step`),
 local layers gather their ring
 (:func:`~repro_torch.models.attention.paged_local_attn_decode_step`),
-recurrent layers step their slab rows.  Every model the port accepts
-(global, sliding-window and recurrent layers, dense or MoE: gemma3-1b,
-recurrentgemma-2b and rwkv6-3b among them) serves here; cross pages are
-a later slice.
+recurrent layers step their slab rows, and enc-dec decoder layers gather
+their cross block (:func:`~repro_torch.models.attention.
+paged_cross_attn_decode`).  Every model the port accepts (global,
+sliding-window and recurrent layers, dense or MoE, enc-dec: gemma3-1b,
+recurrentgemma-2b, rwkv6-3b and whisper-base among them) serves here.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig, RGLRU, WKV
 from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.attention import CACHE_QUANT
-from repro_torch.models.transformer import (init_cache, param_dtype,
+from repro_torch.models.transformer import (CROSS_POOLS, CROSS_STACKS,
+                                            init_cache, param_dtype,
                                             STATE_STACKS)
-from repro_torch.serve.engine import effective_tokens, Request
+from repro_torch.serve.engine import (effective_tokens, encoder_inputs,
+                                      Request)
 from repro_torch.serve.serve_step import make_paged_decode_step
 from repro_torch.serve.slot_engine import SlotServeEngine
 
@@ -92,16 +105,24 @@ class PagedKVCache:
     where ``local_ring`` > 0) keep ``"lk","lv"`` at model precision,
     ``(n_local_layers, num_local_pages + 1, page_size, Hkv, hd)`` with
     sink page ``lsink``, indirected by the ring table ``ltable``
-    ``(max_slots, local_ring)``.  ``slabs`` are the recurrent layers'
-    zero state stacks ``(L_kind, max_slots, ...)``, kept in ``pools``
-    under their own names and addressed by slot.  Pools are allocated
-    once, at construction; the allocators' bookkeeping is host-side."""
+    ``(max_slots, local_ring)``.  An enc-dec decoder's layers
+    (``n_cross_layers``, where ``cross_pages`` > 0) keep ``"ck","cv"``
+    at model precision, ``(n_cross_layers, num_cross_pages + 1,
+    page_size, Hkv, hd)`` with sink page ``csink``, indirected by the
+    cross table ``ctable`` ``(max_slots, cross_pages)``; a block of
+    ``cross_pages`` pages is refcounted, so requests with the same
+    features map one block.  ``slabs`` are the recurrent layers' zero
+    state stacks ``(L_kind, max_slots, ...)``, kept in ``pools`` under
+    their own names and addressed by slot.  Pools are allocated once, at
+    construction; the allocators' bookkeeping is host-side."""
 
     def __init__(self, max_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, *, n_layers: int, n_kv_heads: int,
                  head_dim: int, dtype: torch.dtype, device: torch.device,
                  quant: Optional[str] = None, n_local_layers: int = 0,
                  local_ring: int = 0, num_local_pages: int = 0,
+                 n_cross_layers: int = 0, cross_pages: int = 0,
+                 num_cross_pages: int = 0,
                  slabs: Optional[Dict[str, torch.Tensor]] = None):
         if num_pages < max_pages_per_slot:
             raise ValueError(
@@ -111,6 +132,10 @@ class PagedKVCache:
             raise ValueError(
                 f"local pool of {num_local_pages} pages cannot hold one "
                 f"ring ({local_ring} pages)")
+        if cross_pages and num_cross_pages < cross_pages:
+            raise ValueError(
+                f"cross pool of {num_cross_pages} pages cannot hold one "
+                f"encoder block ({cross_pages} pages)")
         self.max_slots = max_slots
         self.num_pages = num_pages
         self.page_size = page_size
@@ -121,8 +146,11 @@ class PagedKVCache:
         self.quant = quant
         self.local_ring = local_ring
         self.num_local_pages = num_local_pages
+        self.cross_pages = cross_pages
+        self.num_cross_pages = num_cross_pages
         self.sink = num_pages                      # physical sink page id
         self.lsink = num_local_pages               # the local pool's sink
+        self.csink = num_cross_pages               # the cross pool's sink
         self.pools: Dict[str, torch.Tensor] = {}
         if n_layers:
             shape = (n_layers, num_pages + 1, page_size, n_kv_heads, head_dim)
@@ -148,6 +176,15 @@ class PagedKVCache:
                 lv=torch.zeros(lshape, dtype=dtype, device=device))
             self.ltable = torch.full((max_slots, local_ring), self.lsink,
                                      dtype=torch.int32, device=device)
+        self.ctable: Optional[torch.Tensor] = None
+        if cross_pages:
+            cshape = (n_cross_layers, num_cross_pages + 1, page_size,
+                      n_kv_heads, head_dim)
+            self.pools.update(
+                ck=torch.zeros(cshape, dtype=dtype, device=device),
+                cv=torch.zeros(cshape, dtype=dtype, device=device))
+            self.ctable = torch.full((max_slots, cross_pages), self.csink,
+                                     dtype=torch.int32, device=device)
         self.pools.update(slabs or {})
         self._reset_allocator()
 
@@ -157,9 +194,13 @@ class PagedKVCache:
         # Ring pages rotate: freed ones join the back, fresh ones leave
         # the front, so a reclaimed page crosses the whole list first.
         self._free_local = deque(range(self.num_local_pages))
+        self._free_cross = list(range(self.num_cross_pages - 1, -1, -1))
         self._lrow: List[List[int]] = [[] for _ in range(self.max_slots)]
         self._lblock = [-1] * self.max_slots      # highest ring block mapped
         self._mapped: List[List[int]] = [[] for _ in range(self.max_slots)]
+        self._cmapped: List[List[int]] = [[] for _ in range(self.max_slots)]
+        self._cross_ref = [0] * self.num_cross_pages
+        self._freed_cross: List[int] = []          # drained, not yet handed
         self._reserved = [0] * self.max_slots
         self._shared = [0] * self.max_slots        # pages mapped by ref
         self._refcount = [0] * self.num_pages
@@ -179,6 +220,10 @@ class PagedKVCache:
     @property
     def n_free_local(self) -> int:
         return len(self._free_local)
+
+    @property
+    def n_free_cross(self) -> int:
+        return len(self._free_cross)
 
     @property
     def orphaned_pages(self) -> int:
@@ -204,8 +249,25 @@ class PagedKVCache:
         """Physical ring pages of ``slot``, in column order."""
         return list(self._lrow[slot])
 
+    def cross_pages_of(self, slot: int) -> List[int]:
+        """Physical cross pages of ``slot``, in logical order."""
+        return list(self._cmapped[slot])
+
+    def reserved_pages(self, slot: int) -> int:
+        """The worst-case exclusive global pages ``slot`` reserves."""
+        return self._reserved[slot]
+
+    def shared_pages_of(self, slot: int) -> int:
+        """Global pages ``slot`` maps by reference (admitted shared, not
+        yet copied on write)."""
+        return self._shared[slot]
+
     def page_refcount(self, page: int) -> int:
         return self._refcount[page]
+
+    def cross_refcount(self, page: int) -> int:
+        """Number of slots mapping cross ``page``."""
+        return self._cross_ref[page]
 
     def _write_row(self, slot: int, start: int, pages: Sequence[int],
                    table: Optional[torch.Tensor] = None) -> None:
@@ -216,7 +278,8 @@ class PagedKVCache:
     # -- page lifecycle -----------------------------------------------------
     def admit(self, prefill_cache: Dict[str, torch.Tensor], slot: int,
               reserve_pages: int, shared_pages: Sequence[int] = (), *,
-              last_index: Optional[int] = None) -> int:
+              last_index: Optional[int] = None,
+              cross_shared: Optional[Sequence[int]] = None) -> int:
         """Map a prefilled cache (:func:`~repro_torch.models.transformer.
         forward_prefill`'s stacks, each ``(L, 1, capacity, Hkv, hd)``)
         into ``slot`` and reserve its worst case.
@@ -230,16 +293,33 @@ class PagedKVCache:
         ``last_index``, the position of the prompt's last real token:
         flat ring cell ``t`` takes position ``p = last - ((last - t) mod
         R * page_size)`` from dense cell ``p mod capacity``, zeroed where
-        ``p < 0`` (decode writes a cell before it reads it).  Recurrent
-        stacks (``(L, 1, ...)``) overwrite the slot's slab row whole.
-        Returns the number of fresh global pages mapped."""
+        ``p < 0`` (decode writes a cell before it reads it).  Cross
+        stacks ``"xk","xv"`` (``(L_dec, 1, enc_len, Hkv, hd)``) map the
+        block ``cross_shared`` names by reference, writing nothing, or
+        ``cross_pages`` fresh pages (lowest first) into which they are
+        copied, padded with zeros to whole pages.  Recurrent stacks
+        (``(L, 1, ...)``) overwrite the slot's slab row whole.  Returns
+        the number of fresh global pages mapped."""
         has_local = "wk" in prefill_cache
+        has_cross = CROSS_STACKS[0] in prefill_cache
         if has_local and not self.local_ring:
             raise ValueError("cache has sliding-window stacks but the pool "
                              "was built with local_ring=0")
+        if has_cross and not self.cross_pages:
+            raise ValueError("cache has cross-attention stacks but the "
+                             "pool was built with cross_pages=0")
         if has_local and len(self._free_local) < self.local_ring:
             raise ValueError(f"no free ring: {len(self._free_local)} local "
                              f"pages free of {self.local_ring}")
+        if has_cross:
+            if cross_shared is None:
+                if len(self._free_cross) < self.cross_pages:
+                    raise ValueError(
+                        f"no free cross block: {len(self._free_cross)} "
+                        f"cross pages free of {self.cross_pages}")
+            elif any(self._cross_ref[pg] < 1 for pg in cross_shared):
+                raise ValueError(f"cross pages {list(cross_shared)} are "
+                                 "not all live")
         n = 0
         if "k" in prefill_cache:
             cap = prefill_cache["k"].shape[2]
@@ -289,6 +369,8 @@ class PagedKVCache:
         if has_local:
             self._admit_ring(prefill_cache, slot,
                              max(last_index or 0, 0))
+        if has_cross:
+            self._admit_cross(prefill_cache, slot, cross_shared)
         for name in STATE_STACKS:
             if name in prefill_cache:
                 self.pools[name][:, slot] = prefill_cache[name][:, 0]
@@ -317,6 +399,30 @@ class PagedKVCache:
         self._write_row(slot, 0, row, self.ltable)
         self._lrow[slot] = row
         self._lblock[slot] = last // psz
+
+    def _admit_cross(self, prefill_cache: Dict[str, torch.Tensor],
+                     slot: int, shared: Optional[Sequence[int]]) -> None:
+        """Map ``slot``'s cross block (:meth:`admit`): by reference, or
+        fresh pages with the cross stacks copied in, zero-padded."""
+        if shared is not None:
+            row = list(shared)
+            for pg in row:
+                self._cross_ref[pg] += 1
+        else:
+            row = [self._free_cross.pop() for _ in range(self.cross_pages)]
+            for pg in row:
+                self._cross_ref[pg] = 1
+            idx = torch.as_tensor(row, device=self.device)
+            cells = self.cross_pages * self.page_size
+            for name, pool in zip(CROSS_STACKS, CROSS_POOLS):
+                src = prefill_cache[name][:, 0]        # (L, enc, Hkv, hd)
+                src = torch.nn.functional.pad(
+                    src, (0, 0, 0, 0, 0, cells - src.shape[1]))
+                self.pools[pool].index_copy_(1, idx, src.reshape(
+                    src.shape[0], self.cross_pages, self.page_size,
+                    *src.shape[2:]))
+        self._write_row(slot, 0, row, self.ctable)
+        self._cmapped[slot] = row
 
     def advance_ring(self, slot: int, last_block: int) -> int:
         """Recycle ``slot``'s ring columns before a window writes through
@@ -404,9 +510,12 @@ class PagedKVCache:
     def release(self, slot: int) -> List[int]:
         """Release ``slot``'s pages (a shared global page is freed only
         when its last holder releases; the whole ring returns to the back
-        of the local free list) and point its table rows at the sinks.
-        Its slab rows keep their stale state until the next admission
-        overwrites them.  Returns the global pages actually freed."""
+        of the local free list; a cross page drained to refcount 0
+        returns to its free list and is queued for
+        :meth:`drain_freed_cross`) and point its table rows at the
+        sinks.  Its slab rows keep their stale state until the next
+        admission overwrites them.  Returns the global pages actually
+        freed."""
         freed = []
         for pg in self._mapped[slot]:
             self._refcount[pg] -= 1
@@ -431,15 +540,33 @@ class PagedKVCache:
             self._lrow[slot] = []
             self._lblock[slot] = -1
             self.ltable[slot] = self.lsink
+        if self._cmapped[slot]:
+            for pg in self._cmapped[slot]:
+                self._cross_ref[pg] -= 1
+                if self._cross_ref[pg] == 0:
+                    self._free_cross.append(pg)
+                    self._freed_cross.append(pg)
+            self._free_cross.sort(reverse=True)
+            self._cmapped[slot] = []
+            self.ctable[slot] = self.csink
         self._free_slots.append(slot)
         self._free_slots.sort(reverse=True)
         return freed
 
+    def drain_freed_cross(self) -> List[int]:
+        """Cross pages drained since the last call (the engine purges
+        its feature registry for them)."""
+        out, self._freed_cross = self._freed_cross, []
+        return out
+
     def tables(self) -> Dict[str, torch.Tensor]:
         """The per-class tables a decode step reads its pools through."""
-        if self.ltable is None:
-            return {"global": self.table}
-        return {"global": self.table, "local": self.ltable}
+        out = {"global": self.table}
+        if self.ltable is not None:
+            out["local"] = self.ltable
+        if self.ctable is not None:
+            out["cross"] = self.ctable
+        return out
 
     def seize_pages(self, n: int) -> List[int]:
         """Fault injection: pull up to ``n`` free global pages out of
@@ -468,38 +595,36 @@ class PagedKVCache:
         self.table.fill_(self.sink)
         if self.ltable is not None:
             self.ltable.fill_(self.lsink)
+        if self.ctable is not None:
+            self.ctable.fill_(self.csink)
 
     def resident_bytes(self) -> int:
         """Bytes of persistent paged storage: pools (sinks included; int8
-        pools with their scale planes), state slabs and the page
-        tables."""
-        tables = [self.table] + ([self.ltable] if self.ltable is not None
-                                 else [])
+        pools with their scale planes; cross pools), state slabs and the
+        page tables."""
         return sum(t.numel() * t.element_size()
-                   for t in list(self.pools.values()) + tables)
+                   for t in list(self.pools.values())
+                   + list(self.tables().values()))
 
 
 class PagedServeEngine(SlotServeEngine):
     """Ladder-locked serving over block-granular paged KV storage:
     global layers hold their sequence's pages, with page-aligned common
     prompt prefixes shared copy-on-write (``prefix_sharing``, default
-    on where there are global layers); sliding-window layers hold one
-    ring of ``local_ring`` pages a slot, whose dead pages are recycled
-    as decode advances; recurrent layers hold one slab row a slot.
+    on where there are global layers, off for enc-dec); sliding-window
+    layers hold one ring of ``local_ring`` pages a slot, whose dead
+    pages are recycled as decode advances; recurrent layers hold one
+    slab row a slot; an enc-dec decoder's cross K/V holds one block of
+    ``cross_pages`` pages, shared by requests with the same features.
     ``num_pages`` sizes the global pool; the default matches a dense
     engine's ``max_batch * max_seq`` capacity.  The local pool holds
-    ``max_batch`` rings."""
+    ``max_batch`` rings, the cross pool ``max_batch`` blocks."""
 
     def __init__(self, cfg: ModelConfig, params, *, device,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  max_batch: int = 8, max_seq: int = 256,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = True, **kw):
-        if cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: the paged engine's cross page pool for "
-                "enc-dec models is queue A item 1b of ROADMAP.md; serve it "
-                "with kind='slot' or 'sequential'")
         if CACHE_QUANT["enabled"]:
             raise NotImplementedError(
                 "paged storage quantizes at the pool boundary "
@@ -511,9 +636,17 @@ class PagedServeEngine(SlotServeEngine):
         kinds = cfg.layer_kinds()
         self._has_global = ATTN in kinds
         self._has_local = LOCAL in kinds
+        self._has_cross = bool(cfg.enc_dec)
+        if self._has_cross and cfg.enc_frames <= 0:
+            raise ValueError(
+                f"{cfg.name} is enc-dec but enc_frames={cfg.enc_frames}; "
+                "paged cross-attention needs a static encoder length")
         self.page_size = page_size
         self.kv_quant = kv_quant
-        self.prefix_sharing = prefix_sharing and self._has_global
+        # Decoder K/V of an enc-dec model depends on the features too, so
+        # it shares cross blocks (keyed on the features) and no prefixes.
+        self.prefix_sharing = (prefix_sharing and self._has_global
+                               and not self._has_cross)
         self.max_pages_per_slot = -(-max_seq // page_size)
         self.num_pages = (num_pages if num_pages is not None
                           else max_batch * self.max_pages_per_slot)
@@ -527,10 +660,17 @@ class PagedServeEngine(SlotServeEngine):
             self.local_ring = -(-(w + int(kw.get("window", 8)))
                                 // page_size) + 1
         self.num_local_pages = max_batch * self.local_ring
+        self.cross_pages = (-(-cfg.enc_frames // page_size)
+                            if self._has_cross else 0)
+        self.num_cross_pages = max_batch * self.cross_pages
         # token-prefix bytes -> physical page, and its reverse (purged
         # when pages drain back to the free list).
         self._prefix_registry: Dict[bytes, int] = {}
         self._page_key: Dict[int, bytes] = {}
+        # encoder-feature bytes -> cross block, and its reverse keyed on
+        # the block's first page (purged as cross pages drain).
+        self._cross_registry: Dict[bytes, Tuple[int, ...]] = {}
+        self._cross_key: Dict[int, bytes] = {}
         super().__init__(cfg, params, device=device, max_batch=max_batch,
                          max_seq=max_seq, **kw)
         # Page-aligned prefill caches are a storage invariant: an
@@ -548,6 +688,7 @@ class PagedServeEngine(SlotServeEngine):
                        "pages_shared": 0, "page_cows": 0,
                        "window_pages_reclaimed": 0,
                        "local_ring_pages": self.local_ring,
+                       "cross_admits": 0, "cross_shared": 0,
                        "pool_pages": self.num_pages,
                        "kv_pool": self.kv_quant or "f32"})
         return extras
@@ -576,9 +717,16 @@ class PagedServeEngine(SlotServeEngine):
                             n_local_layers=kinds.count(LOCAL),
                             local_ring=self.local_ring,
                             num_local_pages=self.num_local_pages,
-                            slabs=init_cache(cfg, self.max_batch, 1, dtype,
-                                             self.device,
-                                             kinds=(RGLRU, WKV)))
+                            n_cross_layers=(cfg.n_layers if self._has_cross
+                                            else 0),
+                            cross_pages=self.cross_pages,
+                            num_cross_pages=self.num_cross_pages,
+                            # init_cache adds an enc-dec model's dense
+                            # cross stacks; here the cross pools hold it.
+                            slabs={name: t for name, t in init_cache(
+                                cfg, self.max_batch, 1, dtype, self.device,
+                                kinds=(RGLRU, WKV)).items()
+                                if name in STATE_STACKS})
 
     def _bucket_len(self, s: int) -> Optional[int]:
         # Page-multiple buckets: admission maps exactly
@@ -591,6 +739,8 @@ class PagedServeEngine(SlotServeEngine):
         super().reset()
         self._prefix_registry.clear()
         self._page_key.clear()
+        self._cross_registry.clear()
+        self._cross_key.clear()
 
     # -- page accounting ----------------------------------------------------
     def _pages_for(self, req: Request) -> int:
@@ -607,6 +757,18 @@ class PagedServeEngine(SlotServeEngine):
         budget = max(1, req.max_new_tokens - max(k, 1))
         last = min(max(blen - 1, s + budget - 1), self.max_seq - 1)
         return last // self.page_size + 1
+
+    def _cross_bytes_key(self, req: Request) -> bytes:
+        """The registry key of ``req``'s encoder features: the bytes of
+        :func:`~repro_torch.serve.engine.encoder_inputs` (so None and
+        explicit zeros share a block), built once a feature block and
+        kept on the request (every admission sweep asks again)."""
+        held = getattr(req, "_cross_key_of", None)
+        if held is None or held[0] is not req.enc_embeds:
+            held = (req.enc_embeds,
+                    encoder_inputs(req, self.cfg).tobytes())
+            req._cross_key_of = held
+        return held[1]
 
     def _probe_shared(self, req: Request) -> List[int]:
         """Physical pages for the longest chain of ``req``'s page-aligned
@@ -634,40 +796,62 @@ class PagedServeEngine(SlotServeEngine):
 
     def _admit_cap(self) -> Optional[int]:
         """Live rows plus the prefix of waiting requests (backfilled
-        first) whose worst-case reservations, and rings, still fit the
-        pools."""
+        first) whose worst-case reservations, rings and cross blocks
+        still fit the pools.  A waiting request whose features are not
+        resident counts a whole block, as in the reference, even where
+        another waiting request has the same features."""
         cap = self._n_active()
         rem = (self.cache.num_pages - self.cache.reserved_total
                - self.cache.orphaned_pages)
         rings = (self.cache.n_free_local // self.local_ring
                  if self._has_local else self.max_batch)
+        rem_c = self.cache.n_free_cross
         waiting = [r for r, _, _ in self._backfilled] + list(self.queue)
         for req in waiting:
             if cap >= self.max_batch:
                 break
             need = self._pages_for(req) - len(self._probe_shared(req))
-            if need > rem or rings < 1:
+            need_c = (self.cross_pages if self._has_cross
+                      and self._cross_bytes_key(req)
+                      not in self._cross_registry else 0)
+            if need > rem or rings < 1 or need_c > rem_c:
                 break
             cap += 1
             rem -= need
             rings -= 1
+            rem_c -= need_c
         return cap
 
     def _can_admit(self, req: Request) -> bool:
         if self._has_local and self.cache.n_free_local < self.local_ring:
+            return False
+        if (self._has_cross
+                and self.cache.n_free_cross < self.cross_pages
+                and self._cross_bytes_key(req) not in self._cross_registry):
             return False
         return self.cache.can_reserve(self._pages_for(req)
                                       - len(self._probe_shared(req)))
 
     def _store_cache(self, req: Request, cache, slot: int) -> None:
         shared = self._probe_shared(req)
+        ckey = self._cross_bytes_key(req) if self._has_cross else None
+        block = self._cross_registry.get(ckey) if self._has_cross else None
         fresh = self.cache.admit(cache, slot,
                                  self._pages_for(req) - len(shared),
                                  shared_pages=shared,
-                                 last_index=len(effective_tokens(req)) - 1)
+                                 last_index=len(effective_tokens(req)) - 1,
+                                 cross_shared=block)
         ext = self.stats["engine"]
         ext["page_admits"] += fresh
         ext["pages_shared"] += len(shared)
+        if self._has_cross:
+            if block is None:
+                block = tuple(self.cache.cross_pages_of(slot))
+                self._cross_registry[ckey] = block
+                self._cross_key[block[0]] = ckey
+                ext["cross_admits"] += 1
+            else:
+                ext["cross_shared"] += 1
         self._note_pages_peak()
         if self.prefix_sharing:
             # Register this prompt's full pages (keys always form prefix
@@ -685,6 +869,10 @@ class PagedServeEngine(SlotServeEngine):
             key = self._page_key.pop(pg, None)
             if key is not None:
                 self._prefix_registry.pop(key, None)
+        for pg in self.cache.drain_freed_cross():
+            key = self._cross_key.pop(pg, None)
+            if key is not None:
+                self._cross_registry.pop(key, None)
 
     def _note_pages_peak(self) -> None:
         mapped = self.cache.num_pages - self.cache.n_free_pages
@@ -698,7 +886,8 @@ class PagedServeEngine(SlotServeEngine):
         # about to write (never in the serve flow: sharing covers full
         # prompt pages only), and recycle the ring columns the window
         # will enter.  The window steps a view of the slabs' first
-        # ``rung`` rows in place; the page pools are read whole.
+        # ``rung`` rows in place; the page pools (cross pools among
+        # them, which decode only reads) are read whole.
         ext = self.stats["engine"]
         for slot in range(rung):
             if self._req[slot] is None:

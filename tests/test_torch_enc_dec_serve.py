@@ -11,14 +11,15 @@ engines, against the JAX engine of the same kind on the CPU, on
   the self stacks at ``max_seq`` and the cross stacks ``xk``, ``xv`` at
   ``enc_frames``, their bytes the JAX engine's.
 * A request's tokens depend on its own features: the same prompt with
-  other features decodes another stream, as in the reference.
+  other features decodes another stream, as in the reference, on the
+  paged engine too (its cross page pool: ``test_torch_enc_dec_paged.py``).
 * ``prefill_batch`` (each row with its own features, pad rows with row
   0's), a preemption storm whose victims re-encode their own features
   on resume, the dense ``CACHE_QUANT`` flag (self stacks int8, cross
   stacks at model precision), ``ServeFrontend`` over the slot engine
   against the JAX offline ``run()``, the wrong-shape ``ValueError`` in
-  both packages, ``launch.serve`` on slot and sequential, and the paged
-  engine still refusing enc-dec (queue A item 1b).
+  all three engines in both packages, and ``launch.serve`` on slot and
+  sequential.
 """
 import numpy as np
 import pytest
@@ -98,7 +99,7 @@ def test_engines_match_jax_with_per_request_features(kind, work):
         assert teng.cache.n_free == teng.max_batch
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("paged",))
 def test_tokens_follow_each_requests_own_features(kind):
     """One prompt, three feature blocks: the reference's streams, and
     at least two of them differ."""
@@ -210,7 +211,7 @@ def test_frontend_over_slot_matches_jax_offline():
     assert eng.cache.n_free == eng.max_batch
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("paged",))
 def test_wrong_feature_shape_raises_value_error(kind):
     cfg = _cfg()
     good = np.ones((cfg.enc_frames, cfg.frontend_dim), np.float32)
@@ -240,14 +241,3 @@ def test_launch_serve_runs_on_the_cpu(engine, capsys):
                               "--device", "cpu"]) == 0
     assert "3/3 done" in capsys.readouterr().out
 
-
-def test_paged_engine_still_raises():
-    _, tcfg, _, tparams = setup(NAME)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        make_engine(tcfg, tparams, kind="paged", device="cpu", **OPTS)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        launch_serve.main(["--arch", NAME, "--smoke", "--engine", "paged",
-                           "--device", "cpu"])
-    # the reference's paged engine serves it (its cross page pool)
-    cfg, _, jparams, _ = setup(NAME)
-    jax_make_engine(cfg, jparams, kind="paged", page_size=8, **OPTS)

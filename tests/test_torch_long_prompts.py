@@ -21,13 +21,13 @@ window)`` whatever the prompt.
   ``max_seq`` (63-200), with ``prefill_batch`` (every coalesced row also
   against its own single prefill within ``TOL``), with the int8 dense
   cache, and through ``ServeFrontend`` over slot.
-* **What stays unsupported raises**: whisper-base (enc-dec) on the
-  paged engine (slot and sequential serve it:
-  ``tests/test_torch_enc_dec_serve.py``; the recurrent models serve:
-  ``tests/test_torch_recurrent_serve.py``; internvl2-76b serves on
-  tokens: ``tests/test_torch_vision_frontend.py``).  Global-only models
-  keep their cache names and shapes.  (gemma3 on the paged engine is
-  ``tests/test_torch_local_rings.py``.)
+* **What stays as it was**: global-only models keep their cache names
+  and shapes.  (The other architectures serve on every engine: whisper
+  in ``tests/test_torch_enc_dec_serve.py`` and
+  ``tests/test_torch_enc_dec_paged.py``, the recurrent models in
+  ``tests/test_torch_recurrent_serve.py``, internvl2-76b on tokens in
+  ``tests/test_torch_vision_frontend.py``, gemma3 on the paged engine
+  in ``tests/test_torch_local_rings.py``.)
 """
 import numpy as np
 import pytest
@@ -39,7 +39,6 @@ from _torch_frontend import hold, WAIT
 from repro.models import attention as jattn
 from repro.serve import make_engine as jax_make_engine
 from repro.serve import Request as JaxRequest
-from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import forward_prefill, init_cache
 from repro_torch.models.transformer import cache_layout
@@ -280,16 +279,8 @@ def test_gemma3_frontend_over_slot_matches_jax(frontends):
 
 
 # --------------------------------------------------------------------------
-# What stays unsupported, and what stays as it was
+# What stays as it was
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("kind", ["paged"])
-@pytest.mark.parametrize("name", ["whisper-base"])
-def test_other_architectures_still_raise(name, kind):
-    qwen = setup("qwen2.5-0.5b")[3]
-    with pytest.raises(NotImplementedError):
-        make_engine(torch_smoke_config(name), qwen, kind=kind, device="cpu")
-
-
 @pytest.mark.parametrize("name", ["qwen2.5-0.5b", "yi-6b", "phi3.5-moe-42b"])
 def test_global_only_models_keep_their_cache_names_and_shapes(name):
     _, tcfg, _, tparams = setup(name)

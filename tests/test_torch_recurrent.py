@@ -22,8 +22,8 @@ RGLRU)`` tail), ``init_params``' tree, ``init_cache`` and
 against the JAX caches carried over by ``cache_from_jax``, and decode
 steps (dense caches, and slabs through ``pools_from_jax``), updated in
 place.  (Training on these layers: ``tests/test_torch_recurrent_train.py``;
-enc-dec models pass ``check_supported``, and only the paged engine
-still refuses them.)
+enc-dec models pass ``check_supported``, and every engine kind takes
+them.)
 Float32, TF32 off, ``TOL = 1e-5``; WKV outputs and the logits of
 models of WKV layers ``WKV_TOL = 1e-4`` (the chunked form scales its
 factors by up to ``e^44.8`` and back, and JAX's scan and the port's
@@ -545,18 +545,19 @@ def test_paged_forward_decode_steps_the_slabs(name):
 
 
 @pytest.mark.parametrize("name", ["whisper-base"])
-def test_enc_dec_and_frontends_still_raise(name):
-    """An enc-dec model passes ``check_supported`` and the dense
-    engines take it; only the paged engine refuses it (its cross page
-    pool is queue A item 1b)."""
+def test_every_engine_kind_takes_enc_dec(name):
+    """An enc-dec model passes ``check_supported`` beside the recurrent
+    ones, and all three engine kinds take it (the paged one with its
+    cross page pool: one block of ``ceil(enc_frames / page_size)`` pages
+    a slot)."""
     tcfg = torch_smoke_config(name)
     check_supported(tcfg)
     for ok in NAMES:
         check_supported(torch_smoke_config(ok))
     params = init_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        make_engine(tcfg, params, kind="paged", device="cpu",
-                    max_slots=4, max_seq=64)
-    for kind in ("slot", "sequential"):
-        make_engine(tcfg, params, kind=kind, device="cpu",
-                    max_slots=4, max_seq=64)
+    for kind in ("slot", "sequential", "paged"):
+        eng = make_engine(tcfg, params, kind=kind, device="cpu",
+                          max_slots=4, max_seq=64)
+        assert eng.cfg is tcfg
+    assert eng.cross_pages == -(-tcfg.enc_frames // eng.page_size)
+    assert eng.cache.n_free_cross == 4 * eng.cross_pages

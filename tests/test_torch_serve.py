@@ -22,9 +22,12 @@ from repro.models import init_params as jax_init
 from repro.serve import make_engine as jax_make_engine
 from repro.serve import Request as JaxRequest
 from repro.serve import validate_stats as jax_validate_stats
+from repro_torch.configs import ASSIGNED_ARCHS
 from repro_torch.configs import smoke_config as torch_smoke_config
+from repro_torch.configs.base import ATTN, LOCAL
 from repro_torch.convert import params_from_jax
 from repro_torch.models import attention as tattn
+from repro_torch.models import init_params
 from repro_torch.models import moe as torch_moe
 from repro_torch.serve import (completion_of, make_engine, Request,
                                validate_stats)
@@ -218,12 +221,19 @@ def test_paged_engine_refuses_the_dense_quant_flag(setup):
                 device="cpu", **OPTS)
 
 
-def test_unported_architectures_raise(setup):
-    _, _, tparams, _ = setup
-    for name in ("whisper-base",):
-        with pytest.raises(NotImplementedError):
-            make_engine(torch_smoke_config(name), tparams, kind="paged",
-                        device="cpu")
+@pytest.mark.parametrize("name", ASSIGNED_ARCHS)
+def test_every_assigned_architecture_builds_a_paged_engine(name):
+    """No architecture is refused: each of the ten builds the paged
+    engine (its own smoke weights), with the storage its layers need."""
+    cfg = torch_smoke_config(name)
+    eng = make_engine(cfg, init_params(cfg, seed=0, device="cpu"),
+                      kind="paged", device="cpu", **OPTS)
+    kinds = set(cfg.layer_kinds())
+    want = ({"global"} if ATTN in kinds else set()) \
+        | ({"local"} if LOCAL in kinds else set()) \
+        | ({"cross"} if cfg.enc_dec else set())
+    assert set(eng.cache.tables()) == want | {"global"}
+    assert eng.cache.resident_bytes() > 0
 
 
 def test_expert_backend_is_kernel_for_moe_and_none_for_dense(setup):
