@@ -273,8 +273,35 @@ Phases (any failure exits non-zero before the last line is printed):
     wgmma route, a step profiled part by part whose K1 launches times 6
     are the run's, and K1's forward and backward times beside the plain
     version, the bound and ``torch.matmul``.
+18. sharded serving on virtual ``("data", "model")`` meshes of the card
+    (every shard its own allocation on ``cuda:0``): K1 at the shard
+    widths of qwen2.5-0.5b and phi3.5-moe-42b on (1, 2) and (1, 4)
+    (q 896 -> 448, k/v 896 -> 64, o 448 -> 896, up/gate 896 -> 2432 and
+    down 2432 -> 896 at model 2, the MLP 896 -> 1216 -> 896 at 4, the
+    LM head the padded vocabulary / 2 and / 4; phi's 4096 -> 2048/512
+    and 1024/256), K2 at GQA 7/1 hd 64, 16/4 and 8/2 hd 128 on bf16 and
+    int8 pools, ``paged_attention_sharded`` on (1, 2) against one
+    launch on the whole heads, and K4 on 8 and 4 local experts (decode
+    prefixes and ``a2a_segments`` tables), each against its plain
+    version; the small f32 models of qwen's widths and phi's structure
+    through slot and paged on (1, 2) and (2, 2), tokens identical to the
+    CPU engine without a mesh; full-width qwen2.5-0.5b (24 layers, bf16)
+    through slot and paged on (1, 2) and (1, 4) beside the engine
+    without a mesh: K1 and K2 launches a decode step as the specs
+    predict (at (1, 2) 338 and 48, at (1, 4) 388 and 24), the ranks'
+    storage bytes summing to the meshless engine's, the first decode
+    step's logits within ``SHARDED_REL`` of the meshless engine's, the
+    tokens that agree counted, one profiled window each (collectives and
+    copies shown), K1 timed at a sharded decode step; phi3.5-moe-42b at
+    8 of 32 layers through paged on (1, 2) under ``"psum"`` and
+    ``"all_to_all"`` expert parallelism (K1, K2, K4 launched), K4 timed
+    at 8 and 4 local experts; a fault run: ``ServeFrontend`` over a
+    virtual (2, 2) mesh whose probe drops the last two devices, which
+    re-meshes to (1, 2) with the completions of an uninterrupted serve
+    on (1, 2) (qwen's widths, 2 layers, f32); K2 timed at the shard
+    layouts.  The phase prints its own elapsed time.
 
-Phases 15-17 run after phase 14; ``elapsed after ...`` lines give the
+Phases 15-18 run after phase 14; ``elapsed after ...`` lines give the
 script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
@@ -346,7 +373,8 @@ def _device_ms(torch, fn, iters: int = 3, label: str = ""):
             torch.cuda.synchronize()
         evts = prof.key_averages()
         us = sum(_self_device_us(e) for e in evts
-                 if "CUDA" in str(getattr(e, "device_type", "")))
+                 if "CUDA" in str(getattr(e, "device_type", ""))
+                 and not getattr(e, "is_user_annotation", False))
         if us > 0:
             return us / 1e3 / iters
     seen = sorted(((e.count, str(getattr(e, "device_type", "")), e.key[:60])
@@ -1633,14 +1661,17 @@ def check_small_train(torch, np, label, cfg) -> None:
 
 
 def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
-                     kind="paged", absent=(), **engine_kw):
+                     kind="paged", absent=(), before_serve=None,
+                     warm_rungs=None, **engine_kw):
     """Serve the workload of ``lens`` prompts (8 by default) through
     ``make_engine(kind=kind, **engine_kw)`` at ``cfg``'s widths with
     seeded random bf16 weights (``params``, or made here).  Every launch
     counter is zeroed just before the serve; those of ``need`` must be
     > 0 just after and those of ``absent`` 0, every request must be
-    prefilled once, and the storage must drain.  Returns the engine, the
-    weights, the launch counts and the completions."""
+    prefilled once, and the storage must drain.  ``warm_rungs`` limits
+    the warmup to those rungs (the workload runs at rung 8);
+    ``before_serve(eng)``, if given, runs after the warmup.  Returns the
+    engine, the weights, the launch counts and the completions."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
@@ -1658,7 +1689,9 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     eng = make_engine(cfg, params, kind=kind, max_slots=8, max_seq=256,
                       page_size=16, window=8, **engine_kw)
     if kind != "sequential":            # it has no warmup, as in the JAX one
-        eng.warmup()
+        eng.warmup(rungs=warm_rungs)
+    if before_serve is not None:
+        before_serve(eng)
     prefill, prefills = eng.prefill_fn, []
 
     def counted_prefill(p, batch):
@@ -1711,7 +1744,7 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
         raise AssertionError(f"{eng.max_batch - eng.cache.n_free} slots "
                              "did not drain")
     # Finite f32 logits of the expected shape from the same weights.
-    logits, _ = eng.prefill_fn(params, {
+    logits, _ = eng.prefill_fn(eng.params, {
         "tokens": torch.as_tensor(reqs[0].prompt[None], device="cuda"),
         "last_index": len(reqs[0].prompt) - 1})
     if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
@@ -3084,12 +3117,18 @@ def _only_wgmma_routes(launches) -> dict:
         ROUTE_LAUNCHES.items())}
 
 
-def profile_window(torch, np, eng, cfg) -> dict:
+def profile_window(torch, np, eng, cfg, steps=None) -> dict:
     """Where one decode window's time goes at rung 8: device time per
     kernel family from ``torch.profiler`` against the window's wall
-    time (the rest of the wall is the host launching work)."""
+    time (the rest of the wall is the host launching work).  Kernels of
+    no family that copy (casts, ``cat``, memcpy) count as ``copy``, and
+    ``collectives_device_ms`` gives the device time of a sharded
+    engine's collective ranges (their kernels, inside the families);
+    ``launches_a_step`` the window's launches a decode step.  ``steps``,
+    if given, shortens the profiled window to that many decode steps."""
     from torch.profiler import profile, ProfilerActivity
 
+    from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(5)
@@ -3099,33 +3138,55 @@ def profile_window(torch, np, eng, cfg) -> dict:
     finished = []
     eng.step(finished)                  # admission, prefills, one window
     torch.cuda.synchronize()
+    queued = len(eng.queue)
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    window, eng.window = eng.window, steps or eng.window
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step(finished)              # one decode window, nothing else
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: c.n / eng.window for name, c in LAUNCH_COUNTERS.items()
+                if c.n}
+    eng.window = window
     eng.run()
     fam = {"sisa_gemm": 0.0, "paged_attn": 0.0, "grouped_gemm": 0.0,
-           "other": 0.0}
-    host = []
+           "copy": 0.0, "other": 0.0}
+    host, collectives = [], {}
+    for evt in prof.events():
+        if evt.name.startswith("collective::") \
+                and "CUDA" not in str(evt.device_type):
+            # The kernels a sharded engine's collective range launched
+            # (its gathers and sums), inside the families below.
+            collectives[evt.name] = (collectives.get(evt.name, 0.0)
+                                     + evt.device_time_total / 1e3)
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue                    # a range's span, not a kernel
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             host.append((evt.self_cpu_time_total / 1e3, evt.count, evt.key))
             continue                    # host ops; their kernels count below
         dev_us = _self_device_us(evt)
-        name = next((k for k in KERNEL_NAMES if k in evt.key), "other")
+        name = next((k for k in KERNEL_NAMES if k in evt.key), None)
+        if name is None:
+            name = ("copy" if any(w in evt.key.lower()
+                                  for w in ("memcpy", "copy", "cat"))
+                    else "other")
         fam[name] += dev_us / 1e3
     busy = sum(fam.values())
     out = {"model": cfg.name, "engine": type(eng).__name__,
            "kv_pool": eng.stats["engine"].get("kv_pool"),
-           "window_wall_ms": wall_ms, "steps": eng.window,
+           "window_wall_ms": wall_ms, "steps": steps or eng.window,
            "device_ms": fam, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
+           "collectives_device_ms": collectives,
+           "launches_a_step": launches, "queued_after_admission": queued,
            "host_ops": sum(n for _, n, _ in host),
            "host_self_ms_top": [[key, round(ms, 3), n] for ms, n, key
                                 in sorted(host, reverse=True)[:8]]}
-    _say(f"decode window profile (rung 8, {eng.window} steps): "
+    _say(f"decode window profile (rung 8, {out['steps']} steps): "
          f"{json.dumps(out)}")
     return out
 
@@ -3182,6 +3243,16 @@ def time_k1(torch, kernels, params, cfg, rows: int, embeds: bool = False):
     every row, prefill for the last token only), and with ``embeds`` a
     stub frontend's ``frontend_proj`` over the rows (a prefill of
     ``frontend_embeds``)."""
+    return time_gemms(torch, kernels,
+                      _k1_gemms(torch, params, cfg, rows, embeds))
+
+
+def _k1_gemms(torch, params, cfg, rows: int, embeds: bool = False,
+              ranks=None):
+    """The ``(a, b)`` of :func:`time_k1`'s forward.  With ``ranks`` (a
+    sharded engine's ``Placed`` parameters), the model row's: a linear
+    the specs split over ``model`` once a rank, on the rank's weights,
+    else once, on rank 0's; ``params`` is then unused."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     xs = {}                             # one input a contraction width
 
@@ -3191,6 +3262,27 @@ def time_k1(torch, kernels, params, cfg, rows: int, embeds: bool = False):
                                 generator=gen).bfloat16()
         return xs[k]
 
+    head_rows = rows if rows <= 8 else 1
+    head = "lm_head" if "lm_head" in (params or ranks.local[0]) else "embed"
+    if ranks is not None:
+        def split(spec):
+            return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                       for e in spec)
+
+        gemms = []
+        for i, spec in enumerate(ranks.specs["layers"]):
+            for part in ("mixer", "mlp"):
+                for name, lin in spec.get(part, {}).items():
+                    if isinstance(lin, dict) and "w" in lin:
+                        for t in (ranks.local if split(lin["w"])
+                                  else ranks.local[:1]):
+                            w = t["layers"][i][part][name]["w"]
+                            gemms.append((x_of(w.shape[0]), w))
+        for t in (ranks.local if split(ranks.specs[head]["table"])
+                  else ranks.local[:1]):
+            gemms.append((x_of(cfg.d_model)[:head_rows],
+                          t[head]["table"].T))
+        return gemms
     gemms = []
     if embeds:
         gemms.append((x_of(cfg.frontend_dim), params["frontend_proj"]["w"]))
@@ -3199,10 +3291,9 @@ def time_k1(torch, kernels, params, cfg, rows: int, embeds: bool = False):
                   for part in (layer["mixer"], layer["mlp"])
                   for lin in part.values()
                   if isinstance(lin, dict) and "w" in lin]
-    head_rows = rows if rows <= 8 else 1
-    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
+    table = params[head]["table"]
     gemms.append((x_of(cfg.d_model)[:head_rows], table.T))
-    return time_gemms(torch, kernels, gemms)
+    return gemms
 
 
 def time_gemms(torch, kernels, gemms):
@@ -3227,13 +3318,14 @@ def time_gemms(torch, kernels, gemms):
 
 
 def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False,
-            pos=None, pmax=16):
+            pos=None, pmax=16, plain=True):
     """One decode step of K2 (a launch a layer) at a row each of ``pos``
     (default: the 8 positions the serve phase ends at), ``pmax`` pages a
     table row: qwen2.5-0.5b's layout (14/2 heads, hd 64, 24 layers)
     unless ``heads``/``layers`` say otherwise, on bf16 pools or
     (``quant``) int8 pools; with the host microseconds a
-    ``paged_attention`` call."""
+    ``paged_attention`` call.  ``plain=False`` leaves the plain version
+    (thousands of small kernels a call) untimed."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     pos = pos or [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
     q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos,
@@ -3247,8 +3339,10 @@ def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False,
         return lambda: [fn(q, pk, pv, table, pos_t, *scales)
                         for _ in range(layers)]
 
-    out = _times(torch, {"ms": run(kernels.paged_attention),
-                         "plain_ms": run(kernels.paged_attention_plain)})
+    fns = {"ms": run(kernels.paged_attention)}
+    if plain:
+        fns["plain_ms"] = run(kernels.paged_attention_plain)
+    out = _times(torch, fns)
     out.update(_host_us(torch, {"host_us": run(kernels.paged_attention)},
                         layers))
     h, hkv, hd = heads
@@ -3263,41 +3357,48 @@ def time_k2(torch, kernels, heads=K2_HEADS[0], layers=24, quant=False,
             "launches_timed": layers, "heads": list(heads)}
 
 
-def time_k4(torch, kernels, params, cfg, n_tokens: int):
+def time_k4(torch, kernels, params, cfg, n_tokens: int, ranks: int = 1):
     """All K4 work of one forward over ``n_tokens`` tokens: up, gate and
     down of every layer (3 launches a layer), each layer's expert sizes
     routed by its own router from random hidden states, at the row
-    block and flat size the MoE layer picks for that count.  The bound
-    counts the weights of the experts that hold rows, the live input
-    rows and the whole output; FLOPs count live rows only."""
+    block and flat size the MoE layer picks for that count.  With
+    ``ranks`` > 1, as expert parallelism's ``"psum"`` runs it: each rank
+    its ``E / ranks`` local experts (3 launches a layer a rank).  The
+    bound counts the weights of the experts that hold rows, the live
+    input rows and the whole output; FLOPs count live rows only."""
     from repro_torch.models import moe
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     d, ff = cfg.d_model, cfg.d_ff
     e, k = cfg.moe.n_experts, cfg.moe.top_k
+    el = e // ranks
     cap = moe._capacity(n_tokens, e, k, cfg.moe.capacity_factor)
     bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
-    m_flat = e * (-(-cap // bm)) * bm
-    gids = torch.arange(e, dtype=torch.int32, device="cuda")
+    m_flat = el * (-(-cap // bm)) * bm
+    gids = torch.arange(el, dtype=torch.int32, device="cuda")
     calls, nbytes, flops, live = [], 0, 0, []
     for layer in params["layers"]:
         p = layer["moe"]
         h = torch.randn(n_tokens, d, device="cuda", generator=gen)
         topi = torch.topk(torch.softmax(h @ p["router"], -1), k, -1).indices
-        sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
+        all_sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
             max=cap).to(torch.int32)
-        offs = kernels.flat_group_offsets(sizes, bm)
         x_d = torch.randn(m_flat, d, device="cuda",
                           generator=gen).bfloat16()
         x_ff = torch.randn(m_flat, ff, device="cuda",
                            generator=gen).bfloat16()
-        rows, active = int(sizes.sum()), int((sizes > 0).sum())
-        live.append([rows, active])
-        for x, w in ((x_d, p["up"]), (x_d, p["gate"]), (x_ff, p["down"])):
-            calls.append((x, w, offs, sizes))
-            kk, nn = w.shape[1:]
-            nbytes += 2 * (active * kk * nn + rows * kk + m_flat * nn)
-            flops += 2 * rows * kk * nn
+        for r in range(ranks):
+            sizes = all_sizes[r * el:(r + 1) * el]
+            offs = kernels.flat_group_offsets(sizes, bm)
+            rows, active = int(sizes.sum()), int((sizes > 0).sum())
+            live.append([rows, active])
+            for x, w in ((x_d, p["up"]), (x_d, p["gate"]),
+                         (x_ff, p["down"])):
+                w = w[r * el:(r + 1) * el]
+                calls.append((x, w, offs, sizes))
+                kk, nn = w.shape[1:]
+                nbytes += 2 * (active * kk * nn + rows * kk + m_flat * nn)
+                flops += 2 * rows * kk * nn
 
     def run(fn):
         return lambda: [fn(x, w, offs[:-1], sizes, gids, block_rows=bm)
@@ -4128,9 +4229,10 @@ def serve_coexec(torch, np, cfg, params):
     return launches
 
 
-def time_k2_int8(torch, kernels, heads=K2_HEADS[0], layers=24):
+def time_k2_int8(torch, kernels, heads=K2_HEADS[0], layers=24,
+                 plain=True):
     """:func:`time_k2` on int8 pools (``quantize_page_pool``)."""
-    return time_k2(torch, kernels, heads, layers, quant=True)
+    return time_k2(torch, kernels, heads, layers, quant=True, plain=plain)
 
 
 def time_k3(torch, kernels, params, cfg, rows: int = 8):
@@ -4284,6 +4386,691 @@ def drive_k6(torch, kernels):
     return _drive(torch, "coexec", lambda: [
         kernels.coexec_matmul(xs, ws, order=order)
         for xs, ws, _, order in cases])
+
+
+
+# --------------------------------------------------------------------------
+# Phase 18: sharded serving on virtual meshes over one card
+# --------------------------------------------------------------------------
+# Every shard of a virtual mesh is its own allocation on cuda:0, and its
+# kernels run in turn.  qwen2.5-0.5b splits its 14/2 heads at model 2
+# (GQA 7/1 a shard) and not at 4 (attention runs once, on caches split on
+# the sequence); phi3.5-moe-42b's 32/8 heads split at 2 (16/4) and 4
+# (8/2), its 16 experts 8 and 4 a rank.
+SHARD_MESHES = ((1, 2), (1, 4))
+SHARD_K1_ROWS = (8, 200, 256)
+SHARD_K2_HEADS = ((7, 1, 64), (16, 4, 128), (8, 2, 128))
+# A sharded engine's first decode step against the meshless engine's, in
+# bf16 over 24 layers: each row-parallel projection rounds its ranks'
+# partial sums to bf16 (2^-9 relative each) before the f32 reduction,
+# where one K1 launch rounds the whole sum once, and K1 sums in other
+# orders at the shard widths.  Those 48 perturbations of 2^-9 to 2^-8
+# of an activation a step add up like a random walk: sqrt(48) * 2^-8 is
+# about 2^-5.2 of a logit's scale.  The bound is COALESCED_REL, 2^-4 of
+# the largest logit magnitude, the tolerance the meshless engine already
+# takes for another summation order through the same 24 layers.
+SHARDED_REL = COALESCED_REL
+
+
+def _split_over_model(spec) -> bool:
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+               for e in spec)
+
+
+def _shard_weights(torch, cfg, shape):
+    """Rank 0's weight shapes of one layer and the LM head on a mesh of
+    ``shape``, from the sharding rules (``param_specs``, the serving
+    layout): ``{name: (k, n)}``."""
+    from repro_torch.distributed import param_specs, virtual_mesh
+    from repro_torch.distributed.mesh import local_shape
+    from repro_torch.models.common import padded_vocab
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    meta = {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
+            "v": (d, cfg.n_kv_heads * hd), "o": (cfg.n_heads * hd, d)}
+    tree = {"embed": {"table": (padded_vocab(cfg.vocab_size), d)},
+            "layers": [{"mixer": {n: {"w": s} for n, s in meta.items()}}]}
+    if cfg.moe is None:
+        tree["layers"][0]["mlp"] = {"up": {"w": (d, cfg.d_ff)},
+                                    "gate": {"w": (d, cfg.d_ff)},
+                                    "down": {"w": (cfg.d_ff, d)}}
+    tree = _tree_map(lambda s: torch.empty(s, device="meta"), tree)
+    mesh = virtual_mesh(shape, "cpu")
+    specs = param_specs(tree, cfg, mesh, fsdp=False)
+    out = {f"{part} {n}": local_shape(lin["w"].shape,
+                                      specs["layers"][0][part][n]["w"], mesh)
+           for part, lins in tree["layers"][0].items()
+           for n, lin in lins.items()}
+    v, dd = local_shape(tree["embed"]["table"].shape,
+                        specs["embed"]["table"], mesh)
+    out["lm_head trans_b"] = (dd, v)
+    return out
+
+
+def check_shard_kernels(torch, kernels, gen) -> dict:
+    """K1 at the shard widths of qwen2.5-0.5b and phi3.5-moe-42b on
+    (1, 2) and (1, 4) (``_shard_weights``), at rows ``SHARD_K1_ROWS``;
+    K2 at the shard layouts ``SHARD_K2_HEADS``, float and int8 pools;
+    ``paged_attention_sharded`` on a virtual (1, 2) mesh at qwen's
+    layout; K4 on 8 and 4 local experts at decode, prefix segments, and
+    on ``a2a_segments`` tables: each against its plain version, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.distributed.mesh import P, Sharded
+    from repro_torch.models.moe import _capacity
+
+    worst = {"sisa_gemm": 0.0, "paged_attn": 0.0, "paged_attn_int8": 0.0,
+             "grouped_gemm": 0.0}
+    widths = set()
+    for name in ("qwen2.5-0.5b", "phi3.5-moe-42b"):
+        cfg = get_config(name)
+        for shape in SHARD_MESHES:
+            for what, (k, n) in _shard_weights(torch, cfg, shape).items():
+                widths.add((k, n))
+                b = (torch.randn(n, k, device="cuda", generator=gen)
+                     / k ** 0.5).bfloat16().T if "trans_b" in what else (
+                    torch.randn(k, n, device="cuda", generator=gen)
+                    / k ** 0.5).bfloat16()
+                for m in SHARD_K1_ROWS:
+                    a = torch.randn(m, k, device="cuda",
+                                    generator=gen).bfloat16()
+                    ref = kernels.sisa_gemm_plain(a, b)
+                    worst["sisa_gemm"] = max(worst["sisa_gemm"], _max_err(
+                        f"K1 {name} {shape} {what} {k}x{n} M={m}",
+                        kernels.sisa_matmul(a, b), ref, BF16_REL,
+                        _f32_atol(ref)))
+    for heads in SHARD_K2_HEADS:
+        pos = [0, 15, 16, 47, 100, 150, 200, 255]
+        q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16,
+                                               pos, heads=heads)
+        for quant in (False, True):
+            pools = _int8_pools(kernels, pk, pv) if quant else (pk, pv)
+            key = "paged_attn_int8" if quant else "paged_attn"
+            worst[key] = max(worst[key], _max_err(
+                f"K2 {'int8 ' if quant else ''}{heads}",
+                kernels.paged_attention(q, *pools[:2], table, pos_t,
+                                        *pools[2:]),
+                kernels.paged_attention_plain(q, *pools[:2], table, pos_t,
+                                              *pools[2:]),
+                BF16_REL, 1e-5))
+    # The sharded call against one K2 launch on the whole heads.
+    mesh = virtual_mesh((1, 2), "cuda:0")
+    q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16, pos)
+    got = kernels.paged_attention_sharded(
+        Sharded.of(q, P(None, "model"), mesh),
+        Sharded.of(pk, P(None, None, "model"), mesh),
+        Sharded.of(pv, P(None, None, "model"), mesh), table, pos_t,
+        mesh=mesh).gather()
+    worst["paged_attn"] = max(worst["paged_attn"], _max_err(
+        "paged_attention_sharded (1, 2) 14/2", got,
+        kernels.paged_attention(q, pk, pv, table, pos_t), BF16_REL, 1e-5))
+    # K4 on the local experts: "psum" decode prefixes, "all_to_all" tables.
+    d, ff, e = MOE_D, MOE_FF, MOE_E
+    ws = {(kk, nn): (torch.randn(e, kk, nn, device="cuda", generator=gen)
+                     / kk ** 0.5).bfloat16()
+          for kk, nn in ((d, ff), (ff, d))}
+    cap = _capacity(8, e, 2, 1.25)
+    decode = torch.tensor([2, 0, 1, 1, 0, 2, 3, 0, 1, 1, 2, 0, 1, 1, 1, 0],
+                          dtype=torch.int32, device="cuda")
+    n_k4 = 0
+    for ms in (2, 4):
+        el = e // ms
+        for r in range(ms):
+            sizes = decode[r * el:(r + 1) * el]
+            bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
+            starts = kernels.flat_group_offsets(sizes, bm)[:-1]
+            gids = torch.arange(el, dtype=torch.int32, device="cuda")
+            layouts = [("psum", el * (-(-cap // bm)) * bm, starts, sizes,
+                        gids, bm)]
+            recv = torch.randint(0, cap + 1, (ms, el), device="cuda",
+                                 generator=gen, dtype=torch.int32)
+            a_starts, a_sizes, a_gids = kernels.a2a_segments(el, ms, cap,
+                                                             recv)
+            a_bm = kernels.aligned_block_rows(min(cap, 64), ff, d,
+                                              torch.bfloat16, align_to=cap)
+            layouts.append(("all_to_all", el * ms * cap, a_starts, a_sizes,
+                            a_gids, a_bm))
+            for impl, m, st, sz, gd, bmm in layouts:
+                for (kk, nn), w in ws.items():
+                    x = torch.randn(m, kk, device="cuda",
+                                    generator=gen).bfloat16()
+                    wl = w[r * el:(r + 1) * el]
+                    ref = kernels.segment_grouped_gemm_plain(
+                        x, wl, st, sz, gd, block_rows=bmm)
+                    worst["grouped_gemm"] = max(
+                        worst["grouped_gemm"], _max_err(
+                            f"K4 {impl} ms {ms} rank {r} {kk}x{nn}",
+                            kernels.segment_grouped_gemm(
+                                x, wl, st, sz, gd, block_rows=bmm),
+                            ref, BF16_REL, _f32_atol(ref)))
+                    n_k4 += 1
+    _say(f"phase 18 kernels: K1 at the shard widths {sorted(widths)} "
+         f"(rows {SHARD_K1_ROWS}), K2 at GQA {SHARD_K2_HEADS} on bf16 and "
+         f"int8 pools and paged_attention_sharded on a virtual (1, 2) mesh "
+         f"against one launch on the whole heads, K4 on 8 and 4 local "
+         f"experts ({n_k4} cases: decode prefixes and a2a_segments tables) "
+         f"agree with their plain versions (max abs err "
+         f"{json.dumps(worst)}; bf16 2^-7*|ref| + atol)")
+    return worst
+
+
+def check_sharded_small(torch, np, label, cfg) -> None:
+    """``cfg`` (float32) through the slot and paged engines on virtual
+    (1, 2) and (2, 2) meshes on the card: tokens identical to the CPU
+    engine without a mesh (plain versions).  An MoE model also runs
+    ``"all_to_all"`` EP on (1, 2), against the CPU's (1, 2) mesh under
+    it (each shard's own capacity: its own tokens)."""
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.models import init_params, moe
+    from repro_torch.serve import make_engine, Request
+
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = _tree_map(lambda t: t.cuda(), cpu)
+    cases = [("psum", "cpu", None), ("psum", "cuda:0", (1, 2)),
+             ("psum", "cuda:0", (2, 2))]
+    if cfg.moe is not None:
+        cases += [("all_to_all", "cpu", (1, 2)),
+                  ("all_to_all", "cuda:0", (1, 2))]
+    try:
+        for kind in ("slot", "paged"):
+            outs = {}
+            for impl, dev, shape in cases:
+                moe.set_ep_impl(impl)
+                kw = (dict(device="cpu") if shape is None
+                      else dict(mesh=virtual_mesh(shape, dev)))
+                eng = make_engine(cfg, cpu if dev == "cpu" else gpu,
+                                  kind=kind, max_slots=4, max_seq=64,
+                                  page_size=16, window=4, **kw)
+                reqs = _small_requests(Request, np, cfg, kind, SMALL_LENS)
+                for req in reqs:
+                    req.max_new_tokens = 12
+                outs[impl, dev, shape] = [
+                    (c.rid, c.tokens)
+                    for c in _serve_offline(eng, kind, reqs, 64)]
+                want = outs[impl, "cpu", None if impl == "psum" else shape]
+                if outs[impl, dev, shape] != want:
+                    raise AssertionError(
+                        f"sharded small model ({label}), {kind} {impl} on "
+                        f"{dev} {shape}: tokens {outs[impl, dev, shape]} "
+                        f"differ from the CPU's {want}")
+    finally:
+        moe.set_ep_impl("psum")
+    _say(f"sharded small model ({label}, {cfg.n_layers} layers, f32): slot "
+         f"and paged on virtual (1, 2) and (2, 2) meshes of the card, "
+         f"tokens identical to the CPU engine without a mesh"
+         + ("; all_to_all EP on (1, 2) identical to the CPU's (1, 2) mesh"
+            if cfg.moe is not None else ""))
+
+
+def _capture_first_step(store, cfg):
+    """A ``before_serve`` hook: after the warmup, the first decode step's
+    logits of the live rows, their rids, and the launches of that one
+    step, appended to ``store``."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    def hook(eng):
+        decode = eng.decode_fn
+
+        def first_step(*args):
+            before = {k: c.n for k, c in LAUNCH_COUNTERS.items()}
+            logits, caches = decode(*args)
+            if not store:
+                live = [i for i, r in enumerate(eng._req) if r is not None]
+                store.append((logits[live, 0, :cfg.vocab_size].float()
+                              .clone(), [eng._req[i].rid for i in live],
+                              {k: c.n - before[k] for k, c
+                               in LAUNCH_COUNTERS.items()
+                               if c.n > before[k]}))
+            return logits, caches
+        eng.decode_fn = first_step
+    return hook
+
+
+def _predicted_launches(eng, cfg) -> dict:
+    """K1 and K2 launches of one decode step from the placed specs: a
+    linear split over ``model`` launches once a rank, a whole one once;
+    K2 (paged storage only) once a rank a layer where the pools' spec
+    splits the KV heads, else once a layer."""
+    ranks = eng.mesh.shape["model"]
+    specs = eng.params.specs
+    k1 = 0
+    for layer in specs["layers"]:
+        for part in ("mixer", "mlp"):
+            for lin in layer.get(part, {}).values():
+                if isinstance(lin, dict) and "w" in lin:
+                    k1 += ranks if _split_over_model(lin["w"]) else 1
+    head = "lm_head" if "lm_head" in specs else "embed"
+    k1 += ranks if _split_over_model(specs[head]["table"]) else 1
+    pools = getattr(eng.cache, "pools", None)
+    if pools is None:
+        k2 = 0
+    else:
+        spec = tuple(pools["pk"].spec) + (None,) * 5
+        k2 = cfg.n_layers * (ranks if spec[3] is not None else 1)
+    return {"sisa_gemm": k1, "paged_attn": k2}
+
+
+def _storage_bytes(eng) -> dict:
+    """Bytes of each stack of the engine's storage a rank (its own
+    tensors), and the whole tables."""
+    from repro_torch.distributed.mesh import Sharded
+
+    store = eng.cache.pools if hasattr(eng.cache, "pools") \
+        else eng.cache.buffers
+    out = {name: t.nbytes() for name, t in store.items()
+           if isinstance(t, Sharded)}
+    if hasattr(eng.cache, "tables"):
+        out["tables"] = sum(t.numel() * t.element_size()
+                            for t in eng.cache.tables().values())
+    return out
+
+
+def serve_sharded_qwen(torch, np, kernels) -> dict:
+    """Full-width qwen2.5-0.5b (24 layers, bf16) through slot and paged
+    on virtual (1, 2) and (1, 4) meshes of the card, the qwen workload
+    at ``max_slots=8, max_seq=256, page_size=16``, beside the engine
+    without a mesh (each warmed at rung 8, where the workload runs): K1
+    and K2 launches of the first decode step as the specs predict,
+    per-rank storage bytes summing to the meshless engine's, the first
+    decode step's logits within ``SHARDED_REL``, tokens that agree
+    counted, one profiled window (paged on (1, 2)) and K1 timed at a
+    sharded decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.models import init_params
+
+    cfg = get_config("qwen2.5-0.5b")
+    params = init_params(cfg, seed=0)
+    out = {"serves": {}, "k1": {}}
+
+    def capture(store):
+        return _capture_first_step(store, cfg)
+
+    for kind in ("slot", "paged"):
+        need = ("sisa_gemm",) + (("paged_attn",) if kind == "paged" else ())
+        ref_store = []
+        ref, _, _, ref_outs = serve_full_width(
+            torch, np, cfg, need, params=params, kind=kind,
+            warm_rungs=(8,), before_serve=capture(ref_store))
+        ref_bytes = ref.cache.resident_bytes()
+        del ref
+        for shape in SHARD_MESHES:
+            store = []
+            eng, _, launches, outs = serve_full_width(
+                torch, np, cfg, need, params=params, kind=kind,
+                mesh=virtual_mesh(shape, "cuda:0"), warm_rungs=(8,),
+                before_serve=capture(store))
+            (got, rids, measured), (want, want_rids, _) = (store[0],
+                                                           ref_store[0])
+            if rids != want_rids:
+                raise AssertionError(f"first decode step rows {rids} vs "
+                                     f"{want_rids}")
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if not err <= SHARDED_REL * scale:
+                raise AssertionError(
+                    f"{kind} on {shape}: first decode step's logits off by "
+                    f"{err} > {SHARDED_REL} * {scale}")
+            agree = sum(a == b for o, r in zip(outs, ref_outs)
+                        for a, b in zip(o.tokens, r.tokens))
+            same = sum(o.tokens == r.tokens for o, r in zip(outs, ref_outs))
+            predicted = _predicted_launches(eng, cfg)
+            # One window profiled (the profiler's post-processing of a
+            # sharded window's events is slow); the others counted
+            # unprofiled.
+            for name, n in predicted.items():
+                if measured.get(name, 0) != n:
+                    raise AssertionError(
+                        f"{kind} on {shape}: {name} {measured.get(name, 0)} "
+                        f"launches a decode step, predicted {n}")
+            nbytes = _storage_bytes(eng)
+            total = sum(sum(v) if isinstance(v, list) else v
+                        for v in nbytes.values())
+            if total != ref_bytes:
+                raise AssertionError(f"{kind} on {shape}: {total} bytes of "
+                                     f"storage, the meshless {ref_bytes}")
+            if (kind, shape) == ("paged", (1, 2)):
+                # One sharded window profiled, at 2 steps: the profiler's
+                # post-processing grows with the window's events.
+                prof = profile_window(torch, np, eng, cfg, steps=2)
+                if prof["queued_after_admission"] or \
+                        prof["launches_a_step"] != {k: float(v) for k, v
+                                                    in measured.items()}:
+                    raise AssertionError(f"profiled window: {prof}")
+            rec = {"launches_a_step": measured, "predicted": predicted,
+                   "serve_launches": launches, "storage_bytes": nbytes,
+                   "first_step_logits_max_abs_err": err,
+                   "first_step_logits_rel_to_max": err / scale,
+                   "tokens_agreeing": agree,
+                   "tokens": sum(len(r.tokens) for r in ref_outs),
+                   "completions_equal": same}
+            out["serves"][f"{kind} {shape}"] = rec
+            _say(f"sharded serve qwen2.5-0.5b {kind} on a virtual {shape} "
+                 f"mesh: {json.dumps(rec)}")
+            if kind == "paged":
+                gemms = _k1_gemms(torch, None, cfg, 8, ranks=eng.params)
+                if len(gemms) != predicted["sisa_gemm"]:
+                    raise AssertionError(f"{len(gemms)} timed GEMMs, "
+                                         f"{predicted['sisa_gemm']} a step")
+                out["k1"][shape] = time_gemms(torch, kernels, gemms)
+                _say(f"k1 sharded decode step {shape} (rung 8, "
+                     f"{len(gemms)} GEMMs over the ranks): "
+                     f"{json.dumps(out['k1'][shape])}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    return out
+
+
+# A sharded MoE layer against the meshless one on the same input rows.
+# The router is whole on every rank and sees the same rows (under
+# all_to_all each rank's chunk, compared with the meshless layer on that
+# chunk, which has the same capacity), so both pick the same top-2
+# experts for every token: that is checked, not assumed.  They then
+# differ only where K4's plan for the local experts sums K in another
+# order than the plan for all of them, so gate, up and down may each
+# round to another bf16 neighbour (2^-8 of an element), and a rank's
+# output is rounded once more before the f32 sum: a few 2^-8 of the
+# terms, under 2^-6 of the largest output.  The bound takes 2^-5.  An
+# expert on the wrong rank, or a rank's rows at the wrong offsets, puts
+# whole outputs of the order of the largest in the wrong place.
+EP_LAYER_REL = 2.0 ** -5
+
+
+def _spy_routes(moe):
+    """Wrap ``moe._route`` to record each call's input rows, weights and
+    top-k choices; returns the record and the function that unwraps."""
+    route, calls = moe._route, []
+
+    def spy(x, p, cfg, valid):
+        rt = route(x, p, cfg, valid)
+        calls.append((x, p, rt["topi"]))
+        return rt
+
+    moe._route = spy
+
+    def undo():
+        moe._route = route
+    return calls, undo
+
+
+def _top2_flips(a, b) -> int:
+    """Tokens whose top-k expert sets differ between two routings."""
+    return int((a.sort(dim=-1).values != b.sort(dim=-1).values).any(-1)
+               .sum().item())
+
+
+def check_moe_ep_layers(torch, np, cfg, params) -> dict:
+    """Every MoE layer of ``params`` (phi3.5-moe-42b at full width, bf16)
+    on virtual (1, 2) and (1, 4) meshes of the card under ``"psum"`` and
+    ``"all_to_all"``, against the meshless layer on the same input rows
+    (those the meshless prefill of the 200-token prompt gives it):
+    routing identical, outputs within ``EP_LAYER_REL`` of the largest.
+    This is the check that a routing flip cannot move."""
+    from repro_torch.distributed import place_params, virtual_mesh
+    from repro_torch.models import forward_prefill, moe
+
+    rng = np.random.default_rng(0)
+    prompt = _requests(lambda **kw: kw["prompt"], rng, cfg.vocab_size,
+                       PROMPT_LENS)[-1]
+    calls, undo = _spy_routes(moe)
+    try:
+        forward_prefill(params, cfg, {"tokens": torch.as_tensor(
+            prompt[None], device="cuda:0")})
+    finally:
+        undo()
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"{len(calls)} routings for {cfg.n_layers} "
+                             "MoE layers")
+    inputs = [(x, p) for x, p, _ in calls]
+    out = {}
+    for ranks in (2, 4):
+        mesh = virtual_mesh((1, ranks), "cuda:0")
+        worst = {"psum": 0.0, "all_to_all": 0.0}
+        for x, p in inputs:
+            local = [t["layers"][0]["moe"] for t in
+                     place_params({"layers": [{"moe": p}]}, cfg, mesh).local]
+            if local[0]["up"].shape[0] != cfg.moe.n_experts // ranks:
+                raise AssertionError(f"{local[0]['up'].shape[0]} experts a "
+                                     f"rank at {ranks} ranks")
+            chunks = torch.chunk(x, ranks, dim=1)
+            for impl in ("psum", "all_to_all"):
+                moe.set_ep_impl(impl)
+                calls, undo = _spy_routes(moe)
+                try:
+                    want = (moe.moe_apply(p, x, cfg)[0] if impl == "psum"
+                            else torch.cat([moe.moe_apply(p, c, cfg)[0]
+                                            for c in chunks], dim=1))
+                    n_want = len(calls)
+                    got = moe.moe_apply(local, x, cfg, mesh=mesh)[0]
+                finally:
+                    undo()
+                    moe.set_ep_impl("psum")
+                torch.cuda.synchronize()
+                want_routes = [c[2] for c in calls[:n_want]]
+                got_routes = [c[2] for c in calls[n_want:]]
+                if impl == "psum":
+                    want_routes = want_routes * ranks   # each rank: all rows
+                if len(got_routes) != ranks or any(
+                        not torch.equal(a, b)
+                        for a, b in zip(want_routes, got_routes)):
+                    raise AssertionError(f"{impl} at {ranks} ranks: routing "
+                                         "differs from the meshless layer's")
+                rel = ((got.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                if not rel <= EP_LAYER_REL:
+                    raise AssertionError(
+                        f"{impl} at {ranks} ranks: a MoE layer off by {rel} "
+                        f"of the largest output > {EP_LAYER_REL}")
+                worst[impl] = max(worst[impl], rel)
+            del local
+        out[f"(1, {ranks})"] = worst
+    del inputs, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say(f"sharded MoE layers phi3.5-moe-42b ({cfg.n_layers} layers, 200 "
+         f"rows each, routing identical to the meshless layer's): worst "
+         f"output error over the largest {json.dumps(out)} (bound "
+         f"{EP_LAYER_REL})")
+    return out
+
+
+def explain_moe_divergence(torch, np, cfg, params) -> dict:
+    """The workload's 8 prompts prefilled without a mesh and on a virtual
+    (1, 2) mesh under ``"psum"``: per layer, the tokens whose top-2
+    expert set differs between the two; per prompt, the prefill logits'
+    error over the largest.  Every prompt whose logits are off by more
+    than ``SHARDED_REL`` must have a routing flip, and the prompts that
+    route identically in every layer must be within it."""
+    from repro_torch.distributed import place_params, virtual_mesh
+    from repro_torch.models import forward_prefill, moe
+
+    mesh = virtual_mesh((1, 2), "cuda:0")
+    placed = place_params(params, cfg, mesh)
+    rng = np.random.default_rng(0)
+    prompts = _requests(lambda **kw: kw["prompt"], rng, cfg.vocab_size,
+                        PROMPT_LENS)
+    flips = [0] * cfg.n_layers
+    rows = []
+    moe.set_ep_impl("psum")
+    for prompt in prompts:
+        tokens = torch.as_tensor(prompt[None], device="cuda:0")
+        got = {}
+        for label, tree, m in (("meshless", params, None),
+                               ("psum", placed, mesh)):
+            calls, undo = _spy_routes(moe)
+            try:
+                logits = forward_prefill(tree, cfg, {"tokens": tokens},
+                                         mesh=m)[0]
+            finally:
+                undo()
+            got[label] = (logits[0, -1, :cfg.vocab_size].float(),
+                          [c[2] for c in calls])
+        a, b = got["meshless"][1], got["psum"][1]
+        if len(b) != 2 * len(a) or any(not torch.equal(x, y)
+                                       for x, y in zip(b[::2], b[1::2])):
+            raise AssertionError("psum ranks routed a layer differently")
+        per_layer = [_top2_flips(x, y) for x, y in zip(a, b[::2])]
+        flips = [f + g for f, g in zip(flips, per_layer)]
+        want = got["meshless"][0]
+        rel = ((got["psum"][0] - want).abs().max()
+               / want.abs().max()).item()
+        rows.append({"len": len(prompt), "flips": sum(per_layer),
+                     "first_flip_layer": next(
+                         (i for i, f in enumerate(per_layer) if f), None),
+                     "logits_rel": rel})
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    unexplained = [r for r in rows if r["flips"] == 0
+                   and not r["logits_rel"] <= SHARDED_REL]
+    if unexplained:
+        raise AssertionError(f"prompts routed identically in every layer "
+                             f"but off by more than {SHARDED_REL}: "
+                             f"{unexplained}")
+    out = {"flips_by_layer": flips,
+           "routings": cfg.n_layers * sum(len(p) for p in prompts),
+           "prompts": rows,
+           "clean_prompts": sum(r["flips"] == 0 for r in rows),
+           "clean_max_rel": max((r["logits_rel"] for r in rows
+                                 if r["flips"] == 0), default=None),
+           "divergent_prompts_all_flipped": all(
+               r["flips"] > 0 for r in rows
+               if not r["logits_rel"] <= SHARDED_REL)}
+    _say(f"sharded prefill phi3.5-moe-42b on (1, 2) psum vs meshless, top-2 "
+         f"flips and prefill logits: {json.dumps(out)}")
+    return out
+
+
+def serve_sharded_phi(torch, np, kernels) -> dict:
+    """phi3.5-moe-42b at 8 of 32 layers (bf16) through paged without a
+    mesh and on a virtual (1, 2) mesh under ``"psum"`` and
+    ``"all_to_all"`` expert parallelism (the prefills split their
+    sequence for the latter): K1, K2 and K4 launched, tokens compared
+    (psum with the meshless serve, all_to_all with psum); every MoE
+    layer held against the meshless one on the same rows
+    (:func:`check_moe_ep_layers`) and the prefills' routing flips
+    counted against their logits (:func:`explain_moe_divergence`); K4
+    timed at 8 and 4 local experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.models import init_params, moe
+
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
+                              n_layers=MOE_LAYERS)
+    params = init_params(cfg, seed=0)
+    out = {}
+    firsts = {"meshless": []}
+    eng, _, _, plain = serve_full_width(
+        torch, np, cfg, KERNEL_NAMES, params=params, kind="paged",
+        warm_rungs=(8,), before_serve=_capture_first_step(
+            firsts["meshless"], cfg))
+    del eng
+    outs = {}
+    try:
+        for impl in ("psum", "all_to_all"):
+            moe.set_ep_impl(impl)
+            firsts[impl] = []
+            eng, _, launches, outs[impl] = serve_full_width(
+                torch, np, cfg, KERNEL_NAMES, params=params, kind="paged",
+                mesh=virtual_mesh((1, 2), "cuda:0"), warm_rungs=(8,),
+                before_serve=_capture_first_step(firsts[impl], cfg))
+            out[impl] = launches
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe.set_ep_impl("psum")
+
+    def agreement(a_outs, b_outs):
+        pairs = list(zip(a_outs, b_outs))
+        return {"completions": sum(a.tokens == b.tokens for a, b in pairs),
+                "first_tokens": sum(a.tokens[0] == b.tokens[0]
+                                    for a, b in pairs),
+                "tokens": sum(x == y for a, b in pairs
+                              for x, y in zip(a.tokens, b.tokens)),
+                "of": sum(len(a.tokens) for a, _ in pairs)}
+
+    def rel(a, b):
+        """Max abs difference of two first decode steps' logits over the
+        largest magnitude of ``b``'s."""
+        return ((firsts[a][0][0] - firsts[b][0][0]).abs().max()
+                / firsts[b][0][0].abs().max()).item()
+
+    out["agreement"] = {"psum_vs_meshless": agreement(outs["psum"], plain),
+                        "all_to_all_vs_psum": agreement(outs["all_to_all"],
+                                                        outs["psum"])}
+    out["first_step_logits_rel"] = {
+        "psum_vs_meshless": rel("psum", "meshless"),
+        "all_to_all_vs_psum": rel("all_to_all", "psum")}
+    _say(f"sharded serve phi3.5-moe-42b ({cfg.n_layers} layers) paged on "
+         f"(1, 2), agreement (completions, first tokens, tokens): "
+         f"{json.dumps(out['agreement'])}, the first decode step's logits "
+         f"off by {json.dumps(out['first_step_logits_rel'])} of the "
+         f"largest (all_to_all gives each shard its own capacity at "
+         f"prefill)")
+    out["ep_layers"] = check_moe_ep_layers(torch, np, cfg, params)
+    out["prefill_routing"] = explain_moe_divergence(torch, np, cfg, params)
+    for ranks in (2, 4):
+        out[f"k4_{ranks}"] = time_k4(torch, kernels, params, cfg,
+                                     n_tokens=8, ranks=ranks)
+        _say(f"k4 sharded decode step ({MOE_E // ranks} local experts a "
+             f"rank, {ranks} ranks, {out[f'k4_{ranks}']['launches_timed']} "
+             f"launches): {json.dumps(out[f'k4_{ranks}'])}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sharded_fault(torch, np, cfg) -> None:
+    """``ServeFrontend`` over a virtual (2, 2) mesh of the card whose
+    device probe drops the last two devices mid-serve: the engine
+    re-meshes to (1, 2) and its completions equal an uninterrupted serve
+    on a virtual (1, 2) mesh (``cfg`` in float32)."""
+    from repro_torch.distributed import (simulate_failure, StragglerWatchdog,
+                                         virtual_mesh)
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_engine, ServeFrontend
+
+    params = init_params(cfg, seed=0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype("int32")
+               for n in (5, 13, 9, 21, 7)]
+    budgets = (10, 8, 12, 6, 9)
+    done = {}
+    for label, shape in (("uninterrupted", (1, 2)), ("fault", (2, 2))):
+        mesh = virtual_mesh(shape, "cuda:0")
+        eng = make_engine(cfg, params, kind="paged", mesh=mesh, max_slots=4,
+                          max_seq=64, page_size=16, window=4)
+        devs, calls = list(mesh.devices.flat), [0]
+
+        def probe():
+            calls[0] += 1
+            return simulate_failure(devs, 2) if calls[0] > 2 else devs
+
+        fe = ServeFrontend(eng, watchdog=StragglerWatchdog(),
+                           device_probe=probe if label == "fault" else None)
+        fe.warmup(max_prompt_len=64)
+        handles = [fe.submit(p, b) for p, b in zip(prompts, budgets)]
+        done[label] = [tuple(h.result(300).tokens) for h in handles]
+        metrics = fe.metrics()
+        _shutdown(fe)
+        if label == "fault":
+            if metrics["remeshes"] < 1 or eng.mesh.shape != {"data": 1,
+                                                             "model": 2}:
+                raise AssertionError(f"fault run: remeshes "
+                                     f"{metrics['remeshes']}, mesh "
+                                     f"{eng.mesh.shape}")
+            remeshes = eng.stats["engine"]["remeshes"]
+    if done["fault"] != done["uninterrupted"]:
+        raise AssertionError("fault run: completions differ from the "
+                             "uninterrupted serve")
+    _say(f"sharded fault run ({cfg.name} widths, {cfg.n_layers} layers, "
+         f"f32): ServeFrontend over a virtual (2, 2) mesh lost 2 devices, "
+         f"re-meshed to (1, 2) ({remeshes} remesh), {len(prompts)} "
+         f"completions equal to an uninterrupted serve on (1, 2)")
 
 
 def main() -> int:
@@ -4472,6 +5259,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("whisper-base training")
 
+    t18 = time.perf_counter()
+    shard_err = check_shard_kernels(torch, kernels, gen)
+    smalls = _small_configs()
+    for label in ("qwen2.5-0.5b widths", "phi3.5-moe structure"):
+        check_sharded_small(torch, np, label, smalls[label])
+    sharded = serve_sharded_qwen(torch, np, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_phi = serve_sharded_phi(torch, np, kernels)
+    check_sharded_fault(torch, np, smalls["qwen2.5-0.5b widths"])
+    shard_k2 = {
+        "qwen": time_k2(torch, kernels, SHARD_K2_HEADS[0],
+                        2 * cfg.n_layers, plain=False),
+        "qwen_int8": time_k2_int8(torch, kernels, SHARD_K2_HEADS[0],
+                                  2 * cfg.n_layers, plain=False),
+        "phi2": time_k2(torch, kernels, SHARD_K2_HEADS[1], 2 * MOE_LAYERS,
+                        plain=False),
+        "phi4": time_k2(torch, kernels, SHARD_K2_HEADS[2], 4 * MOE_LAYERS,
+                        plain=False)}
+    for key, t in shard_k2.items():
+        _say(f"k2 sharded decode step {key} (8 rows, GQA {t['heads']}, "
+             f"{t['launches_timed']} launches: the layers x ranks): "
+             f"{json.dumps(t)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _say(f"phase 18 (sharded serving) elapsed: "
+         f"{time.perf_counter() - t18:.1f} s")
+    lap("phase 18: sharded serving")
+    shard_serve = sharded["serves"]
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [
@@ -4498,10 +5315,19 @@ def main() -> int:
                  "launched it whisper_serve_launches times (slot, "
                  "sequential, paged on bf16 and on int8 pools); "
                  "whisper_train_* one step of 8 x (1,500 frames, 448 "
-                 "tokens)",
+                 "tokens); shard_<d>x<m>_* one qwen2.5-0.5b decode step "
+                 "(rung 8) at the shard widths of a virtual (d, m) mesh, "
+                 "every rank's GEMMs; shard_<kind>_<mesh>_launches its "
+                 "sharded serves'",
          "launches": launches["sisa_gemm"],
-         "max_abs_err": max(k1_err, k1_bwd_err),
+         "max_abs_err": max(k1_err, k1_bwd_err, shard_err["sisa_gemm"]),
          **{k: k1[k] for k in keys},
+         **{f"shard_{a}x{b}_{k}": sharded["k1"][(a, b)][k]
+            for a, b in SHARD_MESHES
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_{name.replace(' ', '_').replace(',', '')}_launches":
+            rec["serve_launches"]["sisa_gemm"]
+            for name, rec in shard_serve.items()},
          **{f"{name.split('-')[0]}_{step}_{k}": rec["k1"][rows][k]
             for name, rec in recurrent.items()
             for step, rows in (("decode", 8), ("prefill", 2048))
@@ -4535,7 +5361,12 @@ def main() -> int:
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
-         "note": "times: one qwen2.5-0.5b decode step (24 launches); "
+         "note": "shard_qwen_* one qwen2.5-0.5b decode step on a (1, 2) "
+                 "mesh (GQA 7/1 hd 64, 48 launches), shard_phi2_*/phi4_* "
+                 "phi3.5-moe-42b's 8 layers on (1, 2)/(1, 4) (16/4 and 8/2 "
+                 "hd 128), shard_paged_<mesh>_launches the sharded paged "
+                 "serves'; "
+                 "times: one qwen2.5-0.5b decode step (24 launches); "
                  "phi_* at phi3.5-moe-42b's layout (8 launches); gemma3_* "
                  "at gemma3-1b's (4 launches, 7 rows, pmax 64), launches "
                  "from its paged serve; internvl2_* at internvl2-76b's "
@@ -4543,7 +5374,8 @@ def main() -> int:
                  "paged serve; whisper_* at whisper-base's (GQA 8/8 hd "
                  "64, 6 launches, 8 rows, 28-page tables), launches from "
                  "its paged serve on bf16 pools",
-         "launches": launches["paged_attn"], "max_abs_err": k2_err,
+         "launches": launches["paged_attn"],
+         "max_abs_err": max(k2_err, shard_err["paged_attn"]),
          **{k: k2[k] for k in keys},
          **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
          **{f"gemma3_{k}": k2_gemma[k] for k in (
@@ -4554,12 +5386,26 @@ def main() -> int:
          **{f"whisper_{k}": whisper["paged"]["k2"]["bf16"][k]
             for k in ("ms", "plain_ms", "bound_ms")},
          "whisper_serve_launches":
-             whisper["paged"]["serves"]["bf16"]["k2_launches"]},
+             whisper["paged"]["serves"]["bf16"]["k2_launches"],
+         **{f"shard_{key}_{k}": shard_k2[key][k]
+            for key in ("qwen", "phi2", "phi4") for k in ("ms", "bound_ms")},
+         **{f"shard_paged_{a}x{b}_launches":
+            shard_serve[f"paged ({a}, {b})"]["serve_launches"]["paged_attn"]
+            for a, b in SHARD_MESHES}},
         {"name": "grouped_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
-         "launches": moe_launches["grouped_gemm"], "max_abs_err": k4_err,
-         **{k: k4[k] for k in keys}},
+         "note": "shard_ep<r>_*: one phi3.5-moe-42b decode step (rung 8, 8 "
+                 "layers) with E / r local experts a rank (3 launches a "
+                 "layer a rank); shard_<impl>_launches: its paged serve on "
+                 "a virtual (1, 2) mesh under that EP impl",
+         "launches": moe_launches["grouped_gemm"],
+         "max_abs_err": max(k4_err, shard_err["grouped_gemm"]),
+         **{k: k4[k] for k in keys},
+         **{f"shard_ep{r}_{k}": sharded_phi[f"k4_{r}"][k] for r in (2, 4)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_{impl}_launches": sharded_phi[impl]["grouped_gemm"]
+            for impl in ("psum", "all_to_all")}},
         {"name": "grouped_gemm_dx", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
@@ -4579,16 +5425,21 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",
          "note": "K2's quant=True branch: int8 pools with bf16 scale "
-                 "planes; launches from the kv_quant='int8' serve; phi_* "
+                 "planes; shard_qwen_* at qwen2.5-0.5b's (1, 2) shard "
+                 "layout (GQA 7/1, 48 launches); "
+                 "launches from the kv_quant='int8' serve; phi_* "
                  "at phi3.5-moe-42b's layout; whisper_* at whisper-base's "
                  "(GQA 8/8 hd 64, 6 launches, 28-page tables), launches "
                  "from its int8 paged serve",
          "launches": int8_launches["paged_attn_int8"],
-         "max_abs_err": max(k2_int8_err, k2_pool_err),
+         "max_abs_err": max(k2_int8_err, k2_pool_err,
+                            shard_err["paged_attn_int8"]),
          **{k: k2_int8[k] for k in keys},
          **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")},
          **{f"whisper_{k}": whisper["paged"]["k2"]["int8"][k]
             for k in ("ms", "plain_ms", "bound_ms")},
+         **{f"shard_qwen_{k}": shard_k2["qwen_int8"][k]
+            for k in ("ms", "bound_ms")},
          "whisper_serve_launches":
              whisper["paged"]["serves"]["int8"]["k2_launches"]},
         {"name": "coexec", "route": "cuda",

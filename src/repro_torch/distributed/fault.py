@@ -1,10 +1,16 @@
-"""Straggler detection for the training loop (the single-device part of
-``repro/distributed/fault.py``; elastic re-mesh planning belongs to the
-distributed slice of the port)."""
+"""Fault tolerance: the straggler watchdog and elastic re-mesh planning
+(the port of ``repro/distributed/fault.py``).
+
+A lost device cannot be repaired from inside the program: recovery is
+detect (the watchdog, a device probe) -> exclude the device -> plan a
+smaller mesh (:func:`plan_elastic_mesh`) -> rebuild on it.  The serving
+frontend wires the halves together
+(:meth:`repro_torch.serve.frontend.ServeFrontend._recover`), and the
+tests shrink a device list with :func:`simulate_failure`."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -27,3 +33,20 @@ class StragglerWatchdog:
             self._ewma = dt if self._ewma is None else (
                 (1 - self.alpha) * self._ewma + self.alpha * dt)
         return is_straggler
+
+
+def plan_elastic_mesh(n_healthy: int, *, model_parallel: int = 16,
+                      min_data: int = 1) -> Optional[Tuple[int, int]]:
+    """The largest ``(data, model)`` mesh that fits ``n_healthy``
+    devices: the model axis stays fixed (parameter sharding must stay
+    divisible) and the data axis shrinks; None below ``min_data``."""
+    data = n_healthy // model_parallel
+    if data < min_data:
+        return None
+    return (data, model_parallel)
+
+
+def simulate_failure(devices: Sequence, n_failed: int) -> List:
+    """Test hook: drop the last ``n_failed`` devices (the failed
+    host)."""
+    return list(devices[:len(devices) - n_failed])

@@ -44,7 +44,8 @@ from repro_torch.kernels.coexec import (build_coexec_plan, coexec_matmul,
 from repro_torch.kernels.grouped_gemm import DW_LAUNCHES as _K5_LAUNCHES
 from repro_torch.kernels.grouped_gemm import DX_LAUNCHES as _K4_DX_LAUNCHES
 from repro_torch.kernels.grouped_gemm import LAUNCHES as _K4_LAUNCHES
-from repro_torch.kernels.grouped_gemm import (aligned_block_rows,
+from repro_torch.kernels.grouped_gemm import (a2a_segments,
+                                              aligned_block_rows,
                                               flat_block_rows,
                                               flat_group_offsets,
                                               flat_ragged_gemm, K4Plan,
@@ -63,6 +64,7 @@ from repro_torch.kernels.paged_attn import LAUNCHES_INT8 as _K2_INT8_LAUNCHES
 from repro_torch.kernels.paged_attn import (K2Plan, k2_plan,
                                             paged_attention,
                                             paged_attention_plain,
+                                            paged_attention_sharded,
                                             paged_attention_split_plain,
                                             quantize_page_pool,
                                             set_paged_attn_backend)
@@ -94,6 +96,7 @@ __all__ = ["LAUNCH_COUNTERS", "BlockConfig", "choose_block_config", "sisa_gemm",
            "sisa_einsum_2d",
            "set_default_backend", "row_passes", "paged_attention",
            "paged_attention_plain", "paged_attention_split_plain",
+           "paged_attention_sharded", "a2a_segments",
            "K2Plan", "k2_plan", "set_paged_attn_backend",
            "quantize_page_pool",
            "segment_grouped_gemm", "segment_grouped_gemm_plain",

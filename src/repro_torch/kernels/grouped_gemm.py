@@ -489,3 +489,21 @@ def ragged_grouped_gemm(x: Tensor, w: Tensor, group_sizes, *,
     out = segment_grouped_gemm(x.reshape(g * cp, d), w, ar * cp, group_sizes,
                                ar, block_rows=bm, m_hint=mh)
     return out.reshape(g, cp, f)[:, :c]
+
+
+def a2a_segments(e_local: int, ms: int, cap: int,
+                 recv_sizes) -> tuple:
+    """The segment table of an expert-parallel dispatch buffer after the
+    all-to-all (the reference's ``a2a_segments``): the exchanged buffer
+    is ``(e_local, ms * cap, d)``, in which local expert ``j``'s rows
+    from source rank ``r`` are a dense prefix of ``recv_sizes[r, j]``
+    rows of slice ``[r * cap, (r + 1) * cap)``.  Flattened row-major,
+    segment ``(j, r)`` starts at ``(j * ms + r) * cap``: starts
+    ``cap``-aligned, gids expert-major (non-decreasing), as K4 needs.
+    Built where ``recv_sizes`` lives."""
+    recv = torch.as_tensor(recv_sizes, dtype=torch.int32)
+    ar = torch.arange(e_local * ms, dtype=torch.int32, device=recv.device)
+    sizes = recv.reshape(ms, e_local).t().reshape(-1)
+    gids = torch.arange(e_local, dtype=torch.int32,
+                        device=recv.device).repeat_interleave(ms)
+    return ar * cap, sizes, gids

@@ -24,7 +24,9 @@ under a plan, split by split, then the combine.
 The port has one backend, ``"kernel"``: the operands' device decides.
 CUDA tensors launch K2 (or raise); CPU tensors take
 :func:`paged_attention_plain`, the page-blocked online softmax twin of
-the reference's ``_paged_attention_xla``.
+the reference's ``_paged_attention_xla``.  On a mesh,
+:func:`paged_attention_sharded` launches K2 once a shard, on the shard's
+heads.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed.mesh import P, Sharded
 from repro_torch.kernels import _build
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -366,3 +369,41 @@ def paged_attention(q, pk, pv, table, pos, pk_scale=None, pv_scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     return _paged_attention_kernel(q, pk, pv, table, pos, pk_scale, pv_scale)
+
+
+def paged_attention_sharded(q, pk, pv, table, pos, *, mesh,
+                            model_axis: str = "model",
+                            pk_scale=None, pv_scale=None):
+    """Tensor-parallel :func:`paged_attention` over ``mesh``'s model row
+    (the reference's ``paged_attention_sharded``).
+
+    ``q`` and the pools (and scale planes) are
+    :class:`~repro_torch.distributed.mesh.Sharded`: ``q`` ``(B, H, hd)``
+    split on its heads, the pools ``(pages + sink, page_size, Hkv, hd)``
+    on their KV heads with the page axis whole, as ``cache_specs`` lays
+    them out; ``table`` and ``pos`` are replicated (one tensor, moved to
+    each shard's device).  Heads are independent in the online softmax,
+    so each shard launches K2 on its own query heads and KV-head slice,
+    the GQA ratio intact, and the result is ``q``'s layout.
+
+    Where the model axis does not divide both head counts,
+    ``cache_specs`` lays the pools out on the page interior instead and
+    ``q`` is replicated: the pools are gathered and one unsharded call
+    runs on rank 0's device, its output replicated, as in the
+    reference.  Which of the two runs follows the pools' spec."""
+    scaled = pk_scale is not None
+    entries = tuple(pk.spec) + (None,) * 4
+    if entries[2] is None:
+        scales = (pk_scale.gather(), pv_scale.gather()) if scaled else ()
+        out = paged_attention(q.gather(), pk.gather(), pv.gather(), table,
+                              pos, *scales)
+        return Sharded([out.to(d) for d in mesh.model_devices(model_axis)],
+                       P(), tuple(out.shape), mesh)
+    outs = []
+    for r, qr in enumerate(q.shards):
+        dev = qr.device
+        scales = ((pk_scale.shards[r], pv_scale.shards[r]) if scaled
+                  else ())
+        outs.append(paged_attention(qr, pk.shards[r], pv.shards[r],
+                                    table.to(dev), pos.to(dev), *scales))
+    return Sharded(outs, P(None, model_axis), tuple(q.shape), mesh)

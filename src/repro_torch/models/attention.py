@@ -37,8 +37,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.paged_attn import paged_attention, quantize_page_pool
-from repro_torch.models.common import apply_rope, linear_apply, linear_init
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed.mesh import P, Sharded
+from repro_torch.kernels.paged_attn import (paged_attention,
+                                            paged_attention_sharded,
+                                            quantize_page_pool)
+from repro_torch.models.common import (apply_rope, linear_apply, linear_in,
+                                       linear_init, linear_out, reduce_rows)
 
 Tensor = torch.Tensor
 NEG_INF = torch.finfo(torch.float32).min
@@ -301,14 +306,27 @@ def attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor], pos, cfg
         (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
         for name, new in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
             upd(name, new)
-        kd = _dequant_kv(cache["k"], cache["k_s"], x.dtype)
-        vd = _dequant_kv(cache["v"], cache["v_s"], x.dtype)
     else:
         upd("k", k)
         upd("v", v)
+    return linear_apply(p["o"], _attend_cache(q, cache, pos, cfg,
+                                              x.dtype)), cache
+
+
+def _attend_cache(q: Tensor, cache: Dict[str, Tensor], pos: Tensor, cfg,
+                  dtype) -> Tensor:
+    """``q`` ``(B, 1, H, hd)`` over a dense cache that already holds the
+    step's K/V: int8 caches dequantized to ``dtype``, and the cells whose
+    ring position ``pos - ((pos - j) mod cap)`` is negative masked,
+    ``pos`` a scalar or ``(B,)``.  Returns ``(B, 1, H * hd)``."""
+    cap = cache["k"].shape[1]
+    if "k_s" in cache:
+        kd = _dequant_kv(cache["k"], cache["k_s"], dtype)
+        vd = _dequant_kv(cache["v"], cache["v_s"], dtype)
+    else:
         kd, vd = cache["k"], cache["v"]
-    j = torch.arange(cap, device=x.device)
-    if per_row:
+    j = torch.arange(cap, device=q.device)
+    if pos.dim() == 1:
         logical = pos[:, None] - torch.remainder(pos[:, None] - j[None, :],
                                                  cap)
         mask = (logical >= 0)[:, None, None, :]     # (B,1,1,cap)
@@ -317,8 +335,41 @@ def attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor], pos, cfg
         mask = (logical >= 0)[None, None, None, :]  # (1,1,1,cap)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), mask)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return linear_apply(p["o"], out), cache
+    return out.reshape(q.shape[0], 1, cfg.n_heads * cfg.resolved_head_dim)
+
+
+def _paged_cell(page_table: Tensor, pos: Tensor, psz: int):
+    """Each row's write cell: its physical page and the offset in it.  A
+    row frozen past its last page (admitted at max_seq - 1, then
+    stepped) writes where the reference's clamped gather puts it: its
+    last mapped column.  Its output is discarded."""
+    pos_l = pos.long()
+    col = torch.clamp(pos_l // psz, max=page_table.shape[1] - 1)
+    rows = torch.arange(page_table.shape[0], device=page_table.device)
+    return page_table[rows, col].long(), pos_l % psz
+
+
+def _paged_write(p, x: Tensor, cache: Dict[str, Tensor], page_table: Tensor,
+                 pos: Tensor, cfg) -> Tensor:
+    """Project and RoPE one token's q/k/v, write its K/V (quantized, with
+    its scales, into int8 pools) at its cell in place, and return q
+    ``(B, 1, H, hd)``."""
+    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
+    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    phys, off = _paged_cell(page_table, pos, cache["pk"].shape[1])
+    # The pool is written in place (the reference's .at[].set is
+    # functional): the new K/V lands before K2 launches on the same
+    # stream, so the kernel sees it, as the reference's does.
+    if "pk_s" in cache:
+        (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
+        cache["pk_s"][phys, off] = ks[:, 0]
+        cache["pv_s"][phys, off] = vs[:, 0]
+    cache["pk"][phys, off] = k[:, 0]
+    cache["pv"][phys, off] = v[:, 0]
+    return q
 
 
 def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
@@ -336,31 +387,8 @@ def paged_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     its pages through K2.
     """
     b = x.shape[0]
-    psz = cache["pk"].shape[1]
-    positions = pos[:, None]
-    q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
-    k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
-    v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    pos_l = pos.long()
-    # A row frozen past its last page (admitted at max_seq - 1, then
-    # stepped) writes where the reference's clamped gather puts it: its
-    # last mapped column.  Its output is discarded.
-    col = torch.clamp(pos_l // psz, max=page_table.shape[1] - 1)
-    phys = page_table[torch.arange(b, device=x.device), col].long()
-    off = pos_l % psz
-    # The pool is written in place (the reference's .at[].set is
-    # functional): the new K/V lands before K2 launches on the same
-    # stream, so the kernel sees it, as the reference's does.
-    scales = ()
-    if "pk_s" in cache:
-        (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
-        cache["pk_s"][phys, off] = ks[:, 0]
-        cache["pv_s"][phys, off] = vs[:, 0]
-        scales = (cache["pk_s"], cache["pv_s"])
-    cache["pk"][phys, off] = k[:, 0]
-    cache["pv"][phys, off] = v[:, 0]
+    q = _paged_write(p, x, cache, page_table, pos, cfg)
+    scales = (cache["pk_s"], cache["pv_s"]) if "pk_s" in cache else ()
     out = paged_attention(q[:, 0], cache["pk"], cache["pv"], page_table, pos,
                           *scales)
     out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
@@ -414,3 +442,131 @@ def paged_local_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), mask)
     out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
     return linear_apply(p["o"], out), cache
+
+
+# --------------------------------------------------------------------------
+# On a mesh (repro_torch.models.common.TensorParallel)
+# --------------------------------------------------------------------------
+def _qkv_whole(ps, x: Tensor, cfg, positions: Tensor):
+    """Whole-head q/k/v, RoPE applied, on rank 0's device: each
+    projection column-parallel and gathered where the specs split it
+    (q/o split on ``n_heads``, k/v on ``n_kv_heads``, separately), else
+    one call on the whole weight."""
+    hd = cfg.resolved_head_dim
+    q, k, v = (_split_heads(linear_out([p[n] for p in ps], x, h * hd), h)
+               for n, h in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                            ("v", cfg.n_kv_heads)))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _o_whole(ps, out: Tensor, cfg) -> Tensor:
+    return linear_in([p["o"] for p in ps], out,
+                     cfg.n_heads * cfg.resolved_head_dim)
+
+
+def _write_parts(parts, rows: Tensor, cell: Tensor, new: Tensor,
+                 full: int) -> None:
+    """Write ``new[i]`` at ``[rows[i], cell[i]]`` of a tensor whose dim 1
+    (``full`` wide) the ranks' ``parts`` hold in rank order, each whole
+    where it is replicated.  A rank writes the rows whose cell it holds
+    and writes back what it read elsewhere, so nothing waits on the host
+    for a mask."""
+    for r, buf in enumerate(parts):
+        n = buf.shape[1]
+        local = cell.to(buf.device) - (r * n if n != full else 0)
+        inside = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)
+        rr = rows.to(buf.device)
+        cur = buf[rr, idx]
+        mask = inside.reshape((-1,) + (1,) * (cur.dim() - 1))
+        buf[rr, idx] = torch.where(mask, new.to(buf.device, buf.dtype), cur)
+
+
+def attn_apply_tp(ps, x: Tensor, cfg, tp) -> Tuple[Tensor, Tensor, Tensor]:
+    """Causal global attention over the prompt on a mesh: the output and
+    the whole K/V on rank 0's device (the storage lays them out by its
+    own specs).  With ``tp.head_ok`` each rank runs :func:`attn_apply`
+    on its heads and the ``o`` partials are reduced; otherwise attention
+    runs once, on the whole heads."""
+    if tp.head_ok:
+        outs = [attn_apply(p, x.to(d), tp.cfg_local)
+                for p, d in zip(ps, tp.devices)]
+        mix = reduce_rows([o[0] for o in outs], ps[0]["o"])
+        return (mix, all_gather([o[1] for o in outs], 2)[0],
+                all_gather([o[2] for o in outs], 2)[0])
+    b, s, _ = x.shape
+    q, k, v = _qkv_whole(ps, x, cfg, torch.arange(s, device=x.device)[None])
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                _causal_mask(s, s, None, x.device))
+    return _o_whole(ps, out.reshape(b, s, -1), cfg), k, v
+
+
+def attn_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded], pos,
+                        cfg, tp) -> Tensor:
+    """:func:`attn_decode_step` on a mesh, against a dense cache laid out
+    by ``cache_specs``: with ``tp.head_ok`` each rank steps its heads'
+    cache and the ``o`` partials are reduced; otherwise the cache is
+    split on its sequence axis, each rank writes the cells it holds and
+    attention reads the gathered cache once."""
+    if tp.head_ok:
+        parts = []
+        for r, (p, d) in enumerate(zip(ps, tp.devices)):
+            local = {n: c.shards[r] for n, c in cache.items()}
+            parts.append(attn_decode_step(p, x.to(d), local, pos.to(d),
+                                          tp.cfg_local)[0])
+        return reduce_rows(parts, ps[0]["o"])
+    b = x.shape[0]
+    cap = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, device=x.device).long().expand(b)
+    q, k, v = _qkv_whole(ps, x, cfg, pos[:, None])
+    new = {"k": k, "v": v}
+    if "k_s" in cache:
+        (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+        new = {"k": kq, "v": vq, "k_s": ks, "v_s": vs}
+    rows = torch.arange(b, device=x.device)
+    for name, t in new.items():
+        _write_parts(cache[name].shards, rows, pos % cap, t[:, 0], cap)
+    whole = {n: c.gather() for n, c in cache.items()}
+    return _o_whole(ps, _attend_cache(q, whole, pos, cfg, x.dtype), cfg)
+
+
+def paged_attn_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded],
+                              page_table: Tensor, pos: Tensor, cfg, tp
+                              ) -> Tensor:
+    """:func:`paged_attn_decode_step` on a mesh, against pools laid out
+    by ``cache_specs``, through :func:`~repro_torch.kernels.paged_attn.
+    paged_attention_sharded`: with ``tp.head_ok`` each rank writes its
+    heads' K/V and K2 runs once a rank on them; otherwise the pools are
+    split on the page interior, each rank writes the offsets it holds,
+    and one K2 call reads the gathered pools."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    if tp.head_ok:
+        qs = []
+        for r, (p, d) in enumerate(zip(ps, tp.devices)):
+            local = {n: c.shards[r] for n, c in cache.items()}
+            qs.append(_paged_write(p, x.to(d), local, page_table.to(d),
+                                   pos.to(d), tp.cfg_local)[:, 0])
+        q = Sharded(qs, P(None, "model"), (b, cfg.n_heads, hd), tp.mesh)
+    else:
+        q, k, v = _qkv_whole(ps, x, cfg, pos[:, None])
+        new = {"pk": k, "pv": v}
+        if "pk_s" in cache:
+            (kq, ks), (vq, vs) = _quant_kv(k), _quant_kv(v)
+            new = {"pk": kq, "pv": vq, "pk_s": ks, "pv_s": vs}
+        psz = cache["pk"].shape[1]
+        phys, off = _paged_cell(page_table, pos, psz)
+        for name, t in new.items():
+            _write_parts(cache[name].shards, phys, off, t[:, 0], psz)
+        q = Sharded([q[:, 0].to(d) for d in tp.devices], P(),
+                    (b, cfg.n_heads, hd), tp.mesh)
+    out = paged_attention_sharded(q, cache["pk"], cache["pv"], page_table,
+                                  pos, mesh=tp.mesh,
+                                  pk_scale=cache.get("pk_s"),
+                                  pv_scale=cache.get("pv_s"))
+    if tp.head_ok:
+        return reduce_rows([linear_apply(p["o"], o.reshape(b, 1, -1))
+                            for p, o in zip(ps, out.shards)], ps[0]["o"])
+    return _o_whole(ps, out.shards[0].reshape(b, 1, -1), cfg)

@@ -5,15 +5,27 @@ Parameters are plain nested dicts of tensors with the reference's
 layouts: a linear's weight is ``(in, out)``, i.e. the GEMM's ``B[K, N]``.
 Norms and RoPE compute in f32 and cast back, and every projection goes
 through ``sisa_einsum_2d`` (K1 on the card).
+
+On a mesh (:class:`TensorParallel`) a layer takes the list of the model
+row's per-rank trees (``Placed.local``): a column-parallel linear
+computes each rank's output columns with the rank's slice of its bias
+(:func:`linear_out`), a row-parallel one each rank's partial sum, reduced
+in float32 in rank order before its bias is added once
+(:func:`reduce_rows`); the embedding table and the LM head are split on
+the vocabulary (:func:`embedding_lookup_tp`, :func:`lm_head_logits_tp`).
+A weight that the divisibility-guarded specs left whole is used once, on
+rank 0.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable
+from typing import Callable, List
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import all_gather, all_reduce_sum
 from repro_torch.kernels.ops import sisa_einsum_2d
 
 Tensor = torch.Tensor
@@ -144,3 +156,113 @@ def mlp_apply(p, x: Tensor, act: str) -> Tensor:
     else:
         up = activation(act)(up)
     return linear_apply(p["down"], up)
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism over a mesh's model row
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One forward's split over ``mesh``'s model row: its ``devices``
+    (rank order), whether attention heads split (``head_ok``: both head
+    counts divide, the reference's ``MeshSharder`` rule) and, where they
+    do, ``cfg_local``, the config a rank's attention runs with (its
+    share of the heads)."""
+    mesh: object
+    devices: tuple
+    head_ok: bool
+    cfg_local: object
+
+    @property
+    def ms(self) -> int:
+        return len(self.devices)
+
+
+def tensor_parallel(cfg, mesh) -> TensorParallel:
+    from repro_torch.distributed.sharding import MeshSharder
+    devices = tuple(mesh.model_devices())
+    ms = len(devices)
+    head_ok = MeshSharder(mesh, cfg, batch_axes=()).head_ok
+    local = (dataclasses.replace(cfg, n_heads=cfg.n_heads // ms,
+                                 n_kv_heads=cfg.n_kv_heads // ms,
+                                 head_dim=cfg.resolved_head_dim)
+             if head_ok else None)
+    return TensorParallel(mesh, devices, head_ok, local)
+
+
+def is_split(p, dim: int, full: int) -> bool:
+    """True where a rank holds a part of linear ``p``'s weight on
+    ``dim`` (``full`` wide whole)."""
+    return p["w"].shape[dim] != full
+
+
+def reduce_rows(parts: List[Tensor], p0) -> Tensor:
+    """A row-parallel linear's output from the ranks' partial sums: the
+    f32 sum in rank order, rounded once, then the bias rank 0 keeps
+    aside (``"b_reduced"``), added once."""
+    y = all_reduce_sum(parts)[0]
+    if "b_reduced" in p0:
+        y = y + p0["b_reduced"]
+    return y
+
+
+def linear_out(ps, x: Tensor, full: int) -> Tensor:
+    """A linear's whole output (``full`` columns) on rank 0's device:
+    column-parallel ranks' outputs gathered, or one call where the
+    weight is whole."""
+    if not is_split(ps[0], 1, full):
+        return linear_apply(ps[0], x)
+    return all_gather([linear_apply(p, x.to(p["w"].device)) for p in ps],
+                      -1)[0]
+
+
+def linear_in(ps, x: Tensor, full: int) -> Tensor:
+    """A linear applied to a whole input ``x`` (``full`` features):
+    row-parallel, each rank on its slice of the features, or one call
+    where the weight is whole."""
+    if not is_split(ps[0], 0, full):
+        return linear_apply(ps[0], x)
+    k = ps[0]["w"].shape[0]
+    return reduce_rows([linear_apply(p, x[..., r * k:(r + 1) * k].to(
+        p["w"].device)) for r, p in enumerate(ps)], ps[0])
+
+
+def mlp_apply_tp(ps, x: Tensor, act: str, d_ff: int) -> Tensor:
+    """The MLP on a mesh: ``up``/``gate`` column-parallel and ``down``
+    row-parallel, each rank on its ``d_ff`` slice; whole weights (a
+    width the model axis does not divide) run once."""
+    if not is_split(ps[0]["up"], 1, d_ff):
+        return mlp_apply(ps[0], x, act)
+    return reduce_rows([mlp_apply(p, x.to(p["up"]["w"].device), act)
+                        for p in ps], ps[0]["down"])
+
+
+def embedding_lookup_tp(tables: List[Tensor], tokens: Tensor,
+                        vocab: int) -> Tensor:
+    """Vocabulary-parallel lookup: each rank gathers the tokens its rows
+    hold and zeros for the rest, and the ranks' rows are summed (one
+    nonzero term a token, so the sum is exact).  A whole table (a
+    vocabulary the model axis does not divide) is read once."""
+    if tables[0].shape[0] == padded_vocab(vocab):
+        return embedding_lookup({"table": tables[0]}, tokens)
+    n = tables[0].shape[0]
+    parts = []
+    for r, t in enumerate(tables):
+        local = tokens.to(t.device).long() - r * n
+        hit = ((local >= 0) & (local < n))[..., None]
+        parts.append(torch.where(hit, t[local.clamp(0, n - 1)], 0))
+    return all_reduce_sum(parts)[0]
+
+
+def lm_head_logits_tp(tables: List[Tensor], x: Tensor, vocab: int
+                      ) -> Tensor:
+    """Vocabulary-parallel LM head: each rank's logits for its rows of
+    the table (K1 a rank), gathered in rank order, padding masked as in
+    :func:`lm_head_logits`.  A greedy argmax over the gathered row takes
+    the lowest index among equal maxima, as the unsharded one does."""
+    if tables[0].shape[0] == padded_vocab(vocab):
+        return lm_head_logits(tables[0], x, vocab)
+    parts = [sisa_einsum_2d(x.to(t.device), t.T).float() for t in tables]
+    logits = all_gather(parts, -1)[0]
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
+    return logits.masked_fill(pad, torch.finfo(torch.float32).min)

@@ -61,6 +61,19 @@ decode only reads; the paged engine copies them into its cross pools
 ``{"ck","cv": (L_dec, cross pages + sink, page_size, Hkv, hd)}`` (model
 precision on int8 pools too), which decode reads through a ``(B, C)``
 cross table.  All three engines serve it.
+
+On a ``("data", "model")`` mesh (:class:`~repro_torch.distributed.mesh.
+Mesh`), :func:`forward_prefill` and :func:`forward_decode` run one
+replica over the model row from the placed parameters
+(:func:`~repro_torch.distributed.sharding.place_params`): the embedding
+and the LM head vocabulary-parallel, attention head-parallel where both
+head counts divide (else once, on caches split on the sequence), the
+MLP column- then row-parallel, MoE expert-parallel.  Decode reads and
+writes caches of :class:`~repro_torch.distributed.mesh.Sharded` stacks
+laid out by ``cache_specs``; prefill returns the whole cache, which the
+engines' storage lays out.  Global attention layers, dense or MoE, run
+on a mesh; the other layer kinds, enc-dec models and frontends are
+queue A item 2c and raise.
 """
 from __future__ import annotations
 
@@ -77,10 +90,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
-                                       embedding_lookup, last_rows,
-                                       linear_apply, linear_init,
-                                       lm_head_logits, mlp_apply, mlp_init,
-                                       rmsnorm_apply, rmsnorm_init)
+                                       embedding_lookup, embedding_lookup_tp,
+                                       last_rows, linear_apply, linear_init,
+                                       lm_head_logits, lm_head_logits_tp,
+                                       mlp_apply, mlp_apply_tp, mlp_init,
+                                       rmsnorm_apply, rmsnorm_init,
+                                       tensor_parallel)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -446,7 +461,8 @@ def _mixer_prefill(p: Params, h: Tensor, cfg: ModelConfig, kind: str,
 def forward_prefill(params: Params, cfg: ModelConfig,
                     batch: Dict[str, Tensor], *,
                     cache_len: Optional[int] = None,
-                    logits_index=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                    logits_index=None, mesh=None
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Process prompts ``batch["tokens"]`` (B, S), or on a model with a
     frontend ``batch["frontend_embeds"]`` (B, S, frontend_dim) where
     the batch has them (:func:`_embed_inputs`); return the f32 logits
@@ -468,8 +484,15 @@ def forward_prefill(params: Params, cfg: ModelConfig,
     each row's real length, and a recurrent layer keeps its state at
     each row's real last token.  MoE layers take the tokens up to it as
     the real ones (``valid``).
+
+    With ``mesh``, ``params`` is the ``Placed`` tree and the model runs
+    tensor-parallel (module doc); the logits and the cache come back
+    whole, on the model row's first device.
     """
     check_supported(cfg)
+    if mesh is not None:
+        return _forward_prefill_tp(params, cfg, batch, cache_len,
+                                   logits_index, mesh)
     enc_out = _encode(params, cfg, batch) if cfg.enc_dec else None
     x = _embed_inputs(params, cfg, batch)
     cap_seq = cache_len or x.shape[1]
@@ -495,26 +518,91 @@ def forward_prefill(params: Params, cfg: ModelConfig,
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn(p, cfg, h, valid)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    if logits_index is None:
-        x_last = x[:, -1:]
-    else:
-        idx = torch.as_tensor(logits_index, device=x.device)
-        if idx.dim() >= 1:
-            gather = idx.long()[:, None, None].expand(-1, 1, x.shape[-1])
-            x_last = torch.gather(x, 1, gather)
-        else:
-            i = int(idx)
-            x_last = x[:, i:i + 1]
     out = {stack_name(tag, name): torch.stack([c[name] for c in layers])
            for tag, layers in caches.items() for name in layers[0]}
     out.update({name: torch.stack([c[name] for c in cross])
                 for name in CROSS_STACKS if cross})
-    return _logits(params, cfg, x_last), out
+    return _logits(params, cfg, _logits_rows(x, logits_index)), out
+
+
+def _logits_rows(x: Tensor, logits_index) -> Tensor:
+    """The one position a prefill returns logits for: the last, or
+    ``logits_index`` (an int or 0-dim tensor, or a ``(B,)`` vector)."""
+    if logits_index is None:
+        return x[:, -1:]
+    idx = torch.as_tensor(logits_index, device=x.device)
+    if idx.dim() >= 1:
+        gather = idx.long()[:, None, None].expand(-1, 1, x.shape[-1])
+        return torch.gather(x, 1, gather)
+    i = int(idx)
+    return x[:, i:i + 1]
+
+
+def check_mesh_supported(cfg: ModelConfig) -> None:
+    """Raise for what does not run on a mesh yet: layer kinds other than
+    global attention, enc-dec models and stub frontends."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {ATTN} or cfg.enc_dec or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh: the port shards global-attention "
+            f"decoders (dense or MoE) only; layer kinds {sorted(kinds)}"
+            f"{', enc-dec' if cfg.enc_dec else ''}"
+            f"{', a frontend' if cfg.frontend else ''} are ROADMAP.md "
+            f"queue A item 2c")
+
+
+def _embed_tp(loc, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    x = embedding_lookup_tp([t["embed"]["table"] for t in loc], tokens,
+                            cfg.vocab_size)
+    return x * embed_scale(cfg.d_model, x.dtype)
+
+
+def _logits_tp(loc, cfg: ModelConfig, x: Tensor) -> Tensor:
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return lm_head_logits_tp([t[name]["table"] for t in loc], x,
+                             cfg.vocab_size)
+
+
+def _ffn_tp(loc, i: int, cfg: ModelConfig, h: Tensor, mesh,
+            valid: Optional[Tensor] = None) -> Tensor:
+    if cfg.moe is not None:
+        return moe_mod.moe_apply([t["layers"][i]["moe"] for t in loc], h,
+                                 cfg, mesh=mesh, valid=valid)[0]
+    return mlp_apply_tp([t["layers"][i]["mlp"] for t in loc], h, cfg.act,
+                        cfg.d_ff)
+
+
+def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,
+                        logits_index, mesh) -> Tuple[Tensor,
+                                                     Dict[str, Tensor]]:
+    """:func:`forward_prefill` over ``mesh``'s model row (module doc)."""
+    check_mesh_supported(cfg)
+    tp = tensor_parallel(cfg, mesh)
+    loc = placed.local
+    x = _embed_tp(loc, cfg, batch["tokens"])
+    cap = cache_len or x.shape[1]
+    valid = None
+    if logits_index is not None and cfg.moe is not None:
+        last = last_rows(logits_index, x.shape[0], x.device)
+        valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                 <= last[:, None])
+    caches: List[Dict[str, Tensor]] = []
+    for i, p in enumerate(loc[0]["layers"]):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        mix, k, v = attn.attn_apply_tp([t["layers"][i]["mixer"] for t in loc],
+                                       h, cfg, tp)
+        caches.append(attn.prefill_into_cache(k, v, cap, logits_index))
+        x = x + mix
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        x = x + _ffn_tp(loc, i, cfg, h, mesh, valid)
+    x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)
+    out = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+    return _logits_tp(loc, cfg, _logits_rows(x, logits_index)), out
 
 
 def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
                    caches: Dict[str, Tensor], pos, *, page_table=None,
-                   window_cap: Optional[int] = None
+                   window_cap: Optional[int] = None, mesh=None
                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step.  tokens: (B, 1).
 
@@ -542,10 +630,18 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
     The token embedding is scaled by √d here, as in the reference's
     decode, also on an enc-dec model, whose training and prefill leave
     it unscaled (:func:`_embed_inputs`).  Returns the f32 logits ``(B,
-    1, vocab_padded)`` and the caches."""
+    1, vocab_padded)`` and the caches.
+
+    With ``mesh``, ``params`` is the ``Placed`` tree, ``caches`` are
+    :class:`~repro_torch.distributed.mesh.Sharded` stacks laid out by
+    ``cache_specs``, the tables are whole, and the model runs
+    tensor-parallel (module doc)."""
     check_supported(cfg)
     if page_table is not None and not isinstance(page_table, dict):
         page_table = {"global": page_table}
+    if mesh is not None:
+        return _forward_decode_tp(params, cfg, tokens, caches, pos,
+                                  page_table, mesh)
     x = _embed(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
@@ -586,3 +682,28 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
         x = x + _ffn(p, cfg, h)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), caches
+
+
+def _forward_decode_tp(placed, cfg: ModelConfig, tokens: Tensor, caches,
+                       pos, page_table, mesh) -> Tuple[Tensor, Dict]:
+    """:func:`forward_decode` over ``mesh``'s model row (module doc)."""
+    check_mesh_supported(cfg)
+    tp = tensor_parallel(cfg, mesh)
+    loc = placed.local
+    x = _embed_tp(loc, cfg, tokens)
+    pos = torch.as_tensor(pos, device=x.device)
+    names = _POOLS[""] if page_table is not None else _KV
+    for i, p in enumerate(loc[0]["layers"]):
+        h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
+        ps = [t["layers"][i]["mixer"] for t in loc]
+        cache = {n: caches[n][i] for n in names if n in caches}
+        if page_table is None:
+            mix = attn.attn_decode_step_tp(ps, h, cache, pos.long(), cfg, tp)
+        else:
+            mix = attn.paged_attn_decode_step_tp(
+                ps, h, cache, page_table["global"], pos, cfg, tp)
+        x = x + mix
+        h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
+        x = x + _ffn_tp(loc, i, cfg, h, mesh)
+    x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)
+    return _logits_tp(loc, cfg, x), caches

@@ -138,7 +138,7 @@ class EngineOptions:
 
 def make_engine(cfg, params, kind: str = "slot",
                 options: Optional[EngineOptions] = None, *,
-                device=None, **overrides):
+                device=None, mesh=None, **overrides):
     """Build a serving engine on ``device`` (None: the CUDA card; raises
     when there is none).  ``options`` plus keyword ``overrides`` of its
     fields carry the knobs; ``params`` must already live on ``device``.
@@ -148,7 +148,13 @@ def make_engine(cfg, params, kind: str = "slot",
 
         eng = make_engine(cfg, params, kind="paged",
                           options=EngineOptions(max_slots=8))
-    """
+
+    ``mesh`` (a ``("data", "model")``
+    :class:`~repro_torch.distributed.mesh.Mesh`) makes the slot or paged
+    engine tensor- and expert-parallel over it (``repro_torch.distributed.
+    sharding``): ``params`` are the host master copy, placed on the
+    mesh's devices, which replace ``device``.  The sequential engine has
+    no mesh path, as the reference's has none."""
     from repro_torch.models.transformer import param_device
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.paged_engine import PagedServeEngine
@@ -157,20 +163,29 @@ def make_engine(cfg, params, kind: str = "slot",
     if kind not in ENGINE_KINDS:
         raise ValueError(f"kind={kind!r} not in {ENGINE_KINDS}")
     opts = dataclasses.replace(options or EngineOptions(), **overrides)
-    dev = resolve_device(device)
-    if param_device(params) != dev and not (
-            dev.type == "cuda" and param_device(params).type == "cuda"
-            and dev.index is None):
-        raise ValueError(f"params live on {param_device(params)}, "
-                         f"engine device is {dev}")
-    common = dict(device=param_device(params), max_batch=opts.max_slots,
+    if mesh is not None:
+        if kind == "sequential":
+            raise ValueError(
+                "mesh-aware serving requires kind='slot' or 'paged'")
+        for d in mesh.model_devices():
+            resolve_device(d)
+        dev = None
+    else:
+        dev = resolve_device(device)
+        if param_device(params) != dev and not (
+                dev.type == "cuda" and param_device(params).type == "cuda"
+                and dev.index is None):
+            raise ValueError(f"params live on {param_device(params)}, "
+                             f"engine device is {dev}")
+        dev = param_device(params)
+    common = dict(device=dev, max_batch=opts.max_slots,
                   max_seq=opts.max_seq, multi_tenant=opts.multi_tenant,
                   coexec_backend=opts.coexec_backend, policy=opts.policy,
                   default_klass=opts.default_klass)
     if kind == "sequential":
         return ServeEngine(cfg, params, **common)  # api-ok
     common.update(window=opts.window, ladder=opts.ladder,
-                  prefill_bucketing=opts.buckets != "off")
+                  prefill_bucketing=opts.buckets != "off", mesh=mesh)
     if kind == "slot":
         return SlotServeEngine(cfg, params, **common)  # api-ok
     return PagedServeEngine(  # api-ok

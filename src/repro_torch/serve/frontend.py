@@ -41,10 +41,12 @@ one engine, with
   :class:`~repro_torch.distributed.fault.StragglerWatchdog` and a
   ``device_probe`` callable and the scheduler times every decode window
   into the watchdog; a flagged straggler (and, cheaply, every cycle)
-  re-probes the device set.  A shrunk probe asks the engine to rebuild
-  its mesh; no engine of the port has a mesh yet, so recovery returns
-  at once and ``remeshes`` stays 0, as the reference's does for a
-  meshless engine.
+  re-probes the device set.  A shrunk probe plans a smaller mesh on the
+  survivors (:func:`~repro_torch.distributed.fault.plan_elastic_mesh`)
+  and asks the engine to rebuild on it (``remesh``): the requests in
+  flight are re-prefilled there and resume their streams.  A meshless
+  engine, or a shrink that leaves no serveable mesh, keeps serving as
+  it is.
 
 **Kernels and threads.** The engine is touched only with the frontend's
 mutex held: by the scheduler thread, and by :meth:`warmup` in the
@@ -622,16 +624,33 @@ class ServeFrontend:
 
     def _recover(self, healthy) -> None:
         """Rebuild the engine's mesh on the surviving devices and release
-        the victims for re-prefill (mutex held).  The port's engines have
-        no mesh, so this returns at once, as the reference's does for a
-        meshless engine; elastic re-mesh (``plan_elastic_mesh`` and the
-        engines' ``remesh``) belongs to the distributed slice of the port
-        (ROADMAP.md, queue A item 2)."""
+        the victims for re-prefill (mutex held).
+
+        The model axis is kept where it still fits and halved otherwise
+        (parameter sharding must stay divisible); the data axis takes the
+        rest.  Interrupted requests keep their handles: ``remesh()``
+        clears their streams and greedy decoding regenerates the same
+        prefix, so ``_emit_new``'s per-request counters skip the tokens
+        already delivered."""
+        from repro_torch.distributed.fault import plan_elastic_mesh
+        from repro_torch.distributed.mesh import Mesh
         eng = self.engine
         if getattr(eng, "mesh", None) is None or not hasattr(eng, "remesh"):
             return
-        raise NotImplementedError(
-            "elastic re-mesh is not ported yet (ROADMAP.md, queue A item 2)")
+        mp = eng.mesh.shape.get("model", 1)
+        plan = None
+        while mp >= 1:
+            plan = plan_elastic_mesh(len(healthy), model_parallel=mp,
+                                     min_data=self.min_data)
+            if plan is not None:
+                break
+            mp //= 2
+        if plan is None:
+            return      # nothing serveable left: keep limping
+        d, mp = plan
+        eng.remesh(Mesh(np.asarray(list(healthy[:d * mp]), dtype=object)
+                        .reshape(d, mp), ("data", "model")))
+        self.remeshes += 1
 
     def _abort_inflight(self) -> None:
         with self._mutex, self._intake_lock:

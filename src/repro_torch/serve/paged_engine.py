@@ -82,6 +82,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN, LOCAL, ModelConfig, RGLRU, WKV
+from repro_torch.distributed.mesh import Sharded
+from repro_torch.distributed.sharding import cache_specs
 from repro_torch.kernels.paged_attn import quantize_page_pool
 from repro_torch.models.attention import CACHE_QUANT
 from repro_torch.models.transformer import (CROSS_POOLS, CROSS_STACKS,
@@ -114,7 +116,10 @@ class PagedKVCache:
     features map one block.  ``slabs`` are the recurrent layers' zero
     state stacks ``(L_kind, max_slots, ...)``, kept in ``pools`` under
     their own names and addressed by slot.  Pools are allocated once, at
-    construction; the allocators' bookkeeping is host-side."""
+    construction; the allocators' bookkeeping is host-side.  With
+    ``mesh`` (and the model's ``cfg``) every pool is
+    :class:`~repro_torch.distributed.mesh.Sharded` by ``cache_specs``
+    and the tables stay whole on ``device``."""
 
     def __init__(self, max_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, *, n_layers: int, n_kv_heads: int,
@@ -123,7 +128,8 @@ class PagedKVCache:
                  local_ring: int = 0, num_local_pages: int = 0,
                  n_cross_layers: int = 0, cross_pages: int = 0,
                  num_cross_pages: int = 0,
-                 slabs: Optional[Dict[str, torch.Tensor]] = None):
+                 slabs: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None, cfg=None):
         if num_pages < max_pages_per_slot:
             raise ValueError(
                 f"pool of {num_pages} pages cannot hold one full-length "
@@ -152,19 +158,21 @@ class PagedKVCache:
         self.lsink = num_local_pages               # the local pool's sink
         self.csink = num_cross_pages               # the cross pool's sink
         self.pools: Dict[str, torch.Tensor] = {}
+        # On a mesh the pools are shaped here and laid out per rank below.
+        pool_dev = torch.device("meta") if mesh is not None else device
         if n_layers:
             shape = (n_layers, num_pages + 1, page_size, n_kv_heads, head_dim)
             vals = torch.int8 if quant else dtype
             self.pools.update(
-                pk=torch.zeros(shape, dtype=vals, device=device),
-                pv=torch.zeros(shape, dtype=vals, device=device))
+                pk=torch.zeros(shape, dtype=vals, device=pool_dev),
+                pv=torch.zeros(shape, dtype=vals, device=pool_dev))
             if quant:
                 plane = shape[:-1] + (1,)
                 self.pools.update(
                     pk_s=torch.zeros(plane, dtype=torch.bfloat16,
-                                     device=device),
+                                     device=pool_dev),
                     pv_s=torch.zeros(plane, dtype=torch.bfloat16,
-                                     device=device))
+                                     device=pool_dev))
         self.table = torch.full((max_slots, max_pages_per_slot), self.sink,
                                 dtype=torch.int32, device=device)
         self.ltable: Optional[torch.Tensor] = None
@@ -172,8 +180,8 @@ class PagedKVCache:
             lshape = (n_local_layers, num_local_pages + 1, page_size,
                       n_kv_heads, head_dim)
             self.pools.update(
-                lk=torch.zeros(lshape, dtype=dtype, device=device),
-                lv=torch.zeros(lshape, dtype=dtype, device=device))
+                lk=torch.zeros(lshape, dtype=dtype, device=pool_dev),
+                lv=torch.zeros(lshape, dtype=dtype, device=pool_dev))
             self.ltable = torch.full((max_slots, local_ring), self.lsink,
                                      dtype=torch.int32, device=device)
         self.ctable: Optional[torch.Tensor] = None
@@ -181,11 +189,16 @@ class PagedKVCache:
             cshape = (n_cross_layers, num_cross_pages + 1, page_size,
                       n_kv_heads, head_dim)
             self.pools.update(
-                ck=torch.zeros(cshape, dtype=dtype, device=device),
-                cv=torch.zeros(cshape, dtype=dtype, device=device))
+                ck=torch.zeros(cshape, dtype=dtype, device=pool_dev),
+                cv=torch.zeros(cshape, dtype=dtype, device=pool_dev))
             self.ctable = torch.full((max_slots, cross_pages), self.csink,
                                      dtype=torch.int32, device=device)
         self.pools.update(slabs or {})
+        if mesh is not None:
+            specs = cache_specs(self.pools, cfg, mesh, batch_axes=())
+            self.pools = {name: Sharded.zeros(t.shape, t.dtype, specs[name],
+                                              mesh)
+                          for name, t in self.pools.items()}
         self._reset_allocator()
 
     def _reset_allocator(self) -> None:
@@ -360,8 +373,8 @@ class PagedKVCache:
                     # Quantized as decode quantizes its writes (the
                     # reference's _quantize_pool_tree at admission).
                     chunks, scale = quantize_page_pool(chunks)
-                    self.pools[f"p{name}_s"].index_copy_(1, idx, scale)
-                self.pools[f"p{name}"].index_copy_(1, idx, chunks)
+                    self._put_pages(f"p{name}_s", idx, scale)
+                self._put_pages(f"p{name}", idx, chunks)
         pages = shared + fresh
         if pages:
             self._write_row(slot, 0, pages)
@@ -378,6 +391,19 @@ class PagedKVCache:
         self._reserved[slot] = reserve_pages
         self.reserved_total += reserve_pages
         return n_fresh
+
+    def _put_pages(self, name: str, idx: torch.Tensor,
+                   chunks: torch.Tensor) -> None:
+        """Copy whole-width ``chunks`` ``(L, len(idx), page_size, ...)``
+        into pages ``idx`` of pool ``name`` (each rank its part on a
+        mesh)."""
+        pool = self.pools[name]
+        if isinstance(pool, Sharded):
+            for r, part in enumerate(pool.shards):
+                part.index_copy_(1, idx.to(part.device),
+                                 pool.part(chunks, r).to(part.device))
+        else:
+            pool.index_copy_(1, idx, chunks)
 
     def _admit_ring(self, prefill_cache: Dict[str, torch.Tensor], slot: int,
                     last: int) -> None:
@@ -491,7 +517,9 @@ class PagedKVCache:
             self._shared[slot] -= 1
         for name, pool in self.pools.items():
             if name[0] == "p":                     # global pools only
-                pool[:, new] = pool[:, pg]
+                for part in (pool.shards if isinstance(pool, Sharded)
+                             else (pool,)):
+                    part[:, new] = part[:, pg]
         self._write_row(slot, logical_idx, [new])
         self._mapped[slot][logical_idx] = new
         return True
@@ -602,7 +630,8 @@ class PagedKVCache:
         """Bytes of persistent paged storage: pools (sinks included; int8
         pools with their scale planes; cross pools), state slabs and the
         page tables."""
-        return sum(t.numel() * t.element_size()
+        return sum(sum(t.nbytes()) if isinstance(t, Sharded)
+                   else t.numel() * t.element_size()
                    for t in list(self.pools.values())
                    + list(self.tables().values()))
 
@@ -701,12 +730,12 @@ class PagedServeEngine(SlotServeEngine):
     def _default_decode_fn(self):
         wc = (min(self.cfg.sliding_window, self.max_seq)
               if self._has_local else None)
-        return make_paged_decode_step(self.cfg, window_cap=wc)
+        return make_paged_decode_step(self.cfg, self.mesh, window_cap=wc)
 
     def _make_cache(self):
         cfg = self.cfg
         kinds = cfg.layer_kinds()
-        dtype = param_dtype(self.params)
+        dtype = param_dtype(self._host_params)
         return PagedKVCache(self.max_batch, self.num_pages, self.page_size,
                             self.max_pages_per_slot,
                             n_layers=kinds.count(ATTN),
@@ -726,7 +755,8 @@ class PagedServeEngine(SlotServeEngine):
                             slabs={name: t for name, t in init_cache(
                                 cfg, self.max_batch, 1, dtype, self.device,
                                 kinds=(RGLRU, WKV)).items()
-                                if name in STATE_STACKS})
+                                if name in STATE_STACKS},
+                            mesh=self.mesh, cfg=cfg)
 
     def _bucket_len(self, s: int) -> Optional[int]:
         # Page-multiple buckets: admission maps exactly
@@ -737,10 +767,20 @@ class PagedServeEngine(SlotServeEngine):
 
     def reset(self) -> None:
         super().reset()
+        self._clear_registries()
+
+    def _clear_registries(self) -> None:
         self._prefix_registry.clear()
         self._page_key.clear()
         self._cross_registry.clear()
         self._cross_key.clear()
+
+    def remesh(self, new_mesh) -> List[Request]:
+        victims = super().remesh(new_mesh)
+        # The rebuilt pools start empty: every registry entry points at
+        # a page of the lost mesh's pools.
+        self._clear_registries()
+        return victims
 
     # -- page accounting ----------------------------------------------------
     def _pages_for(self, req: Request) -> int:

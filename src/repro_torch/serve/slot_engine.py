@@ -42,6 +42,18 @@ Storage lives behind four hooks (``_default_decode_fn``,
 :class:`~repro_torch.serve.paged_engine.PagedServeEngine` overrides for
 its page pool.  Rows are independent, so a request's tokens do not
 depend on what it is batched with.
+
+**On a mesh** (``mesh=``, a ``("data", "model")``
+:class:`~repro_torch.distributed.mesh.Mesh`) the parameters are placed
+by ``param_specs(..., fsdp=False)`` on every device (the data axis
+holds replicas), the slot buffers by ``cache_specs(...,
+batch_axes=())`` as :class:`~repro_torch.distributed.mesh.Sharded`
+stacks over the model row, and the steps run tensor-parallel there.
+One replica computes, the data index 0 row; the other replicas hold the
+parameters and stand by, and no storage is kept for them.  A host
+master copy of the parameters stays for :meth:`SlotServeEngine.remesh`,
+which rebuilds every device structure on a smaller mesh after a lost
+device and hands the requests in flight back for re-prefill.
 """
 from __future__ import annotations
 
@@ -53,7 +65,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.distributed.mesh import Sharded
+from repro_torch.distributed.sharding import cache_specs, place_params
+from repro_torch.models.transformer import (check_mesh_supported,
+                                            check_supported)
 from repro_torch.serve.api import completion_of, Completion, FINISH_CANCELLED
 from repro_torch.serve.engine import (effective_tokens, init_serve_stats,
                                       note_first_token, prefill_batch_of,
@@ -72,10 +87,15 @@ class SlotKVCache:
     cache.  Buffers are allocated at the first :meth:`write`, shaped
     from the prefilled cache (float or int8 with scale planes; the
     recurrent states at model precision, ``"h"`` and ``"state"``
-    float32) with the batch axis widened to ``max_slots``."""
+    float32) with the batch axis widened to ``max_slots``.  With
+    ``mesh`` (and the model's ``cfg``), each buffer is a
+    :class:`~repro_torch.distributed.mesh.Sharded` stack laid out by
+    ``cache_specs(..., batch_axes=())``."""
 
-    def __init__(self, max_slots: int):
+    def __init__(self, max_slots: int, mesh=None, cfg=None):
         self.max_slots = max_slots
+        self.mesh = mesh
+        self.cfg = cfg
         self.buffers: Optional[Cache] = None
         self._free = list(range(max_slots - 1, -1, -1))  # pop() -> lowest
 
@@ -103,20 +123,35 @@ class SlotKVCache:
         """Bytes of the slot buffers (0 until the first admission)."""
         if self.buffers is None:
             return 0
-        return sum(t.numel() * t.element_size()
+        return sum(sum(t.nbytes()) if isinstance(t, Sharded)
+                   else t.numel() * t.element_size()
                    for t in self.buffers.values())
 
     def write(self, prefill_cache: Cache, slot: int) -> None:
         """Store a single-request prefilled cache (each stack ``(L, 1,
-        ...)``: KV at its capacity, or a recurrent state) into
-        ``slot``."""
+        ...)``: KV at its capacity, or a recurrent state; whole on a
+        mesh) into ``slot``."""
         if self.buffers is None:
-            self.buffers = {
-                name: t.new_zeros(t.shape[:1] + (self.max_slots,)
-                                  + t.shape[2:])
-                for name, t in prefill_cache.items()}
+            shapes = {name: t.shape[:1] + (self.max_slots,) + t.shape[2:]
+                      for name, t in prefill_cache.items()}
+            if self.mesh is None:
+                self.buffers = {name: prefill_cache[name].new_zeros(shape)
+                                for name, shape in shapes.items()}
+            else:
+                specs = cache_specs(
+                    {n: torch.empty(sh, device="meta")
+                     for n, sh in shapes.items()},
+                    self.cfg, self.mesh, batch_axes=())
+                self.buffers = {
+                    name: Sharded.zeros(shape, prefill_cache[name].dtype,
+                                        specs[name], self.mesh)
+                    for name, shape in shapes.items()}
         for name, buf in self.buffers.items():
-            buf[:, slot] = prefill_cache[name][:, 0]
+            if isinstance(buf, Sharded):
+                for r, part in enumerate(buf.shards):
+                    part[:, slot] = buf.part(prefill_cache[name], r)[:, 0]
+            else:
+                buf[:, slot] = prefill_cache[name][:, 0]
 
 
 class SlotServeEngine:
@@ -131,11 +166,22 @@ class SlotServeEngine:
                  coexec_backend: Optional[str] = None,
                  prefill_bucketing: bool = True,
                  policy: Optional[SchedulingPolicy] = None,
-                 default_klass: str = KLASS_BATCH):
+                 default_klass: str = KLASS_BATCH, mesh=None):
         check_supported(cfg)
+        if mesh is not None:
+            check_mesh_supported(cfg)
+            if coexec_backend is not None:
+                raise NotImplementedError(
+                    "coexec_backend on a mesh is ROADMAP.md queue A item 2c")
+            device = mesh.model_devices()[0]
         self.cfg = cfg
         self.device = torch.device(device)
-        self.params = params
+        self.mesh = mesh
+        # The host master copy: remesh() places it on the survivors, so
+        # recovery never reads a shard of the lost mesh.
+        self._host_params = params
+        self.params = (params if mesh is None
+                       else place_params(params, cfg, mesh))
         self.policy = policy or SchedulingPolicy()
         self.default_klass = default_klass
         self.max_batch = max_batch
@@ -156,7 +202,7 @@ class SlotServeEngine:
 
         self._bucket_enabled = prefill_bucketing
         self.prefill_fn = make_bucketed_prefill_step(
-            cfg, cache_len=self._prefill_cache_len())
+            cfg, mesh, cache_len=self._prefill_cache_len())
         self._bucket_cap = max_seq
         self._seen_buckets: set = set()
         # Coalesced prefill is off for MoE: routing capacity couples the
@@ -189,16 +235,17 @@ class SlotServeEngine:
             "prefill_batches": 0, "prefill_batched_reqs": 0,
             "slot_admits": 0, "slot_releases": 0,
             "preemptions": 0, "cancelled": 0,
+            "remeshes": 0,
         }
 
     def _prefill_cache_len(self) -> Optional[int]:
         return self.max_seq
 
     def _default_decode_fn(self):
-        return make_decode_step(self.cfg)
+        return make_decode_step(self.cfg, self.mesh)
 
     def _make_cache(self):
-        return SlotKVCache(self.max_batch)
+        return SlotKVCache(self.max_batch, self.mesh, self.cfg)
 
     def _store_cache(self, req: Request, cache, slot: int) -> None:
         """Move a single-request prefilled cache into ``slot``."""
@@ -236,6 +283,54 @@ class SlotServeEngine:
         self.stats = init_serve_stats(self._expert_backend,
                                       self.coexec_backend)
         self.stats["engine"].update(self._stats_extras())
+
+    def remesh(self, new_mesh) -> List[Request]:
+        """Rebuild every device structure on ``new_mesh`` and hand the
+        requests in flight back for re-prefill (the lost-device recovery
+        of :meth:`~repro_torch.serve.frontend.ServeFrontend._recover`).
+
+        Every resident and backfilled request is released — its tokens
+        cleared, back at the queue's head in admission order — and the
+        parameters (placed anew from the host master copy), the steps
+        and the storage are rebuilt; the old mesh's shards and storage
+        are dropped, never reused.  Greedy decoding is deterministic, so
+        each request regenerates the tokens it had.  Returns the
+        released requests."""
+        if self.mesh is None:
+            raise ValueError("remesh requires a mesh-aware engine "
+                             "(construct with mesh=...)")
+        victims: List[Request] = []
+        for slot in range(self.max_batch):
+            if self._req[slot] is not None:
+                victims.append(self._req[slot])
+                self._req[slot] = None
+        victims.extend(req for req, _cache, _pos in self._backfilled)
+        self._backfilled.clear()
+        for req in victims:
+            req.generated = []
+            req.done = False
+            req.finished_at = None
+        for req in reversed(victims):
+            self.queue.appendleft(req)
+        self._tok[:] = 0
+        self._pos[:] = 0
+        self._budget[:] = 0
+
+        self.mesh = new_mesh
+        self.device = torch.device(new_mesh.model_devices()[0])
+        # Drop the old mesh's storage and shards before placing anew.
+        self.cache = None
+        self.params = None
+        self.params = place_params(self._host_params, self.cfg, new_mesh)
+        self.prefill_fn = make_bucketed_prefill_step(
+            self.cfg, new_mesh, cache_len=self._prefill_cache_len())
+        self._seen_buckets.clear()
+        self.decode_fn = self._default_decode_fn()
+        self._window_rungs.clear()
+        self._compile_base = 0
+        self.cache = self._make_cache()
+        self.stats["engine"]["remeshes"] += 1
+        return victims
 
     # Multi-token decode window -------------------------------------------
     def _decode_window(self, step, toks, pos, budget, *, rung: int):

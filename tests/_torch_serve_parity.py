@@ -35,7 +35,8 @@ SHARED_TOP = ("batches", "decode_steps", "packed_prefills", "backfilled")
 SHARED_ENGINE = ("windows", "rungs", "slot_admits", "slot_releases",
                  "prefill_bucket_hits", "prefill_bucket_misses",
                  "prefill_bucket_fallbacks", "prefill_batches",
-                 "prefill_batched_reqs", "preemptions", "cancelled")
+                 "prefill_batched_reqs", "preemptions", "cancelled",
+                 "remeshes")
 
 _SETUPS = {}
 _ENGINES = {}

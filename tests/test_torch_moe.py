@@ -117,9 +117,20 @@ def test_moe_init_keeps_a_float32_router():
 
 
 def test_moe_mesh_and_unknown_expert_backends_raise():
+    """A mesh now runs expert parallelism (tests/test_torch_sharded_ops.py
+    holds it to the reference): on a (1, 2) CPU mesh it gives the
+    meshless output, and an EP impl the reference does not have raises,
+    as does every expert backend but ``"kernel"``."""
+    from repro_torch.distributed import place_params, virtual_mesh
     cfg, tcfg, _, tp, x, _ = _setup(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="distributed"):
-        moe.moe_apply(tp, torch.from_numpy(x), tcfg, mesh=object())
+    mesh = virtual_mesh((1, 2), "cpu")
+    ranks = [t["layers"][0]["moe"] for t in place_params(
+        {"layers": [{"moe": tp}]}, tcfg, mesh).local]
+    got, _ = moe.moe_apply(ranks, torch.from_numpy(x), tcfg, mesh=mesh)
+    want, _ = moe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError):
+        moe.set_ep_impl("ring")
     moe.set_expert_backend("kernel")
     for impl in ("xla", "pallas", "pallas_interpret", "plain"):
         with pytest.raises(ValueError):

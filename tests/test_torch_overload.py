@@ -248,8 +248,8 @@ class TestChaos:
 
     def test_shrinking_device_probe_on_meshless_engine(self, fx):
         """A device probe that loses a device every cycle drives the
-        recovery path: the port's engines have no mesh, so nothing is
-        re-meshed and the serve finishes as if unprobed."""
+        recovery path: a meshless engine has no mesh to rebuild, so
+        nothing is re-meshed and the serve finishes as if unprobed."""
         lens = [9, 17, 15]
         budgets = [8] * len(lens)
         prompts = fx.prompts(lens, seed=11)
