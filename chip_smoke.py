@@ -232,7 +232,9 @@ Phases (any failure exits non-zero before the last line is printed):
     window, K1's times for one decode step and K2's at the serve's
     layout (GQA 64/8 at head_dim 128, 8 layers);
 16. training at full width, each model freed before the next:
-    ``recurrentgemma-2b`` (all 26 layers) and ``rwkv6-3b`` (all 32),
+    ``recurrentgemma-2b`` at 13 of its 26 layers and ``rwkv6-3b`` at 16
+    of its 32 (half depth since phase 19 joined, to keep the script
+    within its time),
     ``internvl2-76b`` at 1 of its 80 layers with ``frontend_embeds`` in
     its batches: ``Trainer(...).run()`` for 6 steps of 8 x 256 synthetic
     tokens, ``remat="none"``: finite losses, K1 > 0 on the wgmma route;
@@ -300,8 +302,35 @@ Phases (any failure exits non-zero before the last line is printed):
     re-meshes to (1, 2) with the completions of an uninterrupted serve
     on (1, 2) (qwen's widths, 2 layers, f32); K2 timed at the shard
     layouts.  The phase prints its own elapsed time.
+19. sharded training on virtual meshes of the card: K1 forward, dA and
+    dB at every shard shape of the training steps and K4 forward, dX
+    and K5 at 8 local experts (the psum and all_to_all layouts) against
+    their plain versions on their wgmma routes; qwen2.5-0.5b at full
+    width (bf16, seeded weights) 3 steps of 8 x 256 tokens through
+    ``make_train_step(cfg, mesh)`` on (2, 2) (FSDP x TP) and (1, 4)
+    (attention whole), and phi3.5-moe-42b at 2 layers 2 steps on
+    (1, 2) under ``"psum"`` and ``"all_to_all"``: the first step's loss
+    within ``SHARD_LOSS_REL`` and ``grad_norm`` within
+    ``SHARD_NORM_REL`` of the meshless port step from the same weights
+    (``all_to_all``, whose capacity is per sequence chunk, too), every
+    gathered gradient leaf within ``SHARDED_REL`` of it (the top-2
+    flips of psum's first step against the meshless one counted by
+    layer: an expert whose routed token set changed, and a router of a
+    layer with a flip, in relative Frobenius norm to
+    ``SHARD_EXPERT_REL``), K1, K4 and K5 launches a step equal to
+    ``_predicted_train_launches``, every bf16 launch on a wgmma route,
+    every replica of a part bitwise equal after every step, the ranks'
+    unique parameter and moment bytes equal to the meshless bytes, each
+    step's peak memory beside the bytes a rank holds, qwen's last (2, 2)
+    step under ``remat="full"``, a profiled step of qwen on (2, 2) and of
+    phi under psum (wall, busy and idle share, ``collective::`` device
+    ms); an elastic restart: the (2, 2) state saved,
+    restored onto (1, 2) by ``restore(..., mesh=, specs=)``, one more
+    step whose loss is that of the meshless step from the restored
+    leaves; K1 and K4/K5 timed at the sharded steps' shapes.  The phase
+    prints its own elapsed time.
 
-Phases 15-18 run after phase 14; ``elapsed after ...`` lines give the
+Phases 15-19 run after phase 14; ``elapsed after ...`` lines give the
 script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
@@ -422,16 +451,21 @@ def _times(torch, fns: dict) -> dict:
     of calls issued one after another (host launch gaps included) under
     ``<key>_span``, and the sum of kernel times ``torch.profiler``
     recorded under ``<key>_profiler`` (None where it recorded none; on
-    this card it can drop kernels, so it is a lower bound)."""
+    this card it can drop kernels, so it is a lower bound).  A plain
+    version (a key starting ``plain``) gets its device time only: its
+    thousands of small kernels made the span and the profile the
+    costliest part of the script, and nothing reads them."""
     out = {}
     for key, fn in fns.items():
         out[key], clean = _queued_ms(torch, fn)
         if not clean:                   # fewer launches behind the spin
             out[key], clean = _queued_ms(torch, fn, iters=1)
-        out[key + "_span"] = _cuda_ms(torch, fn, iters=3)
-        out[key + "_profiler"] = _device_ms(torch, fn, label=key)
         if not clean:
             out[key + "_gaps"] = True
+        if key.startswith("plain"):
+            continue
+        out[key + "_span"] = _cuda_ms(torch, fn, iters=3)
+        out[key + "_profiler"] = _device_ms(torch, fn, label=key)
     return out
 
 
@@ -3627,61 +3661,70 @@ def time_train_gemms(torch, kernels, gemms, gen):
     return out
 
 
-def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
+def time_train_experts(torch, kernels, params, cfg, n_tokens: int,
+                       ranks: int = 1):
     """One train step's K4 forward, K4 dX and K5 work at ``n_tokens``
     tokens: up, gate and down of every layer, each layer's expert sizes
     routed by its own router from random hidden states, at the row block
     and flat size the MoE layer picks; rows outside every segment are 0
-    in x and dy, as in the layer.  Bounds: K4 (forward and dX) reads the
-    live experts' weights and live input rows and writes the whole
-    output; K5 reads the live rows of x and dy and writes every expert's
-    dW block; FLOPs count live rows."""
+    in x and dy, as in the layer.  With ``ranks`` > 1, as ``"psum"``
+    expert parallelism runs it: each rank its ``E / ranks`` local
+    experts.  Bounds: K4 (forward and dX) reads the live experts'
+    weights and live input rows and writes the whole output; K5 reads
+    the live rows of x and dy and writes every local expert's dW block;
+    FLOPs count live rows."""
     from repro_torch.models import moe
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     d, ff = cfg.d_model, cfg.d_ff
     e, k = cfg.moe.n_experts, cfg.moe.top_k
+    el = e // ranks
     cap = moe._capacity(n_tokens, e, k, cfg.moe.capacity_factor)
     bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
-    m_flat = e * (-(-cap // bm)) * bm
-    gids = torch.arange(e, dtype=torch.int32, device="cuda")
+    m_flat = el * (-(-cap // bm)) * bm
+    gids = torch.arange(el, dtype=torch.int32, device="cuda")
     fwd_calls, dx_calls, dw_calls, live = [], [], [], []
     cost = {"fwd": [0, 0], "dx": [0, 0], "dw": [0, 0]}
     for layer in params["layers"]:
         p = layer["moe"]
         h = torch.randn(n_tokens, d, device="cuda", generator=gen)
         topi = torch.topk(torch.softmax(h @ p["router"], -1), k, -1).indices
-        sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
+        all_sizes = torch.bincount(topi.reshape(-1), minlength=e).clamp(
             max=cap).to(torch.int32)
-        offs = kernels.flat_group_offsets(sizes, bm)
-        mask = torch.zeros(m_flat, 1, device="cuda")
-        for s0, n in zip(offs[:-1].tolist(), sizes.tolist()):
-            mask[s0:s0 + n] = 1
+        for r in range(ranks):
+            sizes = all_sizes[r * el:(r + 1) * el]
+            offs = kernels.flat_group_offsets(sizes, bm)
+            mask = torch.zeros(m_flat, 1, device="cuda")
+            for s0, n in zip(offs[:-1].tolist(), sizes.tolist()):
+                mask[s0:s0 + n] = 1
 
-        def rand(cols):
-            return (torch.randn(m_flat, cols, device="cuda", generator=gen)
-                    * mask).bfloat16()
-        x_d, x_ff, dy_d, dy_ff = rand(d), rand(ff), rand(d), rand(ff)
-        rows, active = int(sizes.sum()), int((sizes > 0).sum())
-        live.append([rows, active])
-        for x, dy, w in ((x_d, dy_ff, p["up"]), (x_d, dy_ff, p["gate"]),
-                         (x_ff, dy_d, p["down"])):
-            kk, nn = w.shape[1:]
-            fwd_calls.append((x, w, offs, sizes))
-            dx_calls.append((dy, w.transpose(1, 2), offs, sizes))
-            dw_calls.append((x, dy, offs, sizes))
-            cost["fwd"][0] += 2 * (active * kk * nn + rows * kk + m_flat * nn)
-            cost["dx"][0] += 2 * (active * kk * nn + rows * nn + m_flat * kk)
-            cost["dw"][0] += 2 * (rows * kk + rows * nn + e * kk * nn)
-            for key in cost:
-                cost[key][1] += 2 * rows * kk * nn
+            def rand(cols):
+                return (torch.randn(m_flat, cols, device="cuda",
+                                    generator=gen) * mask).bfloat16()
+            x_d, x_ff, dy_d, dy_ff = rand(d), rand(ff), rand(d), rand(ff)
+            rows, active = int(sizes.sum()), int((sizes > 0).sum())
+            live.append([rows, active])
+            for x, dy, w in ((x_d, dy_ff, p["up"]), (x_d, dy_ff, p["gate"]),
+                             (x_ff, dy_d, p["down"])):
+                w = w[r * el:(r + 1) * el]
+                kk, nn = w.shape[1:]
+                fwd_calls.append((x, w, offs, sizes))
+                dx_calls.append((dy, w.transpose(1, 2), offs, sizes))
+                dw_calls.append((x, dy, offs, sizes))
+                cost["fwd"][0] += 2 * (active * kk * nn + rows * kk
+                                       + m_flat * nn)
+                cost["dx"][0] += 2 * (active * kk * nn + rows * nn
+                                      + m_flat * kk)
+                cost["dw"][0] += 2 * (rows * kk + rows * nn + el * kk * nn)
+                for key in cost:
+                    cost[key][1] += 2 * rows * kk * nn
 
     def run_k4(fn, calls):
         return lambda: [fn(a, w, offs[:-1], sizes, gids, block_rows=bm)
                         for a, w, offs, sizes in calls]
 
     def run_dw(fn):
-        return lambda: [fn(x, dy, offs[:-1], sizes, gids, e)
+        return lambda: [fn(x, dy, offs[:-1], sizes, gids, el)
                         for x, dy, offs, sizes in dw_calls]
 
     # K5 as the backward runs it: on the tile table the forward built
@@ -3691,7 +3734,7 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
              for _, _, offs, sizes in dw_calls]
 
     def run_k5():
-        return [_launch_dw(x, dy, meta, bm, e)
+        return [_launch_dw(x, dy, meta, bm, el)
                 for (x, dy, _, _), meta in zip(dw_calls, metas)]
 
     k4 = {}
@@ -3703,14 +3746,14 @@ def time_train_experts(torch, kernels, params, cfg, n_tokens: int):
             "library_ms": library})
         k4[key].update(zip(("bound_ms", "bound_by"), _bound_ms(*cost[key])))
         k4[key]["library"] = lib_name
-    library, lib_name = _k5_library(torch, kernels, dw_calls, gids, e)
+    library, lib_name = _k5_library(torch, kernels, dw_calls, gids, el)
     dw = _times(torch, {"ms": run_k5,
                         "plain_ms": run_dw(kernels.segment_grouped_dw_plain),
                         "library_ms": library})
     dw.update(zip(("bound_ms", "bound_by"), _bound_ms(*cost["dw"])))
     dw["library"] = lib_name
     common = {"launches_timed": len(dw_calls), "tokens": n_tokens,
-              "capacity": cap, "bm": bm, "m_flat": m_flat,
+              "ranks": ranks, "capacity": cap, "bm": bm, "m_flat": m_flat,
               "rows_and_active_experts_per_layer": live}
     out = {f"k4_{key}": {**k4[key], **common, "bytes": cost[key][0],
                          "flops": cost[key][1]} for key in k4}
@@ -3755,13 +3798,13 @@ def _k5_library(torch, kernels, calls, gids, e):
 
 
 # Training at full width on the models of the fifteenth slice, each freed
-# before the next: recurrentgemma-2b (26 layers) and rwkv6-3b (32) at full
-# depth, about 2.66 and 2.85 G parameters, and internvl2-76b at 1 of its
-# 80 layers (about 2.98 G, its two 128,256-row tables the most of them),
-# its batches with frontend_embeds.  With AdamW's f32 moments that is
-# about 12 bytes a parameter, 32-36 GB, plus the activations of
-# remat="none" (at their peaks 54.05, 57.19 and 45.47 GB on an H100
-# 80GB HBM3 at 700 W; PERF.md).
+# before the next: recurrentgemma-2b and rwkv6-3b at full depth (26 and
+# 32 layers, about 2.66 and 2.85 G parameters), and internvl2-76b
+# at 1 of its 80 layers (about 2.98 G, its two 128,256-row tables the
+# most of them), its batches with frontend_embeds.  With AdamW's f32
+# moments that is about 12 bytes a parameter, plus the activations of
+# remat="none" (at full depth their peaks were 54.05, 57.19 and 45.47 GB
+# on an H100 80GB HBM3 at 700 W; PERF.md).
 FULL_TRAIN = (("recurrentgemma-2b", 26), ("rwkv6-3b", 32),
               ("internvl2-76b", 1))
 
@@ -5073,6 +5116,653 @@ def check_sharded_fault(torch, np, cfg) -> None:
          f"completions equal to an uninterrupted serve on (1, 2)")
 
 
+# --------------------------------------------------------------------------
+# Phase 19: sharded training on virtual meshes over one card
+# --------------------------------------------------------------------------
+# qwen2.5-0.5b at full width (bf16, seeded weights) trains 3 steps of 8 x
+# 256 tokens on (2, 2) (FSDP over data, 7/1 heads a shard, 1,024 rows a
+# data replica) and on (1, 4) (the 14/2 heads do not split: q/k/v/o stay
+# whole on every rank and attention runs once; the MLP is 1,216 wide a
+# rank).  phi3.5-moe-42b cut to 2 layers trains 2 steps on (1, 2) under
+# "psum" and "all_to_all" (8 local experts a rank).  Then an elastic
+# restart: qwen's (2, 2) state saved and restored onto (1, 2) for one
+# more step.  Every shard is its own allocation on cuda:0 and the ranks
+# run in turn: the phase measures what sharding costs, never a speedup.
+SHARD_TRAIN_MESHES = ((2, 2), (1, 4))
+SHARD_TRAIN_STEPS, SHARD_MOE_STEPS = 3, 2
+# Against the meshless port step from the same weights (``accum_steps``
+# D for a dense model, as the reference's sharded step): each row-
+# parallel projection rounds its ranks' partial sums to bf16 before the
+# f32 reduction, the data gather's backward adds the replicas' bf16
+# gradients in bf16, and K1 sums in other orders at the shard widths.
+# The loss is a mean over 2,048 tokens, where those 2^-8 perturbations
+# average out: SHARD_LOSS_REL, 2^-8 of the loss.  The global norm sums
+# every gradient's square: SHARD_NORM_REL, 2^-5 of it.  A gradient leaf
+# is held elementwise to SHARDED_REL (2^-4) of its largest magnitude,
+# the bound of the sharded serve's logits after the same 24 layers.
+SHARD_LOSS_REL = 2.0 ** -8
+SHARD_NORM_REL = 2.0 ** -5
+
+
+def _train_k1_gemms(torch, cfg, shape, rows: int):
+    """Every K1 forward GEMM ``(m, k, n, head)`` of one sharded train step
+    (all data replicas and model ranks), from the TP layout of the specs
+    (``_shard_weights``): with heads split every rank projects its q, k,
+    v and o; otherwise each projection runs once a rank where the specs
+    split it and once where they leave it whole; the MLP and the LM head
+    (``head``: read as ``table.T``) once a rank where they split.
+    ``rows`` is a data replica's tokens."""
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.distributed.sharding import heads_split
+
+    local = _shard_weights(torch, cfg, shape)
+    whole = _shard_weights(torch, cfg, (1, 1))
+    ms = shape[1]
+    head_ok = heads_split(cfg, virtual_mesh(shape, "cpu"))
+    layer, head = [], []
+    for name, (k, n) in local.items():
+        split = local[name] != whole[name] or (head_ok and "mixer" in name)
+        (head if "lm_head" in name else layer).extend(
+            [(rows, k, n, "lm_head" in name)] * (ms if split else 1))
+    return (layer * cfg.n_layers + head) * shape[0]
+
+
+def _predicted_train_launches(cfg, shape, rows: int, torch,
+                              remat: str = "none") -> dict:
+    """K1, K4 and K5 launches of one sharded train step, from the specs:
+    each forward GEMM is one launch a row pass (``row_passes``) forward
+    and for dA, and one a pass of its K rows for dB; each MoE layer runs
+    up, gate and down through K4 forward, K4 dX and K5 once a rank that
+    holds experts, a data replica.  Under ``remat="full"`` every layer's
+    forward runs again in the backward (the LM head's does not)."""
+    from repro_torch.kernels.ops import row_passes
+
+    again = remat != "none"
+    gemms = _train_k1_gemms(torch, cfg, shape, rows)
+    k1 = sum((2 + (again and not head)) * len(row_passes(m))
+             + len(row_passes(k)) for m, k, _, head in gemms)
+    out = {"sisa_gemm": k1}
+    if cfg.moe is not None:
+        ranks = shape[1] if cfg.moe.n_experts % shape[1] == 0 else 1
+        k4 = 3 * cfg.n_layers * ranks * shape[0]
+        out.update(grouped_gemm=k4 * (1 + again), grouped_gemm_dx=k4,
+                   grouped_dw=k4)
+    return out
+
+
+def _assert_replicas_bitwise(placed, what: str) -> None:
+    """Every device's copy of a part equal, bit for bit, to the first
+    holder's."""
+    from repro_torch.distributed.sharding import _leaves, replica_groups
+
+    for li, spec in enumerate(_leaves(placed.specs)):
+        for group in replica_groups(spec, placed.mesh):
+            first = _leaves(placed.shards[group[0]])[li]
+            for c in group[1:]:
+                if not _leaves(placed.shards[c])[li].equal(first):
+                    raise AssertionError(f"{what}: leaf {li} {spec} on {c} "
+                                         f"differs from {group[0]}")
+
+
+def _meshless_reference(torch, cfg, params, batch, accum: int) -> dict:
+    """The meshless port step's loss and ``grad_norm`` on ``batch`` with
+    ``accum`` microbatches (the loss and the norm of the averaged
+    gradients, which the AdamW update clips by), its gradients, and for
+    a MoE model (``accum`` 1) each layer's top-k choices."""
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    b = batch["tokens"].shape[0]
+    loss, grads, routes = 0.0, None, None
+    for i in range(accum):
+        mb = {k: v[i * b // accum:(i + 1) * b // accum].cuda()
+              for k, v in batch.items()}
+        calls, undo = _spy_routes(moe)
+        try:
+            mb_loss, _, g = loss_and_grads(params, cfg, mb, remat="none")
+        finally:
+            undo()
+        if cfg.moe is not None and accum == 1:
+            routes = [c[2] for c in calls]
+        loss = loss + float(mb_loss) / accum
+        if grads is None:
+            grads = g if accum == 1 else [t.float() / accum
+                                          for t in tree_leaves(g)]
+        else:
+            for a, t in zip(grads, tree_leaves(g)):
+                a.add_(t.float() / accum)
+        del g
+    leaves = tree_leaves(grads) if accum == 1 else grads
+    return {"loss": loss, "grad_norm": float(adamw.global_norm(leaves)),
+            "grads": leaves, "routes": routes}
+
+
+# Where the sharded forward's rounding flips a token's top-2 expert set,
+# the gradients of the experts it left and joined, and its layer's
+# router, move by that token's whole term.  Those, and only those, are
+# held in relative Frobenius norm, to SHARD_EXPERT_REL (2^-2); every
+# expert whose routed token set is the meshless one (its queue, and so
+# its capacity drops, the same) is held elementwise like any other leaf,
+# to SHARDED_REL of its stack's largest magnitude.
+SHARD_EXPERT_REL = 2.0 ** -2
+
+
+def _routing_changes(torch, ref_routes, calls, ranks: int) -> list:
+    """Per MoE layer, the tokens whose top-k expert set differs between
+    the meshless step (``ref_routes``) and a psum step's (``calls`` of
+    ``_spy_routes``: each of the ``ranks`` ranks routes every layer, all
+    alike), and the experts such a token left or joined."""
+    got = [c[2] for c in calls]
+    if len(got) != ranks * len(ref_routes) or any(
+            not torch.equal(got[i], got[i - i % ranks])
+            for i in range(len(got))):
+        raise AssertionError("psum ranks routed a layer differently")
+    out = []
+    for a, b in zip(ref_routes, got[::ranks], strict=True):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        sa, sb = a.sort(dim=-1).values, b.sort(dim=-1).values
+        moved = (sa != sb).any(-1)
+        experts = set()
+        for x, y in zip(sa[moved].tolist(), sb[moved].tolist()):
+            experts |= set(x) ^ set(y)
+        out.append({"flips": int(moved.sum().item()),
+                    "tokens": int(a.shape[0]),
+                    "experts_changed": sorted(experts)})
+    return out
+
+
+def _grads_vs_meshless(torch, placed_grads, ref_leaves, what: str,
+                       changes: list = None) -> dict:
+    """Every gathered gradient leaf against the meshless one: each element
+    within ``SHARDED_REL`` of the leaf's largest magnitude; in a MoE
+    layer whose routing ``changes`` (``_routing_changes``) show flips,
+    its router and the experts that a flipped token left or joined
+    within ``SHARD_EXPERT_REL`` in relative Frobenius norm instead.
+    Returns the worst of each and its leaf."""
+    from repro_torch.distributed import unshard_tree
+    from repro_torch.optim.adamw import tree_leaves
+
+    whole = unshard_tree(placed_grads.shards, placed_grads.specs,
+                         placed_grads.mesh, device="cuda")
+    names = _leaf_paths(whole)
+    out = {"leaves": 0, "worst_rel": 0.0, "worst_leaf": None,
+           "experts_elementwise": 0, "experts_fro": 0,
+           "routers_elementwise": 0, "routers_fro": 0,
+           "moe_worst_fro": None, "moe_worst_fro_leaf": None}
+
+    def hold(name, got, ref, scale):
+        rel = (got - ref).abs().max().item() / max(scale, 1e-30)
+        if rel > SHARDED_REL:
+            raise AssertionError(f"{what}: gradient {name} off by {rel} of "
+                                 f"its largest magnitude {scale}")
+        if rel >= out["worst_rel"]:
+            out["worst_rel"], out["worst_leaf"] = rel, name
+
+    def hold_fro(name, got, ref):
+        fro = ((got - ref).norm() / max(ref.norm().item(), 1e-30)).item()
+        if fro > SHARD_EXPERT_REL:
+            raise AssertionError(f"{what}: MoE gradient {name} off by "
+                                 f"{fro} in relative Frobenius norm")
+        if fro >= (out["moe_worst_fro"] or 0.0):
+            out["moe_worst_fro"], out["moe_worst_fro_leaf"] = fro, name
+
+    for name, got, ref in zip(names, tree_leaves(whole), ref_leaves,
+                              strict=True):
+        got, ref = got.float(), ref.float()
+        scale = ref.abs().max().item()
+        out["leaves"] += 1
+        if "/moe/" not in name:
+            hold(name, got, ref, scale)
+            continue
+        change = changes[int(name.split("/")[2])]
+        if name.endswith("/router"):
+            key = "routers_fro" if change["flips"] else "routers_elementwise"
+            out[key] += 1
+            (hold_fro(name, got, ref) if change["flips"]
+             else hold(name, got, ref, scale))
+            continue
+        moved = change["experts_changed"]
+        kept = [e for e in range(ref.shape[0]) if e not in moved]
+        out["experts_fro"] += len(moved)
+        out["experts_elementwise"] += len(kept)
+        if kept:
+            hold(f"{name}{kept}", got[kept], ref[kept], scale)
+        for e in moved:
+            hold_fro(f"{name}[{e}]", got[e], ref[e])
+    return out
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _profile_train_step(torch, step, placed, opt, batch) -> tuple:
+    """One sharded train step under ``torch.profiler``: wall, device busy
+    and idle share, the device time of the ``collective::`` ranges (the
+    forward's; the backward's exchanges run in autograd outside them),
+    the kernels by family, and the seconds the profiler's own processing
+    took after the step."""
+    from torch.profiler import profile, ProfilerActivity
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        placed, opt, m = step(placed, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"K1": 0.0, "K4 forward": 0.0, "K4 dX": 0.0, "K5": 0.0,
+           "copy": 0.0, "other": 0.0}
+    collectives = {}
+    for evt in prof.key_averages():
+        on_device = "CUDA" in str(getattr(evt, "device_type", ""))
+        if getattr(evt, "is_user_annotation", False):
+            if evt.key.startswith("collective::") and not on_device:
+                collectives[evt.key] = evt.device_time_total / 1e3
+            continue
+        if not on_device:
+            continue
+        name = _train_family(evt.key)
+        if name == "other" and any(w in evt.key.lower()
+                                   for w in ("memcpy", "copy", "cat")):
+            name = "copy"
+        fam[name] += _self_device_us(evt) / 1e3
+    busy = sum(fam.values())
+    return placed, opt, m, {
+        "step_wall_ms": wall_ms, "device_ms": fam, "device_busy_ms": busy,
+        "busy_share": busy / wall_ms, "idle_share": 1 - busy / wall_ms,
+        "collectives_device_ms": collectives,
+        "profiler_s": time.perf_counter() - t0 - wall_ms / 1e3}
+
+
+def _run_sharded_train(torch, cfg, shape, host_params, batches, ref,
+                       steps: int, impl: str = "psum",
+                       profile_step: int = None, remats: tuple = None,
+                       check_grads: bool = True) -> dict:
+    """``steps`` sharded train steps of ``cfg`` on a virtual ``shape``
+    mesh of cuda:0 from ``host_params`` (copied; left as they are),
+    through ``make_train_step(cfg, mesh, remat=remats[s])`` (default
+    ``"none"``): the first step's loss and ``grad_norm`` against ``ref``
+    (the meshless step's), with ``check_grads`` its gradients leaf by
+    leaf (a MoE model's top-2 flips counted first, ``_routing_changes``),
+    launches a step against ``_predicted_train_launches``, every bf16
+    launch on a wgmma route, replicas bitwise equal after every step,
+    the ranks' unique parameter and moment bytes against the meshless
+    ones, each step's peak memory; step ``profile_step`` under
+    ``torch.profiler``.  Returns the state and the record."""
+    from repro_torch.distributed import (init_opt_state, place_train,
+                                         virtual_mesh)
+    from repro_torch.distributed.sharding import reduce_replicas
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import loss_and_grads, make_train_step
+
+    remats = remats or ("none",) * steps
+    moe.set_ep_impl(impl)
+    t_run = time.perf_counter()
+    try:
+        mesh = virtual_mesh(shape, "cuda:0")
+        t0 = time.perf_counter()
+        placed = place_train(host_params, cfg, mesh)
+        opt = init_opt_state(placed)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(host_params))
+        p_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(host_params))
+        unique = (sum(placed.nbytes(unique=True).values())
+                  + sum(opt.mu.nbytes(unique=True).values())
+                  + sum(opt.nu.nbytes(unique=True).values()))
+        if unique != p_bytes + 8 * n_params:
+            raise AssertionError(f"{cfg.name} {shape}: unique bytes {unique}"
+                                 f" != meshless {p_bytes + 8 * n_params}")
+        held = {c: placed.nbytes()[c] + opt.mu.nbytes()[c]
+                + opt.nu.nbytes()[c] for c in mesh.coords()}
+        ranks = len(held)
+        rows = batches[0]["tokens"].numel() // shape[0]
+        rec = {"model": cfg.name, "layers": cfg.n_layers, "mesh": shape,
+               "impl": impl, "place_s": place_s,
+               "bytes_a_rank": {str(c): n for c, n in held.items()},
+               "bytes_unique": unique, "bytes_meshless": p_bytes + 8 * n_params,
+               "steps": []}
+        if check_grads:
+            calls, undo = _spy_routes(moe)
+            try:
+                _, _, g = loss_and_grads(placed, cfg, batches[0],
+                                         remat="none", mesh=mesh)
+            finally:
+                undo()
+            changes = None
+            if cfg.moe is not None:
+                changes = _routing_changes(torch, ref["routes"], calls,
+                                           shape[1])
+                rec["routing_changes"] = changes
+            rec["grads"] = _grads_vs_meshless(
+                torch, reduce_replicas(g), ref["grads"],
+                f"{cfg.name} {shape} {impl}", changes)
+            del g, calls
+        for s, batch in enumerate(batches[:steps]):
+            want = _predicted_train_launches(cfg, shape, rows, torch,
+                                             remats[s])
+            step = make_train_step(cfg, mesh, remat=remats[s])
+            for counter in LAUNCH_COUNTERS.values():
+                counter.reset()
+            ROUTE_LAUNCHES.clear()
+            torch.cuda.synchronize()
+            resting = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            prof = None
+            if s == profile_step:
+                placed, opt, m, prof = _profile_train_step(
+                    torch, step, placed, opt, batch)
+                rec["profile"] = prof
+                dt = prof["step_wall_ms"] / 1e3
+            else:
+                placed, opt, m = step(placed, opt, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {name: c.n for name, c in LAUNCH_COUNTERS.items()}
+            _k1_wgmma_only(launches)
+            routes = _only_wgmma_routes(launches)
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{cfg.name} {shape} {impl} step {s}: "
+                                     f"launches {got}, predicted {want}")
+            for tree, what in ((placed, "params"), (opt.mu, "mu"),
+                               (opt.nu, "nu")):
+                _assert_replicas_bitwise(tree, f"{cfg.name} {shape} step "
+                                         f"{s} {what}")
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            if not (abs(loss) < float("inf") and abs(norm) < float("inf")):
+                raise AssertionError(f"{cfg.name} {shape} step {s}: loss "
+                                     f"{loss}, grad_norm {norm}")
+            # The ranks share the card, and their work in a step is
+            # symmetric: a rank's share of the step's transient is the
+            # card's rise over its resting bytes, split evenly.
+            rec["steps"].append({
+                "loss": loss, "grad_norm": norm, "remat": remats[s],
+                "wall_s": dt, "launches": got, "launches_predicted": want,
+                "wgmma_routes": routes, "card_resting_gb": resting / 1e9,
+                "card_peak_gb": peak / 1e9,
+                "peak_a_rank_gb": (max(held.values())
+                                   + (peak - resting) / ranks) / 1e9})
+        first = rec["steps"][0]
+        rec["loss_rel"] = abs(first["loss"] - ref["loss"]) / ref["loss"]
+        rec["norm_rel"] = (abs(first["grad_norm"] - ref["grad_norm"])
+                           / ref["grad_norm"])
+        rec["meshless"] = {k: ref[k] for k in ("loss", "grad_norm")}
+        if rec["loss_rel"] > SHARD_LOSS_REL \
+                or rec["norm_rel"] > SHARD_NORM_REL:
+            raise AssertionError(f"{cfg.name} {shape} {impl}: first step "
+                                 f"{first} against meshless {ref['loss']}"
+                                 f", {ref['grad_norm']}")
+        rec["elapsed_s"] = time.perf_counter() - t_run
+        _say(f"phase 19 train {cfg.name} {shape} {impl}: {json.dumps(rec)}")
+        return placed, opt, rec
+    finally:
+        moe.set_ep_impl("psum")
+
+
+def time_shard_train_k1(torch, kernels, cfg, shape, rows: int) -> dict:
+    """K1's work in one sharded train step: every forward GEMM of
+    ``_train_k1_gemms`` on random bf16 operands of its shard's shape
+    (each its own weight, the LM head's read as ``table.T``) and their
+    backward, through ``time_train_gemms``."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    xs = {}
+    gemms = []
+    for m, k, n, head in _train_k1_gemms(torch, cfg, shape, rows):
+        if (m, k) not in xs:
+            xs[(m, k)] = torch.randn(m, k, device="cuda",
+                                     generator=gen).bfloat16()
+        w = ((torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16().T if head else
+             (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16())
+        gemms.append((xs[(m, k)], w))
+    out = time_train_gemms(torch, kernels, gemms, gen)
+    _say(f"k1 sharded train step ({cfg.name} {shape}, {rows} rows a data "
+         f"replica, {len(gemms)} forward GEMMs): {json.dumps(out)}")
+    return out
+
+
+def check_shard_train_kernels(torch, kernels, gen) -> dict:
+    """K1 forward, dA and dB at every distinct shard shape of the sharded
+    train steps (qwen2.5-0.5b on (2, 2) and (1, 4), phi3.5-moe-42b's
+    attention and head on (1, 2)), and K4 forward, dX and K5 at phi's 8
+    local experts in training (a 2,048-token "psum" layout and the
+    "all_to_all" segments of 1,024 tokens a rank, cap-strided), bf16,
+    each against its plain version and on its wgmma route.  K1's bound
+    is ``check_k1_train_shapes``': one bf16 ulp plus the larger of
+    ``_f32_atol`` and K x 2^-28 of the largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
+    from repro_torch.models.moe import _capacity
+
+    worst = {"sisa_gemm": 0.0, "grouped_gemm": 0.0, "grouped_gemm_dx": 0.0,
+             "grouped_dw": 0.0}
+    shapes = set()
+    for name, meshes, rows in (("qwen2.5-0.5b", ((2, 2), (1, 4)), 2048),
+                               ("phi3.5-moe-42b", ((1, 2),), 2048)):
+        cfg = get_config(name)
+        for shape in meshes:
+            shapes |= set(_train_k1_gemms(torch, cfg, shape,
+                                          rows // shape[0]))
+    core0 = LAUNCH_COUNTERS["sisa_gemm_core"].n
+    for m, k, n, head in sorted(shapes):
+        a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        b = ((torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16().T if head else
+             (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16())
+        dc = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
+        for what, x, y in (("fwd", a, b), ("dA", dc, b.t()),
+                           ("dB", a.t(), dc)):
+            ref = kernels.sisa_gemm_plain(x, y)
+            # check_k1_train_shapes' bound for a long contraction (the
+            # LM head's dA runs over a vocabulary shard): K x 2^-28 of
+            # the largest magnitude, where that exceeds _f32_atol.
+            atol = max(_f32_atol(ref), x.shape[1] * 2.0 ** -28
+                       * ref.float().abs().max().item())
+            worst["sisa_gemm"] = max(worst["sisa_gemm"], _max_err(
+                f"K1 train shard {what} {m}x{k}x{n}",
+                kernels.sisa_matmul(x, y), ref, BF16_REL, atol))
+    if LAUNCH_COUNTERS["sisa_gemm_core"].n != core0:
+        raise AssertionError("a K1 launch at a sharded training shape took "
+                             "the CUDA-core body")
+    d, ff, e = MOE_D, MOE_FF, MOE_E
+    el, ms = e // 2, 2
+    layouts = []
+    cap = _capacity(2048, e, 2, 1.25)
+    sizes = torch.randint(cap // 2, cap + 1, (el,), device="cuda",
+                          generator=gen, dtype=torch.int32)
+    sizes[3] = 0
+    bm = kernels.flat_block_rows(min(cap, 64), ff, d, torch.bfloat16)
+    offs = kernels.flat_group_offsets(sizes, bm)
+    layouts.append(("psum 2048 tokens", el * (-(-cap // bm)) * bm,
+                    offs[:-1], sizes,
+                    torch.arange(el, dtype=torch.int32, device="cuda"), bm))
+    cap = _capacity(1024, e, 2, 1.25)
+    recv = torch.randint(0, cap + 1, (ms, el), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    st, sz, gd = kernels.a2a_segments(el, ms, cap, recv)
+    layouts.append(("all_to_all 1024 tokens a rank", el * ms * cap, st, sz,
+                    gd, kernels.aligned_block_rows(min(cap, 64), ff, d,
+                                                   torch.bfloat16,
+                                                   align_to=cap)))
+    n_cases = 0
+    for label, m, starts, sz, gids, bmm in layouts:
+        covered = _covered(torch, m, starts, sz)
+        for kk, nn in ((d, ff), (ff, d)):
+            w = ((torch.randn(el, kk, nn, device="cuda", generator=gen)
+                  / kk ** 0.5).bfloat16().requires_grad_())
+            x = (torch.randn(m, kk, device="cuda", generator=gen)
+                 * covered[:, None]).bfloat16().requires_grad_()
+            dy = (torch.randn(m, nn, device="cuda", generator=gen)
+                  * covered[:, None]).bfloat16()
+            before = dict(ROUTE_LAUNCHES)
+            y = kernels.segment_grouped_gemm(x, w, starts, sz, gids,
+                                             block_rows=bmm)
+            y.backward(dy)
+            _wgmma_routed(ROUTE_LAUNCHES, before, (
+                "grouped_gemm", "grouped_gemm_dx", "grouped_dw"))
+            with torch.no_grad():
+                refs = {"grouped_gemm": kernels.segment_grouped_gemm_plain(
+                            x, w, starts, sz, gids, block_rows=bmm),
+                        "grouped_gemm_dx": kernels.segment_grouped_gemm_plain(
+                            dy, w.transpose(1, 2), starts, sz, gids,
+                            block_rows=bmm),
+                        "grouped_dw": kernels.segment_grouped_dw_plain(
+                            x, dy, starts, sz, gids, el)}
+            for key, got in (("grouped_gemm", y), ("grouped_gemm_dx", x.grad),
+                             ("grouped_dw", w.grad)):
+                ref = refs[key]
+                if key != "grouped_dw":
+                    got, ref = got[covered], ref[covered]
+                worst[key] = max(worst[key], _max_err(
+                    f"{key} train {label} {kk}x{nn}", got, ref, BF16_REL,
+                    _f32_atol(ref)))
+            n_cases += 1
+    _say(f"phase 19 kernels: K1 forward, dA and dB at the sharded training "
+         f"shapes {sorted(shapes)} and K4 forward, dX and K5 at 8 local "
+         f"experts ({n_cases} cases: the psum and all_to_all training "
+         f"layouts) agree with their plain versions on the wgmma routes "
+         f"(max abs err {json.dumps(worst)})")
+    return worst
+
+
+def train_sharded(torch, np, kernels) -> dict:
+    """Phase 19 (module doc): qwen2.5-0.5b on (2, 2) and (1, 4),
+    phi3.5-moe-42b (2 layers) on (1, 2) under both EP impls, the elastic
+    restart, and K1, K4 and K5 timed at the sharded steps' shapes."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import (opt_state_specs, param_specs,
+                                         unshard_tree, virtual_mesh)
+    from repro_torch.models import init_params
+    from repro_torch.train import make_train_step
+
+    out = {"runs": {}}
+    cfg = get_config("qwen2.5-0.5b")
+    params = init_params(cfg, seed=0)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{k: torch.as_tensor(v) for k, v in data.batch(s).items()}
+               for s in range(SHARD_TRAIN_STEPS + 1)]
+    state = None
+    for shape in SHARD_TRAIN_MESHES:
+        ref = _meshless_reference(torch, cfg, params, batches[0], shape[0])
+        # (2, 2): the second step profiled, the last under remat="full",
+        # whose backward gathers each layer's shards again.
+        placed, opt, rec = _run_sharded_train(
+            torch, cfg, shape, params, batches, ref, SHARD_TRAIN_STEPS,
+            **({"profile_step": 1, "remats": ("none", "none", "full")}
+               if shape == (2, 2) else {}))
+        del ref
+        out["runs"][f"qwen {shape}"] = rec
+        if shape == (2, 2):
+            state = (placed, opt)
+        else:
+            del placed, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["k1"] = {shape: time_shard_train_k1(
+        torch, kernels, cfg, shape, TRAIN_BATCH * TRAIN_SEQ // shape[0])
+        for shape in SHARD_TRAIN_MESHES}
+    _say(f"phase 19 K1 timing: {time.perf_counter() - t0:.1f} s")
+
+    # The elastic restart: (2, 2)'s state through a checkpoint onto (1, 2);
+    # the meshless step runs from the restored leaves, gathered.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/step_{SHARD_TRAIN_STEPS}"
+        ckpt.save(path, SHARD_TRAIN_STEPS, state)
+        save_s = time.perf_counter() - t0
+        like = state
+        del state
+        mesh2 = virtual_mesh((1, 2), "cuda:0")
+        pspecs = param_specs(params, cfg, mesh2)
+        step0, (p2, o2) = ckpt.restore(
+            path, like, mesh=mesh2, specs=(pspecs, opt_state_specs(pspecs)))
+    del like
+    gc.collect()
+    torch.cuda.empty_cache()
+    _assert_replicas_bitwise(p2, "restored (1, 2) params")
+    wp = unshard_tree(p2.shards, p2.specs, mesh2, device="cuda")
+    wo = type(o2)(o2.step.clone(), *(unshard_tree(
+        t.shards, t.specs, mesh2, device="cuda") for t in (o2.mu, o2.nu)))
+    batch = batches[SHARD_TRAIN_STEPS]
+    p2, o2, m2 = make_train_step(cfg, mesh2, remat="none")(p2, o2, batch)
+    _assert_replicas_bitwise(p2, "(1, 2) params after the restored step")
+    del p2, o2
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, wm = make_train_step(cfg, remat="none")(
+        wp, wo, {k: v.cuda() for k, v in batch.items()})
+    del wp, wo
+    loss, ref_loss = float(m2["loss"]), float(wm["loss"])
+    elastic = {"from": (2, 2), "to": (1, 2), "step": step0,
+               "save_s": save_s, "total_s": time.perf_counter() - t0,
+               "loss": loss, "meshless_loss": ref_loss,
+               "loss_rel": abs(loss - ref_loss) / ref_loss}
+    if step0 != SHARD_TRAIN_STEPS or not abs(loss) < float("inf") \
+            or elastic["loss_rel"] > SHARD_LOSS_REL:
+        raise AssertionError(f"elastic restart: {elastic}")
+    out["elastic"] = elastic
+    _say(f"phase 19 elastic restart: {json.dumps(elastic)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phi3.5-moe-42b, 2 layers, on (1, 2) under both EP impls.
+    moe_cfg = dataclasses.replace(get_config("phi3.5-moe-42b"),
+                                  n_layers=TRAIN_LAYERS)
+    params = init_params(moe_cfg, seed=0)
+    data = SyntheticLM(moe_cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{k: torch.as_tensor(v) for k, v in data.batch(s).items()}
+               for s in range(SHARD_MOE_STEPS)]
+    ref = _meshless_reference(torch, moe_cfg, params, batches[0], 1)
+    for impl in ("psum", "all_to_all"):
+        # all_to_all's capacity is per sequence chunk, so its routed
+        # token sets (and gradients) are not the meshless step's; its
+        # loss and grad_norm are held to the same bounds all the same.
+        placed, opt, rec = _run_sharded_train(
+            torch, moe_cfg, (1, 2), params, batches, ref, SHARD_MOE_STEPS,
+            impl=impl, profile_step=1 if impl == "psum" else None,
+            check_grads=impl == "psum")
+        out["runs"][f"phi {impl}"] = rec
+        del placed, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    t0 = time.perf_counter()
+    out["k4"] = time_train_experts(torch, kernels, params, moe_cfg,
+                                   TRAIN_BATCH * TRAIN_SEQ, ranks=2)
+    _say(f"phase 19 K4/K5 timing: {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5289,6 +5979,14 @@ def main() -> int:
     lap("phase 18: sharded serving")
     shard_serve = sharded["serves"]
 
+    t19 = time.perf_counter()
+    train_shard_err = check_shard_train_kernels(torch, kernels, gen)
+    sharded_train = train_sharded(torch, np, kernels)
+    _say(f"phase 19 (sharded training) elapsed: "
+         f"{time.perf_counter() - t19:.1f} s")
+    lap("phase 19: sharded training")
+    st_runs = sharded_train["runs"]
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [
@@ -5318,10 +6016,23 @@ def main() -> int:
                  "tokens); shard_<d>x<m>_* one qwen2.5-0.5b decode step "
                  "(rung 8) at the shard widths of a virtual (d, m) mesh, "
                  "every rank's GEMMs; shard_<kind>_<mesh>_launches its "
-                 "sharded serves'",
+                 "sharded serves'; shard_train_<d>x<m>_fwd_*/_bwd_* one "
+                 "qwen2.5-0.5b train step's forward and backward GEMMs "
+                 "(8 x 256 tokens) at the shard widths of a virtual (d, m) "
+                 "mesh, every replica's and rank's, and "
+                 "shard_train_<run>_launches_a_step a sharded train "
+                 "step's launches",
          "launches": launches["sisa_gemm"],
-         "max_abs_err": max(k1_err, k1_bwd_err, shard_err["sisa_gemm"]),
+         "max_abs_err": max(k1_err, k1_bwd_err, shard_err["sisa_gemm"],
+                            train_shard_err["sisa_gemm"]),
          **{k: k1[k] for k in keys},
+         **{f"shard_train_{a}x{b}_{part}_{k}":
+            sharded_train["k1"][(a, b)][part][k]
+            for a, b in SHARD_TRAIN_MESHES for part in ("fwd", "bwd")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_train_{name.replace(' ', '_').replace(',', '')}_"
+            "launches_a_step": rec["steps"][0]["launches"]["sisa_gemm"]
+            for name, rec in st_runs.items()},
          **{f"shard_{a}x{b}_{k}": sharded["k1"][(a, b)][k]
             for a, b in SHARD_MESHES
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -5398,9 +6109,19 @@ def main() -> int:
          "note": "shard_ep<r>_*: one phi3.5-moe-42b decode step (rung 8, 8 "
                  "layers) with E / r local experts a rank (3 launches a "
                  "layer a rank); shard_<impl>_launches: its paged serve on "
-                 "a virtual (1, 2) mesh under that EP impl",
+                 "a virtual (1, 2) mesh under that EP impl; "
+                 "shard_train_ep2_*: one train step's forward (2 layers, "
+                 "2,048 tokens) at 8 local experts a rank, and "
+                 "shard_train_<impl>_launches_a_step a step of the (1, 2) "
+                 "training run under that impl",
          "launches": moe_launches["grouped_gemm"],
-         "max_abs_err": max(k4_err, shard_err["grouped_gemm"]),
+         "max_abs_err": max(k4_err, shard_err["grouped_gemm"],
+                            train_shard_err["grouped_gemm"]),
+         **{f"shard_train_ep2_{k}": sharded_train["k4"]["k4_fwd"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_train_{impl}_launches_a_step":
+            st_runs[f"phi {impl}"]["steps"][0]["launches"]["grouped_gemm"]
+            for impl in ("psum", "all_to_all")},
          **{k: k4[k] for k in keys},
          **{f"shard_ep{r}_{k}": sharded_phi[f"k4_{r}"][k] for r in (2, 4)
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -5411,16 +6132,31 @@ def main() -> int:
          "replaces": "src/repro/kernels/grouped_gemm.py:160",
          "note": "K4's backward: dX = dY W^T through the same kernel's "
                  "TRANS_B bodies (the VJP at grouped_gemm.py:301-310); "
-                 "launches and times from the training run",
+                 "launches and times from the training run; "
+                 "shard_train_ep2_* at 8 local experts a rank and "
+                 "shard_train_<impl>_launches_a_step, as grouped_gemm's",
          "launches": train_launches["grouped_gemm_dx"],
-         "max_abs_err": k45_err["dx"],
-         **{k: train_t["k4_dx"][k] for k in keys}},
+         "max_abs_err": max(k45_err["dx"],
+                            train_shard_err["grouped_gemm_dx"]),
+         **{k: train_t["k4_dx"][k] for k in keys},
+         **{f"shard_train_ep2_{k}": sharded_train["k4"]["k4_dx"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_train_{impl}_launches_a_step":
+            st_runs[f"phi {impl}"]["steps"][0]["launches"][
+                "grouped_gemm_dx"] for impl in ("psum", "all_to_all")}},
         {"name": "grouped_dw", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_dw.cu",
          "replaces": "src/repro/kernels/grouped_gemm.py:186",
+         "note": "shard_train_ep2_* at 8 local experts a rank and "
+                 "shard_train_<impl>_launches_a_step, as grouped_gemm's",
          "launches": train_launches["grouped_dw"],
-         "max_abs_err": k45_err["dw"],
-         **{k: train_t["k5"][k] for k in keys}},
+         "max_abs_err": max(k45_err["dw"], train_shard_err["grouped_dw"]),
+         **{k: train_t["k5"][k] for k in keys},
+         **{f"shard_train_ep2_{k}": sharded_train["k4"]["k5"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard_train_{impl}_launches_a_step":
+            st_runs[f"phi {impl}"]["steps"][0]["launches"]["grouped_dw"]
+            for impl in ("psum", "all_to_all")}},
         {"name": "paged_attn_int8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:88",

@@ -7,8 +7,14 @@ path in the tree) and ``manifest.json`` (step, leaf shapes and dtypes,
 place, the manifest last, so a directory with a manifest is complete.
 numpy has no bfloat16, so bfloat16 leaves are stored as their uint16 bit
 patterns with ``"bfloat16"`` in the manifest, and come back bit for bit.
-:func:`save_step` keeps the newest ``keep`` steps.  Resharding onto
-another mesh belongs to the distributed slice.
+:func:`save_step` keeps the newest ``keep`` steps.
+
+A tree placed on a mesh (a ``Placed`` subtree: sharded parameters or
+moments) is saved as its whole leaves (``unshard_tree``), in the
+single-device layout, so one file restores onto any mesh: :func:`restore`
+with ``mesh`` and ``specs`` places the leaves by the specs of the mesh
+it restores onto (elastic resharding; the reference reassembles each
+leaf and re-places it the same way).
 """
 from __future__ import annotations
 
@@ -24,6 +30,49 @@ PyTree = Any
 
 _SAFE = re.compile(r"[^\w.\-]")
 SHARDS = "shards-0.npz"
+
+
+def _whole(tree: PyTree, meta: bool) -> PyTree:
+    """``tree`` with each ``Placed`` subtree replaced by its whole leaves
+    (on the CPU), or, with ``meta``, by meta tensors of their shapes."""
+    from repro_torch.distributed.mesh import P
+    from repro_torch.distributed.sharding import (_axes_size, Placed,
+                                                  tree_map, unshard_tree)
+    if isinstance(tree, Placed):
+        if not meta:
+            return unshard_tree(tree.shards, tree.specs, tree.mesh)
+
+        def proto(spec, t):
+            shape = list(t.shape)
+            for i, entry in enumerate(P(*spec)):
+                if entry is not None:
+                    shape[i] *= _axes_size(tree.mesh, entry)
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        return tree_map(proto, tree.specs,
+                        tree.shards[(0,) * tree.mesh.devices.ndim])
+    if isinstance(tree, dict):
+        return {k: _whole(v, meta) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_whole(v, meta) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_whole(v, meta) for v in tree)
+    return tree
+
+
+def _place(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """``tree`` on ``mesh``: each dict or list subtree of ``specs`` (a
+    tree of specs) becomes a ``Placed`` of ``tree``'s matching subtree;
+    a spec standing alone in a tuple (the optimizer's step) leaves its
+    leaf whole, replicated, where it is."""
+    from repro_torch.distributed.mesh import P
+    from repro_torch.distributed.sharding import Placed, shard_tree
+    if isinstance(specs, (dict, list)):
+        return Placed(mesh, specs, shard_tree(tree, specs, mesh))
+    if isinstance(specs, tuple) and not isinstance(specs, P):
+        out = [_place(t, s, mesh) for t, s in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
+    return tree
 
 
 def _flatten(tree: PyTree, prefix: str = "") -> Dict[str, Any]:
@@ -70,7 +119,7 @@ def save(path: str, step: int, tree: PyTree, *,
     atomically, the manifest last."""
     os.makedirs(path, exist_ok=True)
     arrays, leaves = {}, {}
-    for k, v in _flatten(tree).items():
+    for k, v in _flatten(_whole(tree, meta=False)).items():
         arr, dtype = _to_numpy(v)
         arrays[_SAFE.sub("__", k)] = arr
         leaves[k] = {"shape": list(arr.shape), "dtype": dtype}
@@ -98,11 +147,17 @@ def latest_step_dir(root: str) -> Optional[str]:
     return os.path.join(root, best)
 
 
-def restore(path: str, like: PyTree) -> Tuple[int, PyTree]:
+def restore(path: str, like: PyTree, *, mesh=None, specs: PyTree = None
+            ) -> Tuple[int, PyTree]:
     """``(step, tree)`` from ``path``; ``like`` gives the tree's
-    structure, and each leaf's shape, dtype and device."""
+    structure, and each leaf's shape, dtype and device (a ``Placed``
+    subtree of ``like``: its whole shapes, on the CPU).  With ``mesh``
+    and ``specs`` (a tree of specs matching ``like``, e.g. ``(param
+    specs, opt_state_specs(...))``) the tree is placed on ``mesh``
+    (:func:`_place`), whatever mesh wrote it."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    like = _whole(like, meta=True)
     restored = {}
     with np.load(os.path.join(path, SHARDS)) as data:
         for k, proto in _flatten(like).items():
@@ -115,8 +170,12 @@ def restore(path: str, like: PyTree) -> Tuple[int, PyTree]:
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
-            restored[k] = t.to(device=proto.device, dtype=proto.dtype)
-    return manifest["step"], _unflatten(like, restored)
+            dev = "cpu" if proto.device.type == "meta" else proto.device
+            restored[k] = t.to(device=dev, dtype=proto.dtype)
+    tree = _unflatten(like, restored)
+    if mesh is not None and specs is not None:
+        tree = _place(tree, specs, mesh)
+    return manifest["step"], tree
 
 
 def save_step(root: str, step: int, tree: PyTree, *, keep: int = 3,

@@ -1,18 +1,23 @@
 """Collectives over per-shard tensors, in a fixed rank order.
 
 The port runs a mesh from one controller (:mod:`~repro_torch.
-distributed.mesh`): a sharded activation is a list with one tensor a
-rank of the mesh's ``model`` axis, each on its rank's device.  These
-are the only places where ranks exchange data, so a later multi-process
-backend can put process groups behind the same three calls.  Each
-returns one tensor a rank, on that rank's device (the input's); on a
-virtual mesh, whose ranks share a device, that is one tensor.  Each
-call is a ``torch.profiler`` range named ``collective::<call>``, so a
-profile shows the device time the exchanges take.
+distributed.mesh`): a sharded value is a list with one tensor a rank of
+a group, each on its rank's device.  A group is the shards of one mesh
+axis with the others fixed, in rank order: the ``model`` row of a data
+replica (tensor and expert parallelism), or the ``data`` column of one
+model rank (FSDP's parameter gather, whose backward under autograd is
+the reduce-scatter of the gradients; the data-parallel loss; a stage
+axis for the pipeline).  These are the only places where ranks exchange
+data, so a later multi-process backend can put process groups behind
+the same four calls.  Each returns one tensor a rank, on that rank's
+device (the input's); on a virtual mesh, whose ranks share a device,
+that is one tensor.  All four are made of differentiable torch ops.
+Each call is a ``torch.profiler`` range named ``collective::<call>``,
+so a profile shows the device time the exchanges take.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -56,3 +61,14 @@ def all_to_all(xs: List[Tensor], split_dim: int,
     with record_function("collective::all_to_all"):
         return [torch.cat([chunks[i][j].to(xs[j].device) for i in range(n)],
                           dim=concat_dim) for j in range(n)]
+
+
+def ppermute(xs: List[Tensor], perm: Sequence[Tuple[int, int]]
+             ) -> List[Tensor]:
+    """``jax.lax.ppermute``: rank ``j`` receives rank ``i``'s tensor for
+    each pair ``(i, j)`` of ``perm``, and a rank that receives nothing
+    gets zeros of its own tensor's shape."""
+    src = {j: i for i, j in perm}
+    with record_function("collective::ppermute"):
+        return [xs[src[j]].to(x.device) if j in src else torch.zeros_like(x)
+                for j, x in enumerate(xs)]

@@ -74,17 +74,27 @@ class Mesh:
         """Every device coordinate, in row-major order."""
         return list(np.ndindex(self.devices.shape))
 
-    def model_row(self, axis: str = "model") -> list:
-        """The coordinates along ``axis`` with every other axis at 0: the
-        shards that one replica of a model-parallel program runs on."""
+    def model_row(self, axis: str = "model", at=None) -> list:
+        """The coordinates along ``axis`` with every other axis at its
+        value in ``at`` (default 0): the shards that one replica of a
+        model-parallel program runs on."""
+        base = tuple(at) if at is not None else (0,) * self.devices.ndim
         if axis not in self.axis_names:
-            return [(0,) * self.devices.ndim]
+            return [base]
         k = self.axis_names.index(axis)
-        return [tuple(r if i == k else 0 for i in range(self.devices.ndim))
+        return [base[:k] + (r,) + base[k + 1:]
                 for r in range(self.shape[axis])]
 
-    def model_devices(self, axis: str = "model") -> list:
-        return [self.devices[c] for c in self.model_row(axis)]
+    def model_devices(self, axis: str = "model", at=None) -> list:
+        return [self.devices[c] for c in self.model_row(axis, at)]
+
+    def replicas(self, axis: str = "model") -> list:
+        """The first coordinate of every model row, in row-major order of
+        the other axes (for ``("data", "model")``: by data index)."""
+        if axis not in self.axis_names:
+            return self.coords()
+        k = self.axis_names.index(axis)
+        return [c for c in self.coords() if c[k] == 0]
 
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.flat})

@@ -1,6 +1,6 @@
-"""TP x EP sharding rules for serving on a ``("data", "model")`` mesh
-(the port of ``repro/distributed/sharding.py``'s parameter, cache and
-activation rules).
+"""FSDP x TP x EP sharding rules on a ``("data", "model")`` mesh (the
+port of ``repro/distributed/sharding.py``'s parameter, optimizer-state,
+batch, cache and activation rules).
 
 Parameters: Megatron-style tensor parallelism over ``model`` (column-
 split up-projections and heads, row-split down-projections, vocabulary-
@@ -15,9 +15,14 @@ The rules are pure functions of shapes and axis sizes and give the
 reference's specs leaf for leaf; the port's parameter tree has one dict
 a layer where the reference stacks a group, so a port leaf's spec is
 the reference's without the stacked dimension.  :func:`shard_tensor`
-and :func:`place_params` put a tree on a mesh, one own allocation a
-device (the counterpart of ``to_named`` plus ``device_put``), and
-:func:`unshard_tensor` joins the shards back.  The reference's
+and :func:`place_params` (serving) and :func:`place_train` (training)
+put a tree on a mesh, one own allocation a device (the counterpart of
+``to_named`` plus ``device_put``), and :func:`unshard_tensor` joins the
+shards back.  In training every device holds its (data, model) part of
+each leaf; :func:`gather_fsdp` gathers the parts over the data axes into
+each model rank's TP shard before a data replica's forward, and
+:func:`reduce_replicas` gives every copy of a leaf that more than one
+device holds the sum of the copies' gradients.  The reference's
 ``MeshSharder`` steers GSPMD with ``with_sharding_constraint``; the
 port's computes nothing: the sharded forward reads whether heads split
 (:func:`heads_split`) from it.
@@ -32,7 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import WKV
-from repro_torch.distributed.mesh import (Mesh, own_copy, P, shard_slices)
+from repro_torch.distributed.collectives import all_gather, all_reduce_sum
+from repro_torch.distributed.mesh import (axis_index, Mesh, own_copy, P,
+                                          shard_slices)
+from repro_torch.optim.adamw import AdamWState, sum_squares
 
 PyTree = Any
 
@@ -196,6 +204,21 @@ def param_specs(params_shapes: PyTree, cfg, mesh: Mesh,
     ax = mesh_axes_for(mesh)
     return _tree_of_paths(params_shapes, lambda path, leaf: _param_rule(
         path, tuple(leaf.shape), mesh, ax, cfg, fsdp))
+
+
+def opt_state_specs(param_spec_tree: PyTree, opt_state=None):
+    """AdamW's moments shard exactly like their parameters; the step is
+    replicated."""
+    return AdamWState(step=P(), mu=param_spec_tree, nu=param_spec_tree)
+
+
+def batch_specs(cell_step: str, mesh: Mesh, cfg) -> dict:
+    """The input batch's specs: rows over the batch axes (one name where
+    there is one, as ``PartitionSpec`` spells it)."""
+    ax = mesh_axes_for(mesh)
+    b = ax.batch if len(ax.batch) > 1 else ax.batch[0]
+    return {"tokens": P(b, None), "labels": P(b, None),
+            "frontend_embeds": P(b, None, None)}
 
 
 # --------------------------------------------------------------------------
@@ -386,14 +409,57 @@ def _local_linears(tree: PyTree, specs: PyTree, mesh: Mesh, coord):
 
 @dataclasses.dataclass
 class Placed:
-    """A parameter tree placed on ``mesh`` by ``specs``: ``shards`` holds
-    each device's tree (own allocations), and :attr:`local` the trees
-    that the model row's shards compute with (:func:`_local_linears`:
-    views of their own tensors)."""
+    """A tree placed on ``mesh`` by ``specs``: ``shards`` holds each
+    device's tree (own allocations).  For serving parameters,
+    :attr:`local` holds the trees that the model row's shards compute
+    with (:func:`_local_linears`: views of their own tensors); a
+    training tree (parameters, gradients, moments) has none, since its
+    forward gathers them (:func:`gather_fsdp`)."""
     mesh: Mesh
     specs: PyTree
     shards: np.ndarray
-    local: List[PyTree]
+    local: Optional[List[PyTree]] = None
+
+    def map(self, fn: Callable) -> "Placed":
+        """``fn`` over every device's leaves, laid out as this one."""
+        out = np.empty(self.shards.shape, dtype=object)
+        for c in self.mesh.coords():
+            out[c] = tree_map(fn, self.shards[c])
+        return Placed(self.mesh, self.specs, out)
+
+    def leaves(self, coord) -> list:
+        """The leaves of the device at ``coord``, in the specs' order."""
+        return _leaves(self.shards[coord])
+
+    def primary(self, coord) -> List[bool]:
+        """Per leaf, whether ``coord`` is the first holder of its part
+        (:func:`is_primary`): over the first holders every logical
+        element is counted once."""
+        return [is_primary(s, self.mesh, coord) for s in _leaves(self.specs)]
+
+    def nbytes(self, unique: bool = False) -> dict:
+        """Bytes each device holds; with ``unique``, of the parts it is
+        the first holder of, so the devices' counts sum to the bytes of
+        the whole tree."""
+        out = {}
+        for c in self.mesh.coords():
+            out[c] = sum(t.numel() * t.element_size() for t, first in zip(
+                self.leaves(c), self.primary(c)) if first or not unique)
+        return out
+
+    def global_norms(self) -> list:
+        """The global norm of the whole tree, a copy on each device in
+        ``mesh.coords()`` order: each device's float32 sum of squares
+        over the parts it first holds, summed over the devices by
+        :func:`all_reduce_sum` (a norm, a router or a leaf FSDP cannot
+        split counts once, however many devices hold it)."""
+        sums = []
+        for c in self.mesh.coords():
+            mine = [t for t, first in zip(self.leaves(c), self.primary(c))
+                    if first]
+            sums.append(sum_squares(mine) if mine else torch.zeros(
+                (), dtype=torch.float32, device=self.mesh.devices[c]))
+        return [torch.sqrt(s) for s in all_reduce_sum(sums)]
 
 
 def place_params(params: PyTree, cfg, mesh: Mesh) -> Placed:
@@ -405,3 +471,155 @@ def place_params(params: PyTree, cfg, mesh: Mesh) -> Placed:
     local = [_local_linears(shards[c], specs, mesh, c)
              for c in mesh.model_row()]
     return Placed(mesh, specs, shards, local)
+
+
+# --------------------------------------------------------------------------
+# Training: FSDP placement, gathers and replica sums
+# --------------------------------------------------------------------------
+def _leaves(tree: PyTree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> set:
+    """Every mesh axis a spec names."""
+    return {a for e in spec for a in _entry_axes(e)}
+
+
+def drop_axes(spec, axes) -> P:
+    """``spec`` without the mesh axes ``axes``: the TP spec of an FSDP
+    spec when ``axes`` are the data axes."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in _entry_axes(e) if a not in axes)
+        out.append(None if not kept else kept if len(kept) > 1 else kept[0])
+    return _canon(out)
+
+
+def is_primary(spec, mesh: Mesh, coord) -> bool:
+    """Whether ``coord`` is the first holder of its part under ``spec``:
+    its index is 0 on every mesh axis the spec does not name."""
+    used = spec_axes(spec)
+    return all(i == 0 for a, i in zip(mesh.axis_names, coord)
+               if a not in used)
+
+
+def replica_groups(spec, mesh: Mesh) -> List[list]:
+    """The coordinates that hold the same part under ``spec``, a list a
+    part: those that agree on every axis the spec names."""
+    used = [k for k, a in enumerate(mesh.axis_names) if a in spec_axes(spec)]
+    groups: dict = {}
+    for c in mesh.coords():
+        groups.setdefault(tuple(c[k] for k in used), []).append(c)
+    return list(groups.values())
+
+
+def place_train(params: PyTree, cfg, mesh: Mesh) -> Placed:
+    """``params`` on ``mesh`` by ``param_specs(..., fsdp=True)``, the
+    training layout: each device holds its (data, model) part of every
+    leaf, and a leaf whose spec degrades is replicated."""
+    specs = param_specs(params, cfg, mesh, fsdp=True)
+    return Placed(mesh, specs, shard_tree(params, specs, mesh))
+
+
+def init_opt_state(placed: Placed) -> AdamWState:
+    """AdamW's zero float32 moments in ``placed``'s layout
+    (``opt_state_specs``: like their parameters), step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return AdamWState(step=torch.zeros((), dtype=torch.int32),
+                      mu=placed.map(zeros), nu=placed.map(zeros))
+
+
+def _fsdp_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh_axes_for(mesh).fsdp if a in mesh.axis_names)
+
+
+def _per_device(fn: Callable, specs: PyTree, trees: List[PyTree]) -> list:
+    """``fn(spec, *parts)`` over the leaves of the devices' ``trees`` (in
+    ``mesh.coords()`` order), returning a part a device; the devices'
+    trees of its results, in that order."""
+    per = tree_map(lambda spec, *parts: tuple(fn(spec, parts)), specs,
+                   *trees)
+    return [tree_map(lambda t, i=i: t[i], per) for i in range(len(trees))]
+
+
+def _gather_leaf(spec, parts, mesh: Mesh, fs) -> list:
+    """Each device's TP tensor of one leaf: where the spec splits a
+    dimension over the FSDP axes, the parts of the devices that differ
+    only there, gathered in rank order (:func:`all_gather`)."""
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if any(a in fs for a in axes):
+            break
+    else:
+        return list(parts)
+    if not all(a in fs for a in axes):
+        raise ValueError(f"spec {spec} mixes FSDP and model axes in one "
+                         "dimension")
+    coords = mesh.coords()
+    at = [k for k, a in enumerate(mesh.axis_names) if a in axes]
+    index = {c: i for i, c in enumerate(coords)}
+    out = [None] * len(coords)
+    for c in coords:
+        if out[index[c]] is not None:
+            continue
+        group = sorted((g for g in coords
+                        if all(g[k] == c[k] for k in range(len(c))
+                               if k not in at)),
+                       key=lambda g: axis_index(mesh, g, entry)[0])
+        for g, t in zip(group, all_gather([parts[index[g]] for g in group],
+                                          dim)):
+            out[index[g]] = t
+    return out
+
+
+def gather_fsdp(placed: Placed, select: Optional[Callable] = None) -> dict:
+    """Each device's TP tree of ``select(params)`` (default: all of it),
+    by coordinate: parts split over the data axes gathered into the
+    model rank's TP shard, then :func:`_local_linears` by the TP specs.
+    Under autograd the gather's backward gives each part the sum of the
+    data replicas' gradients: FSDP's reduce-scatter."""
+    mesh = placed.mesh
+    sel = select or (lambda t: t)
+    specs = sel(placed.specs)
+    coords = mesh.coords()
+    fs = _fsdp_axes(mesh)
+    tp = _per_device(lambda spec, parts: _gather_leaf(spec, parts, mesh, fs),
+                     specs, [sel(placed.shards[c]) for c in coords])
+    tp_specs = tree_map(lambda spec: drop_axes(spec, fs), specs)
+    return {c: _local_linears(tree, tp_specs, mesh, c)
+            for c, tree in zip(coords, tp)}
+
+
+def reduce_replicas(placed: Placed) -> Placed:
+    """Every device's copy of a part that several devices hold replaced
+    by the copies' sum (:func:`all_reduce_sum`: float32 in rank order,
+    rounded once, the same bits on every holder); parts one device holds
+    are kept."""
+    mesh, coords = placed.mesh, placed.mesh.coords()
+    index = {c: i for i, c in enumerate(coords)}
+
+    def leaf(spec, parts):
+        out = list(parts)
+        for group in replica_groups(spec, mesh):
+            if len(group) > 1:
+                summed = all_reduce_sum([parts[index[g]] for g in group])
+                for g, t in zip(group, summed):
+                    out[index[g]] = t
+        return out
+
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for c, tree in zip(coords, _per_device(
+            leaf, placed.specs, [placed.shards[c] for c in coords])):
+        out[c] = tree
+    return Placed(mesh, placed.specs, out)

@@ -483,16 +483,20 @@ def _write_parts(parts, rows: Tensor, cell: Tensor, new: Tensor,
         buf[rr, idx] = torch.where(mask, new.to(buf.device, buf.dtype), cur)
 
 
-def attn_apply_tp(ps, x: Tensor, cfg, tp) -> Tuple[Tensor, Tensor, Tensor]:
+def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True
+                  ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
     """Causal global attention over the prompt on a mesh: the output and
     the whole K/V on rank 0's device (the storage lays them out by its
     own specs).  With ``tp.head_ok`` each rank runs :func:`attn_apply`
     on its heads and the ``o`` partials are reduced; otherwise attention
-    runs once, on the whole heads."""
+    runs once, on the whole heads.  Training passes ``need_kv=False``:
+    the heads' K/V are not gathered and None comes back for them."""
     if tp.head_ok:
         outs = [attn_apply(p, x.to(d), tp.cfg_local)
                 for p, d in zip(ps, tp.devices)]
         mix = reduce_rows([o[0] for o in outs], ps[0]["o"])
+        if not need_kv:
+            return mix, None, None
         return (mix, all_gather([o[1] for o in outs], 2)[0],
                 all_gather([o[2] for o in outs], 2)[0])
     b, s, _ = x.shape

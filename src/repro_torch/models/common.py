@@ -14,7 +14,9 @@ in float32 in rank order before its bias is added once
 (:func:`reduce_rows`); the embedding table and the LM head are split on
 the vocabulary (:func:`embedding_lookup_tp`, :func:`lm_head_logits_tp`).
 A weight that the divisibility-guarded specs left whole is used once, on
-rank 0.
+rank 0.  Every helper is made of differentiable torch ops and the
+collectives, so training runs them under autograd: the backward of a
+gather slices the gradient, that of a reduction hands it to every rank.
 """
 from __future__ import annotations
 
@@ -178,9 +180,11 @@ class TensorParallel:
         return len(self.devices)
 
 
-def tensor_parallel(cfg, mesh) -> TensorParallel:
+def tensor_parallel(cfg, mesh, at=None) -> TensorParallel:
+    """The split over the model row through coordinate ``at`` (default:
+    data index 0)."""
     from repro_torch.distributed.sharding import MeshSharder
-    devices = tuple(mesh.model_devices())
+    devices = tuple(mesh.model_devices(at=at))
     ms = len(devices)
     head_ok = MeshSharder(mesh, cfg, batch_axes=()).head_ok
     local = (dataclasses.replace(cfg, n_heads=cfg.n_heads // ms,

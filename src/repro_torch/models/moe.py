@@ -30,6 +30,14 @@ all-to-alls carry the dispatch buffer to the experts' ranks and back
 (:func:`_moe_a2a`, K4 on :func:`~repro_torch.kernels.grouped_gemm.
 a2a_segments`).  A sequence the model axis does not divide takes
 ``"psum"``, and an expert count it does not divide the replicated path.
+Either way ``aux`` is the mean of the ranks' (the reference's ``pmean``).
+
+In training (:func:`moe_apply_replicas`) every data replica routes its
+own rows with its own capacity where the experts split, as each data
+shard of the reference's ``shard_map`` does; where they do not (a model
+axis of 1, or one that does not divide the experts) the reference runs
+``_moe_local`` on the whole global batch, and so does the port: the
+replicas' rows are gathered over the data axis first.
 """
 from __future__ import annotations
 
@@ -281,7 +289,29 @@ def moe_apply(p, x: Tensor, cfg, *, mesh=None,
                        valid=None if valid is None else valid.to(dv),
                        e_offset=r * e_local, e_local=e_local)
             for r, (q, dv) in enumerate(zip(ps, devs))]
-    return all_reduce_sum([o[0] for o in outs])[0], outs[0][1]
+    aux = all_reduce_sum([o[1] for o in outs])[0] / ms
+    return all_reduce_sum([o[0] for o in outs])[0], aux
+
+
+def moe_apply_replicas(rows: List[list], xs: List[Tensor], cfg, mesh
+                       ) -> Tuple[List[Tensor], List[Tensor]]:
+    """The MoE of every data replica of a training step: ``rows[r]`` is
+    replica ``r``'s list of per-rank MoE trees, ``xs[r]`` its rows (on
+    its rank 0's device).  Returns each replica's output and ``aux``.
+    Where the experts split over ``model``, each replica runs
+    :func:`moe_apply` on its own rows (its own capacity); otherwise each
+    runs :func:`_moe_local` on the global batch, gathered over the data
+    axis, and keeps its own rows (module doc)."""
+    if len(rows[0]) > 1 and rows[0][0]["up"].shape[0] != cfg.moe.n_experts:
+        outs = [moe_apply(ps, x, cfg, mesh=mesh) for ps, x in zip(rows, xs)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+    b = xs[0].shape[0]
+    ys, auxs = [], []
+    for r, (whole, ps) in enumerate(zip(all_gather(xs, 0), rows)):
+        y, aux = _moe_local(whole, ps[0], cfg, cfg.act)
+        ys.append(y[r * b:(r + 1) * b])
+        auxs.append(aux)
+    return ys, auxs
 
 
 def set_expert_backend(impl: str) -> None:

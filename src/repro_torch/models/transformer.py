@@ -71,9 +71,12 @@ head counts divide (else once, on caches split on the sequence), the
 MLP column- then row-parallel, MoE expert-parallel.  Decode reads and
 writes caches of :class:`~repro_torch.distributed.mesh.Sharded` stacks
 laid out by ``cache_specs``; prefill returns the whole cache, which the
-engines' storage lays out.  Global attention layers, dense or MoE, run
-on a mesh; the other layer kinds, enc-dec models and frontends are
-queue A item 2c and raise.
+engines' storage lays out.  :func:`forward_train` on a mesh takes the
+training placement (FSDP over data x TP over model) and runs that TP
+forward once a data replica on its rows of the batch, the parameters
+gathered over the data axis layer by layer.  Global attention layers,
+dense or MoE, run on a mesh; the other layer kinds, enc-dec models and
+frontends are queue A item 2c and raise.
 """
 from __future__ import annotations
 
@@ -85,6 +88,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, BIDIR, LOCAL, ModelConfig, RGLRU,
                                       WKV)
+from repro_torch.distributed.collectives import all_reduce_sum
+from repro_torch.distributed.mesh import shard_slices
+from repro_torch.distributed.sharding import batch_specs, gather_fsdp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -323,15 +329,20 @@ def _block_train(p: Params, x: Tensor, cfg: ModelConfig, kind: str,
 REMAT_MODES = ("none", "full", "dots")
 
 
+def _remat(fn, remat: str, *args):
+    """``fn(*args)``, recomputed in the backward unless ``remat`` is
+    ``"none"``."""
+    if remat == "none":
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _run_block(p: Params, x: Tensor, cfg: ModelConfig, kind: str,
                enc_out: Optional[Tensor], remat: str
                ) -> Tuple[Tensor, Tensor]:
     """:func:`_block_train`, recomputed in the backward unless ``remat``
     is ``"none"``."""
-    if remat == "none":
-        return _block_train(p, x, cfg, kind, enc_out)
-    return checkpoint(_block_train, p, x, cfg, kind, enc_out,
-                      use_reentrant=False)
+    return _remat(_block_train, remat, p, x, cfg, kind, enc_out)
 
 
 def forward_train(params: Params, cfg: ModelConfig,
@@ -352,15 +363,16 @@ def forward_train(params: Params, cfg: ModelConfig,
     (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
     activations.  ``"dots"`` (the reference keeps matmul outputs and
     recomputes the rest) maps to ``"full"`` here: the values are the
-    same and only memory and time differ.  A mesh is the distributed
-    slice and raises."""
+    same and only memory and time differ.
+
+    With ``mesh``, ``params`` is the training placement
+    (:func:`~repro_torch.distributed.sharding.place_train`) and
+    :func:`_forward_train_tp` runs one TP forward per data replica."""
     check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training is the distributed slice of the port "
-            "(ROADMAP.md)")
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
+    if mesh is not None:
+        return _forward_train_tp(params, cfg, batch, mesh, remat)
     enc_out = _encode(params, cfg, batch, remat=remat) if cfg.enc_dec \
         else None
     x = _embed_inputs(params, cfg, batch)
@@ -570,6 +582,89 @@ def _ffn_tp(loc, i: int, cfg: ModelConfig, h: Tensor, mesh,
                                  cfg, mesh=mesh, valid=valid)[0]
     return mlp_apply_tp([t["layers"][i]["mlp"] for t in loc], h, cfg.act,
                         cfg.d_ff)
+
+
+def _attn_train_tp(ps, x: Tensor, cfg: ModelConfig, tp) -> Tensor:
+    """One replica's attention half of a layer in training."""
+    h = rmsnorm_apply(ps[0]["norm1"], x, cfg.norm_eps)
+    return x + attn.attn_apply_tp([p["mixer"] for p in ps], h, cfg, tp,
+                                  need_kv=False)[0]
+
+
+def _mlp_train_tp(ps, x: Tensor, cfg: ModelConfig) -> Tensor:
+    h = rmsnorm_apply(ps[0]["norm2"], x, cfg.norm_eps)
+    return x + mlp_apply_tp([p["mlp"] for p in ps], h, cfg.act, cfg.d_ff)
+
+
+def _moe_train_tp(rows, xs: List[Tensor], cfg: ModelConfig, mesh
+                  ) -> Tuple[List[Tensor], List[Tensor]]:
+    """The MoE half of a layer for every replica (``rows[r]``: replica
+    ``r``'s per-rank layer trees), and each replica's ``aux``."""
+    hs = [rmsnorm_apply(ps[0]["norm2"], x, cfg.norm_eps)
+          for ps, x in zip(rows, xs)]
+    ys, auxs = moe_mod.moe_apply_replicas([[p["moe"] for p in ps]
+                                           for ps in rows], hs, cfg, mesh)
+    return [x + y for x, y in zip(xs, ys)], auxs
+
+
+def _forward_train_tp(placed, cfg: ModelConfig, batch: Dict[str, Tensor],
+                      mesh, remat: str) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """:func:`forward_train` on a mesh.  Each data replica (a model row,
+    :meth:`~repro_torch.distributed.mesh.Mesh.replicas`) takes its rows
+    of the batch by ``batch_specs`` and runs the TP forward of
+    :func:`_forward_prefill_tp` without caches, on TP shards gathered
+    over the data axes layer by layer (``gather_fsdp``).  Its loss is the
+    mean next-token cross entropy of its rows plus ``0.01 * aux /
+    n_layers``; the step's is the mean of the replicas' (equal row
+    counts: the reference's mean over the global batch).  ``remat``
+    wraps a layer, over all the replicas (a MoE half may route the
+    global batch: :func:`~repro_torch.models.moe.moe_apply_replicas`),
+    in ``checkpoint`` together with its gather, so that the backward
+    gathers the layer's shards again and no layer's gathered weights
+    outlive it; under ``remat="none"`` the matmuls keep every layer's
+    gathered weights until the backward."""
+    check_mesh_supported(cfg)
+    reps = mesh.replicas()
+    specs = batch_specs("train", mesh, cfg)
+    labels_key = "labels" if "labels" in batch else "tokens"
+    inputs = [{k: batch[k][shard_slices(batch[k].shape, specs[k], mesh,
+                                        base)].to(mesh.devices[base])
+               for k in ("tokens", labels_key)} for base in reps]
+    tps = [tensor_parallel(cfg, mesh, at=base) for base in reps]
+
+    def tp_rows(select):
+        trees = gather_fsdp(placed, select)
+        return [[trees[c] for c in mesh.model_row(at=base)] for base in reps]
+
+    top = tp_rows(lambda t: {k: v for k, v in t.items() if k != "layers"})
+    xs = [_embed_tp(loc, cfg, inp["tokens"]) for loc, inp in zip(top, inputs)]
+    auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
+            for x in xs]
+    def layer(i: int, xs: List[Tensor]):
+        rows = tp_rows(lambda t: t["layers"][i])
+        xs = [_attn_train_tp(ps, x, cfg, tp)
+              for ps, x, tp in zip(rows, xs, tps)]
+        if cfg.moe is None:
+            return [_mlp_train_tp(ps, x, cfg) for ps, x in zip(rows, xs)], []
+        return _moe_train_tp(rows, xs, cfg, mesh)
+
+    for i in range(cfg.n_layers):
+        xs, layer_aux = _remat(layer, remat, i, xs)
+        if layer_aux:
+            auxs = [a + b for a, b in zip(auxs, layer_aux)]
+    losses, accs = [], []
+    for loc, x, inp, aux in zip(top, xs, inputs, auxs):
+        x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)
+        loss, acc = _next_token_loss(_logits_tp(loc, cfg, x), inp[labels_key])
+        if cfg.moe is not None:
+            loss = loss + 0.01 * aux / cfg.n_layers
+        losses.append(loss)
+        accs.append(acc)
+    n = len(reps)
+    loss = all_reduce_sum(losses)[0] / n
+    acc = all_reduce_sum(accs)[0] / n
+    aux = all_reduce_sum(auxs)[0] / n
+    return loss, {"loss": loss, "accuracy": acc, "moe_aux": aux}
 
 
 def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,

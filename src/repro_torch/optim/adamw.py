@@ -12,6 +12,10 @@ place (parameters and moments are overwritten; the reference returns new
 trees), and it goes leaf by leaf once the global norm is known, so only
 one leaf's float32 temporaries exist at a time (the reference builds a
 float32 copy of the whole gradient tree).
+
+:func:`update_leaves` is the update on lists of leaves and a given
+norm: the sharded train step runs it on each device's parts with the
+norm of the whole placed gradient (``Placed.global_norms``).
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ def tree_leaves(tree) -> list:
 
 
 def init_state(params: PyTree) -> AdamWState:
+    """Zero float32 moments like ``params``, step 0."""
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32),
@@ -81,11 +86,17 @@ def cosine_lr(cfg: AdamWConfig, step) -> Tensor:
     return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
 
 
-def global_norm(tree: PyTree) -> Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def sum_squares(leaves) -> Tensor:
+    """The float32 sum over ``leaves`` of each leaf's sum of squares."""
     sq = [torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
-          for leaf in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+          for leaf in leaves]
+    return torch.stack(sq).sum()
+
+
+def global_norm(tree: PyTree) -> Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of
+    squares."""
+    return torch.sqrt(sum_squares(tree_leaves(tree)))
 
 
 def _clip_scale(norm: Tensor, max_norm: float) -> Tensor:
@@ -103,21 +114,18 @@ def clip_by_global_norm(grads: PyTree, max_norm: float
 
 
 @torch.no_grad()
-def apply_updates(params: PyTree, grads: PyTree, state: AdamWState,
-                  cfg: AdamWConfig) -> Tuple[PyTree, AdamWState, Dict]:
-    """One AdamW step in place (module doc).  Returns the (same)
-    parameter tree, the new state and ``{"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads)
-    scale = _clip_scale(gnorm, cfg.grad_clip_norm)
-    step = state.step + 1
-    lr = cosine_lr(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
+def update_leaves(params: list, grads: list, mu: list, nu: list,
+                  step: Tensor, norm: Tensor, cfg: AdamWConfig) -> None:
+    """One AdamW update of the leaves ``params`` and moments ``mu``,
+    ``nu`` in place, from ``grads`` clipped by the global norm ``norm``;
+    ``step`` is the new step count."""
+    lr = float(cosine_lr(cfg, step))
     stepf = step.to(torch.float32)
-    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** stepf)
-    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** stepf)
-    lr_f = float(lr)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.mu), tree_leaves(state.nu)):
+    bc1 = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf)
+    bc2 = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf)
+    scale = _clip_scale(norm, cfg.grad_clip_norm)
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, m, v in zip(params, grads, mu, nu, strict=True):
         g32 = g.to(torch.float32, copy=True).mul_(scale)
         m.mul_(b1).add_(g32, alpha=1 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
@@ -126,6 +134,18 @@ def apply_updates(params: PyTree, grads: PyTree, state: AdamWState,
         u.div_((v / bc2).sqrt_().add_(cfg.eps))
         p32 = p.float()
         u.add_(p32, alpha=cfg.weight_decay)
-        p.copy_(p32.sub_(u.mul_(lr_f)))
+        p.copy_(p32.sub_(u.mul_(lr)))
+
+
+@torch.no_grad()
+def apply_updates(params: PyTree, grads: PyTree, state: AdamWState,
+                  cfg: AdamWConfig) -> Tuple[PyTree, AdamWState, Dict]:
+    """One AdamW step in place (module doc).  Returns the (same)
+    parameter tree, the new state and ``{"grad_norm", "lr"}``."""
+    step = state.step + 1
+    gnorm = global_norm(grads)
+    update_leaves(tree_leaves(params), tree_leaves(grads),
+                  tree_leaves(state.mu), tree_leaves(state.nu), step, gnorm,
+                  cfg)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), \
-        {"grad_norm": gnorm, "lr": lr}
+        {"grad_norm": gnorm, "lr": cosine_lr(cfg, step)}

@@ -1,10 +1,17 @@
 """The training loop with checkpoint/restart and a straggler watchdog
-(the single-device port of ``repro/train/trainer.py``).
+(the port of ``repro/train/trainer.py``).
 
 Restart resumes from the newest checkpoint's step; data order is a pure
 function of the step (``repro_torch.data.SyntheticLM``), so no pipeline
 state is saved.  The watchdog keeps an EWMA of step wall time and flags
 steps far beyond it.
+
+With a mesh the parameters are placed by ``param_specs(fsdp=True)``
+(``place_train``) and the moments by ``opt_state_specs``; each step
+gets the whole batch on the host and the train step feeds each data
+replica its ``batch_specs`` rows.  Checkpoints hold whole leaves, so a
+restart restores onto whatever mesh the trainer has (the elastic
+restart: train on (4, 2), lose 4 devices, go on on (2, 2)).
 """
 from __future__ import annotations
 
@@ -19,8 +26,12 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.distributed.fault import StragglerWatchdog
+from repro_torch.distributed.sharding import (init_opt_state,
+                                              opt_state_specs, param_specs,
+                                              place_train)
 from repro_torch.models import init_params
 from repro_torch.optim import adamw
+from repro_torch.optim.adamw import tree_map
 from repro_torch.train.train_step import make_train_step
 
 PyTree = Any
@@ -41,26 +52,26 @@ class TrainerConfig:
 
 class Trainer:
     """``Trainer(cfg, tcfg).run()`` trains ``cfg`` on the synthetic
-    stream.  ``device=None`` is the CUDA card (raises without one);
-    ``params``, if given, are the initial weights (on ``device``) instead
-    of a seeded init."""
+    stream.  ``device=None`` is the CUDA card (raises without one), or
+    with ``mesh`` the mesh's first device, where the weights are made
+    before they are placed; ``params``, if given, are the initial
+    weights (on ``device``, whole) instead of a seeded init."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *,
                  mesh=None, opt_cfg: Optional[adamw.AdamWConfig] = None,
                  params: Optional[PyTree] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded training is the distributed slice of the port "
-                "(ROADMAP.md)")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.watchdog = StragglerWatchdog()
         self.data = SyntheticLM(cfg, tcfg.global_batch, tcfg.seq_len,
                                 DataConfig(seed=tcfg.seed))
         self.step_fn = make_train_step(
-            cfg, opt_cfg=self.opt_cfg, accum_steps=tcfg.accum_steps,
+            cfg, mesh, opt_cfg=self.opt_cfg, accum_steps=tcfg.accum_steps,
             remat=tcfg.remat)
         self._params = params
         self.history: list = []
@@ -71,14 +82,29 @@ class Trainer:
         if params is None:
             params = init_params(self.cfg, seed=self.tcfg.seed,
                                  device=self.device)
-        opt_state = adamw.init_state(params)
+        latest = (ckpt.latest_step_dir(self.tcfg.ckpt_dir)
+                  if self.tcfg.ckpt_dir else None)
         start = 0
-        if self.tcfg.ckpt_dir:
-            latest = ckpt.latest_step_dir(self.tcfg.ckpt_dir)
+        if self.mesh is not None:
+            pspecs = param_specs(params, self.cfg, self.mesh, fsdp=True)
+            if latest:
+                like = (params, adamw.init_state(tree_map(
+                    lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)))
+                del params
+                start, (params, opt_state) = ckpt.restore(
+                    latest, like, mesh=self.mesh,
+                    specs=(pspecs, opt_state_specs(pspecs)))
+            else:
+                params = place_train(params, self.cfg, self.mesh)
+                opt_state = init_opt_state(params)
+        else:
+            opt_state = adamw.init_state(params)
             if latest:
                 start, (params, opt_state) = ckpt.restore(
                     latest, (params, opt_state))
-                print(f"[trainer] restored step {start} from {latest}")
+        if latest:
+            print(f"[trainer] restored step {start} from {latest}")
         return start, params, opt_state
 
     def run(self) -> Dict[str, Any]:
@@ -86,7 +112,8 @@ class Trainer:
         n_stragglers = 0
         for step in range(start, self.tcfg.steps):
             t0 = time.time()
-            batch = {k: torch.as_tensor(v, device=self.device)
+            batch = {k: torch.as_tensor(
+                v, device="cpu" if self.mesh is not None else self.device)
                      for k, v in self.data.batch(step).items()}
             params, opt_state, metrics = self.step_fn(params, opt_state,
                                                       batch)

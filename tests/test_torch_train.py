@@ -178,8 +178,9 @@ def test_forward_train_remat_and_loss_dtype_keep_the_values():
         forward_train(params, tcfg, batch, remat="some")
     with pytest.raises(ValueError):
         set_loss_dtype("f16")
-    with pytest.raises(NotImplementedError):
-        forward_train(params, tcfg, batch, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue A item 2c"):
+        forward_train(params, torch_smoke_config("gemma3-1b"), batch,
+                      mesh=object())
 
 
 # --------------------------------------------------------------------------
@@ -305,8 +306,9 @@ def test_train_step_params_after_3_steps_match_reference(name, accum):
 
 
 def test_train_step_options():
-    """bf16 gradient compression matches the reference's; meshes,
-    sharded grads and other expert backends raise."""
+    """bf16 gradient compression matches the reference's; ``shard_grads``
+    without a mesh changes nothing, as in the reference; a mesh for a
+    model outside the sharded slice and other expert backends raise."""
     cfg, tcfg, jparams = _model("qwen2.5-0.5b")
     bt = _batches(cfg, 1)[0]
     jstep = jax.jit(jax_make_train_step(
@@ -320,10 +322,15 @@ def test_train_step_options():
     tp, _, _ = step(tp, adamw.init_state(tp),
                     {"tokens": torch.from_numpy(bt["tokens"])})
     _assert_params_close(tp, _to_torch(jp, tcfg))
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, mesh=object())
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, shard_grads=True)
+    sp = _to_torch(jparams, tcfg)
+    sp, _, _ = make_train_step(
+        tcfg, opt_cfg=adamw.AdamWConfig(**OPT), remat="none",
+        grad_compression="bf16", shard_grads=True)(
+        sp, adamw.init_state(sp), {"tokens": torch.from_numpy(bt["tokens"])})
+    for a, b in zip(tree_leaves(sp), tree_leaves(tp), strict=True):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="queue A item 2c"):
+        make_train_step(torch_smoke_config("gemma3-1b"), mesh=object())
     with pytest.raises(ValueError):
         make_train_step(tcfg, expert_backend="xla")
     with pytest.raises(ValueError):
