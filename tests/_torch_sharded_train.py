@@ -8,7 +8,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import smoke_config
@@ -24,6 +23,8 @@ from repro_torch.distributed.sharding import _leaves, replica_groups
 from repro_torch.models import moe
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import make_train_step
+
+from _torch_threads import one_thread  # noqa: F401  (re-exported)
 
 TOL = 1e-5
 STEPS = 2
@@ -42,18 +43,6 @@ CASES = [(shape, v) for shape in MESHES for v in ("a1", "a2-tp-full")] + [
 
 def case_id(case):
     return "%dx%d-%s" % (*case[0], case[1])
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for torch while a test runs: the smoke shapes
-    gain nothing from more, and the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _batches(cfg):

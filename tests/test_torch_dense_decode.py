@@ -34,6 +34,10 @@ from repro_torch.convert import cache_from_jax, params_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.models import forward_decode, forward_prefill, init_cache
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 INT8_TOL = 1e-4
 ONE_LEVEL_TOL = 5e-3

@@ -48,6 +48,10 @@ from repro_torch.models import forward_decode
 from repro_torch.serve import (FaultPlan, make_engine, PagedKVCache, Request,
                                ServeFrontend)
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 NAME = "whisper-base"
 # (prompt length, max_new_tokens): 8 requests on 4 slots around the

@@ -37,6 +37,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.serve import make_engine, Request, ServeFrontend
 from repro_torch.serve.engine import encoder_inputs
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 NAME = "whisper-base"
 KINDS = ("slot", "sequential")
 # (prompt length, max_new_tokens): 8 requests on 4 slots around the

@@ -39,6 +39,10 @@ from repro_torch.models import (forward_decode, forward_prefill,
                                 forward_train, init_cache)
 from repro_torch.models.transformer import cache_layout
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 INT8_TOL = 1e-4
 ONE_LEVEL_TOL = 5e-3

@@ -47,6 +47,10 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import forward_decode
 from repro_torch.serve import FaultPlan, PagedKVCache, Request
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 GEMMA = "gemma3-1b"
 # (prompt length, max_new_tokens): around gemma3 smoke's window of 16,

@@ -44,6 +44,10 @@ from repro_torch.models import forward_prefill, init_cache
 from repro_torch.models.transformer import cache_layout
 from repro_torch.serve import make_engine, Request, ServeFrontend
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 GEMMA = "gemma3-1b"
 C1_NAMES = ("yi-6b", "phi3.5-moe-42b")

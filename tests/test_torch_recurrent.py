@@ -53,6 +53,10 @@ from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.transformer import cache_layout, check_supported
 from repro_torch.serve import make_engine
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 WKV_TOL = 1e-4
 RG, RWKV = "recurrentgemma-2b", "rwkv6-3b"

@@ -33,6 +33,10 @@ from repro_torch.convert import cache_from_jax, pools_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.serve import make_engine, Request, ServeFrontend
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 WKV_TOL = 1e-4          # tests/test_torch_recurrent.py
 RG, RWKV = "recurrentgemma-2b", "rwkv6-3b"

@@ -57,6 +57,10 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.train import (loss_and_grads, make_train_step, Trainer,
                                TrainerConfig)
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RG, RWKV = "recurrentgemma-2b", "rwkv6-3b"
 NAMES = (RG, RWKV)
 LOSS_TOL = 1e-5

@@ -19,6 +19,10 @@ from _torch_serve_parity import (check_parity, completion, engines, NAMES,
 from repro.serve import Request as JaxRequest
 from repro_torch.serve import Request
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 
 def _check(jeng, jout, teng, tout):
     check_parity(jeng, jout, teng, tout)

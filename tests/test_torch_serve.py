@@ -32,6 +32,10 @@ from repro_torch.models import moe as torch_moe
 from repro_torch.serve import (completion_of, make_engine, Request,
                                validate_stats)
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 OPTS = dict(max_slots=4, max_seq=64, page_size=8, window=4)
 # (prompt length, max_new_tokens); rid 1 extends rid 0's first 16 tokens.
 WORKLOAD = [(17, 6), (20, 5), (7, 3), (9, 6), (1, 4), (15, 7)]

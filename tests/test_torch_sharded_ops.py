@@ -42,6 +42,10 @@ from repro_torch.kernels import a2a_segments, paged_attention_sharded
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as T
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 
 

@@ -43,6 +43,10 @@ from repro_torch.distributed.mesh import Sharded
 from repro_torch.models import moe as tmoe
 from repro_torch.serve import make_engine, Request, ServeFrontend
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 NAMES = ("yi-6b", "phi3.5-moe-42b")
 SHAPES = ((1, 2), (2, 2), (1, 4))
 # (prompt length, max_new_tokens): the reference's FIXED workload.

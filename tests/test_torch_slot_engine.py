@@ -28,6 +28,10 @@ from repro.serve import Request as JaxRequest
 from repro_torch.models import attention as tattn
 from repro_torch.serve import make_engine, Request
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 TOL = 1e-5
 
 

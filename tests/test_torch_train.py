@@ -47,6 +47,10 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.train import (loss_and_grads, make_train_step, Trainer,
                                TrainerConfig)
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ARCHS = ["qwen2.5-0.5b", "phi3.5-moe-42b", "dbrx-132b"]
 B, S = 2, 12
 

@@ -54,6 +54,10 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import loss_and_grads, Trainer, TrainerConfig
 
+from _torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 NAME = "internvl2-76b"
 TOL = 1e-5
 GRAD_TOL = 1e-4
