@@ -189,6 +189,13 @@ class Sharded:
         coord = self.mesh.model_row()[rank]
         return t[shard_slices(t.shape, self.spec, self.mesh, coord)]
 
+    def copy_(self, t: torch.Tensor) -> None:
+        """Write the whole tensor ``t`` into every rank's part of this
+        one, in place (each rank its slices of ``t``; a replicated rank
+        all of it)."""
+        for r, s in enumerate(self.shards):
+            s.copy_(self.part(t, r))
+
     def gather(self) -> torch.Tensor:
         """The whole tensor on rank 0's device."""
         for dim, entry in enumerate(self.spec):
@@ -215,6 +222,10 @@ class Sharded:
         return Sharded([s[idx] for s in self.shards], P(*spec), shape,
                        self.mesh)
 
-    def nbytes(self) -> List[int]:
-        """Bytes each rank holds."""
-        return [s.numel() * s.element_size() for s in self.shards]
+    def nbytes(self, unique: bool = False) -> List[int]:
+        """Bytes each rank holds; with ``unique``, of the part it is the
+        first holder of (a replicated tensor counts on rank 0 only), so
+        the ranks' counts sum to the whole tensor's bytes."""
+        split = any(e is not None for e in self.spec)
+        return [s.numel() * s.element_size() if split or r == 0 or not unique
+                else 0 for r, s in enumerate(self.shards)]

@@ -24,8 +24,10 @@ each model rank's TP shard before a data replica's forward, and
 :func:`reduce_replicas` gives every copy of a leaf that more than one
 device holds the sum of the copies' gradients.  The reference's
 ``MeshSharder`` steers GSPMD with ``with_sharding_constraint``; the
-port's computes nothing: the sharded forward reads whether heads split
-(:func:`heads_split`) from it.
+port's computes nothing: the sharded forward reads whether attention
+heads split (:func:`heads_split`) from it, and whether the recurrent
+mixers split (:func:`rglru_split`, :func:`wkv_split`) through
+``TensorParallel``.
 """
 from __future__ import annotations
 
@@ -113,8 +115,33 @@ def heads_split(cfg, mesh: Mesh) -> bool:
     cache specs, the sharded forward (``TensorParallel.head_ok``) and,
     through the pools' specs, ``paged_attention_sharded`` all follow
     this one answer."""
-    ms = _axes_size(mesh, "model" if "model" in mesh.axis_names else None)
+    ms = _model_size(mesh)
     return cfg.n_heads % ms == 0 and cfg.n_kv_heads % ms == 0
+
+
+def _model_size(mesh: Mesh) -> int:
+    return _axes_size(mesh, "model" if "model" in mesh.axis_names else None)
+
+
+def rglru_split(cfg, mesh: Mesh) -> bool:
+    """Whether RG-LRU layers run channel-parallel over ``model``:
+    ``d_model`` divides its size, so ``in_gate``/``in_rec`` split on
+    their columns, ``out`` on its rows and the state ``h`` on its
+    features (``cache_specs``), each rank scanning its own channels.
+    Otherwise the block runs whole, once, and its state is replicated.
+    The sharded forward reads this through ``TensorParallel``."""
+    return cfg.d_model % _model_size(mesh) == 0
+
+
+def wkv_split(cfg, mesh: Mesh) -> bool:
+    """Whether RWKV6 time-mix layers run head-parallel over ``model``:
+    their ``d_model / head_dim`` heads divide its size, so the WKV
+    ``state`` splits on its heads (``cache_specs``) and each rank runs
+    the chunk scan on its own heads (r/k/v/w by columns, ``u`` by rows,
+    ``o`` row-parallel).  Otherwise the time-mix runs whole, once, as
+    attention does where heads do not split."""
+    from repro_torch.models.rwkv6 import rwkv_head_dims
+    return rwkv_head_dims(cfg)[0] % _model_size(mesh) == 0
 
 
 # --------------------------------------------------------------------------
@@ -294,8 +321,10 @@ class MeshSharder:
     reference constrains activations to :meth:`spec` for GSPMD; here the
     sharded forward reads :attr:`head_ok` (:func:`heads_split`).  The
     role table and :attr:`seq_shard` are kept equal to the reference's
-    for the layer kinds and sequence-parallel prefill that come later;
-    no path of the port reads them yet."""
+    and read by no path of the port: in one controller, sequence
+    parallelism would only cut the activations between layers into
+    parts that the next layer gathers again, and would change no
+    result."""
 
     def __init__(self, mesh: Mesh, cfg, batch_axes=None):
         self.mesh = mesh
@@ -305,8 +334,7 @@ class MeshSharder:
                        else tuple(batch_axes))
         self.head_ok = heads_split(cfg, mesh)
         # Sequence parallelism is dropped for WKV stacks on a pod mesh
-        # (the reference's measured trade; no WKV layer runs on a mesh
-        # in the port yet).
+        # (the reference's measured trade).
         self.seq_shard = (WKV not in cfg.layer_pattern
                           or "pod" not in mesh.axis_names)
 

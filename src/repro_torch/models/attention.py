@@ -416,32 +416,52 @@ def paged_local_attn_decode_step(p, x: Tensor, cache: Dict[str, Tensor],
     :func:`_sdpa` sees the dense ring's operands.  The engine sizes ``R``
     so that a page it recycles is behind every read.
     """
-    b = x.shape[0]
-    psz = cache["lk"].shape[1]
-    ring = page_table.shape[1]
     q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
     k = _split_heads(linear_apply(p["k"], x), cfg.n_kv_heads)
     v = _split_heads(linear_apply(p["v"], x), cfg.n_kv_heads)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    phys, off = _ring_cell(page_table, pos, cache["lk"].shape[1])
+    cache["lk"][phys, off] = k[:, 0]
+    cache["lv"][phys, off] = v[:, 0]
+    out = _ring_attend(q, cache["lk"], cache["lv"], page_table, pos, cfg,
+                       window_cap)
+    return linear_apply(p["o"], out), cache
+
+
+def _ring_cell(page_table: Tensor, pos: Tensor, psz: int):
+    """Each row's write cell in its ring of pages: the page of column
+    ``(pos // P) % R`` and the offset ``pos % P``."""
     pos_l = pos.long()
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(page_table.shape[0], device=page_table.device)
+    col = (pos_l // psz) % page_table.shape[1]
+    return page_table.long()[rows, col], pos_l % psz
+
+
+def _ring_attend(q: Tensor, lk: Tensor, lv: Tensor, page_table: Tensor,
+                 pos: Tensor, cfg, window_cap: int) -> Tensor:
+    """``q`` ``(B, 1, H, hd)`` over the logical ring of ``window_cap``
+    cells gathered through the ring table from the local pools ``lk``,
+    ``lv`` (which already hold the step's K/V): cell ``j`` holds position
+    ``pos - ((pos - j) mod window_cap)``, masked where that is negative.
+    Returns ``(B, 1, H * hd)``."""
+    b = q.shape[0]
+    psz = lk.shape[1]
+    ring = page_table.shape[1]
+    pos_l = pos.long()
+    rows = torch.arange(b, device=q.device)
     table = page_table.long()
-    phys = table[rows, (pos_l // psz) % ring]
-    cache["lk"][phys, pos_l % psz] = k[:, 0]
-    cache["lv"][phys, pos_l % psz] = v[:, 0]
-    j = torch.arange(window_cap, device=x.device)
+    j = torch.arange(window_cap, device=q.device)
     logical = pos_l[:, None] - torch.remainder(pos_l[:, None] - j[None, :],
                                                window_cap)     # (B, w)
     pc = logical.clamp(min=0)
     pages = table[rows[:, None], (pc // psz) % ring]
-    kd = cache["lk"][pages, pc % psz]                          # (B, w, Hkv, hd)
-    vd = cache["lv"][pages, pc % psz]
+    kd = lk[pages, pc % psz]                                   # (B, w, Hkv, hd)
+    vd = lv[pages, pc % psz]
     mask = (logical >= 0)[:, None, None, :]
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), mask)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
-    return linear_apply(p["o"], out), cache
+    return out.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim)
 
 
 # --------------------------------------------------------------------------
@@ -483,16 +503,18 @@ def _write_parts(parts, rows: Tensor, cell: Tensor, new: Tensor,
         buf[rr, idx] = torch.where(mask, new.to(buf.device, buf.dtype), cur)
 
 
-def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True
+def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True, *,
+                  kind: str = "attn"
                   ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
-    """Causal global attention over the prompt on a mesh: the output and
-    the whole K/V on rank 0's device (the storage lays them out by its
-    own specs).  With ``tp.head_ok`` each rank runs :func:`attn_apply`
-    on its heads and the ``o`` partials are reduced; otherwise attention
-    runs once, on the whole heads.  Training passes ``need_kv=False``:
-    the heads' K/V are not gathered and None comes back for them."""
+    """Causal attention over the prompt on a mesh, global or (``kind=
+    "local"``) sliding-window: the output and the whole K/V on rank 0's
+    device (the storage lays them out by its own specs).  With
+    ``tp.head_ok`` each rank runs :func:`attn_apply` on its heads and
+    the ``o`` partials are reduced; otherwise attention runs once, on
+    the whole heads.  Training passes ``need_kv=False``: the heads' K/V
+    are not gathered and None comes back for them."""
     if tp.head_ok:
-        outs = [attn_apply(p, x.to(d), tp.cfg_local)
+        outs = [attn_apply(p, x.to(d), tp.cfg_local, kind=kind)
                 for p, d in zip(ps, tp.devices)]
         mix = reduce_rows([o[0] for o in outs], ps[0]["o"])
         if not need_kv:
@@ -502,18 +524,21 @@ def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True
     b, s, _ = x.shape
     q, k, v = _qkv_whole(ps, x, cfg, torch.arange(s, device=x.device)[None])
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    window = cfg.sliding_window if kind == "local" else None
     out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                _causal_mask(s, s, None, x.device))
+                _causal_mask(s, s, window, x.device))
     return _o_whole(ps, out.reshape(b, s, -1), cfg), k, v
 
 
 def attn_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded], pos,
                         cfg, tp) -> Tensor:
-    """:func:`attn_decode_step` on a mesh, against a dense cache laid out
-    by ``cache_specs``: with ``tp.head_ok`` each rank steps its heads'
+    """:func:`attn_decode_step` on a mesh, against a dense cache (a
+    global layer's, or a local layer's ring) laid out by
+    ``cache_specs``: with ``tp.head_ok`` each rank steps its heads'
     cache and the ``o`` partials are reduced; otherwise the cache is
-    split on its sequence axis, each rank writes the cells it holds and
-    attention reads the gathered cache once."""
+    split on its sequence axis, each rank writes the cells it holds (the
+    ring cell ``pos % cap`` may be any rank's) and attention reads the
+    gathered cache once."""
     if tp.head_ok:
         parts = []
         for r, (p, d) in enumerate(zip(ps, tp.devices)):
@@ -574,3 +599,32 @@ def paged_attn_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded],
         return reduce_rows([linear_apply(p["o"], o.reshape(b, 1, -1))
                             for p, o in zip(ps, out.shards)], ps[0]["o"])
     return _o_whole(ps, out.shards[0].reshape(b, 1, -1), cfg)
+
+
+def paged_local_attn_decode_step_tp(ps, x: Tensor,
+                                    cache: Dict[str, Sharded],
+                                    page_table: Tensor, pos: Tensor, cfg,
+                                    tp, *, window_cap: int) -> Tensor:
+    """:func:`paged_local_attn_decode_step` on a mesh, against the ring
+    pools ``"lk","lv"`` laid out by ``cache_specs`` (the page axis never
+    split; the ring table whole): with ``tp.head_ok`` each rank steps
+    its heads' pools and the ``o`` partials are reduced; otherwise the
+    pools are split on the page interior, each rank writes the offsets
+    it holds, and attention reads the window through the gathered
+    pools once."""
+    if tp.head_ok:
+        parts = []
+        for r, (p, d) in enumerate(zip(ps, tp.devices)):
+            local = {n: c.shards[r] for n, c in cache.items()}
+            parts.append(paged_local_attn_decode_step(
+                p, x.to(d), local, page_table.to(d), pos.to(d),
+                tp.cfg_local, window_cap=window_cap)[0])
+        return reduce_rows(parts, ps[0]["o"])
+    q, k, v = _qkv_whole(ps, x, cfg, pos[:, None])
+    psz = cache["lk"].shape[1]
+    phys, off = _ring_cell(page_table, pos, psz)
+    for name, t in (("lk", k), ("lv", v)):
+        _write_parts(cache[name].shards, phys, off, t[:, 0], psz)
+    out = _ring_attend(q, cache["lk"].gather(), cache["lv"].gather(),
+                       page_table, pos, cfg, window_cap)
+    return _o_whole(ps, out, cfg)

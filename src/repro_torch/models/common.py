@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,21 +169,34 @@ class TensorParallel:
     (rank order), whether attention heads split (``head_ok``: both head
     counts divide, the reference's ``MeshSharder`` rule) and, where they
     do, ``cfg_local``, the config a rank's attention runs with (its
-    share of the heads)."""
+    share of the heads).  The recurrent mixers: ``rglru_cols``, each
+    rank's channels of an RG-LRU layer where they split
+    (``sharding.rglru_split``), and ``wkv_heads``, each rank's heads of
+    a WKV layer where they split (``sharding.wkv_split``); None where
+    the mixer runs whole."""
     mesh: object
     devices: tuple
     head_ok: bool
     cfg_local: object
+    rglru_cols: Optional[Tuple[slice, ...]] = None
+    wkv_heads: Optional[Tuple[slice, ...]] = None
 
     @property
     def ms(self) -> int:
         return len(self.devices)
 
 
+def _rank_slices(n: int, ms: int) -> Tuple[slice, ...]:
+    k = n // ms
+    return tuple(slice(r * k, (r + 1) * k) for r in range(ms))
+
+
 def tensor_parallel(cfg, mesh, at=None) -> TensorParallel:
     """The split over the model row through coordinate ``at`` (default:
     data index 0)."""
-    from repro_torch.distributed.sharding import MeshSharder
+    from repro_torch.distributed.sharding import (MeshSharder, rglru_split,
+                                                  wkv_split)
+    from repro_torch.models.rwkv6 import rwkv_head_dims
     devices = tuple(mesh.model_devices(at=at))
     ms = len(devices)
     head_ok = MeshSharder(mesh, cfg, batch_axes=()).head_ok
@@ -191,7 +204,12 @@ def tensor_parallel(cfg, mesh, at=None) -> TensorParallel:
                                  n_kv_heads=cfg.n_kv_heads // ms,
                                  head_dim=cfg.resolved_head_dim)
              if head_ok else None)
-    return TensorParallel(mesh, devices, head_ok, local)
+    return TensorParallel(
+        mesh, devices, head_ok, local,
+        rglru_cols=(_rank_slices(cfg.d_model, ms)
+                    if rglru_split(cfg, mesh) else None),
+        wkv_heads=(_rank_slices(rwkv_head_dims(cfg)[0], ms)
+                   if wkv_split(cfg, mesh) else None))
 
 
 def is_split(p, dim: int, full: int) -> bool:
@@ -239,6 +257,24 @@ def mlp_apply_tp(ps, x: Tensor, act: str, d_ff: int) -> Tensor:
         return mlp_apply(ps[0], x, act)
     return reduce_rows([mlp_apply(p, x.to(p["up"]["w"].device), act)
                         for p in ps], ps[0]["down"])
+
+
+def whole_linear(ps, full_in: int, full_out: int):
+    """Linear ``ps``'s whole weight (and bias) on rank 0's device, its
+    parts gathered where the specs split it on its columns or its rows:
+    what a mixer that runs whole, once, computes with."""
+    p0 = ps[0]
+    if is_split(p0, 1, full_out):
+        out = {"w": all_gather([p["w"] for p in ps], 1)[0]}
+        if "b" in p0:
+            out["b"] = all_gather([p["b"] for p in ps], 0)[0]
+        return out
+    if is_split(p0, 0, full_in):
+        out = {"w": all_gather([p["w"] for p in ps], 0)[0]}
+        if "b_reduced" in p0:
+            out["b"] = p0["b_reduced"]
+        return out
+    return p0
 
 
 def embedding_lookup_tp(tables: List[Tensor], tokens: Tensor,

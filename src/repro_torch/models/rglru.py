@@ -22,6 +22,12 @@ of two neighbouring segments instead.
 Decode writes ``"h"`` and ``"conv"`` back into the caller's cache
 tensors in place (the engines decode views of their slot buffers and
 slabs and keep no returned cache).
+
+On a mesh (``*_tp``) the block is channel-parallel over the model row
+where ``d_model`` divides it (``sharding.rglru_split``): ``in_gate`` and
+``in_rec`` are column parts, ``out`` is row-parallel and reduced, and
+the per-channel weights and the recurrence are cut to a rank's
+channels.
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed.mesh import Sharded
 from repro_torch.models.common import (activation, last_rows, linear_apply,
-                                       linear_init)
+                                       linear_init, reduce_rows, whole_linear)
 
 Tensor = torch.Tensor
 
@@ -153,19 +161,108 @@ def rglru_prefill_cache(p, x: Tensor, cfg, last_index=None
     return rglru_prefill(p, x, cfg, last_index)[1]
 
 
-def rglru_decode_step(p, x: Tensor, cache: Dict[str, Tensor], cfg
-                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (B, 1, d) -> (out (B, 1, d), cache).  ``cache["h"]`` and
-    ``cache["conv"]`` are updated in place."""
+def _step(p, x: Tensor, h: Tensor, conv: Tensor
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One token through the block from state ``h`` (B, d) and conv tail
+    ``conv`` (B, 3, d), both only read: the output (B, 1, d), the new
+    ``h`` and ``in_rec``'s new row (B, d), which enters the tail."""
     gate = activation("gelu")(linear_apply(p["in_gate"], x))
     u_t = linear_apply(p["in_rec"], x)[:, 0]                 # (B, d)
-    hist = torch.cat([cache["conv"], u_t[:, None]], dim=1)   # a new tensor
+    hist = torch.cat([conv, u_t[:, None]], dim=1)            # a new tensor
     u_conv = hist[:, -1] * p["conv_w"][0]
     for w in range(1, _CONV_W):
         u_conv = u_conv + hist[:, -(w + 1)] * p["conv_w"][w]
     a, b = _gates(p, u_conv.float())
-    h = a * cache["h"] + b
+    h = a * h + b
     out = linear_apply(p["out"], gate[:, 0] * h.to(x.dtype))
+    return out[:, None], h, u_t
+
+
+def _shift_in(conv: Tensor, u_t: Tensor) -> None:
+    """The conv tail ``conv`` (B, 3, d) advanced by the row ``u_t``, in
+    place."""
+    conv.copy_(torch.cat([conv[:, 1:], u_t[:, None]], dim=1))
+
+
+def rglru_decode_step(p, x: Tensor, cache: Dict[str, Tensor], cfg
+                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, 1, d) -> (out (B, 1, d), cache).  ``cache["h"]`` and
+    ``cache["conv"]`` are updated in place."""
+    out, h, u_t = _step(p, x, cache["h"], cache["conv"])
     cache["h"].copy_(h)
-    cache["conv"].copy_(hist[:, 1:])
-    return out[:, None], cache
+    _shift_in(cache["conv"], u_t)
+    return out, cache
+
+
+# --------------------------------------------------------------------------
+# On a mesh (repro_torch.models.common.TensorParallel)
+# --------------------------------------------------------------------------
+_LINEARS = ("in_gate", "in_rec", "out")
+
+
+def _rank_tree(p, cols: slice):
+    """A rank's block where RG-LRU splits on its channels: ``in_gate``,
+    ``in_rec`` (column parts) and ``out`` (row part) as placed, the
+    per-channel ``conv_w``, ``gate_r``, ``gate_i`` and ``lam`` (whole on
+    every rank) cut to its channels ``cols``."""
+    return {**p, "conv_w": p["conv_w"][:, cols], "gate_r": p["gate_r"][cols],
+            "gate_i": p["gate_i"][cols], "lam": p["lam"][cols]}
+
+
+def _whole_tree(ps, cfg):
+    d = cfg.d_model
+    return {**ps[0], **{n: whole_linear([p[n] for p in ps], d, d)
+                        for n in _LINEARS}}
+
+
+def rglru_apply_tp(ps, x: Tensor, cfg, tp) -> Tensor:
+    """:func:`rglru_apply` on a mesh: each rank the block on its channels
+    (``tp.rglru_cols``) and ``out``'s partial sums reduced; where the
+    channels do not split, the block runs whole, once."""
+    if tp.rglru_cols is None:
+        return rglru_apply(_whole_tree(ps, cfg), x, cfg)
+    return reduce_rows([_block(_rank_tree(p, c), x.to(d))[0] for p, c, d in
+                        zip(ps, tp.rglru_cols, tp.devices)], ps[0]["out"])
+
+
+def rglru_prefill_tp(ps, x: Tensor, cfg, tp, last_index=None
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """:func:`rglru_prefill` on a mesh: the output and the whole cache on
+    rank 0's device (each rank's channels of ``h`` and ``conv``
+    gathered; the storage lays them out by its own specs)."""
+    if tp.rglru_cols is None:
+        return rglru_prefill(_whole_tree(ps, cfg), x, cfg, last_index)
+    outs = [rglru_prefill(_rank_tree(p, c), x.to(d), cfg, last_index)
+            for p, c, d in zip(ps, tp.rglru_cols, tp.devices)]
+    return (reduce_rows([o[0] for o in outs], ps[0]["out"]),
+            {n: all_gather([o[1][n] for o in outs], -1)[0]
+             for n in ("h", "conv")})
+
+
+def rglru_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded], cfg,
+                         tp) -> Tensor:
+    """:func:`rglru_decode_step` on a mesh, on a cache laid out by
+    ``cache_specs``: ``h`` split on its channels, ``conv`` (4-D)
+    replicated whole on every rank.  Each rank steps its channels, reads
+    its columns of its ``conv`` copy and writes its ``h`` part; the
+    ranks' new ``in_rec`` columns are gathered, and every rank shifts
+    the whole row into its copy, so the copies stay whole and equal.
+    Where the channels do not split, the block runs whole, once, and
+    every rank's copy takes its state."""
+    if tp.rglru_cols is None:
+        whole = {n: c.gather() for n, c in cache.items()}
+        out = rglru_decode_step(_whole_tree(ps, cfg), x, whole, cfg)[0]
+        for n, c in cache.items():
+            c.copy_(whole[n])
+        return out
+    outs, rows = [], []
+    for r, (p, cols, d) in enumerate(zip(ps, tp.rglru_cols, tp.devices)):
+        h = cache["h"].shards[r]
+        out, h_new, u_t = _step(_rank_tree(p, cols), x.to(d), h,
+                                cache["conv"].shards[r][..., cols])
+        h.copy_(h_new)
+        outs.append(out)
+        rows.append(u_t)
+    for conv, u_t in zip(cache["conv"].shards, all_gather(rows, -1)):
+        _shift_in(conv, u_t)
+    return reduce_rows(outs, ps[0]["out"])

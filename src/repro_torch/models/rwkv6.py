@@ -20,6 +20,11 @@ and is rounded to the weights' dtype before its projection, because K1
 takes one dtype; the reference projects the float32 mix against the
 promoted weights.  The two agree exactly in float32.
 
+On a mesh (``*_tp``) the time-mix is head-parallel over the model row
+where its ``d_model / head_dim`` heads divide it (``sharding.
+wkv_split``): each rank runs a function above on its heads (they read
+their head count from ``u``), and ``o``'s partial sums are reduced.
+
 Training calls :func:`rwkv_apply` with no ``last_index`` and no
 state: autograd runs back through the chunk scan, its float32
 ``exp(-cs)`` and ``exp(cs - wc)`` factors included, and only a sequence
@@ -33,7 +38,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import last_rows, linear_apply, linear_init
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed.mesh import Sharded
+from repro_torch.models.common import (last_rows, linear_apply, linear_init,
+                                       reduce_rows, whole_linear)
 
 Tensor = torch.Tensor
 
@@ -126,7 +134,7 @@ def rwkv_apply(p, x: Tensor, cfg, x_prev: Tensor = None,
     as the CHUNK pad does, so the returned state is the state at the
     real last token and ``shift`` is read there."""
     b, s, d = x.shape
-    h, hd = rwkv_head_dims(cfg)
+    h, hd = p["u"].shape
     if x_prev is None:
         x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     if state0 is None:
@@ -166,20 +174,107 @@ def rwkv_init_cache(batch: int, cfg, dtype, device=None
                                  device=device)}
 
 
+def _step(p, x: Tensor, x_prev: Tensor, state: Tensor
+          ) -> Tuple[Tensor, Tensor]:
+    """One token from ``x_prev`` (B, d) and ``state`` (B, H, hd, hd),
+    both only read: the output (B, 1, d) and the new state."""
+    b = x.shape[0]
+    h, hd = p["u"].shape
+    r, k, v, wlog = _projections(p, x, x_prev, h, hd)
+    r1, k1, v1 = (t[:, 0].float() for t in (r, k, v))
+    w1 = torch.exp(wlog[:, 0])                                # (B, H, hd)
+    kv = k1[..., :, None] * v1[..., None, :]
+    out = torch.einsum("bhk,bhkd->bhd", r1, state + p["u"][..., None] * kv)
+    y = linear_apply(p["o"], out.to(x.dtype).reshape(b, 1, h * hd))
+    return y, state * w1[..., None] + kv
+
+
 def rwkv_decode_step(p, x: Tensor, cache: Dict[str, Tensor], cfg
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, 1, d) -> (out (B, 1, d), cache).  ``cache["state"]`` and
     ``cache["shift"]`` are updated in place."""
-    b = x.shape[0]
-    h, hd = rwkv_head_dims(cfg)
-    r, k, v, wlog = _projections(p, x, cache["shift"], h, hd)
-    r1, k1, v1 = (t[:, 0].float() for t in (r, k, v))
-    w1 = torch.exp(wlog[:, 0])                                # (B, H, hd)
-    kv = k1[..., :, None] * v1[..., None, :]
-    out = torch.einsum("bhk,bhkd->bhd", r1,
-                       cache["state"] + p["u"][..., None] * kv)
-    new_state = cache["state"] * w1[..., None] + kv
-    y = linear_apply(p["o"], out.to(x.dtype).reshape(b, 1, h * hd))
-    cache["state"].copy_(new_state)
+    y, state = _step(p, x, cache["shift"], cache["state"])
+    cache["state"].copy_(state)
     cache["shift"].copy_(x[:, 0])
     return y, cache
+
+
+# --------------------------------------------------------------------------
+# On a mesh (repro_torch.models.common.TensorParallel)
+# --------------------------------------------------------------------------
+_COLS = ("r", "k", "v", "w")
+
+
+def _rank_tree(p, heads: slice, hd: int):
+    """A rank's time-mix where the heads split: its heads ``heads`` of
+    the r/k/v/w columns, of ``u`` and of ``o``'s rows.  A projection the
+    specs left whole (``k``/``v``/``o`` follow the attention rule, on
+    the configured head counts) is cut to them here; ``mu`` stays whole,
+    since the token-shift mix precedes the projections.  The time-mix
+    has no biases."""
+    cols = slice(heads.start * hd, heads.stop * hd)
+    n = (heads.stop - heads.start) * hd
+    out = {**p, "u": p["u"][heads]}
+    for name in _COLS:
+        if p[name]["w"].shape[1] != n:
+            out[name] = {"w": p[name]["w"][:, cols]}
+    if p["o"]["w"].shape[0] != n:
+        out["o"] = {"w": p["o"]["w"][cols]}
+    return out
+
+
+def _whole_tree(ps, cfg):
+    d = cfg.d_model
+    return {**ps[0], **{n: whole_linear([p[n] for p in ps], d, d)
+                        for n in _COLS + ("o",)}}
+
+
+def rwkv_apply_tp(ps, x: Tensor, cfg, tp, return_state: bool = False,
+                  last_index=None):
+    """:func:`rwkv_apply` (no ``x_prev``/``state0``) on a mesh: each rank
+    the chunk scan on its heads (``tp.wkv_heads``) and ``o``'s partial
+    sums reduced; the state comes back whole on rank 0's device (the
+    ranks' heads gathered), ``shift`` from rank 0 (every rank reads the
+    whole input).  Where the heads do not split, the time-mix runs
+    whole, once."""
+    if tp.wkv_heads is None:
+        return rwkv_apply(_whole_tree(ps, cfg), x, cfg,
+                          return_state=return_state, last_index=last_index)
+    hd = rwkv_head_dims(cfg)[1]
+    outs = [rwkv_apply(_rank_tree(p, heads, hd), x.to(d), cfg,
+                       return_state=return_state, last_index=last_index)
+            for p, heads, d in zip(ps, tp.wkv_heads, tp.devices)]
+    if not return_state:
+        return reduce_rows(outs, ps[0]["o"])
+    return (reduce_rows([o[0] for o in outs], ps[0]["o"]),
+            {"state": all_gather([o[1]["state"] for o in outs], 1)[0],
+             "shift": outs[0][1]["shift"]})
+
+
+def rwkv_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded], cfg,
+                        tp) -> Tensor:
+    """:func:`rwkv_decode_step` on a mesh, on a cache laid out by
+    ``cache_specs``: ``state`` split on its heads, ``shift`` on its
+    features.  The token-shift mix needs the whole ``x_prev`` before the
+    column-parallel projections, so ``shift`` is gathered (a whole copy
+    a rank); each rank steps its heads and writes its ``state`` part,
+    and every rank keeps its features of the new ``shift``.  Where the
+    heads do not split, the time-mix runs whole, once, and every rank's
+    parts take its state."""
+    if tp.wkv_heads is None:
+        whole = {n: c.gather() for n, c in cache.items()}
+        out = rwkv_decode_step(_whole_tree(ps, cfg), x, whole, cfg)[0]
+        for n, c in cache.items():
+            c.copy_(whole[n])
+        return out
+    hd = rwkv_head_dims(cfg)[1]
+    shift = cache["shift"]
+    prev = (all_gather(shift.shards, -1) if shift.spec else shift.shards)
+    outs = []
+    for r, (p, heads, d) in enumerate(zip(ps, tp.wkv_heads, tp.devices)):
+        state = cache["state"].shards[r]
+        y, new = _step(_rank_tree(p, heads, hd), x.to(d), prev[r], state)
+        state.copy_(new)
+        outs.append(y)
+    shift.copy_(x[:, 0])
+    return reduce_rows(outs, ps[0]["o"])

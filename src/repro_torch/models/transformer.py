@@ -66,17 +66,19 @@ On a ``("data", "model")`` mesh (:class:`~repro_torch.distributed.mesh.
 Mesh`), :func:`forward_prefill` and :func:`forward_decode` run one
 replica over the model row from the placed parameters
 (:func:`~repro_torch.distributed.sharding.place_params`): the embedding
-and the LM head vocabulary-parallel, attention head-parallel where both
-head counts divide (else once, on caches split on the sequence), the
-MLP column- then row-parallel, MoE expert-parallel.  Decode reads and
-writes caches of :class:`~repro_torch.distributed.mesh.Sharded` stacks
-laid out by ``cache_specs``; prefill returns the whole cache, which the
-engines' storage lays out.  :func:`forward_train` on a mesh takes the
-training placement (FSDP over data x TP over model) and runs that TP
-forward once a data replica on its rows of the batch, the parameters
-gathered over the data axis layer by layer.  Global attention layers,
-dense or MoE, run on a mesh; the other layer kinds, enc-dec models and
-frontends are queue A item 2c and raise.
+and the LM head vocabulary-parallel, ``frontend_proj`` column-parallel
+(gathered), attention, global or sliding-window, head-parallel where
+both head counts divide (else once, on caches and ring pools split on
+the sequence), RG-LRU channel-parallel and the RWKV6 time-mix
+head-parallel where they divide (else once), the MLP column- then
+row-parallel, MoE expert-parallel.  Decode reads and writes caches of
+:class:`~repro_torch.distributed.mesh.Sharded` stacks laid out by
+``cache_specs``; prefill returns the whole cache, which the engines'
+storage lays out.  :func:`forward_train` on a mesh takes the training
+placement (FSDP over data x TP over model) and runs that TP forward
+once a data replica on its rows of the batch, the parameters gathered
+over the data axis layer by layer.  Enc-dec models are queue A item 2d
+and raise on a mesh.
 """
 from __future__ import annotations
 
@@ -98,7 +100,8 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (embed_scale, embedding_init,
                                        embedding_lookup, embedding_lookup_tp,
                                        last_rows, linear_apply, linear_init,
-                                       lm_head_logits, lm_head_logits_tp,
+                                       linear_out, lm_head_logits,
+                                       lm_head_logits_tp,
                                        mlp_apply, mlp_apply_tp, mlp_init,
                                        rmsnorm_apply, rmsnorm_init,
                                        tensor_parallel)
@@ -551,22 +554,30 @@ def _logits_rows(x: Tensor, logits_index) -> Tensor:
 
 
 def check_mesh_supported(cfg: ModelConfig) -> None:
-    """Raise for what does not run on a mesh yet: layer kinds other than
-    global attention, enc-dec models and stub frontends."""
-    kinds = set(cfg.layer_kinds())
-    if kinds != {ATTN} or cfg.enc_dec or cfg.frontend is not None:
+    """Raise for what does not run on a mesh yet: enc-dec models."""
+    if cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name} on a mesh: the port shards global-attention "
-            f"decoders (dense or MoE) only; layer kinds {sorted(kinds)}"
-            f"{', enc-dec' if cfg.enc_dec else ''}"
-            f"{', a frontend' if cfg.frontend else ''} are ROADMAP.md "
-            f"queue A item 2c")
+            f"{cfg.name} on a mesh: the port shards decoders (every layer "
+            f"kind, dense or MoE, with or without a stub frontend) only; "
+            f"enc-dec models are ROADMAP.md queue A item 2d")
 
 
 def _embed_tp(loc, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     x = embedding_lookup_tp([t["embed"]["table"] for t in loc], tokens,
                             cfg.vocab_size)
     return x * embed_scale(cfg.d_model, x.dtype)
+
+
+def _embed_inputs_tp(loc, cfg: ModelConfig, batch: Dict[str, Tensor]
+                     ) -> Tensor:
+    """:func:`_embed_inputs` of a decoder on a mesh: ``frontend_proj``
+    column-parallel (its output gathered), else the vocabulary-parallel
+    token embedding."""
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        proj = [t["frontend_proj"] for t in loc]
+        return linear_out(proj, batch["frontend_embeds"].to(
+            proj[0]["w"].dtype), cfg.d_model)
+    return _embed_tp(loc, cfg, batch["tokens"])
 
 
 def _logits_tp(loc, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -584,11 +595,36 @@ def _ffn_tp(loc, i: int, cfg: ModelConfig, h: Tensor, mesh,
                         cfg.d_ff)
 
 
-def _attn_train_tp(ps, x: Tensor, cfg: ModelConfig, tp) -> Tensor:
-    """One replica's attention half of a layer in training."""
+def _mixer_train_tp(ps, h: Tensor, cfg: ModelConfig, kind: str, tp
+                    ) -> Tensor:
+    """:func:`_mixer_train` on a mesh (``ps``: the ranks' mixers)."""
+    if kind == RGLRU:
+        return rglru_mod.rglru_apply_tp(ps, h, cfg, tp)
+    if kind == WKV:
+        return rwkv_mod.rwkv_apply_tp(ps, h, cfg, tp)
+    return attn.attn_apply_tp(ps, h, cfg, tp, need_kv=False, kind=kind)[0]
+
+
+def _mixer_prefill_tp(ps, h: Tensor, cfg: ModelConfig, kind: str, tp,
+                      cap_seq: int, last_index
+                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """:func:`_mixer_prefill` on a mesh: the output and the layer's
+    whole cache on rank 0's device."""
+    if kind == RGLRU:
+        return rglru_mod.rglru_prefill_tp(ps, h, cfg, tp, last_index)
+    if kind == WKV:
+        return rwkv_mod.rwkv_apply_tp(ps, h, cfg, tp, return_state=True,
+                                      last_index=last_index)
+    mix, k, v = attn.attn_apply_tp(ps, h, cfg, tp, kind=kind)
+    cap = attn.cache_capacity(kind, cap_seq, cfg.sliding_window)
+    return mix, attn.prefill_into_cache(k, v, cap, last_index)
+
+
+def _mixer_half_tp(ps, x: Tensor, cfg: ModelConfig, kind: str, tp
+                   ) -> Tensor:
+    """One replica's mixer half of a layer in training."""
     h = rmsnorm_apply(ps[0]["norm1"], x, cfg.norm_eps)
-    return x + attn.attn_apply_tp([p["mixer"] for p in ps], h, cfg, tp,
-                                  need_kv=False)[0]
+    return x + _mixer_train_tp([p["mixer"] for p in ps], h, cfg, kind, tp)
 
 
 def _mlp_train_tp(ps, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -607,42 +643,47 @@ def _moe_train_tp(rows, xs: List[Tensor], cfg: ModelConfig, mesh
     return [x + y for x, y in zip(xs, ys)], auxs
 
 
+_BATCH_INPUTS = ("tokens", "labels", "frontend_embeds")
+
+
 def _forward_train_tp(placed, cfg: ModelConfig, batch: Dict[str, Tensor],
                       mesh, remat: str) -> Tuple[Tensor, Dict[str, Tensor]]:
     """:func:`forward_train` on a mesh.  Each data replica (a model row,
     :meth:`~repro_torch.distributed.mesh.Mesh.replicas`) takes its rows
-    of the batch by ``batch_specs`` and runs the TP forward of
-    :func:`_forward_prefill_tp` without caches, on TP shards gathered
-    over the data axes layer by layer (``gather_fsdp``).  Its loss is the
-    mean next-token cross entropy of its rows plus ``0.01 * aux /
-    n_layers``; the step's is the mean of the replicas' (equal row
-    counts: the reference's mean over the global batch).  ``remat``
-    wraps a layer, over all the replicas (a MoE half may route the
-    global batch: :func:`~repro_torch.models.moe.moe_apply_replicas`),
-    in ``checkpoint`` together with its gather, so that the backward
-    gathers the layer's shards again and no layer's gathered weights
-    outlive it; under ``remat="none"`` the matmuls keep every layer's
-    gathered weights until the backward."""
+    of the batch (tokens, labels and frontend embeds) by
+    ``batch_specs`` and runs the TP forward of
+    :func:`_forward_prefill_tp` without caches, each layer its kind's
+    mixer, on TP shards gathered over the data axes layer by layer
+    (``gather_fsdp``).  Its loss is the mean next-token cross entropy of
+    its rows plus ``0.01 * aux / n_layers``; the step's is the mean of
+    the replicas' (equal row counts: the reference's mean over the
+    global batch).  ``remat`` wraps a layer, over all the replicas (a
+    MoE half may route the global batch: :func:`~repro_torch.models.moe.
+    moe_apply_replicas`), in ``checkpoint`` together with its gather, so
+    that the backward gathers the layer's shards again and no layer's
+    gathered weights outlive it; under ``remat="none"`` the matmuls keep
+    every layer's gathered weights until the backward."""
     check_mesh_supported(cfg)
     reps = mesh.replicas()
     specs = batch_specs("train", mesh, cfg)
     labels_key = "labels" if "labels" in batch else "tokens"
     inputs = [{k: batch[k][shard_slices(batch[k].shape, specs[k], mesh,
                                         base)].to(mesh.devices[base])
-               for k in ("tokens", labels_key)} for base in reps]
+               for k in _BATCH_INPUTS if k in batch} for base in reps]
     tps = [tensor_parallel(cfg, mesh, at=base) for base in reps]
+    kinds = cfg.layer_kinds()
 
     def tp_rows(select):
         trees = gather_fsdp(placed, select)
         return [[trees[c] for c in mesh.model_row(at=base)] for base in reps]
 
     top = tp_rows(lambda t: {k: v for k, v in t.items() if k != "layers"})
-    xs = [_embed_tp(loc, cfg, inp["tokens"]) for loc, inp in zip(top, inputs)]
+    xs = [_embed_inputs_tp(loc, cfg, inp) for loc, inp in zip(top, inputs)]
     auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
             for x in xs]
     def layer(i: int, xs: List[Tensor]):
         rows = tp_rows(lambda t: t["layers"][i])
-        xs = [_attn_train_tp(ps, x, cfg, tp)
+        xs = [_mixer_half_tp(ps, x, cfg, kinds[i], tp)
               for ps, x, tp in zip(rows, xs, tps)]
         if cfg.moe is None:
             return [_mlp_train_tp(ps, x, cfg) for ps, x in zip(rows, xs)], []
@@ -674,24 +715,26 @@ def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,
     check_mesh_supported(cfg)
     tp = tensor_parallel(cfg, mesh)
     loc = placed.local
-    x = _embed_tp(loc, cfg, batch["tokens"])
-    cap = cache_len or x.shape[1]
+    x = _embed_inputs_tp(loc, cfg, batch)
+    cap_seq = cache_len or x.shape[1]
     valid = None
     if logits_index is not None and cfg.moe is not None:
         last = last_rows(logits_index, x.shape[0], x.device)
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  <= last[:, None])
-    caches: List[Dict[str, Tensor]] = []
-    for i, p in enumerate(loc[0]["layers"]):
+    caches: Dict[str, List[Dict[str, Tensor]]] = {}
+    for i, (p, kind) in enumerate(zip(loc[0]["layers"], cfg.layer_kinds())):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-        mix, k, v = attn.attn_apply_tp([t["layers"][i]["mixer"] for t in loc],
-                                       h, cfg, tp)
-        caches.append(attn.prefill_into_cache(k, v, cap, logits_index))
+        mix, cache = _mixer_prefill_tp([t["layers"][i]["mixer"] for t in loc],
+                                       h, cfg, kind, tp, cap_seq,
+                                       logits_index)
+        caches.setdefault(_TAG[kind], []).append(cache)
         x = x + mix
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn_tp(loc, i, cfg, h, mesh, valid)
     x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)
-    out = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+    out = {stack_name(tag, name): torch.stack([c[name] for c in layers])
+           for tag, layers in caches.items() for name in layers[0]}
     return _logits_tp(loc, cfg, _logits_rows(x, logits_index)), out
 
 
@@ -736,7 +779,7 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
         page_table = {"global": page_table}
     if mesh is not None:
         return _forward_decode_tp(params, cfg, tokens, caches, pos,
-                                  page_table, mesh)
+                                  page_table, window_cap, mesh)
     x = _embed(params, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     if page_table is None:
@@ -780,20 +823,33 @@ def forward_decode(params: Params, cfg: ModelConfig, tokens: Tensor,
 
 
 def _forward_decode_tp(placed, cfg: ModelConfig, tokens: Tensor, caches,
-                       pos, page_table, mesh) -> Tuple[Tensor, Dict]:
+                       pos, page_table, window_cap, mesh
+                       ) -> Tuple[Tensor, Dict]:
     """:func:`forward_decode` over ``mesh``'s model row (module doc)."""
     check_mesh_supported(cfg)
     tp = tensor_parallel(cfg, mesh)
     loc = placed.local
     x = _embed_tp(loc, cfg, tokens)
     pos = torch.as_tensor(pos, device=x.device)
-    names = _POOLS[""] if page_table is not None else _KV
-    for i, p in enumerate(loc[0]["layers"]):
+    for i, (p, kind, (tag, index)) in enumerate(zip(
+            loc[0]["layers"], cfg.layer_kinds(), cache_layout(cfg))):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         ps = [t["layers"][i]["mixer"] for t in loc]
-        cache = {n: caches[n][i] for n in names if n in caches}
         if page_table is None:
+            cache = _layer_cache(caches, tag, index)
+        else:
+            cache = {name: caches[name][index] for name in _POOLS[tag]
+                     if name in caches}
+        if kind == RGLRU:
+            mix = rglru_mod.rglru_decode_step_tp(ps, h, cache, cfg, tp)
+        elif kind == WKV:
+            mix = rwkv_mod.rwkv_decode_step_tp(ps, h, cache, cfg, tp)
+        elif page_table is None:
             mix = attn.attn_decode_step_tp(ps, h, cache, pos.long(), cfg, tp)
+        elif kind == LOCAL:
+            mix = attn.paged_local_attn_decode_step_tp(
+                ps, h, cache, page_table["local"], pos, cfg, tp,
+                window_cap=window_cap or cfg.sliding_window)
         else:
             mix = attn.paged_attn_decode_step_tp(
                 ps, h, cache, page_table["global"], pos, cfg, tp)

@@ -386,7 +386,7 @@ class PagedKVCache:
             self._admit_cross(prefill_cache, slot, cross_shared)
         for name in STATE_STACKS:
             if name in prefill_cache:
-                self.pools[name][:, slot] = prefill_cache[name][:, 0]
+                self._put_row(name, slot, prefill_cache[name][:, 0])
         self._shared[slot] = len(shared)
         self._reserved[slot] = reserve_pages
         self.reserved_total += reserve_pages
@@ -405,6 +405,16 @@ class PagedKVCache:
         else:
             pool.index_copy_(1, idx, chunks)
 
+    def _put_row(self, name: str, slot: int, rows: torch.Tensor) -> None:
+        """Overwrite ``slot``'s row of slab ``name`` with the whole-width
+        ``rows`` ``(L, ...)`` (each rank its part on a mesh)."""
+        slab = self.pools[name]
+        if isinstance(slab, Sharded):
+            for r, part in enumerate(slab.shards):
+                part[:, slot] = slab[:, slot].part(rows, r).to(part.device)
+        else:
+            slab[:, slot] = rows
+
     def _admit_ring(self, prefill_cache: Dict[str, torch.Tensor], slot: int,
                     last: int) -> None:
         """Map ``local_ring`` fresh pages into ``slot``'s ring row and
@@ -420,8 +430,8 @@ class PagedKVCache:
             g = src.index_select(
                 1, torch.remainder(p.clamp(min=0), src.shape[1]))
             g = g.masked_fill((p < 0)[None, :, None, None], 0)
-            self.pools["l" + name].index_copy_(
-                1, idx, g.reshape(src.shape[0], ring, psz, *src.shape[2:]))
+            self._put_pages("l" + name, idx, g.reshape(
+                src.shape[0], ring, psz, *src.shape[2:]))
         self._write_row(slot, 0, row, self.ltable)
         self._lrow[slot] = row
         self._lblock[slot] = last // psz
@@ -626,11 +636,13 @@ class PagedKVCache:
         if self.ctable is not None:
             self.ctable.fill_(self.csink)
 
-    def resident_bytes(self) -> int:
+    def resident_bytes(self, unique: bool = False) -> int:
         """Bytes of persistent paged storage: pools (sinks included; int8
         pools with their scale planes; cross pools), state slabs and the
-        page tables."""
-        return sum(sum(t.nbytes()) if isinstance(t, Sharded)
+        page tables.  On a mesh, every rank's bytes, or with ``unique``
+        those of the parts each rank holds first (a replicated stack
+        once: the meshless engine's bytes)."""
+        return sum(sum(t.nbytes(unique)) if isinstance(t, Sharded)
                    else t.numel() * t.element_size()
                    for t in list(self.pools.values())
                    + list(self.tables().values()))

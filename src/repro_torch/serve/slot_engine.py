@@ -119,11 +119,13 @@ class SlotKVCache:
         kept."""
         self._free = list(range(self.max_slots - 1, -1, -1))
 
-    def resident_bytes(self) -> int:
-        """Bytes of the slot buffers (0 until the first admission)."""
+    def resident_bytes(self, unique: bool = False) -> int:
+        """Bytes of the slot buffers (0 until the first admission).  On a
+        mesh, every rank's bytes, or with ``unique`` those of the parts
+        each rank holds first (a replicated stack once)."""
         if self.buffers is None:
             return 0
-        return sum(sum(t.nbytes()) if isinstance(t, Sharded)
+        return sum(sum(t.nbytes(unique)) if isinstance(t, Sharded)
                    else t.numel() * t.element_size()
                    for t in self.buffers.values())
 
@@ -172,7 +174,7 @@ class SlotServeEngine:
             check_mesh_supported(cfg)
             if coexec_backend is not None:
                 raise NotImplementedError(
-                    "coexec_backend on a mesh is ROADMAP.md queue A item 2c")
+                    "coexec_backend on a mesh is ROADMAP.md queue A item 2d")
             device = mesh.model_devices()[0]
         self.cfg = cfg
         self.device = torch.device(device)

@@ -14,8 +14,9 @@ CPU meshes, in float32 at 1e-5:
 * ``a2a_segments`` equal to the reference's;
 * the sharded model: ``forward_prefill`` and dense ``forward_decode``
   on a mesh against the reference's without one, and paged decode
-  against the port's own without one; what is not in this slice
-  raises on a mesh.
+  against the port's own without one; sliding-window, recurrent and
+  frontend models the same way (WKV's tolerance, 1e-4, for all four);
+  enc-dec raises on a mesh.
 """
 import dataclasses
 
@@ -328,11 +329,42 @@ def test_sharded_forward_matches_reference(name, shape):
                                   "rwkv6-3b", "whisper-base",
                                   "internvl2-76b"])
 def test_kinds_outside_the_slice_raise_on_a_mesh(name):
-    tcfg = torch_smoke_config(name)
+    """Enc-dec (whisper-base) raises on a mesh, queue A item 2d.  The
+    other kinds, once refused here, run there: sliding-window, RG-LRU and
+    RWKV6 layers and the vision stub's ``frontend_proj``: a prefill (on
+    ``frontend_embeds`` where the model has a frontend) and two dense
+    decode steps on (1, 2) against the reference's."""
+    cfg, tcfg, jparams, tparams = _setup(name)
     mesh = virtual_mesh((1, 2), "cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="queue A item 2c"):
-        T.forward_prefill(None, tcfg, batch, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue A item 2c"):
-        T.forward_decode(None, tcfg, batch["tokens"][:, :1], {},
-                         torch.zeros(1, dtype=torch.int32), mesh=mesh)
+    if cfg.enc_dec:
+        with pytest.raises(NotImplementedError, match="queue A item 2d"):
+            T.forward_prefill(None, tcfg, batch, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="queue A item 2d"):
+            T.forward_decode(None, tcfg, batch["tokens"][:, :1], {},
+                             torch.zeros(1, dtype=torch.int32), mesh=mesh)
+        return
+    placed = place_params(tparams, tcfg, mesh)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks)}
+    tb = {"tokens": torch.from_numpy(toks)}
+    if cfg.frontend is not None:
+        emb = rng.standard_normal((2, 20, cfg.frontend_dim)).astype(
+            np.float32)
+        jb["frontend_embeds"] = jnp.asarray(emb)
+        tb["frontend_embeds"] = torch.from_numpy(emb)
+    jl, jc = jax_prefill(jparams, cfg, jb, cache_len=32)
+    tl, tc = T.forward_prefill(placed, tcfg, tb, cache_len=32, mesh=mesh)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    specs = cache_specs(tc, tcfg, mesh, batch_axes=())
+    sc = {k: Sharded.of(t, specs[k], mesh) for k, t in tc.items()}
+    for pos in (20, 21):
+        tok = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+        jd, jc = jax_decode(jparams, cfg, jnp.asarray(tok), jc,
+                            jnp.asarray(pos))
+        td, _ = T.forward_decode(placed, tcfg, torch.from_numpy(tok), sc,
+                                 pos, mesh=mesh)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                                   atol=1e-4)
