@@ -142,9 +142,9 @@ Phases (any failure exits non-zero before the last line is printed):
    operations over 989 TFLOP/s, H100 SXM data sheet).  A time is the
    CUDA-event time of calls queued back to back behind a spin kernel, so
    the host's launch gaps do not count; the span of calls issued one
-   after another (gaps included) is printed beside it as ``*_span``, and
-   the kernel time ``torch.profiler`` recorded as ``*_profiler`` (it can
-   drop kernels on this card).  K1's host cost per launch
+   after another (gaps included) is printed beside the kernel's as
+   ``*_span``, and the kernel time ``torch.profiler`` recorded as
+   ``*_profiler`` (it can drop kernels on this card).  K1's host cost per launch
    (``host_us``, beside ``torch.matmul``'s) is the host time to issue
    one step's calls, and K2's (``host_us``) the host time a
    ``paged_attention`` call.  K2 on bf16 and int8 pools is timed at the
@@ -178,9 +178,11 @@ Phases (any failure exits non-zero before the last line is printed):
     share, one profiled slot window and one paged, K1's times (as in
     phase 10) for one decode step at rung 8 and one 512-row prefill, and
     K2's for one decode step at gemma3's layout;
-12. ``recurrentgemma-2b`` (26 layers: 18 RG-LRU, 8 sliding-window with a
-    window of 2048, GQA 10/1 at head_dim 256) and ``rwkv6-3b`` (32 WKV
-    layers, 40 heads of 64) at full width and depth in bfloat16 with
+12. ``recurrentgemma-2b`` (13 of its 26 layers: 9 RG-LRU, 4
+    sliding-window with a window of 2048, GQA 10/1 at head_dim 256) and
+    ``rwkv6-3b`` (16 of its 32 WKV layers, 40 heads of 64; half depth
+    since phase 20 joined, for the script's time) at full width in
+    bfloat16 with
     seeded random weights, each once the model before it is freed: 8
     requests of 16, 512, 1500, 2047, 2048, 2049, 2600 and 3000 prompt
     tokens (past 2048 recurrentgemma's ring prefill and decode wrap), 32
@@ -232,9 +234,9 @@ Phases (any failure exits non-zero before the last line is printed):
     window, K1's times for one decode step and K2's at the serve's
     layout (GQA 64/8 at head_dim 128, 8 layers);
 16. training at full width, each model freed before the next:
-    ``recurrentgemma-2b`` at 13 of its 26 layers and ``rwkv6-3b`` at 16
-    of its 32 (half depth since phase 19 joined, to keep the script
-    within its time),
+    ``recurrentgemma-2b`` at 6 of its 26 layers and ``rwkv6-3b`` at 8
+    of its 32 (cut since phase 20 joined, to keep the script within its
+    time),
     ``internvl2-76b`` at 1 of its 80 layers with ``frontend_embeds`` in
     its batches: ``Trainer(...).run()`` for 6 steps of 8 x 256 synthetic
     tokens, ``remat="none"``: finite losses, K1 > 0 on the wgmma route;
@@ -329,8 +331,38 @@ Phases (any failure exits non-zero before the last line is printed):
     step whose loss is that of the meshless step from the restored
     leaves; K1 and K4/K5 timed at the sharded steps' shapes.  The phase
     prints its own elapsed time.
+20. sliding-window, RG-LRU and RWKV6 layers and the vision stub on
+    virtual meshes of the card: K1 forward, dA and dB at every shard
+    shape of the serves and training runs below (``frontend_proj``'s
+    among them) on the wgmma route, and K2 at internvl2-76b's shard
+    layouts (GQA 32/4 and 16/2 hd 128) on bf16 and int8 pools, against
+    their plain versions; small f32 models of gemma3's, recurrentgemma's,
+    rwkv6's and internvl2's structures through slot and paged on (1, 2)
+    and (2, 2) with the CPU engine's tokens, and one sharded
+    ``loss_and_grads`` each on (2, 2) card against CPU; at full width
+    (bf16, seeded weights, the qwen workload) gemma3-1b and
+    recurrentgemma-2b on (1, 2), rwkv6-3b at 8 of 32 layers and
+    internvl2-76b at 8 of 80 on (1, 4) through slot and paged beside the
+    engine without a mesh: K1 and K2 launches a decode step as the specs
+    predict, the storage bytes of each part's first holder summing to
+    the meshless engine's (RG-LRU's ``conv``, replicated, equal on every
+    rank), the first decode step's logits on the meshless engine's
+    inputs of that step within ``SHARDED_REL``, the tokens that agree
+    counted, a profiled paged window with
+    ``collectives_device_ms``, K1 timed at a sharded decode step;
+    internvl2-76b's 208-row ``frontend_embeds`` prefill on the mesh
+    within ``SHARDED_REL`` of the meshless one, K1's launches a token
+    prefill's plus ``frontend_proj``'s; K2 timed at the two shard
+    layouts; recurrentgemma-2b (6 layers: two pattern periods) and
+    rwkv6-3b (4 layers) on (2, 2) and internvl2-76b (1 layer, batches
+    of ``frontend_embeds``) on (1, 2), 2 steps of 8 x 256 tokens each
+    through ``_run_sharded_train`` (the first step against the meshless
+    step: loss, ``grad_norm``, every gradient leaf; launches a step as
+    predicted, replicas bitwise, unique bytes, peaks, the second step
+    profiled) and K1 timed at each run's step.  The phase prints its
+    own elapsed time.
 
-Phases 15-19 run after phase 14; ``elapsed after ...`` lines give the
+Phases 15-20 run after phase 14; ``elapsed after ...`` lines give the
 script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
@@ -452,9 +484,10 @@ def _times(torch, fns: dict) -> dict:
     ``<key>_span``, and the sum of kernel times ``torch.profiler``
     recorded under ``<key>_profiler`` (None where it recorded none; on
     this card it can drop kernels, so it is a lower bound).  A plain
-    version (a key starting ``plain``) gets its device time only: its
-    thousands of small kernels made the span and the profile the
-    costliest part of the script, and nothing reads them."""
+    version, the library call and any other key but ``ms`` get their
+    device time only: the plain versions' thousands of small kernels
+    made the span and the profile the costliest part of the script, and
+    nothing reads them but the kernel's."""
     out = {}
     for key, fn in fns.items():
         out[key], clean = _queued_ms(torch, fn)
@@ -462,7 +495,7 @@ def _times(torch, fns: dict) -> dict:
             out[key], clean = _queued_ms(torch, fn, iters=1)
         if not clean:
             out[key + "_gaps"] = True
-        if key.startswith("plain"):
+        if key != "ms":
             continue
         out[key + "_span"] = _cuda_ms(torch, fn, iters=3)
         out[key + "_profiler"] = _device_ms(torch, fn, label=key)
@@ -1770,7 +1803,8 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
         raise AssertionError(f"decode_compiles "
                              f"{eng.stats['decode_compiles']} after warmup")
     ext = eng.stats["engine"]
-    if kind == "paged" and ext["pages_shared"] < SHARED_PREFIX // 16:
+    if kind == "paged" and eng._has_global \
+            and ext["pages_shared"] < SHARED_PREFIX // 16:
         raise AssertionError(f"prefix not shared: {ext['pages_shared']}")
     if kind == "paged" and eng.cache.n_free_pages != eng.cache.num_pages:
         raise AssertionError("page pool did not drain")
@@ -2100,10 +2134,14 @@ def serve_gemma3(torch, np, kernels) -> None:
 # from the config.
 RECURRENT_LENS = (16, 512, 1500, 2047, 2048, 2049, 2600, 3000)
 RECURRENT_MAX_SEQ = 3072
-RECURRENT_BYTES = {"recurrentgemma-2b": {"slot": 137_904_128,
-                                         "paged": 140_142_656},
-                   "rwkv6-3b": {"slot": 169_082_880,
-                                "paged": 169_089_024}}
+# Phase 12's depths (half of each model's; at full depth, 26 and 32
+# layers, the storage was 137,904,128 / 140,142,656 and 169,082,880 /
+# 169,089,024 bytes) and their storage at 8 slots, max_seq 3072.
+RECURRENT_LAYERS = {"recurrentgemma-2b": 13, "rwkv6-3b": 16}
+RECURRENT_BYTES = {"recurrentgemma-2b": {"slot": 68_952_064,
+                                         "paged": 70_076_480},
+                   "rwkv6-3b": {"slot": 84_541_440,
+                                "paged": 84_547_584}}
 
 
 def _recurrent_bytes(cfg, kind: str, slots=8, max_seq=RECURRENT_MAX_SEQ,
@@ -2130,8 +2168,9 @@ def _recurrent_bytes(cfg, kind: str, slots=8, max_seq=RECURRENT_MAX_SEQ,
 
 
 def serve_recurrent(torch, np, kernels, name: str) -> dict:
-    """``name`` (recurrentgemma-2b or rwkv6-3b) at full width and depth
-    in bf16 with seeded random weights: the 8 requests of
+    """``name`` (recurrentgemma-2b or rwkv6-3b) at full width and
+    ``RECURRENT_LAYERS`` depth in bf16 with seeded random weights: the 8
+    requests of
     ``RECURRENT_LENS``, 32 new tokens each, through ``make_engine(kind=
     "slot", max_slots=8, max_seq=3072, window=8)`` after ``warmup()``,
     ``kind="sequential"`` and ``kind="paged"`` (pages of 16) after
@@ -2151,7 +2190,8 @@ def serve_recurrent(torch, np, kernels, name: str) -> dict:
     from repro_torch.models.common import padded_vocab
     from repro_torch.serve import make_engine, Request, validate_stats
 
-    cfg = get_config(name)
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=RECURRENT_LAYERS[name])
     want_bytes = {kind: _recurrent_bytes(cfg, kind)
                   for kind in ("slot", "paged")}
     for kind, parts in want_bytes.items():
@@ -3798,14 +3838,16 @@ def _k5_library(torch, kernels, calls, gids, e):
 
 
 # Training at full width on the models of the fifteenth slice, each freed
-# before the next: recurrentgemma-2b and rwkv6-3b at full depth (26 and
-# 32 layers, about 2.66 and 2.85 G parameters), and internvl2-76b
-# at 1 of its 80 layers (about 2.98 G, its two 128,256-row tables the
-# most of them), its batches with frontend_embeds.  With AdamW's f32
-# moments that is about 12 bytes a parameter, plus the activations of
-# remat="none" (at full depth their peaks were 54.05, 57.19 and 45.47 GB
-# on an H100 80GB HBM3 at 700 W; PERF.md).
-FULL_TRAIN = (("recurrentgemma-2b", 26), ("rwkv6-3b", 32),
+# before the next: recurrentgemma-2b at 6 of 26 layers (two pattern
+# periods) and rwkv6-3b at 8 of 32 (since phase 20 joined, for the
+# script's time; at full depth they took 51.3 and 76.2 s, at 13 and 16
+# layers 31.1 and 43.0), and internvl2-76b at 1 of its
+# 80 layers (about 2.98 G parameters, its two 128,256-row tables the most
+# of them), its batches with frontend_embeds.  With AdamW's f32 moments
+# that is about 12 bytes a parameter, plus the activations of
+# remat="none" (at full depth the peaks were 54.05, 57.19 and 45.47 GB on
+# an H100 80GB HBM3 at 700 W; PERF.md).
+FULL_TRAIN = (("recurrentgemma-2b", 6), ("rwkv6-3b", 8),
               ("internvl2-76b", 1))
 
 
@@ -4460,33 +4502,79 @@ def _split_over_model(spec) -> bool:
                for e in spec)
 
 
-def _shard_weights(torch, cfg, shape):
-    """Rank 0's weight shapes of one layer and the LM head on a mesh of
-    ``shape``, from the sharding rules (``param_specs``, the serving
-    layout): ``{name: (k, n)}``."""
+def _mixer_shapes(cfg, kind: str) -> dict:
+    """A layer's mixer linears of ``kind``, whole: ``{name: (k, n)}``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "rglru":
+        return {"in_gate": (d, d), "in_rec": (d, d), "out": (d, d)}
+    if kind == "wkv":
+        return {n: (d, d) for n in ("r", "k", "v", "w", "o")}
+    return {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
+            "v": (d, cfg.n_kv_heads * hd), "o": (cfg.n_heads * hd, d)}
+
+
+def _tp_linears(torch, cfg, shape) -> dict:
+    """Rank 0's K1 operands of every layer, the LM head and a stub
+    frontend's ``frontend_proj`` on a mesh of ``shape``, from the
+    sharding rules (``param_specs``, the serving layout) and the split
+    the sharded forward runs (``tensor_parallel``): ``{"layers": [[(name,
+    k, n, launches), ...] a layer], "head": (k, n, launches), "frontend":
+    (k, n, launches) or None}``, each linear launched once a rank where
+    it is split (or, under split heads, cut to the rank's heads), else
+    once."""
     from repro_torch.distributed import param_specs, virtual_mesh
     from repro_torch.distributed.mesh import local_shape
-    from repro_torch.models.common import padded_vocab
+    from repro_torch.models.common import padded_vocab, tensor_parallel
 
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    meta = {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
-            "v": (d, cfg.n_kv_heads * hd), "o": (cfg.n_heads * hd, d)}
+    d = cfg.d_model
+    kinds = cfg.layer_kinds()
     tree = {"embed": {"table": (padded_vocab(cfg.vocab_size), d)},
-            "layers": [{"mixer": {n: {"w": s} for n, s in meta.items()}}]}
-    if cfg.moe is None:
-        tree["layers"][0]["mlp"] = {"up": {"w": (d, cfg.d_ff)},
-                                    "gate": {"w": (d, cfg.d_ff)},
-                                    "down": {"w": (cfg.d_ff, d)}}
+            "layers": []}
+    for kind in kinds:
+        layer = {"mixer": {n: {"w": s}
+                           for n, s in _mixer_shapes(cfg, kind).items()}}
+        if cfg.moe is None:
+            layer["mlp"] = {"up": {"w": (d, cfg.d_ff)},
+                            "down": {"w": (cfg.d_ff, d)}}
+            if cfg.gated_mlp:
+                layer["mlp"]["gate"] = {"w": (d, cfg.d_ff)}
+        tree["layers"].append(layer)
+    if cfg.frontend is not None:
+        tree["frontend_proj"] = {"w": (cfg.frontend_dim, d)}
     tree = _tree_map(lambda s: torch.empty(s, device="meta"), tree)
     mesh = virtual_mesh(shape, "cpu")
     specs = param_specs(tree, cfg, mesh, fsdp=False)
-    out = {f"{part} {n}": local_shape(lin["w"].shape,
-                                      specs["layers"][0][part][n]["w"], mesh)
-           for part, lins in tree["layers"][0].items()
-           for n, lin in lins.items()}
-    v, dd = local_shape(tree["embed"]["table"].shape,
-                        specs["embed"]["table"], mesh)
-    out["lm_head trans_b"] = (dd, v)
+    tp = tensor_parallel(cfg, mesh)
+    ms = shape[1]
+    cut = {"attn": tp.head_ok, "local": tp.head_ok, "rglru": False,
+           "wkv": tp.wkv_heads is not None}
+
+    def lin(w, spec, whole_cut):
+        k, n = local_shape(w.shape, spec, mesh)
+        split = (k, n) != tuple(w.shape)
+        if whole_cut and not split:     # a whole weight cut to the heads
+            k, n = (k // ms, n) if w.shape[0] != d else (k, n // ms)
+        return k, n, ms if split or whole_cut else 1
+
+    layers = []
+    for kind, layer, lspec in zip(kinds, tree["layers"], specs["layers"]):
+        layers.append([(f"{part} {n}",) + lin(layer[part][n]["w"],
+                                               lspec[part][n]["w"],
+                                               part == "mixer" and cut[kind])
+                       for part in layer for n in layer[part]])
+    v, dd, launches = lin(tree["embed"]["table"], specs["embed"]["table"],
+                          False)
+    front = (lin(tree["frontend_proj"]["w"], specs["frontend_proj"]["w"],
+                 False) if cfg.frontend is not None else None)
+    return {"layers": layers, "head": (dd, v, launches), "frontend": front}
+
+
+def _shard_weights(torch, cfg, shape):
+    """Rank 0's weight shapes of the first layer and the LM head on a
+    mesh of ``shape`` (``_tp_linears``): ``{name: (k, n)}``."""
+    tl = _tp_linears(torch, cfg, shape)
+    out = {name: (k, n) for name, k, n, _ in tl["layers"][0]}
+    out["lm_head trans_b"] = tl["head"][:2]
     return out
 
 
@@ -4672,8 +4760,8 @@ def _capture_first_step(store, cfg):
 def _predicted_launches(eng, cfg) -> dict:
     """K1 and K2 launches of one decode step from the placed specs: a
     linear split over ``model`` launches once a rank, a whole one once;
-    K2 (paged storage only) once a rank a layer where the pools' spec
-    splits the KV heads, else once a layer."""
+    K2 (paged storage of global layers only) once a rank a global layer
+    where the pools' spec splits the KV heads, else once a layer."""
     ranks = eng.mesh.shape["model"]
     specs = eng.params.specs
     k1 = 0
@@ -4685,11 +4773,12 @@ def _predicted_launches(eng, cfg) -> dict:
     head = "lm_head" if "lm_head" in specs else "embed"
     k1 += ranks if _split_over_model(specs[head]["table"]) else 1
     pools = getattr(eng.cache, "pools", None)
-    if pools is None:
+    if pools is None or "pk" not in pools:
         k2 = 0
     else:
         spec = tuple(pools["pk"].spec) + (None,) * 5
-        k2 = cfg.n_layers * (ranks if spec[3] is not None else 1)
+        k2 = cfg.layer_kinds().count("attn") * (ranks if spec[3] is not None
+                                                else 1)
     return {"sisa_gemm": k1, "paged_attn": k2}
 
 
@@ -5144,31 +5233,28 @@ SHARD_LOSS_REL = 2.0 ** -8
 SHARD_NORM_REL = 2.0 ** -5
 
 
-def _train_k1_gemms(torch, cfg, shape, rows: int):
+def _train_k1_gemms(torch, cfg, shape, rows: int, frontend: bool = False):
     """Every K1 forward GEMM ``(m, k, n, head)`` of one sharded train step
-    (all data replicas and model ranks), from the TP layout of the specs
-    (``_shard_weights``): with heads split every rank projects its q, k,
-    v and o; otherwise each projection runs once a rank where the specs
-    split it and once where they leave it whole; the MLP and the LM head
-    (``head``: read as ``table.T``) once a rank where they split.
-    ``rows`` is a data replica's tokens."""
-    from repro_torch.distributed import virtual_mesh
-    from repro_torch.distributed.sharding import heads_split
-
-    local = _shard_weights(torch, cfg, shape)
-    whole = _shard_weights(torch, cfg, (1, 1))
-    ms = shape[1]
-    head_ok = heads_split(cfg, virtual_mesh(shape, "cpu"))
-    layer, head = [], []
-    for name, (k, n) in local.items():
-        split = local[name] != whole[name] or (head_ok and "mixer" in name)
-        (head if "lm_head" in name else layer).extend(
-            [(rows, k, n, "lm_head" in name)] * (ms if split else 1))
-    return (layer * cfg.n_layers + head) * shape[0]
+    (all data replicas and model ranks), from the TP layout
+    (``_tp_linears``): each layer's linears and the LM head (``head``
+    True: read as ``table.T``) once a rank where they split, else once;
+    with ``frontend`` (a batch of ``frontend_embeds``) ``frontend_proj``
+    too (``head`` None: outside the layers, never recomputed).  ``rows``
+    is a data replica's tokens."""
+    tl = _tp_linears(torch, cfg, shape)
+    gemms = [(rows, k, n, False) for layer in tl["layers"]
+             for _, k, n, times in layer for _ in range(times)]
+    k, n, times = tl["head"]
+    gemms += [(rows, k, n, True)] * times
+    if frontend:
+        k, n, times = tl["frontend"]
+        gemms += [(rows, k, n, None)] * times
+    return gemms * shape[0]
 
 
 def _predicted_train_launches(cfg, shape, rows: int, torch,
-                              remat: str = "none") -> dict:
+                              remat: str = "none",
+                              frontend: bool = False) -> dict:
     """K1, K4 and K5 launches of one sharded train step, from the specs:
     each forward GEMM is one launch a row pass (``row_passes``) forward
     and for dA, and one a pass of its K rows for dB; each MoE layer runs
@@ -5178,8 +5264,8 @@ def _predicted_train_launches(cfg, shape, rows: int, torch,
     from repro_torch.kernels.ops import row_passes
 
     again = remat != "none"
-    gemms = _train_k1_gemms(torch, cfg, shape, rows)
-    k1 = sum((2 + (again and not head)) * len(row_passes(m))
+    gemms = _train_k1_gemms(torch, cfg, shape, rows, frontend)
+    k1 = sum((2 + (again and head is False)) * len(row_passes(m))
              + len(row_passes(k)) for m, k, _, head in gemms)
     out = {"sisa_gemm": k1}
     if cfg.moe is not None:
@@ -5452,8 +5538,9 @@ def _run_sharded_train(torch, cfg, shape, host_params, batches, ref,
                 f"{cfg.name} {shape} {impl}", changes)
             del g, calls
         for s, batch in enumerate(batches[:steps]):
-            want = _predicted_train_launches(cfg, shape, rows, torch,
-                                             remats[s])
+            want = _predicted_train_launches(
+                cfg, shape, rows, torch, remats[s],
+                frontend="frontend_embeds" in batch)
             step = make_train_step(cfg, mesh, remat=remats[s])
             for counter in LAUNCH_COUNTERS.values():
                 counter.reset()
@@ -5509,13 +5596,14 @@ def _run_sharded_train(torch, cfg, shape, host_params, batches, ref,
                                  f"{first} against meshless {ref['loss']}"
                                  f", {ref['grad_norm']}")
         rec["elapsed_s"] = time.perf_counter() - t_run
-        _say(f"phase 19 train {cfg.name} {shape} {impl}: {json.dumps(rec)}")
+        _say(f"sharded train {cfg.name} {shape} {impl}: {json.dumps(rec)}")
         return placed, opt, rec
     finally:
         moe.set_ep_impl("psum")
 
 
-def time_shard_train_k1(torch, kernels, cfg, shape, rows: int) -> dict:
+def time_shard_train_k1(torch, kernels, cfg, shape, rows: int,
+                        frontend: bool = False) -> dict:
     """K1's work in one sharded train step: every forward GEMM of
     ``_train_k1_gemms`` on random bf16 operands of its shard's shape
     (each its own weight, the LM head's read as ``table.T``) and their
@@ -5523,7 +5611,8 @@ def time_shard_train_k1(torch, kernels, cfg, shape, rows: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(19)
     xs = {}
     gemms = []
-    for m, k, n, head in _train_k1_gemms(torch, cfg, shape, rows):
+    for m, k, n, head in _train_k1_gemms(torch, cfg, shape, rows,
+                                         frontend):
         if (m, k) not in xs:
             xs[(m, k)] = torch.randn(m, k, device="cuda",
                                      generator=gen).bfloat16()
@@ -5763,6 +5852,397 @@ def train_sharded(torch, np, kernels) -> dict:
 
 
 
+# Phase 20: the sliding-window, RG-LRU and RWKV6 layers and the vision
+# stub on a mesh.  (name, layers or None for all, serving mesh); the
+# training runs (name, layers, mesh), at TRAIN_BATCH x TRAIN_SEQ.
+# rwkv6-3b serves at 8 of its 32 layers, for the script's time: on (1,
+# 4) its 900 launches a decode step at full depth took 60.2 s of the
+# phase, 41.2 s at 16 layers.
+SHARD20_SERVES = (("gemma3-1b", None, (1, 2)),
+                  ("recurrentgemma-2b", None, (1, 2)),
+                  ("rwkv6-3b", 8, (1, 4)),
+                  ("internvl2-76b", INTERNVL_LAYERS, (1, 4)))
+SHARD20_TRAIN = (("recurrentgemma-2b", 6, (2, 2)), ("rwkv6-3b", 4, (2, 2)),
+                 ("internvl2-76b", 1, (1, 2)))
+SHARD20_STEPS = 2
+# internvl2-76b's layouts of K2 on (1, 2) and (1, 4): GQA 64/8 cut in two
+# and in four.
+SHARD20_K2_HEADS = ((32, 4, 128), (16, 2, 128))
+
+
+def _cfg_at(name, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def check_shard20_kernels(torch, kernels, gen) -> dict:
+    """K1 forward, dA and dB at every distinct shard shape of phase 20's
+    serves (rows 8 and 208) and training steps (a data replica's rows),
+    ``frontend_proj``'s among them, each against its plain version on
+    the wgmma route (``check_shard_train_kernels``' bound); K2 at
+    internvl2-76b's shard layouts ``SHARD20_K2_HEADS`` on bf16 and int8
+    pools against its plain version."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    worst = {"sisa_gemm": 0.0, "paged_attn": 0.0, "paged_attn_int8": 0.0}
+    shapes = set()
+    for name, layers, shape in SHARD20_SERVES:
+        cfg = _cfg_at(name, layers)
+        for rows in (8, FRONTEND_ROWS):
+            shapes |= set(_train_k1_gemms(torch, cfg, shape, rows,
+                                          cfg.frontend is not None))
+    for name, layers, shape in SHARD20_TRAIN:
+        cfg = _cfg_at(name, layers)
+        shapes |= set(_train_k1_gemms(
+            torch, cfg, shape, TRAIN_BATCH * TRAIN_SEQ // shape[0],
+            cfg.frontend is not None))
+    shapes = {(m, k, n, bool(head)) for m, k, n, head in shapes}
+    core0 = LAUNCH_COUNTERS["sisa_gemm_core"].n
+    for m, k, n, head in sorted(shapes):
+        a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        b = ((torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16().T if head else
+             (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16())
+        dc = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
+        for what, x, y in (("fwd", a, b), ("dA", dc, b.t()),
+                           ("dB", a.t(), dc)):
+            ref = kernels.sisa_gemm_plain(x, y)
+            atol = max(_f32_atol(ref), x.shape[1] * 2.0 ** -28
+                       * ref.float().abs().max().item())
+            worst["sisa_gemm"] = max(worst["sisa_gemm"], _max_err(
+                f"K1 phase 20 shard {what} {m}x{k}x{n}",
+                kernels.sisa_matmul(x, y), ref, BF16_REL, atol))
+    if LAUNCH_COUNTERS["sisa_gemm_core"].n != core0:
+        raise AssertionError("a K1 launch at a phase 20 shard shape took "
+                             "the CUDA-core body")
+    for heads in SHARD20_K2_HEADS:
+        pos = [0, 15, 16, 47, 100, 150, 200, 255]
+        q, pk, pv, table, pos_t = _attn_inputs(torch, gen, torch.bfloat16,
+                                               pos, heads=heads)
+        for quant in (False, True):
+            pools = _int8_pools(kernels, pk, pv) if quant else (pk, pv)
+            key = "paged_attn_int8" if quant else "paged_attn"
+            worst[key] = max(worst[key], _max_err(
+                f"K2 {'int8 ' if quant else ''}{heads}",
+                kernels.paged_attention(q, *pools[:2], table, pos_t,
+                                        *pools[2:]),
+                kernels.paged_attention_plain(q, *pools[:2], table, pos_t,
+                                              *pools[2:]),
+                BF16_REL, 1e-5))
+    _say(f"phase 20 kernels: K1 forward, dA and dB at {len(shapes)} shard "
+         f"shapes {sorted(shapes)} on the wgmma route, K2 at GQA "
+         f"{SHARD20_K2_HEADS} on bf16 and int8 pools, agree with their "
+         f"plain versions (max abs err {json.dumps(worst)})")
+    return worst
+
+
+def check_sharded_small_train(torch, np, label, cfg) -> None:
+    """One sharded ``loss_and_grads`` of ``cfg`` (float32) on a virtual
+    (2, 2) mesh of the card (kernels) and of the CPU (plain versions),
+    from the same weights and batch: the loss within 1e-5, every
+    gathered, replica-summed gradient leaf within 1e-4 of its largest
+    magnitude (``check_small_train``'s bound: f32 sums in other
+    orders)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import place_train, unshard_tree
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.distributed.sharding import reduce_replicas
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads
+
+    cpu = init_params(cfg, seed=0, device="cpu")
+    batch = SyntheticLM(cfg, 4, 64, DataConfig(seed=1)).batch(0)
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = virtual_mesh((2, 2), dev)
+        placed = place_train(cpu, cfg, mesh)
+        loss, _, g = loss_and_grads(
+            placed, cfg, {k: torch.as_tensor(v) for k, v in batch.items()},
+            remat="none", mesh=mesh)
+        g = reduce_replicas(g)
+        res[dev] = (float(loss), list(_leaves(
+            unshard_tree(g.shards, g.specs, mesh))))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda:0"]
+    if LAUNCH_COUNTERS["sisa_gemm"].n <= 0:
+        raise AssertionError(f"sharded small train ({label}): no K1 launch")
+    if not abs(l_gpu - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu)):
+        raise AssertionError(f"sharded small train ({label}): loss {l_gpu} "
+                             f"on the card, {l_cpu} on the CPU")
+    worst = 0.0
+    for gg, gc_ in zip(g_gpu, g_cpu, strict=True):
+        scale = max(gc_.abs().max().item(), 1e-30)
+        worst = max(worst, _max_err(f"sharded small train ({label}) grad",
+                                    gg, gc_, 0.0, 1e-4 * scale) / scale)
+    _say(f"sharded small train ({label}, f32, 4x64 tokens, (2, 2)): loss "
+         f"card {l_gpu} CPU {l_cpu}; {len(g_cpu)} gradient leaves within "
+         f"{worst} of their largest (tol 1e-4)")
+
+
+def serve_sharded_layers(torch, np, kernels, name, layers, shape) -> dict:
+    """``name`` at full width (``layers`` of its layers, or all), bf16,
+    seeded weights, through slot and paged on a virtual ``shape`` mesh
+    of the card beside the engine without a mesh (the qwen workload,
+    each warmed at rung 8): K1 and K2 launches of the first decode step
+    as the specs predict (``_predicted_launches``), the storage's bytes
+    of each part's first holder summing to the meshless engine's, an
+    RG-LRU model's ``conv`` equal on every rank, the first decode step's
+    logits on the meshless engine's inputs of that step within
+    ``SHARDED_REL`` (the drift of the mesh's own serve recorded: a
+    random-weight rwkv6-3b in bf16 drifts past it through 32 layers of
+    prefill on either side), tokens that agree counted, one
+    profiled paged window (``collectives_device_ms``), K1 timed at a
+    sharded decode step.  A model with a stub frontend then prefills
+    208 rows of ``frontend_embeds`` on the mesh and without it: the
+    logits within ``SHARDED_REL``, K1's launches a 208-token prefill's
+    plus ``frontend_proj``'s."""
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.models import forward_prefill, init_params
+
+    cfg = _cfg_at(name, layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    _say(f"params: {cfg.name} full width, {cfg.n_layers} layers, init "
+         f"{time.perf_counter() - t0:.2f} s")
+    out = {"serves": {}}
+    has_global = "attn" in cfg.layer_kinds()
+    for kind in ("slot", "paged"):
+        need = ("sisa_gemm",) + (("paged_attn",) if kind == "paged"
+                                 and has_global else ())
+        absent = ("paged_attn", "paged_attn_int8") if not need[1:] else ()
+        ref_store, ref_state, store = [], [], []
+
+        def capture_ref(eng):
+            _capture_first_step(ref_store, cfg)(eng)
+            _capture_step_state(ref_state)(eng)
+
+        ref, _, _, ref_outs = serve_full_width(
+            torch, np, cfg, need, params=params, kind=kind, absent=absent,
+            warm_rungs=(8,), before_serve=capture_ref)
+        ref_bytes = ref.cache.resident_bytes()
+        del ref
+        eng, _, launches, outs = serve_full_width(
+            torch, np, cfg, need, params=params, kind=kind, absent=absent,
+            mesh=virtual_mesh(shape, "cuda:0"), warm_rungs=(8,),
+            before_serve=_capture_first_step(store, cfg))
+        (own, rids, measured), (want, want_rids, _) = store[0], ref_store[0]
+        if rids != want_rids:
+            raise AssertionError(f"{name} {kind}: first decode step rows "
+                                 f"{rids} vs {want_rids}")
+        scale = want.abs().max().item()
+        got = _mesh_step_from(torch, eng, cfg, ref_state[0])
+        err = (got - want).abs().max().item()
+        if not err <= SHARDED_REL * scale:
+            raise AssertionError(f"{name} {kind} on {shape}: first decode "
+                                 f"step's logits from the meshless state "
+                                 f"off by {err} > {SHARDED_REL} * {scale}")
+        predicted = _predicted_launches(eng, cfg)
+        for key, n in predicted.items():
+            if measured.get(key, 0) != n:
+                raise AssertionError(f"{name} {kind} on {shape}: {key} "
+                                     f"{measured.get(key, 0)} launches a "
+                                     f"decode step, predicted {n}")
+        unique = eng.cache.resident_bytes(unique=True)
+        if unique != ref_bytes:
+            raise AssertionError(f"{name} {kind} on {shape}: first holders' "
+                                 f"bytes {unique}, the meshless {ref_bytes}")
+        store_ = eng.cache.pools if kind == "paged" else eng.cache.buffers
+        if "conv" in store_ and not all(
+                c.equal(store_["conv"].shards[0])
+                for c in store_["conv"].shards):
+            raise AssertionError(f"{name} {kind}: conv copies differ")
+        rec = {"launches_a_step": measured, "predicted": predicted,
+               "serve_launches": launches,
+               "storage_bytes": _storage_bytes(eng),
+               "storage_bytes_unique": unique, "meshless_bytes": ref_bytes,
+               "first_step_logits_max_abs_err": err,
+               "first_step_logits_rel_to_max": err / scale,
+               "own_serve_first_step_rel_to_max":
+                   (own - want).abs().max().item() / scale,
+               "tokens_agreeing": sum(a == b for o, r in zip(outs, ref_outs)
+                                      for a, b in zip(o.tokens, r.tokens)),
+               "tokens": sum(len(r.tokens) for r in ref_outs),
+               "completions_equal": sum(o.tokens == r.tokens
+                                        for o, r in zip(outs, ref_outs))}
+        if kind == "paged":
+            prof = profile_window(torch, np, eng, cfg, steps=2)
+            if prof["queued_after_admission"] or not (
+                    prof["collectives_device_ms"]):
+                raise AssertionError(f"{name} profiled window: {prof}")
+            rec["profile"] = prof
+            gemms = _k1_gemms(torch, None, cfg, 8, ranks=eng.params)
+            if len(gemms) != predicted["sisa_gemm"]:
+                raise AssertionError(f"{len(gemms)} timed GEMMs, "
+                                     f"{predicted['sisa_gemm']} a step")
+            out["k1"] = time_gemms(torch, kernels, gemms)
+            _say(f"k1 sharded decode step {name} {shape} (rung 8, "
+                 f"{len(gemms)} GEMMs over the ranks): "
+                 f"{json.dumps(out['k1'])}")
+        if kind == "slot" and cfg.frontend is not None:
+            rec["frontend_prefill"] = _frontend_prefill_on_mesh(
+                torch, cfg, params, eng, forward_prefill, LAUNCH_COUNTERS)
+        out["serves"][kind] = rec
+        _say(f"phase 20 serve {name} {kind} on a virtual {shape} mesh: "
+             f"{json.dumps(rec)}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _capture_step_state(store):
+    """A ``before_serve`` hook: copies of the first decode step's inputs
+    (the storage its rows read, the tables, tokens and positions) taken
+    before it runs, with the indices of its live rows, appended to
+    ``store``."""
+    def hook(eng):
+        decode = eng.decode_fn
+
+        def first_step(*args):
+            if not store:
+                store.append(([_tree_map(lambda t: t.clone(), a)
+                               for a in args[1:]],
+                              [i for i, r in enumerate(eng._req)
+                               if r is not None]))
+            return decode(*args)
+        eng.decode_fn = first_step
+    return hook
+
+
+def _mesh_step_from(torch, eng, cfg, state):
+    """The logits of ``eng``'s decode step (a mesh engine) on a meshless
+    engine's first decode step's inputs (``_capture_step_state``), the
+    storage laid out by ``cache_specs``: the mesh's arithmetic alone,
+    without the drift of its own prefills."""
+    from repro_torch.distributed import cache_specs
+    from repro_torch.distributed.mesh import Sharded
+
+    (caches, *rest), live = state
+    specs = cache_specs(caches, cfg, eng.mesh, batch_axes=())
+    sharded = {n: Sharded.of(t, specs[n], eng.mesh)
+               for n, t in caches.items()}
+    logits, _ = eng.decode_fn(eng.params, sharded, *rest)
+    return logits[live, 0, :cfg.vocab_size].float()
+
+
+def _frontend_prefill_on_mesh(torch, cfg, params, eng, forward_prefill,
+                              counters) -> dict:
+    """One prefill of ``FRONTEND_ROWS`` rows of seeded
+    ``frontend_embeds`` on ``eng``'s mesh and without one: the logits
+    within ``SHARDED_REL``, and K1's launches on the mesh those of a
+    token prefill of the same rows plus ``frontend_proj``'s (a launch a
+    rank a row pass)."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    embeds = torch.randn(1, FRONTEND_ROWS, cfg.frontend_dim, device="cuda",
+                         generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FRONTEND_ROWS),
+                           device="cuda", generator=gen)
+    runs = {}
+    for key, batch in (("tokens", {"tokens": tokens}),
+                       ("frontend_embeds", {"tokens": tokens,
+                                            "frontend_embeds": embeds})):
+        counters["sisa_gemm"].reset()
+        logits, _ = forward_prefill(eng.params, cfg, batch, mesh=eng.mesh)
+        torch.cuda.synchronize()
+        runs[key] = (logits[..., :cfg.vocab_size].float(),
+                     counters["sisa_gemm"].n)
+    want, _ = forward_prefill(params, cfg, {"tokens": tokens,
+                                            "frontend_embeds": embeds})
+    want = want[..., :cfg.vocab_size].float()
+    got, n = runs["frontend_embeds"]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    from repro_torch.kernels.ops import row_passes
+
+    proj = (eng.mesh.shape["model"] if _split_over_model(
+        eng.params.specs["frontend_proj"]["w"]) else 1) * len(
+        row_passes(FRONTEND_ROWS))
+    if not torch.isfinite(got).all() or err > SHARDED_REL * scale \
+            or n != runs["tokens"][1] + proj:
+        raise AssertionError(f"{cfg.name} frontend prefill on the mesh: err "
+                             f"{err} of {scale}, K1 {n} launches, a token "
+                             f"prefill {runs['tokens'][1]} + {proj}")
+    return {"rows": FRONTEND_ROWS, "logits_max_abs_err": err,
+            "logits_rel_to_max": err / scale, "k1_launches": n,
+            "k1_launches_token_prefill": runs["tokens"][1],
+            "frontend_proj_launches": proj}
+
+
+def train_sharded_layers(torch, kernels) -> dict:
+    """``SHARD20_TRAIN``: each model at full width (bf16, seeded weights,
+    cut to its layers), ``SHARD20_STEPS`` steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens (internvl2's batches carry ``frontend_embeds``)
+    through ``_run_sharded_train`` against the meshless port step, and
+    K1 timed at each run's sharded step."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+
+    out = {"runs": {}, "k1": {}}
+    for name, layers, shape in SHARD20_TRAIN:
+        cfg = _cfg_at(name, layers)
+        params = init_params(cfg, seed=0)
+        data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        batches = [{k: torch.as_tensor(v) for k, v in data.batch(s).items()}
+                   for s in range(SHARD20_STEPS)]
+        ref = _meshless_reference(torch, cfg, params, batches[0], shape[0])
+        placed, opt, rec = _run_sharded_train(
+            torch, cfg, shape, params, batches, ref, SHARD20_STEPS,
+            profile_step=1)
+        del placed, opt, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["runs"][name] = rec
+        out["k1"][name] = time_shard_train_k1(
+            torch, kernels, cfg, shape, TRAIN_BATCH * TRAIN_SEQ // shape[0],
+            frontend=cfg.frontend is not None)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase20(torch, np, kernels, gen) -> dict:
+    """Phase 20 (module doc), timed; returns its records."""
+    t20 = time.perf_counter()
+    out = {"err": check_shard20_kernels(torch, kernels, gen)}
+    smalls = {**_small_configs(), **_small_recurrent_configs()}
+    for label in ("gemma3 structure", "recurrentgemma structure",
+                  "rwkv6 structure", "internvl2 structure"):
+        check_sharded_small(torch, np, label, smalls[label])
+        check_sharded_small_train(torch, np, label, smalls[label])
+    _say(f"phase 20 small models: {time.perf_counter() - t20:.1f} s")
+    out["serves"] = {}
+    for name, layers, shape in SHARD20_SERVES:
+        t0 = time.perf_counter()
+        out["serves"][name] = serve_sharded_layers(torch, np, kernels, name,
+                                                   layers, shape)
+        _say(f"phase 20 {name} serves: {time.perf_counter() - t0:.1f} s")
+    out["k2"] = {heads: time_k2(torch, kernels, heads,
+                                INTERNVL_LAYERS * (64 // heads[0]))
+                 for heads in SHARD20_K2_HEADS}
+    for heads, t in out["k2"].items():
+        _say(f"k2 sharded decode step internvl2-76b GQA {heads} (8 rows, "
+             f"{t['launches_timed']} launches: 8 layers x ranks): "
+             f"{json.dumps(t)}")
+    t0 = time.perf_counter()
+    out["train"] = train_sharded_layers(torch, kernels)
+    _say(f"phase 20 training: {time.perf_counter() - t0:.1f} s")
+    _say(f"phase 20 (sliding-window, recurrent and frontend layers on a "
+         f"mesh) elapsed: {time.perf_counter() - t20:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5961,13 +6441,11 @@ def main() -> int:
     check_sharded_fault(torch, np, smalls["qwen2.5-0.5b widths"])
     shard_k2 = {
         "qwen": time_k2(torch, kernels, SHARD_K2_HEADS[0],
-                        2 * cfg.n_layers, plain=False),
+                        2 * cfg.n_layers),
         "qwen_int8": time_k2_int8(torch, kernels, SHARD_K2_HEADS[0],
-                                  2 * cfg.n_layers, plain=False),
-        "phi2": time_k2(torch, kernels, SHARD_K2_HEADS[1], 2 * MOE_LAYERS,
-                        plain=False),
-        "phi4": time_k2(torch, kernels, SHARD_K2_HEADS[2], 4 * MOE_LAYERS,
-                        plain=False)}
+                                  2 * cfg.n_layers),
+        "phi2": time_k2(torch, kernels, SHARD_K2_HEADS[1], 2 * MOE_LAYERS),
+        "phi4": time_k2(torch, kernels, SHARD_K2_HEADS[2], 4 * MOE_LAYERS)}
     for key, t in shard_k2.items():
         _say(f"k2 sharded decode step {key} (8 rows, GQA {t['heads']}, "
              f"{t['launches_timed']} launches: the layers x ranks): "
@@ -5986,6 +6464,9 @@ def main() -> int:
          f"{time.perf_counter() - t19:.1f} s")
     lap("phase 19: sharded training")
     st_runs = sharded_train["runs"]
+    p20 = phase20(torch, np, kernels, gen)
+    lap("phase 20: sliding-window, recurrent and frontend layers on a mesh")
+    p20_serves, p20_train = p20["serves"], p20["train"]
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
@@ -6021,11 +6502,34 @@ def main() -> int:
                  "(8 x 256 tokens) at the shard widths of a virtual (d, m) "
                  "mesh, every replica's and rank's, and "
                  "shard_train_<run>_launches_a_step a sharded train "
-                 "step's launches",
+                 "step's launches; shard20_<model>_decode_* one decode "
+                 "step (rung 8) of phase 20's sharded paged serve of that "
+                 "model (gemma3-1b and recurrentgemma-2b on (1, 2), "
+                 "rwkv6-3b's 8 layers and internvl2-76b's 8 on (1, 4)), "
+                 "shard20_<model>_<kind>_launches its slot and paged "
+                 "serves'; shard20_train_<model>_fwd_*/_bwd_* one train "
+                 "step's GEMMs (8 x 256 tokens) of phase 20's runs "
+                 "(recurrentgemma-2b 6 layers and rwkv6-3b 4 on (2, 2), "
+                 "internvl2-76b 1 layer with frontend_proj on (1, 2)) and "
+                 "shard20_train_<model>_launches_a_step their steps'",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err, shard_err["sisa_gemm"],
-                            train_shard_err["sisa_gemm"]),
+                            train_shard_err["sisa_gemm"],
+                            p20["err"]["sisa_gemm"]),
          **{k: k1[k] for k in keys},
+         **{f"shard20_{name.split('-')[0]}_decode_{k}": rec["k1"][k]
+            for name, rec in p20_serves.items()
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard20_{name.split('-')[0]}_{kind}_launches":
+            rec["serves"][kind]["serve_launches"]["sisa_gemm"]
+            for name, rec in p20_serves.items() for kind in ("slot", "paged")},
+         **{f"shard20_train_{name.split('-')[0]}_{part}_{k}":
+            p20_train["k1"][name][part][k]
+            for name in p20_train["k1"] for part in ("fwd", "bwd")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard20_train_{name.split('-')[0]}_launches_a_step":
+            rec["steps"][0]["launches"]["sisa_gemm"]
+            for name, rec in p20_train["runs"].items()},
          **{f"shard_train_{a}x{b}_{part}_{k}":
             sharded_train["k1"][(a, b)][part][k]
             for a, b in SHARD_TRAIN_MESHES for part in ("fwd", "bwd")
@@ -6084,9 +6588,15 @@ def main() -> int:
                  "(GQA 64/8 hd 128, 8 launches), launches from its 8-layer "
                  "paged serve; whisper_* at whisper-base's (GQA 8/8 hd "
                  "64, 6 launches, 8 rows, 28-page tables), launches from "
-                 "its paged serve on bf16 pools",
+                 "its paged serve on bf16 pools; shard20_internvl2_<h>_<hkv>_* "
+                 "at internvl2-76b's (1, 2) and (1, 4) shard layouts (GQA "
+                 "32/4 and 16/2 hd 128, 16 and 32 launches: 8 layers x "
+                 "ranks), shard20_<model>_paged_launches phase 20's "
+                 "sharded paged serves' (gemma3-1b on (1, 2): its global "
+                 "layers on gathered pools, internvl2-76b on (1, 4))",
          "launches": launches["paged_attn"],
-         "max_abs_err": max(k2_err, shard_err["paged_attn"]),
+         "max_abs_err": max(k2_err, shard_err["paged_attn"],
+                            p20["err"]["paged_attn"]),
          **{k: k2[k] for k in keys},
          **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
          **{f"gemma3_{k}": k2_gemma[k] for k in (
@@ -6099,7 +6609,17 @@ def main() -> int:
          "whisper_serve_launches":
              whisper["paged"]["serves"]["bf16"]["k2_launches"],
          **{f"shard_{key}_{k}": shard_k2[key][k]
-            for key in ("qwen", "phi2", "phi4") for k in ("ms", "bound_ms")},
+            for key in ("qwen", "phi2", "phi4")
+            for k in ("ms", "plain_ms", "bound_ms")},
+         **{f"shard20_internvl2_{h}_{hkv}_{k}": p20["k2"][(h, hkv, hd)][k]
+            for h, hkv, hd in SHARD20_K2_HEADS
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "shard20_internvl2_paged_launches":
+             p20_serves["internvl2-76b"]["serves"]["paged"][
+                 "serve_launches"]["paged_attn"],
+         "shard20_gemma3_paged_launches":
+             p20_serves["gemma3-1b"]["serves"]["paged"][
+                 "serve_launches"]["paged_attn"],
          **{f"shard_paged_{a}x{b}_launches":
             shard_serve[f"paged ({a}, {b})"]["serve_launches"]["paged_attn"]
             for a, b in SHARD_MESHES}},
@@ -6169,13 +6689,14 @@ def main() -> int:
                  "from its int8 paged serve",
          "launches": int8_launches["paged_attn_int8"],
          "max_abs_err": max(k2_int8_err, k2_pool_err,
-                            shard_err["paged_attn_int8"]),
+                            shard_err["paged_attn_int8"],
+                            p20["err"]["paged_attn_int8"]),
          **{k: k2_int8[k] for k in keys},
          **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")},
          **{f"whisper_{k}": whisper["paged"]["k2"]["int8"][k]
             for k in ("ms", "plain_ms", "bound_ms")},
          **{f"shard_qwen_{k}": shard_k2["qwen_int8"][k]
-            for k in ("ms", "bound_ms")},
+            for k in ("ms", "plain_ms", "bound_ms")},
          "whisper_serve_launches":
              whisper["paged"]["serves"]["int8"]["k2_launches"]},
         {"name": "coexec", "route": "cuda",

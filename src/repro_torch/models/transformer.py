@@ -595,16 +595,6 @@ def _ffn_tp(loc, i: int, cfg: ModelConfig, h: Tensor, mesh,
                         cfg.d_ff)
 
 
-def _mixer_train_tp(ps, h: Tensor, cfg: ModelConfig, kind: str, tp
-                    ) -> Tensor:
-    """:func:`_mixer_train` on a mesh (``ps``: the ranks' mixers)."""
-    if kind == RGLRU:
-        return rglru_mod.rglru_apply_tp(ps, h, cfg, tp)
-    if kind == WKV:
-        return rwkv_mod.rwkv_apply_tp(ps, h, cfg, tp)
-    return attn.attn_apply_tp(ps, h, cfg, tp, need_kv=False, kind=kind)[0]
-
-
 def _mixer_prefill_tp(ps, h: Tensor, cfg: ModelConfig, kind: str, tp,
                       cap_seq: int, last_index
                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -622,9 +612,16 @@ def _mixer_prefill_tp(ps, h: Tensor, cfg: ModelConfig, kind: str, tp,
 
 def _mixer_half_tp(ps, x: Tensor, cfg: ModelConfig, kind: str, tp
                    ) -> Tensor:
-    """One replica's mixer half of a layer in training."""
+    """One replica's mixer half of a layer in training: :func:`
+    _mixer_train` on a mesh (``ps``: the ranks' layer trees)."""
     h = rmsnorm_apply(ps[0]["norm1"], x, cfg.norm_eps)
-    return x + _mixer_train_tp([p["mixer"] for p in ps], h, cfg, kind, tp)
+    mixers = [p["mixer"] for p in ps]
+    if kind == RGLRU:
+        return x + rglru_mod.rglru_apply_tp(mixers, h, cfg, tp)
+    if kind == WKV:
+        return x + rwkv_mod.rwkv_apply_tp(mixers, h, cfg, tp)
+    return x + attn.attn_apply_tp(mixers, h, cfg, tp, need_kv=False,
+                                  kind=kind)[0]
 
 
 def _mlp_train_tp(ps, x: Tensor, cfg: ModelConfig) -> Tensor:

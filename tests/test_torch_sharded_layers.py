@@ -13,7 +13,7 @@ meshless paged ring step), on virtual CPU meshes ``(1, 2)`` and
 * RG-LRU (``smoke_config("recurrentgemma-2b")``, channel-parallel):
   prefill's output and cache at no, a scalar and a ``(B,)``
   ``last_index``, decode steps whose ``conv`` stays whole and equal on
-  every rank.
+  every rank; on 3 ranks, which 64 channels do not divide, whole.
 * RWKV6 (``smoke_config("rwkv6-3b")``, 8 heads split): S on and off
   ``CHUNK``, prefill state, decode; and a width of 6 heads that do not
   divide 4 ranks, where the time-mix runs whole.
@@ -181,11 +181,14 @@ RG_LAST = {"none": None, "scalar": np.int32(11),
 
 
 @pytest.mark.parametrize("layout", sorted(RG_LAST))
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("shape", SHAPES + ((1, 3),),
+                         ids=lambda s: "%dx%d" % s)
 def test_rglru_prefill_and_decode_on_a_mesh(shape, layout):
+    """At (1, 3) the 64 channels do not divide: the block runs whole and
+    every rank keeps a whole copy of the state."""
     cfg, tcfg, jp, tparams = _setup("recurrentgemma-2b")
     ps, tp, mesh = _ranks(tparams, tcfg, shape)
-    assert tp.rglru_cols is not None
+    assert (tp.rglru_cols is None) == (shape == (1, 3))
     last = RG_LAST[layout]
     x = _x(cfg, 3, 20, seed=4)
     want = jrglru.rglru_apply(jp, jnp.asarray(x), cfg)
@@ -201,7 +204,8 @@ def test_rglru_prefill_and_decode_on_a_mesh(shape, layout):
     for n in ("h", "conv"):
         _close(tc[n].numpy(), jc[n], what=f"cache {n}")
     sc = {n: _sharded(n, tc[n], tcfg, mesh) for n in ("h", "conv")}
-    assert sc["h"].spec == P(None, "model") and sc["conv"].spec == P()
+    split = P(None, "model") if tp.rglru_cols else P()
+    assert sc["h"].spec == split and sc["conv"].spec == P()
     rng = np.random.default_rng(6)
     for t in range(5):
         xt = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
@@ -209,8 +213,9 @@ def test_rglru_prefill_and_decode_on_a_mesh(shape, layout):
         tout = trglru.rglru_decode_step_tp(ps, torch.from_numpy(xt), sc,
                                            tcfg, tp)
         _close(tout.numpy(), jout, what=f"decode {t}")
-        first = sc["conv"].shards[0]
-        assert all(torch.equal(c, first) for c in sc["conv"].shards[1:])
+        for n in ("conv",) if tp.rglru_cols else ("h", "conv"):
+            first = sc[n].shards[0]
+            assert all(torch.equal(c, first) for c in sc[n].shards[1:])
     for n in ("h", "conv"):
         _close(sc[n].gather().numpy(), jc[n], what=f"state {n}")
 
