@@ -17,6 +17,7 @@ global-attention decoders:
 """
 import numpy as np
 import pytest
+import torch
 
 import _torch_serve_parity as H
 from repro.serve import make_engine as jax_make_engine
@@ -87,7 +88,7 @@ def test_gemma3_int8_pools_on_a_mesh_match_jax():
     meng = make_engine(tcfg, tparams, kind="paged",
                        mesh=virtual_mesh((1, 2), "cpu"), **opts)
     H.check_parity(jeng, jout, meng, H.serve(meng, Request, WORK, prompts))
-    assert str(meng.cache.pools["pk"].shards[0].dtype) == "torch.int8"
+    assert meng.cache.pools["pk"].shards[0].dtype == torch.int8
 
 
 PROMPTS = [(5, 10), (13, 8), (21, 12), (9, 6)]
