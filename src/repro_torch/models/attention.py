@@ -94,6 +94,14 @@ def _causal_mask(sq: int, skv: int, window: Optional[int],
     return mask[None, None]                         # (1, 1, Sq, Skv)
 
 
+def _check_kind(kind: str, kv_x: Optional[Tensor]) -> None:
+    if kind not in ("attn", "local", "bidir", "cross"):
+        raise ValueError(f"attention kind {kind!r}")
+    if (kind == "cross") != (kv_x is not None):
+        raise ValueError("kv_x is the encoder output of cross attention "
+                         "and of no other kind")
+
+
 def attn_apply(p, x: Tensor, cfg, *, kind: str = "attn",
                positions: Optional[Tensor] = None,
                kv_x: Optional[Tensor] = None
@@ -112,11 +120,7 @@ def attn_apply(p, x: Tensor, cfg, *, kind: str = "attn",
     attention), which :func:`prefill_into_cache` lays into a cache, or
     which are a decoder's cross K/V as is: the reference projects them a
     second time for that (``encode_cross_kv``), to the same values."""
-    if kind not in ("attn", "local", "bidir", "cross"):
-        raise ValueError(f"attention kind {kind!r}")
-    if (kind == "cross") != (kv_x is not None):
-        raise ValueError("kv_x is the encoder output of cross attention "
-                         "and of no other kind")
+    _check_kind(kind, kv_x)
     b, s, _ = x.shape
     src = x if kv_x is None else kv_x
     q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
@@ -151,13 +155,32 @@ def cross_attn_decode(p, x: Tensor, cross_kv: Dict[str, Tensor], cfg
     """A decoder token's cross-attention against the static encoder K/V
     ``cross_kv`` (:func:`encode_cross_kv`'s): every frame visible, no
     RoPE; nothing is written."""
-    b, s, _ = x.shape
     q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
+    return linear_apply(p["o"], _attend_all(q, cross_kv["k"],
+                                            cross_kv["v"], cfg))
+
+
+def _attend_all(q: Tensor, k: Tensor, v: Tensor, cfg) -> Tensor:
+    """``q`` ``(B, S, H, hd)`` over every position of ``k``/``v`` ``(B,
+    S_kv, Hkv, hd)``, nothing masked.  Returns ``(B, S, H * hd)``."""
+    b, s = q.shape[:2]
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = _sdpa(q, _repeat_kv(cross_kv["k"], n_rep),
-                _repeat_kv(cross_kv["v"], n_rep), None)
-    return linear_apply(p["o"], out.reshape(
-        b, s, cfg.n_heads * cfg.resolved_head_dim))
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), None)
+    return out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
+
+
+def _cross_block(ck: Tensor, cv: Tensor, page_table: Tensor, cfg,
+                 enc_len: int) -> Tuple[Tensor, Tensor]:
+    """Each row's cross block gathered through its ``(B, C)`` table from
+    the pools ``ck``, ``cv`` ``(pages + sink, page_size, Hkv, hd)``, its
+    pages laid end to end and cut back to ``enc_len`` frames: ``(B,
+    enc_len, Hkv, hd)`` each."""
+    b = page_table.shape[0]
+    hd = cfg.resolved_head_dim
+    table = page_table.long()
+    kd = ck[table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
+    vd = cv[table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
+    return kd, vd
 
 
 def paged_cross_attn_decode(p, x: Tensor, cache: Dict[str, Tensor],
@@ -174,15 +197,9 @@ def paged_cross_attn_decode(p, x: Tensor, cache: Dict[str, Tensor],
     before the softmax: cross attention masks nothing, so the zero cells
     that pad the last page must not reach it.  On the same cells this is
     :func:`cross_attn_decode` on the dense stacks."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
     q = _split_heads(linear_apply(p["q"], x), cfg.n_heads)
-    table = page_table.long()
-    kd = cache["ck"][table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
-    vd = cache["cv"][table].reshape(b, -1, cfg.n_kv_heads, hd)[:, :enc_len]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = _sdpa(q, _repeat_kv(kd, n_rep), _repeat_kv(vd, n_rep), None)
-    return linear_apply(p["o"], out.reshape(b, s, cfg.n_heads * hd))
+    kd, vd = _cross_block(cache["ck"], cache["cv"], page_table, cfg, enc_len)
+    return linear_apply(p["o"], _attend_all(q, kd, vd, cfg))
 
 
 # int8 dense KV caches (per-position, per-head symmetric scales), the
@@ -467,17 +484,30 @@ def _ring_attend(q: Tensor, lk: Tensor, lv: Tensor, page_table: Tensor,
 # --------------------------------------------------------------------------
 # On a mesh (repro_torch.models.common.TensorParallel)
 # --------------------------------------------------------------------------
-def _qkv_whole(ps, x: Tensor, cfg, positions: Tensor):
-    """Whole-head q/k/v, RoPE applied, on rank 0's device: each
-    projection column-parallel and gathered where the specs split it
-    (q/o split on ``n_heads``, k/v on ``n_kv_heads``, separately), else
-    one call on the whole weight."""
-    hd = cfg.resolved_head_dim
-    q, k, v = (_split_heads(linear_out([p[n] for p in ps], x, h * hd), h)
-               for n, h in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
-                            ("v", cfg.n_kv_heads)))
+def _qkv_whole(ps, x: Tensor, cfg, positions: Optional[Tensor],
+               kv_x: Optional[Tensor] = None):
+    """Whole-head q/k/v on rank 0's device: each projection
+    column-parallel and gathered where the specs split it (q/o split on
+    ``n_heads``, k/v on ``n_kv_heads``, separately), else one call on
+    the whole weight.  k/v are projected from ``kv_x`` where it is given
+    (cross attention); RoPE is applied at ``positions`` unless they are
+    None."""
+    src = x if kv_x is None else kv_x
+    q = _q_whole(ps, x, cfg)
+    k, v = (_split_heads(linear_out([p[n] for p in ps], src,
+                                    cfg.n_kv_heads * cfg.resolved_head_dim),
+                         cfg.n_kv_heads) for n in "kv")
+    if positions is None:
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _q_whole(ps, x: Tensor, cfg) -> Tensor:
+    """Whole-head q, before RoPE (:func:`_qkv_whole`'s projection)."""
+    return _split_heads(linear_out([p["q"] for p in ps], x,
+                                   cfg.n_heads * cfg.resolved_head_dim),
+                        cfg.n_heads)
 
 
 def _o_whole(ps, out: Tensor, cfg) -> Tensor:
@@ -504,17 +534,21 @@ def _write_parts(parts, rows: Tensor, cell: Tensor, new: Tensor,
 
 
 def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True, *,
-                  kind: str = "attn"
+                  kind: str = "attn", kv_x: Optional[Tensor] = None
                   ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
-    """Causal attention over the prompt on a mesh, global or (``kind=
-    "local"``) sliding-window: the output and the whole K/V on rank 0's
-    device (the storage lays them out by its own specs).  With
-    ``tp.head_ok`` each rank runs :func:`attn_apply` on its heads and
-    the ``o`` partials are reduced; otherwise attention runs once, on
-    the whole heads.  Training passes ``need_kv=False``: the heads' K/V
-    are not gathered and None comes back for them."""
+    """:func:`attn_apply` on a mesh, every ``kind`` (causal global or
+    sliding-window, an encoder's bidirectional, a decoder's cross
+    attention on ``kv_x``): the output and the whole K/V on rank 0's
+    device (the storage lays them out by its own specs; cross K/V are
+    the cache's ``"xk","xv"``).  With ``tp.head_ok`` each rank runs
+    :func:`attn_apply` on its heads and the ``o`` partials are reduced;
+    otherwise attention runs once, on the whole heads.  Training passes
+    ``need_kv=False``: the heads' K/V are not gathered and None comes
+    back for them."""
+    _check_kind(kind, kv_x)
     if tp.head_ok:
-        outs = [attn_apply(p, x.to(d), tp.cfg_local, kind=kind)
+        outs = [attn_apply(p, x.to(d), tp.cfg_local, kind=kind,
+                           kv_x=None if kv_x is None else kv_x.to(d))
                 for p, d in zip(ps, tp.devices)]
         mix = reduce_rows([o[0] for o in outs], ps[0]["o"])
         if not need_kv:
@@ -522,12 +556,54 @@ def attn_apply_tp(ps, x: Tensor, cfg, tp, need_kv: bool = True, *,
         return (mix, all_gather([o[1] for o in outs], 2)[0],
                 all_gather([o[2] for o in outs], 2)[0])
     b, s, _ = x.shape
-    q, k, v = _qkv_whole(ps, x, cfg, torch.arange(s, device=x.device)[None])
+    positions = (None if kind == "cross"
+                 else torch.arange(s, device=x.device)[None])
+    q, k, v = _qkv_whole(ps, x, cfg, positions, kv_x)
+    mask = None
+    if kind in ("attn", "local"):
+        mask = _causal_mask(s, s, cfg.sliding_window if kind == "local"
+                            else None, x.device)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    window = cfg.sliding_window if kind == "local" else None
-    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                _causal_mask(s, s, window, x.device))
+    out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), mask)
     return _o_whole(ps, out.reshape(b, s, -1), cfg), k, v
+
+
+def cross_attn_decode_tp(ps, x: Tensor, cross_kv: Dict[str, Sharded], cfg,
+                         tp) -> Tensor:
+    """:func:`cross_attn_decode` on a mesh, against a layer's dense cross
+    K/V ``{"k","v"}`` laid out by ``cache_specs`` (its ``"xk","xv"``
+    rows): with ``tp.head_ok`` each rank attends its heads' K/V and the
+    ``o`` partials are reduced; otherwise the K/V, split on the sequence
+    (or whole), are gathered once and attention runs once on the whole
+    heads.  Nothing is written."""
+    if tp.head_ok:
+        return reduce_rows([cross_attn_decode(
+            p, x.to(d), {n: c.shards[r] for n, c in cross_kv.items()},
+            tp.cfg_local) for r, (p, d) in enumerate(zip(ps, tp.devices))],
+            ps[0]["o"])
+    out = _attend_all(_q_whole(ps, x, cfg), cross_kv["k"].gather(),
+                      cross_kv["v"].gather(), cfg)
+    return _o_whole(ps, out, cfg)
+
+
+def paged_cross_attn_decode_tp(ps, x: Tensor, cache: Dict[str, Sharded],
+                               page_table: Tensor, cfg, tp, *,
+                               enc_len: int) -> Tensor:
+    """:func:`paged_cross_attn_decode` on a mesh, against a layer's cross
+    pools ``"ck","cv"`` laid out by ``cache_specs`` (the cross table
+    whole): with ``tp.head_ok`` each rank reads its heads' pools through
+    the table and the ``o`` partials are reduced; otherwise the pools,
+    split on the page interior (or whole), are gathered once and
+    attention reads the blocks through them once.  Nothing is written;
+    the blocks are cut to ``enc_len`` frames either way."""
+    if tp.head_ok:
+        return reduce_rows([paged_cross_attn_decode(
+            p, x.to(d), {n: c.shards[r] for n, c in cache.items()},
+            page_table.to(d), tp.cfg_local, enc_len=enc_len)
+            for r, (p, d) in enumerate(zip(ps, tp.devices))], ps[0]["o"])
+    kd, vd = _cross_block(cache["ck"].gather(), cache["cv"].gather(),
+                          page_table, cfg, enc_len)
+    return _o_whole(ps, _attend_all(_q_whole(ps, x, cfg), kd, vd, cfg), cfg)
 
 
 def attn_decode_step_tp(ps, x: Tensor, cache: Dict[str, Sharded], pos,

@@ -71,14 +71,19 @@ and the LM head vocabulary-parallel, ``frontend_proj`` column-parallel
 both head counts divide (else once, on caches and ring pools split on
 the sequence), RG-LRU channel-parallel and the RWKV6 time-mix
 head-parallel where they divide (else once), the MLP column- then
-row-parallel, MoE expert-parallel.  Decode reads and writes caches of
+row-parallel, MoE expert-parallel.  An enc-dec model's encoder runs
+there too (:func:`_encode_tp`: ``frontend_proj`` column-parallel, the
+bidirectional layers head-parallel where the heads divide), and each
+decoder layer's cross attention reads the ``"xk","xv"`` stacks, or the
+``"ck","cv"`` pools through the cross table, head-parallel (else
+gathered once).  Decode reads and writes caches of
 :class:`~repro_torch.distributed.mesh.Sharded` stacks laid out by
 ``cache_specs``; prefill returns the whole cache, which the engines'
 storage lays out.  :func:`forward_train` on a mesh takes the training
 placement (FSDP over data x TP over model) and runs that TP forward
 once a data replica on its rows of the batch, the parameters gathered
-over the data axis layer by layer.  Enc-dec models are queue A item 2d
-and raise on a mesh.
+over the data axis layer by layer, an enc-dec model's encoder layers
+too.
 """
 from __future__ import annotations
 
@@ -553,31 +558,65 @@ def _logits_rows(x: Tensor, logits_index) -> Tensor:
     return x[:, i:i + 1]
 
 
-def check_mesh_supported(cfg: ModelConfig) -> None:
-    """Raise for what does not run on a mesh yet: enc-dec models."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh: the port shards decoders (every layer "
-            f"kind, dense or MoE, with or without a stub frontend) only; "
-            f"enc-dec models are ROADMAP.md queue A item 2d")
+def _lookup_tp(loc, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    return embedding_lookup_tp([t["embed"]["table"] for t in loc], tokens,
+                               cfg.vocab_size)
 
 
 def _embed_tp(loc, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    x = embedding_lookup_tp([t["embed"]["table"] for t in loc], tokens,
-                            cfg.vocab_size)
+    x = _lookup_tp(loc, tokens, cfg)
     return x * embed_scale(cfg.d_model, x.dtype)
+
+
+def _project_frontend_tp(loc, embeds: Tensor, cfg: ModelConfig) -> Tensor:
+    """:func:`_project_frontend` on a mesh: ``frontend_proj``
+    column-parallel, its output gathered."""
+    proj = [t["frontend_proj"] for t in loc]
+    return linear_out(proj, embeds.to(proj[0]["w"].dtype), cfg.d_model)
 
 
 def _embed_inputs_tp(loc, cfg: ModelConfig, batch: Dict[str, Tensor]
                      ) -> Tensor:
-    """:func:`_embed_inputs` of a decoder on a mesh: ``frontend_proj``
-    column-parallel (its output gathered), else the vocabulary-parallel
-    token embedding."""
+    """:func:`_embed_inputs` on a mesh: on an enc-dec model the
+    vocabulary-parallel token embedding, unscaled (the features go to
+    the encoder); else ``frontend_proj`` column-parallel where the model
+    has a frontend and the batch carries its embeds; else the scaled
+    vocabulary-parallel token embedding."""
+    if cfg.enc_dec:
+        return _lookup_tp(loc, batch["tokens"], cfg)
     if cfg.frontend is not None and "frontend_embeds" in batch:
-        proj = [t["frontend_proj"] for t in loc]
-        return linear_out(proj, batch["frontend_embeds"].to(
-            proj[0]["w"].dtype), cfg.d_model)
+        return _project_frontend_tp(loc, batch["frontend_embeds"], cfg)
     return _embed_tp(loc, cfg, batch["tokens"])
+
+
+def _encode_tp(loc, cfg: ModelConfig, embeds: Tensor, tp) -> Tensor:
+    """:func:`_encode` over a model row (``loc``: its rank trees):
+    ``frontend_proj`` column-parallel, each bidirectional layer
+    head-parallel where the heads divide (else once) with its MLP column-
+    then row-parallel, and the encoder's final norm: ``(B, S_enc, d)``
+    on rank 0's device."""
+    x = _project_frontend_tp(loc, embeds, cfg)
+    for i in range(cfg.n_enc_layers):
+        x = _enc_block_tp([t["encoder"]["layers"][i] for t in loc], x, cfg,
+                          tp)
+    return rmsnorm_apply(loc[0]["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
+def _enc_block_tp(ps, x: Tensor, cfg: ModelConfig, tp) -> Tensor:
+    """One encoder layer on a mesh (``ps``: the ranks' layer trees)."""
+    return _mlp_train_tp(ps, _mixer_half_tp(ps, x, cfg, BIDIR, tp), cfg)
+
+
+def _cross_half_tp(ps, x: Tensor, enc_out: Tensor, cfg: ModelConfig, tp,
+                   need_kv: bool = True) -> Tuple[Tensor, Optional[Tensor],
+                                                  Optional[Tensor]]:
+    """A decoder layer's cross-attention half on a mesh (``ps``: the
+    ranks' layer trees): the residual stream after it and the layer's
+    whole cross K/V (training passes ``need_kv=False``)."""
+    h = rmsnorm_apply(ps[0]["norm_cross"], x, cfg.norm_eps)
+    mix, xk, xv = attn.attn_apply_tp([p["cross"] for p in ps], h, cfg, tp,
+                                     need_kv, kind="cross", kv_x=enc_out)
+    return x + mix, xk, xv
 
 
 def _logits_tp(loc, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -643,6 +682,16 @@ def _moe_train_tp(rows, xs: List[Tensor], cfg: ModelConfig, mesh
 _BATCH_INPUTS = ("tokens", "labels", "frontend_embeds")
 
 
+def _top_of(tree):
+    """What a training forward gathers once, outside the layers: every
+    subtree but the decoder and encoder layers (the encoder's final norm
+    kept)."""
+    out = {k: v for k, v in tree.items() if k not in ("layers", "encoder")}
+    if "encoder" in tree:
+        out["encoder"] = {"final_norm": tree["encoder"]["final_norm"]}
+    return out
+
+
 def _forward_train_tp(placed, cfg: ModelConfig, batch: Dict[str, Tensor],
                       mesh, remat: str) -> Tuple[Tensor, Dict[str, Tensor]]:
     """:func:`forward_train` on a mesh.  Each data replica (a model row,
@@ -651,16 +700,18 @@ def _forward_train_tp(placed, cfg: ModelConfig, batch: Dict[str, Tensor],
     ``batch_specs`` and runs the TP forward of
     :func:`_forward_prefill_tp` without caches, each layer its kind's
     mixer, on TP shards gathered over the data axes layer by layer
-    (``gather_fsdp``).  Its loss is the mean next-token cross entropy of
-    its rows plus ``0.01 * aux / n_layers``; the step's is the mean of
-    the replicas' (equal row counts: the reference's mean over the
-    global batch).  ``remat`` wraps a layer, over all the replicas (a
-    MoE half may route the global batch: :func:`~repro_torch.models.moe.
-    moe_apply_replicas`), in ``checkpoint`` together with its gather, so
-    that the backward gathers the layer's shards again and no layer's
-    gathered weights outlive it; under ``remat="none"`` the matmuls keep
-    every layer's gathered weights until the backward."""
-    check_mesh_supported(cfg)
+    (``gather_fsdp``); an enc-dec model first runs the encoder on the
+    replica's embeds, its layers gathered the same way, and each decoder
+    layer attends that replica's encoder output.  Its loss is the mean
+    next-token cross entropy of its rows plus ``0.01 * aux /
+    n_layers``; the step's is the mean of the replicas' (equal row
+    counts: the reference's mean over the global batch).  ``remat``
+    wraps a layer, over all the replicas (a MoE half may route the
+    global batch: :func:`~repro_torch.models.moe.moe_apply_replicas`),
+    in ``checkpoint`` together with its gather, so that the backward
+    gathers the layer's shards again and no layer's gathered weights
+    outlive it; under ``remat="none"`` the matmuls keep every layer's
+    gathered weights until the backward."""
     reps = mesh.replicas()
     specs = batch_specs("train", mesh, cfg)
     labels_key = "labels" if "labels" in batch else "tokens"
@@ -674,20 +725,37 @@ def _forward_train_tp(placed, cfg: ModelConfig, batch: Dict[str, Tensor],
         trees = gather_fsdp(placed, select)
         return [[trees[c] for c in mesh.model_row(at=base)] for base in reps]
 
-    top = tp_rows(lambda t: {k: v for k, v in t.items() if k != "layers"})
+    top = tp_rows(_top_of)
+    enc_outs = None
+    if cfg.enc_dec:
+        def enc_layer(i: int, xs: List[Tensor]) -> List[Tensor]:
+            rows = tp_rows(lambda t: t["encoder"]["layers"][i])
+            return [_enc_block_tp(ps, x, cfg, tp)
+                    for ps, x, tp in zip(rows, xs, tps)]
+
+        enc = [_project_frontend_tp(loc, inp["frontend_embeds"], cfg)
+               for loc, inp in zip(top, inputs)]
+        for i in range(cfg.n_enc_layers):
+            enc = _remat(enc_layer, remat, i, enc)
+        enc_outs = [rmsnorm_apply(loc[0]["encoder"]["final_norm"], x,
+                                  cfg.norm_eps) for loc, x in zip(top, enc)]
     xs = [_embed_inputs_tp(loc, cfg, inp) for loc, inp in zip(top, inputs)]
     auxs = [torch.zeros((), dtype=torch.float32, device=x.device)
             for x in xs]
-    def layer(i: int, xs: List[Tensor]):
+
+    def layer(i: int, xs: List[Tensor], enc_outs):
         rows = tp_rows(lambda t: t["layers"][i])
         xs = [_mixer_half_tp(ps, x, cfg, kinds[i], tp)
               for ps, x, tp in zip(rows, xs, tps)]
+        if enc_outs is not None:
+            xs = [_cross_half_tp(ps, x, e, cfg, tp, need_kv=False)[0]
+                  for ps, x, e, tp in zip(rows, xs, enc_outs, tps)]
         if cfg.moe is None:
             return [_mlp_train_tp(ps, x, cfg) for ps, x in zip(rows, xs)], []
         return _moe_train_tp(rows, xs, cfg, mesh)
 
     for i in range(cfg.n_layers):
-        xs, layer_aux = _remat(layer, remat, i, xs)
+        xs, layer_aux = _remat(layer, remat, i, xs, enc_outs)
         if layer_aux:
             auxs = [a + b for a, b in zip(auxs, layer_aux)]
     losses, accs = [], []
@@ -709,9 +777,10 @@ def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,
                         logits_index, mesh) -> Tuple[Tensor,
                                                      Dict[str, Tensor]]:
     """:func:`forward_prefill` over ``mesh``'s model row (module doc)."""
-    check_mesh_supported(cfg)
     tp = tensor_parallel(cfg, mesh)
     loc = placed.local
+    enc_out = (_encode_tp(loc, cfg, batch["frontend_embeds"], tp)
+               if cfg.enc_dec else None)
     x = _embed_inputs_tp(loc, cfg, batch)
     cap_seq = cache_len or x.shape[1]
     valid = None
@@ -720,6 +789,7 @@ def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  <= last[:, None])
     caches: Dict[str, List[Dict[str, Tensor]]] = {}
+    cross: List[Dict[str, Tensor]] = []
     for i, (p, kind) in enumerate(zip(loc[0]["layers"], cfg.layer_kinds())):
         h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
         mix, cache = _mixer_prefill_tp([t["layers"][i]["mixer"] for t in loc],
@@ -727,11 +797,17 @@ def _forward_prefill_tp(placed, cfg: ModelConfig, batch, cache_len,
                                        logits_index)
         caches.setdefault(_TAG[kind], []).append(cache)
         x = x + mix
+        if enc_out is not None:
+            x, xk, xv = _cross_half_tp([t["layers"][i] for t in loc], x,
+                                       enc_out, cfg, tp)
+            cross.append({"xk": xk, "xv": xv})
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn_tp(loc, i, cfg, h, mesh, valid)
     x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)
     out = {stack_name(tag, name): torch.stack([c[name] for c in layers])
            for tag, layers in caches.items() for name in layers[0]}
+    out.update({name: torch.stack([c[name] for c in cross])
+                for name in CROSS_STACKS if cross})
     return _logits_tp(loc, cfg, _logits_rows(x, logits_index)), out
 
 
@@ -823,7 +899,6 @@ def _forward_decode_tp(placed, cfg: ModelConfig, tokens: Tensor, caches,
                        pos, page_table, window_cap, mesh
                        ) -> Tuple[Tensor, Dict]:
     """:func:`forward_decode` over ``mesh``'s model row (module doc)."""
-    check_mesh_supported(cfg)
     tp = tensor_parallel(cfg, mesh)
     loc = placed.local
     x = _embed_tp(loc, cfg, tokens)
@@ -851,6 +926,17 @@ def _forward_decode_tp(placed, cfg: ModelConfig, tokens: Tensor, caches,
             mix = attn.paged_attn_decode_step_tp(
                 ps, h, cache, page_table["global"], pos, cfg, tp)
         x = x + mix
+        if "cross" in p:
+            cs = [t["layers"][i]["cross"] for t in loc]
+            h = rmsnorm_apply(p["norm_cross"], x, cfg.norm_eps)
+            if page_table is not None and "cross" in page_table:
+                x = x + attn.paged_cross_attn_decode_tp(
+                    cs, h, {n: caches[n][i] for n in CROSS_POOLS},
+                    page_table["cross"], cfg, tp, enc_len=cfg.enc_frames)
+            else:
+                x = x + attn.cross_attn_decode_tp(
+                    cs, h, {"k": caches["xk"][i], "v": caches["xv"][i]},
+                    cfg, tp)
         h = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
         x = x + _ffn_tp(loc, i, cfg, h, mesh)
     x = rmsnorm_apply(loc[0]["final_norm"], x, cfg.norm_eps)

@@ -454,7 +454,7 @@ class PagedKVCache:
                 src = prefill_cache[name][:, 0]        # (L, enc, Hkv, hd)
                 src = torch.nn.functional.pad(
                     src, (0, 0, 0, 0, 0, cells - src.shape[1]))
-                self.pools[pool].index_copy_(1, idx, src.reshape(
+                self._put_pages(pool, idx, src.reshape(
                     src.shape[0], self.cross_pages, self.page_size,
                     *src.shape[2:]))
         self._write_row(slot, 0, row, self.ctable)

@@ -67,8 +67,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.mesh import Sharded
 from repro_torch.distributed.sharding import cache_specs, place_params
-from repro_torch.models.transformer import (check_mesh_supported,
-                                            check_supported)
+from repro_torch.models.transformer import check_supported
 from repro_torch.serve.api import completion_of, Completion, FINISH_CANCELLED
 from repro_torch.serve.engine import (effective_tokens, init_serve_stats,
                                       note_first_token, prefill_batch_of,
@@ -171,10 +170,6 @@ class SlotServeEngine:
                  default_klass: str = KLASS_BATCH, mesh=None):
         check_supported(cfg)
         if mesh is not None:
-            check_mesh_supported(cfg)
-            if coexec_backend is not None:
-                raise NotImplementedError(
-                    "coexec_backend on a mesh is ROADMAP.md queue A item 2d")
             device = mesh.model_devices()[0]
         self.cfg = cfg
         self.device = torch.device(device)

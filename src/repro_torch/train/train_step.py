@@ -31,7 +31,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import Placed, reduce_replicas
 from repro_torch.models import check_supported, forward_train
-from repro_torch.models.transformer import check_mesh_supported
 from repro_torch.models.moe import set_expert_backend
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -116,8 +115,6 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
     values as they are, and the port always accumulates in the shards'
     layout."""
     check_supported(cfg)
-    if mesh is not None:
-        check_mesh_supported(cfg)
     if expert_backend is not None:
         set_expert_backend(expert_backend)
     if grad_compression not in (None, "bf16"):

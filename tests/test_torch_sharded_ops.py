@@ -15,8 +15,9 @@ CPU meshes, in float32 at 1e-5:
 * the sharded model: ``forward_prefill`` and dense ``forward_decode``
   on a mesh against the reference's without one, and paged decode
   against the port's own without one; sliding-window, recurrent and
-  frontend models the same way (WKV's tolerance, 1e-4, for all four);
-  enc-dec raises on a mesh.
+  frontend models the same way (WKV's tolerance, 1e-4, for all five),
+  and the enc-dec model (whisper-base: encoder, cross K/V, the decode
+  embedding's √d).
 """
 import dataclasses
 
@@ -329,28 +330,23 @@ def test_sharded_forward_matches_reference(name, shape):
                                   "rwkv6-3b", "whisper-base",
                                   "internvl2-76b"])
 def test_kinds_outside_the_slice_raise_on_a_mesh(name):
-    """Enc-dec (whisper-base) raises on a mesh, queue A item 2d.  The
-    other kinds, once refused here, run there: sliding-window, RG-LRU and
-    RWKV6 layers and the vision stub's ``frontend_proj``: a prefill (on
-    ``frontend_embeds`` where the model has a frontend) and two dense
-    decode steps on (1, 2) against the reference's."""
+    """Every kind once refused here runs there: sliding-window, RG-LRU
+    and RWKV6 layers, the vision stub's ``frontend_proj`` and the
+    enc-dec model (whisper-base: its encoder on the features, the cross
+    K/V returned in ``"xk","xv"`` and read by decode): a prefill (on
+    ``frontend_embeds`` where the model has a frontend, of
+    ``enc_frames`` frames on the enc-dec model) and two dense decode
+    steps on (1, 2) against the reference's."""
     cfg, tcfg, jparams, tparams = _setup(name)
     mesh = virtual_mesh((1, 2), "cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    if cfg.enc_dec:
-        with pytest.raises(NotImplementedError, match="queue A item 2d"):
-            T.forward_prefill(None, tcfg, batch, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="queue A item 2d"):
-            T.forward_decode(None, tcfg, batch["tokens"][:, :1], {},
-                             torch.zeros(1, dtype=torch.int32), mesh=mesh)
-        return
     placed = place_params(tparams, tcfg, mesh)
     rng = np.random.default_rng(3)
     toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
     jb = {"tokens": jnp.asarray(toks)}
     tb = {"tokens": torch.from_numpy(toks)}
     if cfg.frontend is not None:
-        emb = rng.standard_normal((2, 20, cfg.frontend_dim)).astype(
+        frames = cfg.enc_frames if cfg.enc_dec else 20
+        emb = rng.standard_normal((2, frames, cfg.frontend_dim)).astype(
             np.float32)
         jb["frontend_embeds"] = jnp.asarray(emb)
         tb["frontend_embeds"] = torch.from_numpy(emb)

@@ -18,7 +18,8 @@ port's sharded engines are held to the meshless JAX engine with
   sharded function on one device);
 * the storage laid out by ``cache_specs``, its bytes those of the
   meshless engine; ``remesh`` drops the old storage;
-* what the slice does not cover (coexec, enc-dec) raises;
+* what a mesh does not take (the sequential engine; ``remesh`` of an
+  engine built without one) raises;
 * ``ServeFrontend`` over a (2, 2) mesh that loses two devices re-meshes
   to (1, 2) and finishes with an uninterrupted serve's completions, and
   an unserveable shrink keeps serving with ``remeshes`` 0 (the port of
@@ -251,14 +252,11 @@ def test_what_the_slice_does_not_cover_raises():
     mesh = virtual_mesh((1, 2), "cpu")
     with pytest.raises(ValueError, match="slot' or 'paged"):
         make_engine(tcfg, tparams, kind="sequential", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="queue A item 2d"):
-        make_engine(tcfg, tparams, mesh=mesh, coexec_backend="kernel")
+    with pytest.raises(ValueError, match="slot' or 'paged"):
+        make_engine(tcfg, tparams, kind="sequential", mesh=mesh,
+                    coexec_backend="kernel")
     with pytest.raises(ValueError, match="mesh-aware"):
         H.engines(name, "slot")[1].remesh(mesh)
-    ocfg, oparams = H.setup("whisper-base")[1], H.setup("whisper-base")[3]
-    for kind in ("slot", "paged"):
-        with pytest.raises(NotImplementedError, match="queue A item 2d"):
-            make_engine(ocfg, oparams, kind=kind, mesh=mesh)
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,8 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs import smoke_config as torch_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.distributed import (init_opt_state, place_train,
+                                     unshard_tree, virtual_mesh)
 from repro_torch.models import forward_train, moe, set_loss_dtype
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -182,9 +184,17 @@ def test_forward_train_remat_and_loss_dtype_keep_the_values():
         forward_train(params, tcfg, batch, remat="some")
     with pytest.raises(ValueError):
         set_loss_dtype("f16")
-    with pytest.raises(NotImplementedError, match="queue A item 2d"):
-        forward_train(params, torch_smoke_config("whisper-base"), batch,
-                      mesh=object())
+    # An enc-dec model on a mesh: the (1, 2) loss under remat="full" is
+    # the meshless one under "none".
+    wtcfg = torch_smoke_config("whisper-base")
+    wparams = _to_torch(_model("whisper-base")[2], wtcfg)
+    wbatch = {k: torch.from_numpy(v)
+              for k, v in SyntheticLM(wtcfg, 2, S).batch(0).items()}
+    mesh = virtual_mesh((1, 2), "cpu")
+    want, _ = forward_train(wparams, wtcfg, wbatch, remat="none")
+    got, _ = forward_train(place_train(wparams, wtcfg, mesh), wtcfg, wbatch,
+                           mesh=mesh, remat="full")
+    assert abs(float(got) - float(want)) <= 1e-5
 
 
 # --------------------------------------------------------------------------
@@ -310,9 +320,10 @@ def test_train_step_params_after_3_steps_match_reference(name, accum):
 
 
 def test_train_step_options():
-    """bf16 gradient compression matches the reference's; ``shard_grads``
-    without a mesh changes nothing, as in the reference; a mesh for a
-    model outside the sharded slice and other expert backends raise."""
+    """bf16 gradient compression matches the reference's, and on a mesh
+    (whisper-base on (1, 2)) the meshless step's; ``shard_grads``
+    without a mesh changes nothing, as in the reference; other expert
+    backends and compressions raise."""
     cfg, tcfg, jparams = _model("qwen2.5-0.5b")
     bt = _batches(cfg, 1)[0]
     jstep = jax.jit(jax_make_train_step(
@@ -333,8 +344,20 @@ def test_train_step_options():
         sp, adamw.init_state(sp), {"tokens": torch.from_numpy(bt["tokens"])})
     for a, b in zip(tree_leaves(sp), tree_leaves(tp), strict=True):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="queue A item 2d"):
-        make_train_step(torch_smoke_config("whisper-base"), mesh=object())
+    wtcfg = torch_smoke_config("whisper-base")
+    wjp = _model("whisper-base")[2]
+    wbatch = {k: torch.from_numpy(v)
+              for k, v in SyntheticLM(wtcfg, 4, S).batch(0).items()}
+    wopts = dict(opt_cfg=adamw.AdamWConfig(**OPT), remat="none",
+                 grad_compression="bf16")
+    wp = _to_torch(wjp, wtcfg)
+    wp, _, _ = make_train_step(wtcfg, **wopts)(wp, adamw.init_state(wp),
+                                                wbatch)
+    mesh = virtual_mesh((1, 2), "cpu")
+    placed = place_train(_to_torch(wjp, wtcfg), wtcfg, mesh)
+    placed, _, _ = make_train_step(wtcfg, mesh, **wopts)(
+        placed, init_opt_state(placed), wbatch)
+    _assert_params_close(unshard_tree(placed.shards, placed.specs, mesh), wp)
     with pytest.raises(ValueError):
         make_train_step(tcfg, expert_backend="xla")
     with pytest.raises(ValueError):
