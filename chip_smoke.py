@@ -361,8 +361,36 @@ Phases (any failure exits non-zero before the last line is printed):
     predicted, replicas bitwise, unique bytes, peaks, the second step
     profiled) and K1 timed at each run's step.  The phase prints its
     own elapsed time.
+21. whisper-base's encoder-decoder and co-execution on virtual meshes
+    of the card: K1 forward, dA and dB at every whisper shard shape of
+    the serves and the training step below (q/k/v 512 -> 256 and 128,
+    fc1 512 -> 1024 and 512, ``frontend_proj`` 80 -> 256 and 128, cross
+    k/v on 1,500 frames, the tied head's 26,624 and 13,312 rows) on the
+    wgmma route, and K2 at GQA 4/4 and 2/2 hd 64 on 28-page tables on
+    bf16 and int8 pools, against their plain versions; whisper-base at
+    full size (bf16, seeded weights, the qwen workload with each
+    request's own (1,500, 80) features, one block shared) through slot
+    and paged on (1, 2) and (1, 4) and paged on int8 pools on (1, 2),
+    beside the engine without a mesh: K1 and K2 launches a decode step
+    as the specs predict (98 and 12 at (1, 2), 196 and 24 at (1, 4)),
+    the first holders' storage bytes, cross stacks and pools included,
+    summing to the meshless engine's, ``cross_admits`` and
+    ``cross_shared`` the meshless engine's, the first decode step's
+    logits on the meshless engine's inputs of that step within
+    ``SHARDED_REL``, tokens that agree counted, a profiled paged window,
+    K1 timed at a sharded decode step and K2 at the two layouts;
+    whisper-base 2 steps of 8 x (1,500 frames, 448 tokens) on (2, 2)
+    through ``_run_sharded_train`` (loss, ``grad_norm``, every gradient
+    leaf, the cross-attention key biases' exact-zero gradients as noise;
+    launches a step, replicas bitwise, unique bytes, peaks) and K1
+    timed at its step; qwen2.5-0.5b's 16 requests
+    on 8 slots through paged on (1, 2) with
+    ``coexec_backend="kernel"``: backfills, ``coexec_tiles`` and the
+    packer's other stats equal to phase 7's meshless co-executed
+    serve's, tokens that agree counted.  The phase prints its own
+    elapsed time.
 
-Phases 15-20 run after phase 14; ``elapsed after ...`` lines give the
+Phases 15-21 run after phase 14; ``elapsed after ...`` lines give the
 script's time at the end of each group of phases.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
@@ -1729,7 +1757,7 @@ def check_small_train(torch, np, label, cfg) -> None:
 
 def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
                      kind="paged", absent=(), before_serve=None,
-                     warm_rungs=None, **engine_kw):
+                     warm_rungs=None, prepare=None, **engine_kw):
     """Serve the workload of ``lens`` prompts (8 by default) through
     ``make_engine(kind=kind, **engine_kw)`` at ``cfg``'s widths with
     seeded random bf16 weights (``params``, or made here).  Every launch
@@ -1737,13 +1765,16 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     > 0 just after and those of ``absent`` 0, every request must be
     prefilled once, and the storage must drain.  ``warm_rungs`` limits
     the warmup to those rungs (the workload runs at rung 8);
-    ``before_serve(eng)``, if given, runs after the warmup.  Returns the
-    engine, the weights, the launch counts and the completions."""
+    ``before_serve(eng)``, if given, runs after the warmup;
+    ``prepare(reqs)``, if given, amends the requests before they are
+    submitted (an enc-dec model's features).  Returns the engine, the
+    weights, the launch counts and the completions."""
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.kernels.grouped_gemm import ROUTE_LAUNCHES
     from repro_torch.models import init_params
     from repro_torch.models.common import padded_vocab
     from repro_torch.serve import make_engine, Request, validate_stats
+    from repro_torch.serve.engine import prefill_batch_of
 
     if params is None:
         t0 = time.perf_counter()
@@ -1768,6 +1799,8 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
     eng.prefill_fn = counted_prefill
     reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
                      lens)
+    if prepare is not None:
+        prepare(reqs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for counter in LAUNCH_COUNTERS.values():
@@ -1803,7 +1836,7 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
         raise AssertionError(f"decode_compiles "
                              f"{eng.stats['decode_compiles']} after warmup")
     ext = eng.stats["engine"]
-    if kind == "paged" and eng._has_global \
+    if kind == "paged" and eng.prefix_sharing \
             and ext["pages_shared"] < SHARED_PREFIX // 16:
         raise AssertionError(f"prefix not shared: {ext['pages_shared']}")
     if kind == "paged" and eng.cache.n_free_pages != eng.cache.num_pages:
@@ -1812,9 +1845,9 @@ def serve_full_width(torch, np, cfg, need, params=None, lens=PROMPT_LENS,
         raise AssertionError(f"{eng.max_batch - eng.cache.n_free} slots "
                              "did not drain")
     # Finite f32 logits of the expected shape from the same weights.
-    logits, _ = eng.prefill_fn(eng.params, {
-        "tokens": torch.as_tensor(reqs[0].prompt[None], device="cuda"),
-        "last_index": len(reqs[0].prompt) - 1})
+    batch = prefill_batch_of(reqs[0].prompt[None], reqs[:1], cfg, "cuda")
+    batch["last_index"] = len(reqs[0].prompt) - 1
+    logits, _ = eng.prefill_fn(eng.params, batch)
     if logits.shape != (1, 1, padded_vocab(cfg.vocab_size)) \
             or logits.dtype != torch.float32 \
             or not torch.isfinite(logits[..., :cfg.vocab_size]).all():
@@ -2525,16 +2558,24 @@ def _whisper_counts(cfg) -> dict:
 
 def _whisper_requests(Request, np, cfg):
     """The qwen workload (``PROMPT_LENS``, two prompts sharing a prefix,
-    32 new tokens each), each request with its own seeded (1,500, 80)
-    float32 features but rid 2, which shares rid 1's block."""
+    32 new tokens each) with ``_whisper_features``."""
     reqs = _requests(Request, np.random.default_rng(0), cfg.vocab_size,
                      PROMPT_LENS)
-    rng = np.random.default_rng(11)
-    for req in reqs:
-        req.enc_embeds = rng.standard_normal(
-            (cfg.enc_frames, cfg.frontend_dim), dtype=np.float32)
-    reqs[2].enc_embeds = reqs[1].enc_embeds
+    _whisper_features(np, cfg)(reqs)
     return reqs
+
+
+def _whisper_features(np, cfg):
+    """A ``prepare`` hook (``serve_full_width``): each request its own
+    seeded (1,500, 80) float32 features but rid 2, which shares rid 1's
+    block."""
+    def prepare(reqs):
+        rng = np.random.default_rng(11)
+        for req in reqs:
+            req.enc_embeds = rng.standard_normal(
+                (cfg.enc_frames, cfg.frontend_dim), dtype=np.float32)
+        reqs[2].enc_embeds = reqs[1].enc_embeds
+    return prepare
 
 
 def _whisper_gemms(torch, params, cfg, part: str, rows: int, gen):
@@ -3345,13 +3386,11 @@ def _k1_gemms(torch, params, cfg, rows: int, embeds: bool = False,
 
         gemms = []
         for i, spec in enumerate(ranks.specs["layers"]):
-            for part in ("mixer", "mlp"):
-                for name, lin in spec.get(part, {}).items():
-                    if isinstance(lin, dict) and "w" in lin:
-                        for t in (ranks.local if split(lin["w"])
-                                  else ranks.local[:1]):
-                            w = t["layers"][i][part][name]["w"]
-                            gemms.append((x_of(w.shape[0]), w))
+            for part, name, lin in _decode_linears(spec):
+                for t in (ranks.local if split(lin["w"])
+                          else ranks.local[:1]):
+                    w = t["layers"][i][part][name]["w"]
+                    gemms.append((x_of(w.shape[0]), w))
         for t in (ranks.local if split(ranks.specs[head]["table"])
                   else ranks.local[:1]):
             gemms.append((x_of(cfg.d_model)[:head_rows],
@@ -4287,7 +4326,9 @@ def serve_int8(torch, np, kernels, cfg, params, flt_eng, flt_outs):
 def serve_coexec(torch, np, cfg, params):
     """16 requests on 8 slots, so the queue is non-empty at window
     boundaries, with and without ``coexec_backend="kernel"``: the
-    co-scheduled prefills run as backfill, the tokens do not change."""
+    co-scheduled prefills run as backfill, the tokens do not change.
+    Returns the launches, and the co-executed serve's completions and
+    co-execution stats (phase 21's meshless reference)."""
     lens = PROMPT_LENS + PROMPT_LENS[::-1]
     need = ("sisa_gemm", "paged_attn")
     # Without co-execution the multi-tenant plan only fills stats that
@@ -4311,7 +4352,11 @@ def serve_coexec(torch, np, cfg, params):
          f"prefills {st['packed_prefills']}, coexec_tiles "
          f"{st['coexec_tiles']}, coexec_interleave "
          f"{st['coexec_interleave']}")
-    return launches
+    return launches, outs, {k: st[k] for k in COEXEC_STATS}
+
+
+COEXEC_STATS = ("backfilled", "packed_prefills", "coexec_tiles",
+                "coexec_interleave", "batches")
 
 
 def time_k2_int8(torch, kernels, heads=K2_HEADS[0], layers=24,
@@ -4521,7 +4566,8 @@ def _tp_linears(torch, cfg, shape) -> dict:
     k, n, launches), ...] a layer], "head": (k, n, launches), "frontend":
     (k, n, launches) or None}``, each linear launched once a rank where
     it is split (or, under split heads, cut to the rank's heads), else
-    once."""
+    once.  An enc-dec model's decoder layers list their cross linears
+    too, and ``"encoder"`` its encoder layers'."""
     from repro_torch.distributed import param_specs, virtual_mesh
     from repro_torch.distributed.mesh import local_shape
     from repro_torch.models.common import padded_vocab, tensor_parallel
@@ -4530,15 +4576,26 @@ def _tp_linears(torch, cfg, shape) -> dict:
     kinds = cfg.layer_kinds()
     tree = {"embed": {"table": (padded_vocab(cfg.vocab_size), d)},
             "layers": []}
+
+    def mixer(kind):
+        return {n: {"w": s} for n, s in _mixer_shapes(cfg, kind).items()}
+
+    def mlp():
+        out = {"up": {"w": (d, cfg.d_ff)}, "down": {"w": (cfg.d_ff, d)}}
+        if cfg.gated_mlp:
+            out["gate"] = {"w": (d, cfg.d_ff)}
+        return out
+
     for kind in kinds:
-        layer = {"mixer": {n: {"w": s}
-                           for n, s in _mixer_shapes(cfg, kind).items()}}
+        layer = {"mixer": mixer(kind)}
+        if cfg.enc_dec:
+            layer["cross"] = mixer("attn")
         if cfg.moe is None:
-            layer["mlp"] = {"up": {"w": (d, cfg.d_ff)},
-                            "down": {"w": (cfg.d_ff, d)}}
-            if cfg.gated_mlp:
-                layer["mlp"]["gate"] = {"w": (d, cfg.d_ff)}
+            layer["mlp"] = mlp()
         tree["layers"].append(layer)
+    if cfg.enc_dec:
+        tree["encoder"] = {"layers": [{"mixer": mixer("attn"), "mlp": mlp()}
+                                      for _ in range(cfg.n_enc_layers)]}
     if cfg.frontend is not None:
         tree["frontend_proj"] = {"w": (cfg.frontend_dim, d)}
     tree = _tree_map(lambda s: torch.empty(s, device="meta"), tree)
@@ -4556,17 +4613,24 @@ def _tp_linears(torch, cfg, shape) -> dict:
             k, n = (k // ms, n) if w.shape[0] != d else (k, n // ms)
         return k, n, ms if split or whole_cut else 1
 
-    layers = []
-    for kind, layer, lspec in zip(kinds, tree["layers"], specs["layers"]):
-        layers.append([(f"{part} {n}",) + lin(layer[part][n]["w"],
-                                               lspec[part][n]["w"],
-                                               part == "mixer" and cut[kind])
-                       for part in layer for n in layer[part]])
+    def layers(kinds, trees, spec_trees):
+        return [[(f"{part} {n}",) + lin(layer[part][n]["w"],
+                                         lspec[part][n]["w"],
+                                         part != "mlp" and cut[kind])
+                 for part in layer for n in layer[part]]
+                for kind, layer, lspec in zip(kinds, trees, spec_trees)]
+
     v, dd, launches = lin(tree["embed"]["table"], specs["embed"]["table"],
                           False)
     front = (lin(tree["frontend_proj"]["w"], specs["frontend_proj"]["w"],
                  False) if cfg.frontend is not None else None)
-    return {"layers": layers, "head": (dd, v, launches), "frontend": front}
+    out = {"layers": layers(kinds, tree["layers"], specs["layers"]),
+           "head": (dd, v, launches), "frontend": front}
+    if cfg.enc_dec:
+        out["encoder"] = layers(["attn"] * cfg.n_enc_layers,
+                                tree["encoder"]["layers"],
+                                specs["encoder"]["layers"])
+    return out
 
 
 def _shard_weights(torch, cfg, shape):
@@ -4759,17 +4823,17 @@ def _capture_first_step(store, cfg):
 
 def _predicted_launches(eng, cfg) -> dict:
     """K1 and K2 launches of one decode step from the placed specs: a
-    linear split over ``model`` launches once a rank, a whole one once;
-    K2 (paged storage of global layers only) once a rank a global layer
-    where the pools' spec splits the KV heads, else once a layer."""
+    linear split over ``model`` launches once a rank, a whole one once
+    (an enc-dec decoder layer's cross q and o among them: decode reads
+    the cross K/V it never projects); K2 (paged storage of global layers
+    only) once a rank a global layer where the pools' spec splits the KV
+    heads, else once a layer."""
     ranks = eng.mesh.shape["model"]
     specs = eng.params.specs
     k1 = 0
     for layer in specs["layers"]:
-        for part in ("mixer", "mlp"):
-            for lin in layer.get(part, {}).values():
-                if isinstance(lin, dict) and "w" in lin:
-                    k1 += ranks if _split_over_model(lin["w"]) else 1
+        for part, name, lin in _decode_linears(layer):
+            k1 += ranks if _split_over_model(lin["w"]) else 1
     head = "lm_head" if "lm_head" in specs else "embed"
     k1 += ranks if _split_over_model(specs[head]["table"]) else 1
     pools = getattr(eng.cache, "pools", None)
@@ -4780,6 +4844,19 @@ def _predicted_launches(eng, cfg) -> dict:
         k2 = cfg.layer_kinds().count("attn") * (ranks if spec[3] is not None
                                                 else 1)
     return {"sisa_gemm": k1, "paged_attn": k2}
+
+
+def _decode_linears(layer) -> list:
+    """``(part, name, linear)`` of each linear a decode step runs in a
+    layer's tree (or spec tree): its mixer's and MLP's, and an enc-dec
+    layer's cross q and o."""
+    out = []
+    for part in ("mixer", "cross", "mlp"):
+        for name, lin in layer.get(part, {}).items():
+            if isinstance(lin, dict) and "w" in lin and (
+                    part != "cross" or name in ("q", "o")):
+                out.append((part, name, lin))
+    return out
 
 
 def _storage_bytes(eng) -> dict:
@@ -5233,38 +5310,46 @@ SHARD_LOSS_REL = 2.0 ** -8
 SHARD_NORM_REL = 2.0 ** -5
 
 
-def _train_k1_gemms(torch, cfg, shape, rows: int, frontend: bool = False):
+def _train_k1_gemms(torch, cfg, shape, rows: int, frontend: bool = False,
+                    enc_rows: int = None):
     """Every K1 forward GEMM ``(m, k, n, head)`` of one sharded train step
     (all data replicas and model ranks), from the TP layout
     (``_tp_linears``): each layer's linears and the LM head (``head``
     True: read as ``table.T``) once a rank where they split, else once;
     with ``frontend`` (a batch of ``frontend_embeds``) ``frontend_proj``
     too (``head`` None: outside the layers, never recomputed).  ``rows``
-    is a data replica's tokens."""
+    is a data replica's tokens; on an enc-dec model ``enc_rows`` its
+    encoder frames, over which ``frontend_proj``, each encoder layer and
+    each decoder layer's cross k and v run."""
     tl = _tp_linears(torch, cfg, shape)
-    gemms = [(rows, k, n, False) for layer in tl["layers"]
-             for _, k, n, times in layer for _ in range(times)]
+    enc = {"cross k", "cross v"}
+    gemms = [(enc_rows if name in enc else rows, k, n, False)
+             for layer in tl["layers"]
+             for name, k, n, times in layer for _ in range(times)]
+    gemms += [(enc_rows, k, n, False) for layer in tl.get("encoder", [])
+              for _, k, n, times in layer for _ in range(times)]
     k, n, times = tl["head"]
     gemms += [(rows, k, n, True)] * times
     if frontend:
         k, n, times = tl["frontend"]
-        gemms += [(rows, k, n, None)] * times
+        gemms += [(enc_rows or rows, k, n, None)] * times
     return gemms * shape[0]
 
 
 def _predicted_train_launches(cfg, shape, rows: int, torch,
-                              remat: str = "none",
-                              frontend: bool = False) -> dict:
+                              remat: str = "none", frontend: bool = False,
+                              enc_rows: int = None) -> dict:
     """K1, K4 and K5 launches of one sharded train step, from the specs:
     each forward GEMM is one launch a row pass (``row_passes``) forward
     and for dA, and one a pass of its K rows for dB; each MoE layer runs
     up, gate and down through K4 forward, K4 dX and K5 once a rank that
     holds experts, a data replica.  Under ``remat="full"`` every layer's
-    forward runs again in the backward (the LM head's does not)."""
+    forward runs again in the backward (the LM head's does not).
+    ``enc_rows``: an enc-dec model's encoder frames a data replica."""
     from repro_torch.kernels.ops import row_passes
 
     again = remat != "none"
-    gemms = _train_k1_gemms(torch, cfg, shape, rows, frontend)
+    gemms = _train_k1_gemms(torch, cfg, shape, rows, frontend, enc_rows)
     k1 = sum((2 + (again and head is False)) * len(row_passes(m))
              + len(row_passes(k)) for m, k, _, head in gemms)
     out = {"sisa_gemm": k1}
@@ -5365,7 +5450,11 @@ def _grads_vs_meshless(torch, placed_grads, ref_leaves, what: str,
     within ``SHARDED_REL`` of the leaf's largest magnitude; in a MoE
     layer whose routing ``changes`` (``_routing_changes``) show flips,
     its router and the experts that a flipped token left or joined
-    within ``SHARD_EXPERT_REL`` in relative Frobenius norm instead.
+    within ``SHARD_EXPERT_REL`` in relative Frobenius norm instead.  An
+    enc-dec decoder layer's cross-attention key bias has an exact
+    gradient of 0 (it adds one constant to a query's logits, which the
+    softmax removes): both sides hold rounding noise, held within
+    ``SHARDED_REL`` of the largest gradient magnitude of the tree.
     Returns the worst of each and its leaf."""
     from repro_torch.distributed import unshard_tree
     from repro_torch.optim.adamw import tree_leaves
@@ -5376,7 +5465,9 @@ def _grads_vs_meshless(torch, placed_grads, ref_leaves, what: str,
     out = {"leaves": 0, "worst_rel": 0.0, "worst_leaf": None,
            "experts_elementwise": 0, "experts_fro": 0,
            "routers_elementwise": 0, "routers_fro": 0,
-           "moe_worst_fro": None, "moe_worst_fro_leaf": None}
+           "moe_worst_fro": None, "moe_worst_fro_leaf": None,
+           "zero_gradient_leaves": 0, "zero_gradient_noise_rel": None}
+    top = max(r.float().abs().max().item() for r in ref_leaves)
 
     def hold(name, got, ref, scale):
         rel = (got - ref).abs().max().item() / max(scale, 1e-30)
@@ -5399,6 +5490,15 @@ def _grads_vs_meshless(torch, placed_grads, ref_leaves, what: str,
         got, ref = got.float(), ref.float()
         scale = ref.abs().max().item()
         out["leaves"] += 1
+        if name.endswith("/cross/k/b"):
+            noise = max(got.abs().max().item(), scale) / top
+            if noise > SHARDED_REL:
+                raise AssertionError(f"{what}: {name}'s exact-zero gradient "
+                                     f"holds {noise} of the largest")
+            out["zero_gradient_leaves"] += 1
+            out["zero_gradient_noise_rel"] = max(
+                noise, out["zero_gradient_noise_rel"] or 0.0)
+            continue
         if "/moe/" not in name:
             hold(name, got, ref, scale)
             continue
@@ -5537,10 +5637,12 @@ def _run_sharded_train(torch, cfg, shape, host_params, batches, ref,
                 torch, reduce_replicas(g), ref["grads"],
                 f"{cfg.name} {shape} {impl}", changes)
             del g, calls
+        enc_rows = (batches[0]["frontend_embeds"].shape[:2].numel()
+                    // shape[0] if cfg.enc_dec else None)
         for s, batch in enumerate(batches[:steps]):
             want = _predicted_train_launches(
                 cfg, shape, rows, torch, remats[s],
-                frontend="frontend_embeds" in batch)
+                frontend="frontend_embeds" in batch, enc_rows=enc_rows)
             step = make_train_step(cfg, mesh, remat=remats[s])
             for counter in LAUNCH_COUNTERS.values():
                 counter.reset()
@@ -5603,7 +5705,8 @@ def _run_sharded_train(torch, cfg, shape, host_params, batches, ref,
 
 
 def time_shard_train_k1(torch, kernels, cfg, shape, rows: int,
-                        frontend: bool = False) -> dict:
+                        frontend: bool = False, enc_rows: int = None
+                        ) -> dict:
     """K1's work in one sharded train step: every forward GEMM of
     ``_train_k1_gemms`` on random bf16 operands of its shard's shape
     (each its own weight, the LM head's read as ``table.T``) and their
@@ -5611,8 +5714,8 @@ def time_shard_train_k1(torch, kernels, cfg, shape, rows: int,
     gen = torch.Generator(device="cuda").manual_seed(19)
     xs = {}
     gemms = []
-    for m, k, n, head in _train_k1_gemms(torch, cfg, shape, rows,
-                                         frontend):
+    for m, k, n, head in _train_k1_gemms(torch, cfg, shape, rows, frontend,
+                                         enc_rows):
         if (m, k) not in xs:
             xs[(m, k)] = torch.randn(m, k, device="cuda",
                                      generator=gen).bfloat16()
@@ -6243,6 +6346,328 @@ def phase20(torch, np, kernels, gen) -> dict:
     return out
 
 
+# whisper-base on virtual meshes of the card (phase 21): the serves on
+# (1, 2) and (1, 4), int8 pools on (1, 2), training on (2, 2), and qwen's
+# co-executed serve on (1, 2).  whisper's 8/8 heads split on every such
+# mesh; K2 runs GQA 4/4 and 2/2 hd 64 a rank on its 28-page tables.
+SHARD21_SERVE_MESHES = ((1, 2), (1, 4))
+SHARD21_INT8_MESH = (1, 2)
+SHARD21_TRAIN_MESH = (2, 2)
+SHARD21_COEXEC_MESH = (1, 2)
+SHARD21_STEPS = 2
+SHARD21_K2_HEADS = ((4, 4, 64), (2, 2, 64))
+# The serves' prefill buckets (the workload's prompts of 16-200 tokens in
+# buckets of 8 doubling, up to 256), the decode rung, and the 1,500
+# encoder frames of a request.
+SHARD21_DEC_ROWS = (8, 16, 64, 128, 256)
+
+
+def _whisper_serve_k1_shapes(torch, cfg, shape) -> set:
+    """K1's ``(m, k, n, head)`` in whisper's sharded serves on ``shape``:
+    the decoder's linears (cross q and o among them) at the decode rung
+    and the prefill buckets (``SHARD21_DEC_ROWS``), the head at those of
+    decode and at a prefill's one row, and ``frontend_proj``, the
+    encoder's linears and the cross k and v over 1,500 frames."""
+    tl = _tp_linears(torch, cfg, shape)
+    frames = cfg.enc_frames
+    out = {(frames,) + tl["frontend"][:2] + (False,)}
+    out |= {(frames, k, n, False) for layer in tl["encoder"]
+            for _, k, n, _ in layer}
+    for name, k, n, _ in tl["layers"][0]:
+        if name in ("cross k", "cross v"):
+            out.add((frames, k, n, False))
+        else:
+            out |= {(m, k, n, False) for m in SHARD21_DEC_ROWS}
+    k, n, _ = tl["head"]
+    out |= {(m, k, n, True) for m in (1, 8)}
+    return out
+
+
+def check_shard21_kernels(torch, kernels, gen) -> dict:
+    """K1 forward, dA and dB at every distinct whisper shard shape of
+    phase 21's serves on ``SHARD21_SERVE_MESHES`` and of its training
+    step on ``SHARD21_TRAIN_MESH`` (a data replica's 1,792 tokens and
+    6,000 frames), ``frontend_proj`` (K 80) and the tied head's halves
+    and quarters among them, against the plain version on the wgmma
+    route (``check_shard_train_kernels``' bound); K2 at
+    ``SHARD21_K2_HEADS`` on whisper's 28-page tables (rows at 0, on page
+    and split edges, full) on bf16 and int8 pools against its plain
+    version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    cfg = get_config("whisper-base")
+    worst = {"sisa_gemm": 0.0, "paged_attn": 0.0, "paged_attn_int8": 0.0}
+    shapes = set()
+    for shape in SHARD21_SERVE_MESHES:
+        shapes |= _whisper_serve_k1_shapes(torch, cfg, shape)
+    shapes |= {(m, k, n, bool(head)) for m, k, n, head in
+               _train_k1_gemms(
+                   torch, cfg, SHARD21_TRAIN_MESH,
+                   TRAIN_BATCH * WHISPER_MAX_SEQ // SHARD21_TRAIN_MESH[0],
+                   True,
+                   TRAIN_BATCH * WHISPER_FRAMES // SHARD21_TRAIN_MESH[0])}
+    core0 = LAUNCH_COUNTERS["sisa_gemm_core"].n
+    for m, k, n, head in sorted(shapes):
+        a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        b = ((torch.randn(n, k, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16().T if head else
+             (torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+              ).bfloat16())
+        dc = torch.randn(m, n, device="cuda", generator=gen).bfloat16()
+        for what, x, y in (("fwd", a, b), ("dA", dc, b.t()),
+                           ("dB", a.t(), dc)):
+            ref = kernels.sisa_gemm_plain(x, y)
+            atol = max(_f32_atol(ref), x.shape[1] * 2.0 ** -28
+                       * ref.float().abs().max().item())
+            worst["sisa_gemm"] = max(worst["sisa_gemm"], _max_err(
+                f"K1 phase 21 shard {what} {m}x{k}x{n}",
+                kernels.sisa_matmul(x, y), ref, BF16_REL, atol))
+    if LAUNCH_COUNTERS["sisa_gemm_core"].n != core0:
+        raise AssertionError("a K1 launch at a phase 21 shard shape took "
+                             "the CUDA-core body")
+    pos = [0, 15, 16, 31, 32, 63, 100, WHISPER_PMAX * 16 - 1]
+    for heads in SHARD21_K2_HEADS:
+        q, pk, pv, table, pos_t = _attn_inputs(
+            torch, gen, torch.bfloat16, pos, n_pages=len(pos) * WHISPER_PMAX,
+            pmax=WHISPER_PMAX, heads=heads)
+        for quant in (False, True):
+            pools = _int8_pools(kernels, pk, pv) if quant else (pk, pv)
+            key = "paged_attn_int8" if quant else "paged_attn"
+            worst[key] = max(worst[key], _max_err(
+                f"K2 {'int8 ' if quant else ''}{heads} 28-page tables",
+                kernels.paged_attention(q, *pools[:2], table, pos_t,
+                                        *pools[2:]),
+                kernels.paged_attention_plain(q, *pools[:2], table, pos_t,
+                                              *pools[2:]),
+                BF16_REL, 1e-5))
+    _say(f"phase 21 kernels: K1 forward, dA and dB at {len(shapes)} whisper "
+         f"shard shapes {sorted(shapes)} on the wgmma route, K2 at GQA "
+         f"{SHARD21_K2_HEADS} on 28-page tables, bf16 and int8 pools, agree "
+         f"with their plain versions (max abs err {json.dumps(worst)})")
+    return worst
+
+
+def serve_sharded_whisper(torch, np, kernels) -> dict:
+    """whisper-base at full size (bf16, seeded weights), the qwen workload
+    with each request's own seeded (1,500, 80) features (rid 2 sharing
+    rid 1's: ``_whisper_features``), through slot and paged on
+    ``SHARD21_SERVE_MESHES`` and paged on int8 pools on
+    ``SHARD21_INT8_MESH``, each beside the engine without a mesh (warmed
+    at rung 8): K1 and K2 launches of the first decode step as the specs
+    predict (``_predicted_launches``: 98 and 12 at (1, 2), 196 and 24 at
+    (1, 4)), the first holders' storage bytes, the cross stacks or pools
+    included, summing to the meshless engine's, ``cross_admits`` and
+    ``cross_shared`` the meshless engine's, the first decode step's
+    logits on the meshless engine's inputs of that step
+    (``_mesh_step_from``) within ``SHARDED_REL``, the tokens that agree
+    counted; a paged window on (1, 2) profiled; K1 timed at a sharded
+    decode step on each mesh, K2 at ``SHARD21_K2_HEADS`` on bf16 and
+    int8 pools."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import virtual_mesh
+    from repro_torch.models import init_params
+
+    cfg = get_config("whisper-base")
+    params = init_params(cfg, seed=0)
+    prepare = _whisper_features(np, cfg)
+    out = {"serves": {}, "k1": {}}
+    for kind, quant in (("slot", None), ("paged", None), ("paged", "int8")):
+        kw = {"kv_quant": quant} if quant else {}
+        k2 = "paged_attn_int8" if quant else "paged_attn"
+        need = ("sisa_gemm",) + ((k2,) if kind == "paged" else ())
+        absent = tuple(n for n in ("paged_attn", "paged_attn_int8")
+                       if n not in need)
+        ref_store, ref_state = [], []
+
+        def capture_ref(eng):
+            _capture_first_step(ref_store, cfg)(eng)
+            _capture_step_state(ref_state)(eng)
+
+        ref, _, _, ref_outs = serve_full_width(
+            torch, np, cfg, need, params=params, kind=kind, absent=absent,
+            warm_rungs=(8,), before_serve=capture_ref, prepare=prepare, **kw)
+        ref_bytes = ref.cache.resident_bytes()
+        ref_ext = dict(ref.stats["engine"])
+        del ref
+        gc.collect()
+        meshes = SHARD21_SERVE_MESHES if quant is None \
+            else (SHARD21_INT8_MESH,)
+        for shape in meshes:
+            label = f"{kind}{'-int8' if quant else ''} {shape[0]}x{shape[1]}"
+            store = []
+            eng, _, launches, outs = serve_full_width(
+                torch, np, cfg, need, params=params, kind=kind,
+                absent=absent, mesh=virtual_mesh(shape, "cuda:0"),
+                warm_rungs=(8,), before_serve=_capture_first_step(store, cfg),
+                prepare=prepare, **kw)
+            (own, rids, measured), (want, want_rids, _) = (store[0],
+                                                           ref_store[0])
+            if rids != want_rids:
+                raise AssertionError(f"whisper {label}: first decode step "
+                                     f"rows {rids} vs {want_rids}")
+            scale = want.abs().max().item()
+            got = _mesh_step_from(torch, eng, cfg, ref_state[0])
+            err = (got - want).abs().max().item()
+            if not err <= SHARDED_REL * scale:
+                raise AssertionError(f"whisper {label}: first decode step's "
+                                     f"logits from the meshless state off "
+                                     f"by {err} > {SHARDED_REL} * {scale}")
+            predicted = _predicted_launches(eng, cfg)
+            predicted[k2] = predicted.pop("paged_attn")
+            for key, n in predicted.items():
+                if measured.get(key, 0) != n:
+                    raise AssertionError(f"whisper {label}: {key} "
+                                         f"{measured.get(key, 0)} launches "
+                                         f"a decode step, predicted {n}")
+            unique = eng.cache.resident_bytes(unique=True)
+            if unique != ref_bytes:
+                raise AssertionError(f"whisper {label}: first holders' bytes "
+                                     f"{unique}, the meshless {ref_bytes}")
+            ext = eng.stats["engine"]
+            cross = {k: (ext[k], ref_ext[k]) for k in
+                     ("cross_admits", "cross_shared") if k in ref_ext}
+            if any(a != b for a, b in cross.values()) or (
+                    kind == "paged" and cross["cross_shared"][0] != 1):
+                raise AssertionError(f"whisper {label}: cross blocks (mesh, "
+                                     f"meshless) {cross}")
+            rec = {"launches_a_step": measured, "predicted": predicted,
+                   "serve_launches": launches,
+                   "storage_bytes": _storage_bytes(eng),
+                   "storage_bytes_unique": unique,
+                   "meshless_bytes": ref_bytes, "cross_blocks": cross,
+                   "first_step_logits_max_abs_err": err,
+                   "first_step_logits_rel_to_max": err / scale,
+                   "own_serve_first_step_rel_to_max":
+                       (own - want).abs().max().item() / scale,
+                   "tokens_agreeing": sum(
+                       a == b for o, r in zip(outs, ref_outs)
+                       for a, b in zip(o.tokens, r.tokens)),
+                   "tokens": sum(len(r.tokens) for r in ref_outs),
+                   "completions_equal": sum(o.tokens == r.tokens for o, r
+                                            in zip(outs, ref_outs))}
+            if (kind, quant, shape) == ("paged", None, SHARD21_INT8_MESH):
+                prof = profile_window(torch, np, eng, cfg, steps=2)
+                if prof["queued_after_admission"] or not (
+                        prof["collectives_device_ms"]):
+                    raise AssertionError(f"whisper profiled window: {prof}")
+                rec["profile"] = prof
+            if (kind, quant) == ("paged", None):
+                gemms = _k1_gemms(torch, None, cfg, 8, ranks=eng.params)
+                if len(gemms) != predicted["sisa_gemm"]:
+                    raise AssertionError(f"{len(gemms)} timed GEMMs, "
+                                         f"{predicted['sisa_gemm']} a step")
+                out["k1"][shape] = time_gemms(torch, kernels, gemms)
+                _say(f"k1 sharded decode step whisper-base {shape} (rung 8, "
+                     f"{len(gemms)} GEMMs over the ranks): "
+                     f"{json.dumps(out['k1'][shape])}")
+            out["serves"][label] = rec
+            _say(f"phase 21 serve whisper-base {label}: {json.dumps(rec)}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k2"] = {}
+    for heads in SHARD21_K2_HEADS:
+        for quant in (False, True):
+            t = time_k2(torch, kernels, heads,
+                        cfg.n_layers * (cfg.n_kv_heads // heads[1]),
+                        quant=quant, pmax=WHISPER_PMAX)
+            out["k2"][(heads, quant)] = t
+            _say(f"k2 sharded decode step whisper-base GQA {heads} "
+                 f"({'int8' if quant else 'bf16'} pools, 8 rows, "
+                 f"{WHISPER_PMAX}-page tables, {t['launches_timed']} "
+                 f"launches: 6 layers x ranks): {json.dumps(t)}")
+    return out
+
+
+def train_sharded_whisper(torch, kernels) -> dict:
+    """whisper-base at full size (bf16, seeded weights), ``SHARD21_STEPS``
+    steps of ``TRAIN_BATCH`` x (1,500 frames, 448 tokens) on
+    ``SHARD21_TRAIN_MESH`` through ``_run_sharded_train`` against the
+    meshless port step (loss, ``grad_norm``, every gradient leaf, the
+    cross-attention key biases' exact-zero gradients as noise; launches
+    a step as ``_predicted_train_launches``; replicas bitwise; unique
+    bytes; peaks),
+    and K1 timed at the step's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+
+    cfg = get_config("whisper-base")
+    shape = SHARD21_TRAIN_MESH
+    params = init_params(cfg, seed=0)
+    data = SyntheticLM(cfg, TRAIN_BATCH, WHISPER_FRAMES)
+    batches = [{k: torch.as_tensor(v) for k, v in data.batch(s).items()}
+               for s in range(SHARD21_STEPS)]
+    ref = _meshless_reference(torch, cfg, params, batches[0], shape[0])
+    placed, opt, rec = _run_sharded_train(
+        torch, cfg, shape, params, batches, ref, SHARD21_STEPS)
+    del placed, opt, ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = TRAIN_BATCH * WHISPER_MAX_SEQ // shape[0]
+    k1 = time_shard_train_k1(torch, kernels, cfg, shape, rows, True,
+                             TRAIN_BATCH * WHISPER_FRAMES // shape[0])
+    return {"run": rec, "k1": k1}
+
+
+def serve_coexec_mesh(torch, np, ref_outs, ref_stats) -> dict:
+    """qwen2.5-0.5b at full width, the 16 requests of ``serve_coexec`` on
+    8 slots through paged on ``SHARD21_COEXEC_MESH`` with
+    ``coexec_backend="kernel"``, beside phase 7's meshless co-executed
+    serve (``ref_outs``, ``ref_stats``): backfills, packed prefills,
+    ``coexec_tiles``, ``coexec_interleave`` and batches equal (the
+    packer's schedule), the tokens that agree counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import virtual_mesh
+
+    cfg = get_config("qwen2.5-0.5b")
+    lens = PROMPT_LENS + PROMPT_LENS[::-1]
+    eng, params, launches, outs = serve_full_width(
+        torch, np, cfg, ("sisa_gemm", "paged_attn"), lens=lens,
+        coexec_backend="kernel", mesh=virtual_mesh(SHARD21_COEXEC_MESH,
+                                                   "cuda:0"))
+    stats = {k: eng.stats[k] for k in COEXEC_STATS}
+    if stats != ref_stats or stats["backfilled"] <= 0:
+        raise AssertionError(f"co-executed serve on {SHARD21_COEXEC_MESH}: "
+                             f"{stats}, meshless {ref_stats}")
+    rec = {"mesh": SHARD21_COEXEC_MESH, "stats": stats,
+           "launches": launches,
+           "tokens_agreeing": sum(a == b for o, r in zip(outs, ref_outs)
+                                  for a, b in zip(o.tokens, r.tokens)),
+           "tokens": sum(len(r.tokens) for r in ref_outs),
+           "completions_equal": sum(o.tokens == r.tokens
+                                    for o, r in zip(outs, ref_outs))}
+    _say(f"phase 21 co-executed serve qwen2.5-0.5b on a virtual "
+         f"{SHARD21_COEXEC_MESH} mesh: {json.dumps(rec)}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase21(torch, np, kernels, gen, coexec_outs, coexec_stats) -> dict:
+    """Phase 21 (module doc), timed; returns its records."""
+    t21 = time.perf_counter()
+    out = {"err": check_shard21_kernels(torch, kernels, gen)}
+    _say(f"phase 21 kernels: {time.perf_counter() - t21:.1f} s")
+    t0 = time.perf_counter()
+    out["serve"] = serve_sharded_whisper(torch, np, kernels)
+    _say(f"phase 21 whisper serves: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["train"] = train_sharded_whisper(torch, kernels)
+    _say(f"phase 21 whisper training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["coexec"] = serve_coexec_mesh(torch, np, coexec_outs, coexec_stats)
+    _say(f"phase 21 co-executed serve: {time.perf_counter() - t0:.1f} s")
+    _say(f"phase 21 (whisper-base and co-execution on a mesh) elapsed: "
+         f"{time.perf_counter() - t21:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -6317,7 +6742,7 @@ def main() -> int:
                                                   params, eng, flt_outs)
     del eng8
     lap("the launchers and the int8 serve")
-    serve_coexec(torch, np, cfg, params)
+    _, coexec_outs, coexec_stats = serve_coexec(torch, np, cfg, params)
     lap("qwen2.5-0.5b co-execution serves")
     k1 = time_k1(torch, kernels, params, cfg, rows=8)
     k1_prefill = time_k1(torch, kernels, params, cfg, rows=208)
@@ -6467,6 +6892,9 @@ def main() -> int:
     p20 = phase20(torch, np, kernels, gen)
     lap("phase 20: sliding-window, recurrent and frontend layers on a mesh")
     p20_serves, p20_train = p20["serves"], p20["train"]
+    p21 = phase21(torch, np, kernels, gen, coexec_outs, coexec_stats)
+    lap("phase 21: whisper-base and co-execution on a mesh")
+    p21_serves, p21_train = p21["serve"]["serves"], p21["train"]
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
@@ -6511,12 +6939,36 @@ def main() -> int:
                  "step's GEMMs (8 x 256 tokens) of phase 20's runs "
                  "(recurrentgemma-2b 6 layers and rwkv6-3b 4 on (2, 2), "
                  "internvl2-76b 1 layer with frontend_proj on (1, 2)) and "
-                 "shard20_train_<model>_launches_a_step their steps'",
+                 "shard20_train_<model>_launches_a_step their steps'; "
+                 "shard21_whisper_<d>x<m>_decode_* one whisper-base "
+                 "decode step (rung 8, every rank's GEMMs) of phase 21's "
+                 "sharded paged serve on that mesh, "
+                 "shard21_whisper_<serve>_launches phase 21's whisper "
+                 "serves' (slot and paged on (1, 2) and (1, 4), paged on "
+                 "int8 pools on (1, 2)); shard21_train_whisper_fwd_*/"
+                 "_bwd_* one whisper-base train step's GEMMs (8 x (1,500 "
+                 "frames, 448 tokens)) on (2, 2), every replica's and "
+                 "rank's, and shard21_train_whisper_launches_a_step its "
+                 "steps'; shard21_coexec_launches the co-executed qwen "
+                 "serve on (1, 2)",
          "launches": launches["sisa_gemm"],
          "max_abs_err": max(k1_err, k1_bwd_err, shard_err["sisa_gemm"],
                             train_shard_err["sisa_gemm"],
-                            p20["err"]["sisa_gemm"]),
+                            p20["err"]["sisa_gemm"],
+                            p21["err"]["sisa_gemm"]),
          **{k: k1[k] for k in keys},
+         **{f"shard21_whisper_{a}x{b}_decode_{k}":
+            p21["serve"]["k1"][(a, b)][k] for a, b in SHARD21_SERVE_MESHES
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"shard21_whisper_{label.replace(' ', '_')}"
+            "_launches": rec["serve_launches"]["sisa_gemm"]
+            for label, rec in p21_serves.items()},
+         **{f"shard21_train_whisper_{part}_{k}": p21_train["k1"][part][k]
+            for part in ("fwd", "bwd")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "shard21_train_whisper_launches_a_step":
+             p21_train["run"]["steps"][0]["launches"]["sisa_gemm"],
+         "shard21_coexec_launches": p21["coexec"]["launches"]["sisa_gemm"],
          **{f"shard20_{name.split('-')[0]}_decode_{k}": rec["k1"][k]
             for name, rec in p20_serves.items()
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -6593,10 +7045,23 @@ def main() -> int:
                  "32/4 and 16/2 hd 128, 16 and 32 launches: 8 layers x "
                  "ranks), shard20_<model>_paged_launches phase 20's "
                  "sharded paged serves' (gemma3-1b on (1, 2): its global "
-                 "layers on gathered pools, internvl2-76b on (1, 4))",
+                 "layers on gathered pools, internvl2-76b on (1, 4)); "
+                 "shard21_whisper_<h>_<hkv>_* at whisper-base's (1, 2) and "
+                 "(1, 4) shard layouts (GQA 4/4 and 2/2 hd 64, 28-page "
+                 "tables, 12 and 24 launches: 6 layers x ranks), "
+                 "shard21_whisper_paged_<mesh>_launches phase 21's sharded "
+                 "paged serves' on bf16 pools",
          "launches": launches["paged_attn"],
          "max_abs_err": max(k2_err, shard_err["paged_attn"],
-                            p20["err"]["paged_attn"]),
+                            p20["err"]["paged_attn"],
+                            p21["err"]["paged_attn"]),
+         **{f"shard21_whisper_{h}_{hkv}_{k}":
+            p21["serve"]["k2"][((h, hkv, hd), False)][k]
+            for h, hkv, hd in SHARD21_K2_HEADS
+            for k in ("ms", "plain_ms", "bound_ms")},
+         **{f"shard21_whisper_paged_{a}x{b}_launches":
+            p21_serves[f"paged {a}x{b}"]["serve_launches"]["paged_attn"]
+            for a, b in SHARD21_SERVE_MESHES},
          **{k: k2[k] for k in keys},
          **{f"phi_{k}": k2_phi[k] for k in ("ms", "bound_ms")},
          **{f"gemma3_{k}": k2_gemma[k] for k in (
@@ -6686,11 +7151,22 @@ def main() -> int:
                  "launches from the kv_quant='int8' serve; phi_* "
                  "at phi3.5-moe-42b's layout; whisper_* at whisper-base's "
                  "(GQA 8/8 hd 64, 6 launches, 28-page tables), launches "
-                 "from its int8 paged serve",
+                 "from its int8 paged serve; shard21_whisper_<h>_<hkv>_* "
+                 "at whisper-base's shard layouts (GQA 4/4 and 2/2 hd 64, "
+                 "12 and 24 launches), shard21_whisper_int8_launches "
+                 "phase 21's int8 paged serve on (1, 2)",
          "launches": int8_launches["paged_attn_int8"],
          "max_abs_err": max(k2_int8_err, k2_pool_err,
                             shard_err["paged_attn_int8"],
-                            p20["err"]["paged_attn_int8"]),
+                            p20["err"]["paged_attn_int8"],
+                            p21["err"]["paged_attn_int8"]),
+         **{f"shard21_whisper_{h}_{hkv}_{k}":
+            p21["serve"]["k2"][((h, hkv, hd), True)][k]
+            for h, hkv, hd in SHARD21_K2_HEADS
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "shard21_whisper_int8_launches": p21_serves[
+             "paged-int8 %dx%d" % SHARD21_INT8_MESH]["serve_launches"][
+             "paged_attn_int8"],
          **{k: k2_int8[k] for k in keys},
          **{f"phi_{k}": k2_phi_int8[k] for k in ("ms", "bound_ms")},
          **{f"whisper_{k}": whisper["paged"]["k2"]["int8"][k]
