@@ -341,14 +341,14 @@ Phases (any failure exits non-zero before the last line is printed):
     and (2, 2) with the CPU engine's tokens, and one sharded
     ``loss_and_grads`` each on (2, 2) card against CPU; at full width
     (bf16, seeded weights, the qwen workload) gemma3-1b and
-    recurrentgemma-2b on (1, 2), rwkv6-3b at 8 of 32 layers and
-    internvl2-76b at 8 of 80 on (1, 4) through slot and paged beside the
-    engine without a mesh: K1 and K2 launches a decode step as the specs
-    predict, the storage bytes of each part's first holder summing to
-    the meshless engine's (RG-LRU's ``conv``, replicated, equal on every
-    rank), the first decode step's logits on the meshless engine's
-    inputs of that step within ``SHARDED_REL``, the tokens that agree
-    counted, a profiled paged window with
+    recurrentgemma-2b at 12 of 26 layers on (1, 2), rwkv6-3b at 8 of 32
+    layers and internvl2-76b at 8 of 80 on (1, 4) through slot and paged
+    beside the engine without a mesh: K1 and K2 launches a decode step as
+    the specs predict, the storage bytes of each part's first holder
+    summing to the meshless engine's (RG-LRU's ``conv``, replicated,
+    equal on every rank), the first decode step's logits on the
+    meshless engine's inputs of that step within ``SHARDED_REL``, the
+    tokens that agree counted, a profiled paged window with
     ``collectives_device_ms``, K1 timed at a sharded decode step;
     internvl2-76b's 208-row ``frontend_embeds`` prefill on the mesh
     within ``SHARDED_REL`` of the meshless one, K1's launches a token
@@ -5960,9 +5960,12 @@ def train_sharded(torch, np, kernels) -> dict:
 # training runs (name, layers, mesh), at TRAIN_BATCH x TRAIN_SEQ.
 # rwkv6-3b serves at 8 of its 32 layers, for the script's time: on (1,
 # 4) its 900 launches a decode step at full depth took 60.2 s of the
-# phase, 41.2 s at 16 layers.
-SHARD20_SERVES = (("gemma3-1b", None, (1, 2)),
-                  ("recurrentgemma-2b", None, (1, 2)),
+# phase, 41.2 s at 16 layers.  gemma3-1b and recurrentgemma-2b serve at
+# 12 of their 26 layers (two and four pattern periods, every layer kind
+# among them) since phase 21 joined: at full depth they took 32.2 and
+# 28.8 s.
+SHARD20_SERVES = (("gemma3-1b", 12, (1, 2)),
+                  ("recurrentgemma-2b", 12, (1, 2)),
                   ("rwkv6-3b", 8, (1, 4)),
                   ("internvl2-76b", INTERNVL_LAYERS, (1, 4)))
 SHARD20_TRAIN = (("recurrentgemma-2b", 6, (2, 2)), ("rwkv6-3b", 4, (2, 2)),
@@ -6932,7 +6935,8 @@ def main() -> int:
                  "shard_train_<run>_launches_a_step a sharded train "
                  "step's launches; shard20_<model>_decode_* one decode "
                  "step (rung 8) of phase 20's sharded paged serve of that "
-                 "model (gemma3-1b and recurrentgemma-2b on (1, 2), "
+                 "model (gemma3-1b's and recurrentgemma-2b's 12 layers "
+                 "on (1, 2), "
                  "rwkv6-3b's 8 layers and internvl2-76b's 8 on (1, 4)), "
                  "shard20_<model>_<kind>_launches its slot and paged "
                  "serves'; shard20_train_<model>_fwd_*/_bwd_* one train "
