@@ -308,10 +308,10 @@ Phases (any failure exits non-zero before the last line is printed):
     dB at every shard shape of the training steps and K4 forward, dX
     and K5 at 8 local experts (the psum and all_to_all layouts) against
     their plain versions on their wgmma routes; qwen2.5-0.5b at full
-    width (bf16, seeded weights) 3 steps of 8 x 256 tokens through
-    ``make_train_step(cfg, mesh)`` on (2, 2) (FSDP x TP) and (1, 4)
-    (attention whole), and phi3.5-moe-42b at 2 layers 2 steps on
-    (1, 2) under ``"psum"`` and ``"all_to_all"``: the first step's loss
+    width and 12 of 24 layers (bf16, seeded weights) 3 steps of 8 x 256
+    tokens through ``make_train_step(cfg, mesh)`` on (2, 2) (FSDP x TP)
+    and (1, 4) (attention whole), and phi3.5-moe-42b at 2 layers 2 steps
+    on (1, 2) under ``"psum"`` and ``"all_to_all"``: the first step's loss
     within ``SHARD_LOSS_REL`` and ``grad_norm`` within
     ``SHARD_NORM_REL`` of the meshless port step from the same weights
     (``all_to_all``, whose capacity is per sequence chunk, too), every
@@ -5285,9 +5285,10 @@ def check_sharded_fault(torch, np, cfg) -> None:
 # --------------------------------------------------------------------------
 # Phase 19: sharded training on virtual meshes over one card
 # --------------------------------------------------------------------------
-# qwen2.5-0.5b at full width (bf16, seeded weights) trains 3 steps of 8 x
-# 256 tokens on (2, 2) (FSDP over data, 7/1 heads a shard, 1,024 rows a
-# data replica) and on (1, 4) (the 14/2 heads do not split: q/k/v/o stay
+# qwen2.5-0.5b at full width (bf16, seeded weights), cut to 12 of its 24
+# layers since phase 21 joined (for the script's time), trains 3 steps of
+# 8 x 256 tokens on (2, 2) (FSDP over data, 7/1 heads a shard, 1,024 rows
+# a data replica) and on (1, 4) (the 14/2 heads do not split: q/k/v/o stay
 # whole on every rank and attention runs once; the MLP is 1,216 wide a
 # rank).  phi3.5-moe-42b cut to 2 layers trains 2 steps on (1, 2) under
 # "psum" and "all_to_all" (8 local experts a rank).  Then an elastic
@@ -5295,6 +5296,7 @@ def check_sharded_fault(torch, np, cfg) -> None:
 # more step.  Every shard is its own allocation on cuda:0 and the ranks
 # run in turn: the phase measures what sharding costs, never a speedup.
 SHARD_TRAIN_MESHES = ((2, 2), (1, 4))
+SHARD_TRAIN_LAYERS = 12
 SHARD_TRAIN_STEPS, SHARD_MOE_STEPS = 3, 2
 # Against the meshless port step from the same weights (``accum_steps``
 # D for a dense model, as the reference's sharded step): each row-
@@ -5837,7 +5839,8 @@ def check_shard_train_kernels(torch, kernels, gen) -> dict:
 
 
 def train_sharded(torch, np, kernels) -> dict:
-    """Phase 19 (module doc): qwen2.5-0.5b on (2, 2) and (1, 4),
+    """Phase 19 (module doc): qwen2.5-0.5b (``SHARD_TRAIN_LAYERS``) on
+    (2, 2) and (1, 4),
     phi3.5-moe-42b (2 layers) on (1, 2) under both EP impls, the elastic
     restart, and K1, K4 and K5 timed at the sharded steps' shapes."""
     import tempfile
@@ -5851,7 +5854,8 @@ def train_sharded(torch, np, kernels) -> dict:
     from repro_torch.train import make_train_step
 
     out = {"runs": {}}
-    cfg = get_config("qwen2.5-0.5b")
+    cfg = dataclasses.replace(get_config("qwen2.5-0.5b"),
+                              n_layers=SHARD_TRAIN_LAYERS)
     params = init_params(cfg, seed=0)
     data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ)
     batches = [{k: torch.as_tensor(v) for k, v in data.batch(s).items()}
@@ -6930,7 +6934,8 @@ def main() -> int:
                  "every rank's GEMMs; shard_<kind>_<mesh>_launches its "
                  "sharded serves'; shard_train_<d>x<m>_fwd_*/_bwd_* one "
                  "qwen2.5-0.5b train step's forward and backward GEMMs "
-                 "(8 x 256 tokens) at the shard widths of a virtual (d, m) "
+                 "(12 layers, 8 x 256 tokens) at the shard widths of a "
+                 "virtual (d, m) "
                  "mesh, every replica's and rank's, and "
                  "shard_train_<run>_launches_a_step a sharded train "
                  "step's launches; shard20_<model>_decode_* one decode "
